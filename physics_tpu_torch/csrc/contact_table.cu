@@ -1,0 +1,696 @@
+// Fused bucket-aligned contact table for box piles (Hopper, sm_90a).
+//
+// Replaces the TPU kernel bucket_contact_table
+// (physics_tpu/ops/contact_table.py:844, body _make_ct_kernel :166-747).
+// Plain version: physics_tpu_torch/ops/contact_table.py
+// bucket_contact_table_plain, whose narrow phase is ops/boxbox_batched.py;
+// the device functions below compute the same operations in the same order.
+//
+// One block per bucket of 128 sweep ranks:
+//   1. face-axis SAT prefilter over the bucket's `cap` candidate lanes;
+//      survivors compacted, order preserved, into `cap2` lanes (block scan);
+//   2. the 15-axis box-box manifold per surviving lane (one lane per thread),
+//      and its `kk` deepest points;
+//   3. up to `kg` ground corners per rank of the bucket;
+//   4. a block-wide exclusive scan over the emissions in the reference's
+//      order (pick-major over the pair lanes, then pick-major over the 128
+//      ranks) gives each active contact its slot; slots >= ccap are dropped
+//      and counted;
+//   5. each slot's warm-start impulse: the previous step's contact of this
+//      bucket with the same feature key (keys are unique per bucket).
+//
+// What bounds it on the H100: the manifold is ~2k dependent flops per lane
+// with ~150 live registers, and the 4k pile has only 32 buckets, so the
+// kernel is latency-bound on 32 SMs. The design keeps all per-contact
+// intermediates in shared memory (no HBM round trip between phases) and
+// reads geometry straight from the [48, NPAD] table by rank (L2-resident,
+// 0.8 MB). Spreading a bucket over more blocks is later work.
+//
+// The TPU kernel's one-hot matmuls, hi/lo bf16 splits and triangular-matmul
+// prefix sums are not ported: gathers are loads and the scan is a warp scan.
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBlock = 128;      // ranks per bucket
+constexpr int kThreads = 256;
+constexpr int kCap = 8;          // manifold slots
+constexpr float kBigNeg = -1e30f;
+constexpr int kGeomRow0 = 24;    // narrow-phase block of the unified table
+
+struct Box {
+  V3 p;
+  float r[9];  // world rotation, row-major
+  V3 h;
+  float fric, rest, movable, id;
+};
+
+__device__ __forceinline__ Box load_box(const float* geom, int npad, int col) {
+  const float* g = geom + (size_t)kGeomRow0 * npad + col;
+  Box b;
+  b.p = mk(g[0], g[(size_t)npad], g[2 * (size_t)npad]);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) b.r[k] = g[(size_t)(3 + k) * npad];
+  b.h = mk(g[12 * (size_t)npad], g[13 * (size_t)npad], g[14 * (size_t)npad]);
+  b.fric = g[15 * (size_t)npad];
+  b.rest = g[16 * (size_t)npad];
+  b.movable = g[17 * (size_t)npad];
+  b.id = g[18 * (size_t)npad];
+  return b;
+}
+
+__device__ __forceinline__ Box zero_box() {
+  Box b;
+  b.p = mk(0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) b.r[k] = 0.f;
+  b.h = b.p;
+  b.fric = b.rest = b.movable = b.id = 0.f;
+  return b;
+}
+
+__device__ __forceinline__ float hcomp(V3 h, int k) { return k == 0 ? h.x : (k == 1 ? h.y : h.z); }
+
+// torch.sign(x + 1e-30)
+__device__ __forceinline__ float sgn(float x) {
+  const float y = x + 1e-30f;
+  return y > 0.f ? 1.f : (y < 0.f ? -1.f : 0.f);
+}
+
+// Rᵀ·w for a row-major rotation (contact_table._t_apply).
+__device__ __forceinline__ V3 t_apply(const float* r, V3 w) {
+  return mk(r[0] * w.x + r[3] * w.y + r[6] * w.z,
+            r[1] * w.x + r[4] * w.y + r[7] * w.z,
+            r[2] * w.x + r[5] * w.y + r[8] * w.z);
+}
+
+// contact_table._face_sat_sep
+__device__ float face_sat_sep(const Box& a, const Box& b) {
+  const V3 t = sub(b.p, a.p);
+  const float* ra = a.r;
+  const float* rb = b.r;
+  float cabs[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      cabs[i][j] = fabsf(ra[i] * rb[j] + ra[3 + i] * rb[3 + j] + ra[6 + i] * rb[6 + j]);
+  float best = 0.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float ut = ra[i] * t.x + ra[3 + i] * t.y + ra[6 + i] * t.z;
+    const float rad = hcomp(a.h, i) + b.h.x * cabs[i][0] + b.h.y * cabs[i][1] + b.h.z * cabs[i][2];
+    const float s = fabsf(ut) - rad;
+    best = i == 0 ? s : fmaxf(best, s);
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float wt = rb[j] * t.x + rb[3 + j] * t.y + rb[6 + j] * t.z;
+    const float rad = hcomp(b.h, j) + a.h.x * cabs[0][j] + a.h.y * cabs[1][j] + a.h.z * cabs[2][j];
+    best = fmaxf(best, fabsf(wt) - rad);
+  }
+  return best;
+}
+
+// One Sutherland–Hodgman half-plane clip (boxbox_batched._clip): keep
+// cu·u + cv·v <= d of the m-point polygon.
+__device__ __forceinline__ void clip(float (&pu)[kCap], float (&pv)[kCap], float (&ps)[kCap], int& m,
+                                     float cu, float cv, float d) {
+  float g[kCap], gn[kCap], un[kCap], vn[kCap], sn[kCap];
+#pragma unroll
+  for (int i = 0; i < kCap; ++i) g[i] = cu * pu[i] + cv * pv[i] - d;
+#pragma unroll
+  for (int i = 0; i < kCap; ++i) {
+    const bool wrap = (i + 1) == m;
+    const int j = (i + 1) % kCap;
+    gn[i] = wrap ? g[0] : g[j];
+    un[i] = wrap ? pu[0] : pu[j];
+    vn[i] = wrap ? pv[0] : pv[j];
+    sn[i] = wrap ? ps[0] : ps[j];
+  }
+  int pos_cur[kCap], pos_int[kCap];
+  float iu[kCap], iv[kCap], is[kCap];
+  int start = 0, total = 0;
+#pragma unroll
+  for (int i = 0; i < kCap; ++i) {
+    const bool live = i < m;
+    const bool inside = (g[i] <= 0.f) && live;
+    const bool crossing = ((g[i] <= 0.f) != (gn[i] <= 0.f)) && live;
+    const float denom = g[i] - gn[i];
+    const float t = fabsf(denom) > 1e-12f ? g[i] / denom : 0.f;
+    iu[i] = pu[i] + t * (un[i] - pu[i]);
+    iv[i] = pv[i] + t * (vn[i] - pv[i]);
+    is[i] = ps[i] + t * (sn[i] - ps[i]);
+    const int emit = (int)inside + (int)crossing;
+    pos_cur[i] = inside ? start : kCap;
+    pos_int[i] = crossing ? start + (int)inside : kCap;
+    start += emit;
+    total += emit;
+  }
+  float ou[kCap], ov[kCap], os[kCap];
+#pragma unroll
+  for (int j = 0; j < kCap; ++j) {
+    float au = 0.f, av = 0.f, as = 0.f;
+#pragma unroll
+    for (int i = 0; i < kCap; ++i) {
+      const bool mc = pos_cur[i] == j;
+      const bool mi = pos_int[i] == j;
+      au = au + (mc ? pu[i] : 0.f) + (mi ? iu[i] : 0.f);
+      av = av + (mc ? pv[i] : 0.f) + (mi ? iv[i] : 0.f);
+      as = as + (mc ? ps[i] : 0.f) + (mi ? is[i] : 0.f);
+    }
+    ou[j] = au;
+    ov[j] = av;
+    os[j] = as;
+  }
+#pragma unroll
+  for (int j = 0; j < kCap; ++j) {
+    pu[j] = ou[j];
+    pv[j] = ov[j];
+    ps[j] = os[j];
+  }
+  m = total < kCap ? total : kCap;
+}
+
+// (best, idx) over n values; ties keep the lowest index.
+template <int N>
+__device__ __forceinline__ void argmax(const float (&v)[N], float& best, int& idx) {
+  best = v[0];
+  idx = 0;
+#pragma unroll
+  for (int k = 1; k < N; ++k) {
+    if (v[k] > best) {
+      best = v[k];
+      idx = k;
+    }
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ T select(int idx, const T (&items)[N]) {
+  T out = items[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) out = idx == k ? items[k] : out;
+  return out;
+}
+
+// boxbox_batched.box_box_manifold_batched for one pair. Normal B → A.
+__device__ void box_box_manifold(const Box& A, const Box& B, V3 (&points)[kCap], float (&depth)[kCap],
+                                 bool (&valid)[kCap], V3& normal) {
+  const V3 t_w = sub(B.p, A.p);
+  V3 u[3], w[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    u[k] = mk(A.r[k], A.r[3 + k], A.r[6 + k]);
+    w[k] = mk(B.r[k], B.r[3 + k], B.r[6 + k]);
+  }
+  const float ha[3] = {A.h.x, A.h.y, A.h.z};
+  const float hb[3] = {B.h.x, B.h.y, B.h.z};
+
+  V3 axes[15];
+  bool ok[9];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    axes[k] = u[k];
+    axes[3 + k] = w[k];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const V3 cx = cross(u[i], w[j]);
+      const float nn = sqrtf(fmaxf(dot(cx, cx), 0.f));
+      ok[3 * i + j] = nn > 1e-6f;
+      const float inv = 1.0f / fmaxf(nn, 1e-6f);
+      axes[6 + 3 * i + j] = scale(cx, inv);
+    }
+
+  float dist[15], sep[15];
+#pragma unroll
+  for (int k = 0; k < 15; ++k) {
+    const V3 ax = axes[k];
+    dist[k] = dot(ax, t_w);
+    const float pa = ha[0] * fabsf(dot(ax, u[0])) + ha[1] * fabsf(dot(ax, u[1])) + ha[2] * fabsf(dot(ax, u[2]));
+    const float pb = hb[0] * fabsf(dot(ax, w[0])) + hb[1] * fabsf(dot(ax, w[1])) + hb[2] * fabsf(dot(ax, w[2]));
+    float s = fabsf(dist[k]) - (pa + pb);
+    if (k >= 6 && !ok[k - 6]) s = -CUDART_INF_F;
+    sep[k] = s;
+  }
+  float all_best;
+  int all_idx;
+  argmax(sep, all_best, all_idx);
+  const bool separated = all_best > 0.f;
+
+  float face_sep[6], edge_sep[9], face_dist[6], edge_dist[9];
+  V3 face_ax[6], edge_ax[9];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    face_sep[k] = sep[k];
+    face_dist[k] = dist[k];
+    face_ax[k] = axes[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    edge_sep[k] = sep[6 + k];
+    edge_dist[k] = dist[6 + k];
+    edge_ax[k] = axes[6 + k];
+  }
+  float best_face_sep, best_edge_sep;
+  int best_face, best_edge;
+  argmax(face_sep, best_face_sep, best_face);
+  argmax(edge_sep, best_edge_sep, best_edge);
+  bool any_edge = false;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) any_edge = any_edge || ok[k];
+  if (!any_edge) best_edge_sep = -CUDART_INF_F;
+  const bool use_edge = best_edge_sep * 1.05f > best_face_sep;
+
+  const V3 n_face = scale(select(best_face, face_ax), sgn(select(best_face, face_dist)));
+  const V3 n_edge = scale(select(best_edge, edge_ax), sgn(select(best_edge, edge_dist)));
+
+  // ---- face-contact manifold ----
+  const bool ref_is_a = best_face < 3;
+  const int ref_axis = ref_is_a ? best_face : best_face - 3;
+  V3 ref_cols[3], inc_cols[3];
+  float ref_half[3], inc_half[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    ref_cols[k] = vsel(ref_is_a, u[k], w[k]);
+    inc_cols[k] = vsel(ref_is_a, w[k], u[k]);
+    ref_half[k] = ref_is_a ? ha[k] : hb[k];
+    inc_half[k] = ref_is_a ? hb[k] : ha[k];
+  }
+  const V3 ref_pos = vsel(ref_is_a, A.p, B.p);
+  const V3 inc_pos = vsel(ref_is_a, B.p, A.p);
+  const V3 ref_n = vsel(ref_is_a, n_face, neg(n_face));
+
+  const int p_idx = ref_axis == 0 ? 1 : 0;
+  const int q_idx = ref_axis == 2 ? 1 : 2;
+  const V3 u_p = select(p_idx, ref_cols);
+  const V3 u_q = select(q_idx, ref_cols);
+  const float h_p = select(p_idx, ref_half);
+  const float h_q = select(q_idx, ref_half);
+  const float h_axis = select(ref_axis, ref_half);
+  const V3 c_ref = add(ref_pos, scale(ref_n, h_axis));
+
+  float align[3], aabs[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    align[k] = dot(inc_cols[k], ref_n);
+    aabs[k] = fabsf(align[k]);
+  }
+  float unused;
+  int inc_axis;
+  argmax(aabs, unused, inc_axis);
+  const float inc_sign = -sgn(select(inc_axis, align));
+  const V3 inc_n_axis = select(inc_axis, inc_cols);
+  const float inc_h = select(inc_axis, inc_half);
+  const V3 c_inc = add(inc_pos, scale(inc_n_axis, inc_sign * inc_h));
+  const int ip_idx = inc_axis == 0 ? 1 : 0;
+  const int iq_idx = inc_axis == 2 ? 1 : 2;
+  const V3 w_p = scale(select(ip_idx, inc_cols), select(ip_idx, inc_half));
+  const V3 w_q = scale(select(iq_idx, inc_cols), select(iq_idx, inc_half));
+
+  const float sps[4] = {1.f, 1.f, -1.f, -1.f};
+  const float sqs[4] = {1.f, -1.f, -1.f, 1.f};
+  float pu[kCap], pv[kCap], ps[kCap];
+#pragma unroll
+  for (int k = 0; k < kCap; ++k) pu[k] = pv[k] = ps[k] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const V3 corner = add(c_inc, add(scale(w_p, sps[k]), scale(w_q, sqs[k])));
+    const V3 rel = sub(corner, c_ref);
+    pu[k] = dot(rel, u_p);
+    pv[k] = dot(rel, u_q);
+    ps[k] = dot(rel, ref_n);
+  }
+  int m = 4;
+  clip(pu, pv, ps, m, 1.f, 0.f, h_p);
+  clip(pu, pv, ps, m, -1.f, 0.f, h_p);
+  clip(pu, pv, ps, m, 0.f, 1.f, h_q);
+  clip(pu, pv, ps, m, 0.f, -1.f, h_q);
+
+  // ---- edge-contact point ----
+  const int ei = best_edge / 3;
+  const int ej = best_edge % 3;
+  const V3 ua = select(ei, u);
+  const V3 vb = select(ej, w);
+  V3 p_a = A.p, p_b = B.p;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float sa = sgn(dot(u[k], n_edge)) * (float)(ei != k) * ha[k];
+    p_a = add(p_a, scale(u[k], sa));
+    const float sb = sgn(-dot(w[k], n_edge)) * (float)(ej != k) * hb[k];
+    p_b = add(p_b, scale(w[k], sb));
+  }
+  const V3 d_ab = sub(p_b, p_a);
+  const float c_uv = dot(ua, vb);
+  const float denom = 1.0f - c_uv * c_uv;
+  const float s_par = fabsf(denom) > 1e-9f ? (dot(d_ab, ua) - c_uv * dot(d_ab, vb)) / denom : 0.f;
+  const float r_par = s_par * c_uv - dot(d_ab, vb);
+  const V3 q_a = add(p_a, scale(ua, s_par));
+  const V3 q_b = add(p_b, scale(vb, r_par));
+  const V3 edge_point = scale(add(q_a, q_b), 0.5f);
+  const float edge_depth = -select(best_edge, edge_sep);
+
+  // ---- combine ----
+#pragma unroll
+  for (int k = 0; k < kCap; ++k) {
+    const V3 fp = add(c_ref, add(add(scale(u_p, pu[k]), scale(u_q, pv[k])), scale(ref_n, ps[k])));
+    const float fd = -ps[k];
+    const bool fv = (k < m) && (fd > 0.f);
+    if (k == 0) {
+      points[k] = vsel(use_edge, edge_point, fp);
+      depth[k] = use_edge ? edge_depth : fd;
+      valid[k] = ((use_edge && (edge_depth > 0.f)) || (!use_edge && fv)) && !separated;
+    } else {
+      points[k] = fp;
+      depth[k] = use_edge ? 0.f : fd;
+      valid[k] = !use_edge && fv && !separated;
+    }
+  }
+  normal = neg(vsel(use_edge, n_edge, n_face));
+}
+
+struct Smem {
+  int* la2;      // [sat_cap]
+  int* lb2;      // [sat_cap]
+  int* slot;     // [E] activity flag, then slot (or -1)
+  float* pt;     // [3 * E]
+  float* dep;    // [E]
+  float* ks;     // [E]
+  float* lane_n; // [3 * sat_cap]
+  float* ck;     // [ccap]
+  float* ch;     // [ccap]
+  float* prev;   // [5 * ccap]: ck, KH, λ0 xyz of the previous block
+  int* warp_sums;// [32]
+};
+
+__host__ __device__ inline size_t smem_bytes(int sat_cap, int e, int ccap, bool warm) {
+  size_t words = 2 * (size_t)sat_cap + (size_t)e + 5 * (size_t)e + 3 * (size_t)sat_cap + 2 * (size_t)ccap +
+                 (warm ? 5 * (size_t)ccap : 0) + 32;
+  return words * 4;
+}
+
+__device__ Smem carve(char* base, int sat_cap, int e, int ccap, bool warm) {
+  Smem s;
+  int* ip = reinterpret_cast<int*>(base);
+  s.la2 = ip;
+  s.lb2 = s.la2 + sat_cap;
+  s.slot = s.lb2 + sat_cap;
+  float* fp = reinterpret_cast<float*>(s.slot + e);
+  s.pt = fp;
+  s.dep = s.pt + 3 * (size_t)e;
+  s.ks = s.dep + e;
+  s.lane_n = s.ks + e;
+  s.ck = s.lane_n + 3 * (size_t)sat_cap;
+  s.ch = s.ck + ccap;
+  s.prev = s.ch + ccap;
+  s.warp_sums = reinterpret_cast<int*>(s.prev + (warm ? 5 * (size_t)ccap : 0));
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+contact_table_kernel(const float* __restrict__ geom, const int* __restrict__ la_in, const int* __restrict__ lb_in,
+                     const float* __restrict__ pcols, float* __restrict__ table, float* __restrict__ meta,
+                     float* __restrict__ warm, int nb, int cap, int cap2, int ccap, int kk, int kg, int npad,
+                     int rows, float gh) {
+  extern __shared__ __align__(16) char smem_raw[];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int start = b * kBlock;
+  const int sat_cap = cap2 ? cap2 : cap;
+  const int n_pair_e = kk * sat_cap;
+  const int e_tot = n_pair_e + kg * kBlock;
+  const bool has_warm = pcols != nullptr;
+  const size_t cp = (size_t)nb * ccap;
+  Smem s = carve(smem_raw, sat_cap, e_tot, ccap, has_warm);
+
+  // ---- phase 1: prefilter + order-preserving compaction to cap2 lanes ----
+  int dropped2 = 0;
+  if (cap2) {
+    for (int i = tid; i < sat_cap; i += blockDim.x) s.la2[i] = s.lb2[i] = -1;
+    __syncthreads();
+    int offset = 0;
+    for (int c0 = 0; c0 < cap; c0 += blockDim.x) {
+      const int c = c0 + tid;
+      int la = -1, lb = -1, keep = 0;
+      if (c < cap) {
+        la = la_in[(size_t)b * cap + c];
+        lb = lb_in[(size_t)b * cap + c];
+        if (la >= 0) {
+          const Box ga = load_box(geom, npad, start + la);
+          const Box gb = lb >= 0 ? load_box(geom, npad, start + lb) : zero_box();
+          const float sep = face_sat_sep(ga, gb);
+          keep = (sep < 0.f) && ((ga.movable > 0.f) || (gb.movable > 0.f));
+        }
+      }
+      int total;
+      const int pos = offset + block_exclusive_scan(keep, s.warp_sums, total);
+      if (keep && pos < cap2) {
+        s.la2[pos] = la;
+        s.lb2[pos] = lb;
+      }
+      offset += total;
+    }
+    dropped2 = offset > cap2 ? offset - cap2 : 0;
+  } else {
+    for (int i = tid; i < sat_cap; i += blockDim.x) {
+      s.la2[i] = la_in[(size_t)b * cap + i];
+      s.lb2[i] = lb_in[(size_t)b * cap + i];
+    }
+  }
+  for (int j = tid; j < ccap; j += blockDim.x) {
+    s.ck[j] = -2.f;  // inactive fresh slot key: KL = KS = KSGN = 0, ACT = 0
+    s.ch[j] = 0.f;
+  }
+  __syncthreads();
+
+  // ---- phase 2: manifolds and their kk deepest points ----
+  for (int lane = tid; lane < sat_cap; lane += blockDim.x) {
+    const int la = s.la2[lane];
+    const int lb = s.lb2[lane];
+    float score[kCap];
+    V3 pts[kCap];
+    V3 nrm = mk(0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kCap; ++k) score[k] = kBigNeg;
+    if (la >= 0) {
+      const Box ga = load_box(geom, npad, start + la);
+      const Box gb = lb >= 0 ? load_box(geom, npad, start + lb) : zero_box();
+      float depth[kCap];
+      bool valid[kCap];
+      box_box_manifold(ga, gb, pts, depth, valid, nrm);
+      const bool movable = (ga.movable > 0.f) || (gb.movable > 0.f);
+#pragma unroll
+      for (int k = 0; k < kCap; ++k) score[k] = (valid[k] && movable) ? depth[k] : kBigNeg;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kCap; ++k) pts[k] = nrm;
+    }
+    s.lane_n[3 * lane + 0] = nrm.x;
+    s.lane_n[3 * lane + 1] = nrm.y;
+    s.lane_n[3 * lane + 2] = nrm.z;
+    for (int pick = 0; pick < kk; ++pick) {
+      float best;
+      int bidx;
+      argmax(score, best, bidx);
+      const bool act = best > 0.f;
+      const V3 pt = select(bidx, pts);
+      const int e = pick * sat_cap + lane;
+      s.slot[e] = act ? 1 : 0;
+      s.pt[3 * e + 0] = pt.x;
+      s.pt[3 * e + 1] = pt.y;
+      s.pt[3 * e + 2] = pt.z;
+      s.dep[e] = act ? best : 0.f;
+      s.ks[e] = (float)bidx;
+#pragma unroll
+      for (int k = 0; k < kCap; ++k) score[k] = bidx == k ? kBigNeg : score[k];
+    }
+  }
+
+  // ---- phase 3: ground corners of the bucket's own ranks ----
+  if (kg > 0) {
+    for (int r = tid; r < kBlock; r += blockDim.x) {
+      const Box gl = load_box(geom, npad, start + r);
+      const bool mv = gl.movable > 0.f;
+      V3 pts[8];
+      float gsc[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float sx = (c & 4) ? 1.f : -1.f;
+        const float sy = (c & 2) ? 1.f : -1.f;
+        const float sz = (c & 1) ? 1.f : -1.f;
+        const float wx = sx * gl.h.x, wy = sy * gl.h.y, wz = sz * gl.h.z;
+        const float cx = gl.p.x + gl.r[0] * wx + gl.r[1] * wy + gl.r[2] * wz;
+        const float cy = gl.p.y + gl.r[3] * wx + gl.r[4] * wy + gl.r[5] * wz;
+        const float cz = gl.p.z + gl.r[6] * wx + gl.r[7] * wy + gl.r[8] * wz;
+        pts[c] = mk(cx, cy, cz);
+        const float d = gh - cy;
+        gsc[c] = (mv && (d > 0.f)) ? d : kBigNeg;
+      }
+      for (int pick = 0; pick < kg; ++pick) {
+        float best;
+        int bidx;
+        argmax(gsc, best, bidx);
+        const bool act = best > 0.f;
+        const V3 pt = select(bidx, pts);
+        const int e = n_pair_e + pick * kBlock + r;
+        s.slot[e] = act ? 1 : 0;
+        s.pt[3 * e + 0] = pt.x;
+        s.pt[3 * e + 1] = pt.y;
+        s.pt[3 * e + 2] = pt.z;
+        s.dep[e] = act ? best : 0.f;
+        s.ks[e] = (float)bidx;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) gsc[c] = bidx == c ? kBigNeg : gsc[c];
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 4: stable compaction of the emissions into ccap slots ----
+  int n_act = 0;
+  for (int e0 = 0; e0 < e_tot; e0 += blockDim.x) {
+    const int e = e0 + tid;
+    const int flag = e < e_tot ? s.slot[e] : 0;
+    int total;
+    const int pos = n_act + block_exclusive_scan(flag, s.warp_sums, total);
+    if (e < e_tot) s.slot[e] = flag ? pos : -1;
+    n_act += total;
+  }
+  __syncthreads();
+
+  float* out = table + (size_t)b * ccap;
+  for (int e = tid; e < e_tot; e += blockDim.x) {
+    const int sl = s.slot[e];
+    if (sl < 0 || sl >= ccap) continue;
+    float v[32];
+    const V3 pt = mk(s.pt[3 * e], s.pt[3 * e + 1], s.pt[3 * e + 2]);
+    v[0] = pt.x;
+    v[1] = pt.y;
+    v[2] = pt.z;
+    v[6] = s.dep[e];
+    v[9] = 1.f;
+    v[15] = s.ks[e];
+    V3 a_loc, b_loc, n_loc;
+    if (e < n_pair_e) {
+      const int lane = e % sat_cap;
+      const int la = s.la2[lane];
+      const int lb = s.lb2[lane];
+      const Box ga = load_box(geom, npad, start + la);
+      const Box gb = lb >= 0 ? load_box(geom, npad, start + lb) : zero_box();
+      const V3 n = mk(s.lane_n[3 * lane], s.lane_n[3 * lane + 1], s.lane_n[3 * lane + 2]);
+      v[3] = n.x;
+      v[4] = n.y;
+      v[5] = n.z;
+      v[7] = sqrtf(ga.fric * gb.fric);
+      v[8] = fmaxf(ga.rest, gb.rest);
+      const int ia = (int)ga.id, ib = (int)gb.id;
+      v[10] = (float)(ia > ib ? ia : ib);
+      v[11] = (float)(ia < ib ? ia : ib);
+      v[12] = 0.f;
+      v[13] = (float)(start + la);
+      v[14] = (float)(start + lb + 1);
+      a_loc = t_apply(ga.r, sub(pt, ga.p));
+      b_loc = t_apply(gb.r, sub(pt, gb.p));
+      n_loc = t_apply(ga.r, n);
+    } else {
+      const int r = (e - n_pair_e) % kBlock;
+      const Box gl = load_box(geom, npad, start + r);
+      v[3] = 0.f;
+      v[4] = 1.f;
+      v[5] = 0.f;
+      v[7] = gl.fric;
+      v[8] = gl.rest;
+      v[10] = gl.id;
+      v[11] = 0.f;
+      v[12] = 1.f;
+      v[13] = (float)(start + r);
+      v[14] = 0.f;
+      a_loc = t_apply(gl.r, sub(pt, gl.p));
+      b_loc = pt;
+      n_loc = mk(gl.r[3], gl.r[4], gl.r[5]);
+    }
+    v[16] = a_loc.x;
+    v[17] = a_loc.y;
+    v[18] = a_loc.z;
+    v[19] = b_loc.x;
+    v[20] = b_loc.y;
+    v[21] = b_loc.z;
+    v[22] = n_loc.x;
+    v[23] = n_loc.y;
+    v[24] = n_loc.z;
+#pragma unroll
+    for (int k = 25; k < 32; ++k) v[k] = 0.f;
+    for (int k = 0; k < rows; ++k) out[(size_t)k * cp + sl] = v[k];
+    s.ck[sl] = v[10] + 65536.0f * (2.0f * v[15] + v[12]) + 2.0f * (v[9] - 1.0f);
+    s.ch[sl] = v[11];
+  }
+  const int kept = n_act < ccap ? n_act : ccap;
+  for (int j = kept + tid; j < ccap; j += blockDim.x)
+    for (int k = 0; k < rows; ++k) out[(size_t)k * cp + j] = 0.f;
+
+  // ---- meta: dropped, active, prefilter drops, window overflow (0) ----
+  for (int i = tid; i < 8 * kBlock; i += blockDim.x) {
+    const int r = i / kBlock, c = i % kBlock;
+    float val = 0.f;
+    if (r == 0 && c == 0) val = (float)(n_act > ccap ? n_act - ccap : 0);
+    if (r == 0 && c == 1) val = (float)n_act;
+    if (r == 0 && c == 2) val = (float)dropped2;
+    meta[(size_t)r * nb * kBlock + (size_t)b * kBlock + c] = val;
+  }
+  if (!has_warm) return;
+
+  // ---- phase 5: warm start by key match within the bucket ----
+  for (int i = tid; i < ccap; i += blockDim.x) {
+    const float* pc = pcols + ((size_t)b * ccap + i) * 8;
+    s.prev[i] = pc[0];
+    s.prev[ccap + i] = pc[1];
+    s.prev[2 * ccap + i] = pc[4];
+    s.prev[3 * ccap + i] = pc[5];
+    s.prev[4 * ccap + i] = pc[6];
+  }
+  __syncthreads();
+  float* wout = warm + (size_t)b * ccap;
+  for (int j = tid; j < ccap; j += blockDim.x) {
+    const float ck = s.ck[j], ch = s.ch[j];
+    float l0 = 0.f, l1 = 0.f, l2 = 0.f;
+    for (int i = 0; i < ccap; ++i) {
+      if (fabsf(s.prev[i] - ck) < 0.5f && fabsf(s.prev[ccap + i] - ch) < 0.5f) {
+        l0 = s.prev[2 * ccap + i];
+        l1 = s.prev[3 * ccap + i];
+        l2 = s.prev[4 * ccap + i];
+        break;
+      }
+    }
+    wout[j] = l0;
+    wout[cp + j] = l1;
+    wout[2 * cp + j] = l2;
+#pragma unroll
+    for (int k = 3; k < 8; ++k) wout[(size_t)k * cp + j] = 0.f;
+  }
+}
+
+}  // namespace
+
+extern "C" int ct_bucket_contact_table(const float* geom, const int* la, const int* lb, const float* pcols,
+                                       float* table, float* meta, float* warm, int nb, int cap, int cap2,
+                                       int ccap, int kk, int kg, int npad, int rows, float gh, void* stream) {
+  if (kk > kCap || kg > 8 || rows > 32 || (cap2 && cap2 > cap)) return (int)cudaErrorInvalidValue;
+  const int sat_cap = cap2 ? cap2 : cap;
+  const int e_tot = kk * sat_cap + kg * kBlock;
+  const size_t smem = smem_bytes(sat_cap, e_tot, ccap, pcols != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(contact_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  contact_table_kernel<<<nb, kThreads, smem, (cudaStream_t)stream>>>(geom, la, lb, pcols, table, meta, warm, nb,
+                                                                     cap, cap2, ccap, kk, kg, npad, rows, gh);
+  return (int)cudaGetLastError();
+}
+
+// Text of a cudaError_t returned by any entry point of the library.
+extern "C" const char* pk_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,0 +1,160 @@
+"""Sweep broad phase with rank-block bucketed candidates
+(physics_tpu/ops/broadphase.py: `body_aabbs` for boxes, `sweep_order`,
+`_sweep_masks`, `band_window`, `bucket_shape`,
+`sweep_candidates_bucketed`, `pair_candidates`).
+
+Bodies are sorted by AABB min-x; each rank is tested against its next
+`sweep_window` ranks (ops/sweep_kernel.py); the hits of each block of
+`bucket_block` consecutive ranks are compacted, in rank-major order, into
+that bucket's `cap` candidate lanes. Pairs a window or a bucket cannot
+hold are counted in `overflow`, never dropped silently.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from physics_tpu_torch.config import SimConfig
+from physics_tpu_torch.maths import quaternion as quat
+from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
+from physics_tpu_torch.state import SHAPE_BOX, SHAPE_NONE, SimState
+
+Tensor = torch.Tensor
+
+
+class PairCandidates(NamedTuple):
+    body_a: Tensor   # [P] int32
+    body_b: Tensor   # [P] int32
+    mask: Tensor     # [P] bool
+    overflow: Tensor # [] int32 — pairs possibly missed
+    rank_a: Tensor   # [P] int32 sorted rank of body_a (rank_a < rank_b)
+    rank_b: Tensor   # [P] int32
+
+
+def body_aabbs(state: SimState) -> Tensor:
+    """World AABBs [N, 2, 3] (min, max) — the |R|·h extent of each box.
+    Other shapes are the generic narrow phase's (ROADMAP item 1.13)."""
+    stype = state.shapes.stype
+    rot = quat.to_matrix(state.quat)                          # [N,3,3]
+    ext = torch.sum(torch.abs(rot) * state.shapes.params[:, None, :],
+                    dim=-1)
+    ext = torch.where((stype == SHAPE_BOX)[:, None], ext,
+                      torch.zeros_like(ext))
+    return torch.stack([state.pos - ext, state.pos + ext], dim=-2)
+
+
+def sweep_order(state: SimState, aabbs: Tensor) -> Tensor:
+    """Body id per sorted rank: min-x ascending, non-collidable bodies
+    (key +inf) last. The sort is STABLE — ties keep body-id order, as
+    jnp.argsort does; every rank downstream depends on it."""
+    collidable = state.shapes.stype != SHAPE_NONE
+    key = torch.where(collidable, aabbs[:, 0, 0],
+                      torch.full_like(aabbs[:, 0, 0], float("inf")))
+    return torch.argsort(key, stable=True).to(torch.int32)
+
+
+def _sweep_masks(state: SimState, aabbs: Tensor, k: int,
+                 order: Tensor | None = None, plain: bool = False):
+    """(order [N], mask [N, k] bool, last_overlap [N] bool): mask[i, d-1]
+    ⇔ sorted ranks (i, i+d) AABB-overlap and are both collidable;
+    last_overlap flags collidable ranks whose x-interval still overlaps
+    rank i+k (pairs may exist beyond the window)."""
+    if order is None:
+        order = sweep_order(state, aabbs)
+    collidable = state.shapes.stype != SHAPE_NONE
+    oi = order.long()
+    aabb_s = aabbs[oi].contiguous()
+    coll_s = collidable[oi].contiguous()
+    mask, last = sweep_window_masks(aabb_s, coll_s, k, plain=plain)
+    return order, mask, last
+
+
+def band_window(cfg: SimConfig) -> int:
+    """Rank-band half-width the sweep guarantees: candidates connect ranks
+    (r, r+d), 1 ≤ d ≤ sweep_window."""
+    if cfg.broadphase == "env_blocks":
+        raise NotImplementedError(
+            "the env_blocks broad phase is ROADMAP item 1.10")
+    return cfg.sweep_window
+
+
+def _round_up128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def bucket_shape(n: int, cfg: SimConfig) -> Tuple[int, int, int]:
+    """(block, cap, n_blocks) of the rank-block bucket layout."""
+    block = max(cfg.bucket_block, 1)
+    n_blocks = -(-n // block)
+    if cfg.bucket_cap > 0:
+        cap = cfg.bucket_cap
+    else:
+        total = (cfg.max_pair_candidates if cfg.max_pair_candidates > 0
+                 else 8 * n)
+        cap = max(total // n_blocks, 128)
+    cap = _round_up128(cap)
+    k = min(band_window(cfg), n - 1)
+    cap = min(cap, _round_up128(block * k))
+    return block, cap, n_blocks
+
+
+def sweep_candidates_bucketed(state: SimState, aabbs: Tensor,
+                              cfg: SimConfig, order: Tensor | None = None,
+                              plain: bool = False) -> PairCandidates:
+    """Sweep candidates compacted per bucket of `bucket_block` ranks: each
+    bucket keeps its first `cap` hits in (rank, d) order. The JAX
+    package's segmented uint32 sort (hit flag in bit 31, slot index
+    below) is the same sort here on int64 keys."""
+    n = state.num_bodies
+    k = min(cfg.sweep_window, n - 1)
+    block, cap, n_blocks = bucket_shape(n, cfg)
+    order, mask, last_overlap = _sweep_masks(state, aabbs, k, order, plain)
+
+    npad_b = n_blocks * block
+    if npad_b != n:
+        mask = torch.nn.functional.pad(mask, (0, 0, 0, npad_b - n))
+    m2 = mask.reshape(n_blocks, block * k)
+    dev = mask.device
+    dead = 1 << 31
+    slot = torch.arange(block * k, dtype=torch.int64, device=dev)[None, :]
+    keyu = torch.where(m2, slot, slot + dead)
+    kept = torch.sort(keyu, dim=1).values[:, :min(cap, block * k)]
+    if kept.shape[1] < cap:     # tiny blocks: pad to the 128-aligned cap
+        kept = torch.nn.functional.pad(
+            kept, (0, cap - kept.shape[1]), value=dead)
+    live = kept < dead
+    slot_s = kept & (dead - 1)
+
+    blk_base = (torch.arange(n_blocks, dtype=torch.int64, device=dev)
+                * block)[:, None]
+    rank_a = torch.clamp(blk_base + slot_s // k, max=n - 1)
+    rank_b = torch.clamp(rank_a + 1 + slot_s % k, max=n - 1)
+    rank_a = rank_a.reshape(-1)
+    rank_b = rank_b.reshape(-1)
+    body_a = order[rank_a]
+    body_b = order[rank_b]
+
+    dropped = torch.sum(torch.clamp(
+        torch.sum(m2.to(torch.int32), dim=1) - cap, min=0))
+    overflow = (torch.sum(last_overlap.to(torch.int32)) + dropped).to(
+        torch.int32)
+    return PairCandidates(body_a, body_b, live.reshape(-1), overflow,
+                          rank_a.to(torch.int32), rank_b.to(torch.int32))
+
+
+def pair_candidates(state: SimState, cfg: SimConfig,
+                    aabbs: Tensor | None = None,
+                    order: Tensor | None = None,
+                    plain: bool = False) -> PairCandidates:
+    """Bucketed sweep candidates (the only broad phase the table path
+    uses). `aabbs`/`order` may be passed when the caller already has
+    them."""
+    if cfg.broadphase != "sweep" or not cfg.pair_buckets:
+        raise NotImplementedError(
+            "only the bucketed sweep broad phase is ported; allpairs, "
+            "the flat sweep and env_blocks are ROADMAP items 1.13 / 1.10")
+    if aabbs is None:
+        aabbs = body_aabbs(state)
+    return sweep_candidates_bucketed(state, aabbs, cfg, order, plain)

@@ -1,0 +1,483 @@
+"""Fused bucket-aligned contact table: CUDA kernel and its plain PyTorch
+version (physics_tpu/ops/contact_table.py).
+
+One bucket = 128 consecutive sweep ranks. For each bucket the table
+holds `ccap` contact slots: the box-box manifolds of the bucket's
+candidate pairs (at most `kk` deepest points per pair), then the ground
+corners of the bucket's own ranks (at most `kg` per body), compacted in
+that emission order. Contact b's endpoints lie within ranks
+[b·128, b·128 + 128 + sweep_window), so the banded solve can use static
+bucket bases. The row layout (CT_* constants) and the component-form
+feature keys are the JAX package's, because the warm start across steps
+and the anchored refresh depend on them.
+
+Replaces the TPU kernel `bucket_contact_table` (physics_tpu/ops/
+contact_table.py:844, body `_make_ct_kernel` :166-747). That kernel
+moved data with one-hot matmuls and hi/lo bf16 splits, because the TPU
+has no gather in VMEM; here geometry is read by index, compaction is a
+block-wide scan, and every value is exact f32. Its f32 rows therefore
+differ from the TPU kernel's by the split's rounding, about 2⁻¹⁷ of each
+value; the integer rows (keys, activity, ranks) and the meta counters
+are identical.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from physics_tpu_torch.config import SimConfig
+from physics_tpu_torch.maths import vec3c as v3
+from physics_tpu_torch.ops.boxbox_batched import (
+    _CAP,
+    _argmax_unrolled,
+    _select,
+    box_box_manifold_batched,
+)
+from physics_tpu_torch.ops.broadphase import (
+    PairCandidates,
+    band_window,
+    bucket_shape,
+)
+from physics_tpu_torch.state import SHAPE_BOX, SimState
+
+Tensor = torch.Tensor
+
+# contact-table rows (f32 [rows, NB·ccap])
+CT_PT = 0        # 0:3  contact point
+CT_N = 3         # 3:6  normal (B→A)
+CT_D = 6         # depth
+CT_MU = 7        # friction
+CT_REST = 8      # restitution
+CT_ACT = 9       # 1.0 = active
+CT_KL = 10       # key low: max body id (pair) / body id (ground)
+CT_KH = 11       # key high: min body id (pair) / 0 (ground)
+CT_KSGN = 12     # 1.0 ⇒ ground contact
+CT_RA = 13       # rank of endpoint a (lower rank)
+CT_RB1 = 14      # rank of endpoint b + 1 (0 = ground)
+CT_KS = 15       # key slot: manifold slot / corner id
+CT_ROWS = 16
+# anchored extension (cfg.contact_rebuild > 1): body-frame anchors so the
+# solve can re-derive point/normal/depth from current transforms
+CT_AAX = 16      # 16:19 anchor in A's frame: R_aᵀ(pt₀ − pos_a)
+CT_BAX = 19      # 19:22 anchor in B's frame; world pt₀ for ground
+CT_NLOC = 22     # 22:25 normal in A's frame
+CT2_ROWS = 32
+
+GEOM_ROWS = 24   # rows of the narrow-phase block of the unified table
+BLOCK = 128      # ranks per bucket
+
+_BOX_SIGNS = [
+    (sx, sy, sz)
+    for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)
+]
+_BIG_NEG = -1e30
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def geom_pad(n: int, cfg: SimConfig) -> Tuple[int, int]:
+    """(wtot, npad) of the rank-space geometry table — the formulas the
+    JAX package shares between its table and solve kernels."""
+    nb = -(-n // BLOCK)
+    wtot = _round_up(BLOCK + min(band_window(cfg), BLOCK), 128)
+    npad = max(_round_up(n + wtot, 128), nb * BLOCK + wtot)
+    return wtot, npad
+
+
+def unified_geom(state: SimState, cfg: SimConfig, order: Tensor) -> Tensor:
+    """The rank-space geometry table [48, NPAD] shared by the contact
+    table and the solve (box mode):
+
+      rows  0:24  solve block: pos | world I⁻¹ row-major | inv_mass | vel |
+                  omega | quat (19:23) | 0
+      rows 24:48  narrow-phase block: pos | world R row-major | half
+                  extents | friction | restitution | movable·is_box |
+                  body id | is_box | 0 ×4
+    Column r is the body of sweep rank r; columns ≥ N are zero."""
+    n = state.num_bodies
+    _, npad = geom_pad(n, cfg)
+    movable = (state.inv_mass > 0.0).to(torch.float32)
+    r9 = v3.quat_to_mat(state.quat)
+    iw9 = v3.sandwich(r9, v3.mat_unpack(state.inv_inertia))
+    zero = torch.zeros((n,), dtype=torch.float32, device=state.device)
+    pos3 = [state.pos[:, 0], state.pos[:, 1], state.pos[:, 2]]
+    is_box = (state.shapes.stype == SHAPE_BOX).to(torch.float32)
+    rows = torch.stack(
+        pos3 + list(iw9)
+        + [state.inv_mass,
+           state.vel[:, 0], state.vel[:, 1], state.vel[:, 2],
+           state.omega[:, 0], state.omega[:, 1], state.omega[:, 2],
+           state.quat[:, 0], state.quat[:, 1], state.quat[:, 2],
+           state.quat[:, 3], zero]
+        + pos3 + list(r9)
+        + [state.shapes.params[:, 0], state.shapes.params[:, 1],
+           state.shapes.params[:, 2], state.shapes.friction,
+           state.shapes.restitution, movable * is_box,
+           torch.arange(n, dtype=torch.float32, device=state.device),
+           is_box]
+        + [zero] * 4)                                      # [48, N]
+    rows = rows[:, order.long()]
+    geom = torch.zeros((48, npad), dtype=torch.float32, device=state.device)
+    geom[:, :n] = rows
+    return geom
+
+
+def table_shape(n: int, cfg: SimConfig) -> Tuple[int, int, int]:
+    """(nb, ccap, cp) of the contact table for an n-body scene."""
+    nb = -(-n // BLOCK)
+    if cfg.bucket_ccap > 0:
+        ccap = _round_up(cfg.bucket_ccap, 128)
+    else:
+        total = cfg.max_contacts if cfg.max_contacts > 0 else 6 * n
+        ccap = _round_up(max(total // nb, 128), 128)
+    return nb, ccap, nb * ccap
+
+
+def table_keys(table: Tensor) -> Tensor:
+    """Component-form key rows → [2, C] int32 for cross-step storage:
+    row0 = KL | (2·KS + KSGN) << 16, row1 = KH + 1; zeros = inactive."""
+    act = table[CT_ACT] > 0.0
+    row0 = (table[CT_KL].to(torch.int32)
+            + ((2 * table[CT_KS].to(torch.int32)
+                + table[CT_KSGN].to(torch.int32)) << 16))
+    row1 = table[CT_KH].to(torch.int32) + 1
+    z = torch.zeros_like(row0)
+    return torch.stack([torch.where(act, row0, z), torch.where(act, row1, z)])
+
+
+def prev_key_cols(pkey: Tensor, plam: Tensor) -> Tensor:
+    """(keys [2, C] int32, λ [3, C]) of the previous step → the [C, 8]
+    columns the warm match reads: ck (−1 inactive), KH (−1 inactive), 0,
+    activity, λn, λt1, λt2, 0."""
+    act_p = pkey[0] != 0
+    neg1 = torch.full_like(plam[0], -1.0)
+    zero = torch.zeros_like(plam[0])
+    return torch.stack([
+        torch.where(act_p, pkey[0].to(torch.float32), neg1),
+        torch.where(act_p, (pkey[1] - 1).to(torch.float32), neg1),
+        zero,
+        act_p.to(torch.float32),
+        plam[0], plam[1], plam[2],
+        zero,
+    ], dim=1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _face_sat_sep(t, ra, rb, ha, hb):
+    """Best separation over the 6 face axes (> 0 ⇒ no contact)."""
+    cabs = [[torch.abs(ra[i] * rb[j] + ra[3 + i] * rb[3 + j]
+                       + ra[6 + i] * rb[6 + j]) for j in range(3)]
+            for i in range(3)]
+    sep_best = None
+    for i in range(3):
+        ut = ra[i] * t[0] + ra[3 + i] * t[1] + ra[6 + i] * t[2]
+        rad = (ha[i] + hb[0] * cabs[i][0] + hb[1] * cabs[i][1]
+               + hb[2] * cabs[i][2])
+        s = torch.abs(ut) - rad
+        sep_best = s if sep_best is None else torch.maximum(sep_best, s)
+    for j in range(3):
+        wt = rb[j] * t[0] + rb[3 + j] * t[1] + rb[6 + j] * t[2]
+        rad = (hb[j] + ha[0] * cabs[0][j] + ha[1] * cabs[1][j]
+               + ha[2] * cabs[2][j])
+        sep_best = torch.maximum(sep_best, torch.abs(wt) - rad)
+    return sep_best
+
+
+def _compact_lanes(keep: Tensor, la: Tensor, lb: Tensor, out_cap: int):
+    """Order-preserving per-bucket compaction of candidate lanes [NB, L]
+    into out_cap lanes (empty = −1); returns (la, lb, dropped [NB])."""
+    nb = keep.shape[0]
+    slot = torch.cumsum(keep.to(torch.int64), dim=1) - keep.to(torch.int64)
+    ok = keep & (slot < out_cap)
+    out_a = torch.full((nb, out_cap + 1), -1, dtype=torch.int32,
+                       device=la.device)
+    out_b = out_a.clone()
+    idx = torch.where(ok, slot, torch.full_like(slot, out_cap))
+    out_a.scatter_(1, idx, torch.where(ok, la, -1))
+    out_b.scatter_(1, idx, torch.where(ok, lb, -1))
+    dropped = torch.clamp(keep.sum(dim=1) - out_cap, min=0)
+    return out_a[:, :out_cap], out_b[:, :out_cap], dropped
+
+
+def _t_apply(g, w):
+    """Rᵀ·w for the row-major rotation at g[3:12]."""
+    return (g[3] * w[0] + g[6] * w[1] + g[9] * w[2],
+            g[4] * w[0] + g[7] * w[1] + g[10] * w[2],
+            g[5] * w[0] + g[8] * w[1] + g[11] * w[2])
+
+
+def bucket_contact_table_plain(geom: Tensor, la: Tensor, lb: Tensor,
+                               pcols: Tensor | None, *, ccap: int, kk: int,
+                               kg: int, cap2: int, ground_height: float,
+                               anchors: bool):
+    """Plain version of the contact-table kernel, all buckets at once.
+
+    geom [48, NPAD] unified table; la/lb [NB, cap] int32 window-local
+    candidate ranks (−1 = empty lane); pcols [NB·ccap, 8] previous-step
+    key columns or None. Returns (table [rows, NB·ccap], meta
+    [8, NB·128], warm [8, NB·ccap] or None)."""
+    dev = geom.device
+    nb, cap = la.shape
+    rows_n = CT2_ROWS if anchors else CT_ROWS
+    win = geom[24:48]
+    start = torch.arange(nb, device=dev, dtype=torch.int64)[:, None] * BLOCK
+    f32 = torch.float32
+
+    def gather(loc):
+        idx = start + torch.clamp(loc.to(torch.int64), min=0)
+        g = win[:, idx]                                    # [24, NB, L]
+        return torch.where((loc >= 0)[None], g, torch.zeros_like(g))
+
+    ga, gb = gather(la), gather(lb)
+    dropped2 = torch.zeros((nb,), dtype=torch.int64, device=dev)
+    if cap2:
+        t = (gb[0] - ga[0], gb[1] - ga[1], gb[2] - ga[2])
+        ra = tuple(ga[3 + k] for k in range(9))
+        rb = tuple(gb[3 + k] for k in range(9))
+        sep_best = _face_sat_sep(t, ra, rb, (ga[12], ga[13], ga[14]),
+                                 (gb[12], gb[13], gb[14]))
+        keep = ((sep_best < 0.0) & ((ga[17] > 0.0) | (gb[17] > 0.0))
+                & (la >= 0))
+        la, lb, dropped2 = _compact_lanes(keep, la, lb, cap2)
+        ga, gb = gather(la), gather(lb)
+
+    man = box_box_manifold_batched(
+        (ga[0], ga[1], ga[2]), tuple(ga[3 + k] for k in range(9)),
+        (ga[12], ga[13], ga[14]),
+        (gb[0], gb[1], gb[2]), tuple(gb[3 + k] for k in range(9)),
+        (gb[12], gb[13], gb[14]))
+
+    movable = (ga[17] > 0.0) | (gb[17] > 0.0)
+    mu_p = torch.sqrt(ga[15] * gb[15])
+    rest_p = torch.maximum(ga[16], gb[16])
+    ia = ga[18].to(torch.int32)
+    ib = gb[18].to(torch.int32)
+    kl_p = torch.maximum(ia, ib).to(f32)
+    kh_p = torch.minimum(ia, ib).to(f32)
+    big_neg = torch.full_like(mu_p, _BIG_NEG)
+    score = [torch.where(man.valid[s] & movable, man.depth[s], big_neg)
+             for s in range(_CAP)]
+    live = (la >= 0).to(f32)
+    ra_p = (start + la).to(f32) * live
+    rb1_p = (start + lb + 1).to(f32) * live
+
+    rows = [[] for _ in range(rows_n)]
+
+    def emit(vals, act, anc):
+        af = act.to(f32)
+        vals = vals[:9] + [af] + [v * af for v in vals[9:]]
+        if anchors:
+            vals += [v * af for v in anc]
+            vals += [torch.zeros_like(af)] * (CT2_ROWS - 25)
+        for r, v in enumerate(vals):
+            rows[r].append(v)
+
+    for _ in range(kk):
+        best, bidx = _argmax_unrolled(score)
+        act = best > 0.0
+        pt = _select(bidx, man.points)
+        anc = None
+        if anchors:
+            anc = (list(_t_apply(ga, v3.sub(pt, (ga[0], ga[1], ga[2]))))
+                   + list(_t_apply(gb, v3.sub(pt, (gb[0], gb[1], gb[2]))))
+                   + list(_t_apply(ga, man.normal)))
+        emit([pt[0], pt[1], pt[2], man.normal[0], man.normal[1],
+              man.normal[2], torch.where(act, best, torch.zeros_like(best)),
+              mu_p, rest_p, kl_p, kh_p, torch.zeros_like(kl_p), ra_p,
+              rb1_p, bidx.to(f32)], act, anc)
+        score = [torch.where(bidx == s, big_neg, score[s])
+                 for s in range(_CAP)]
+
+    if kg > 0:
+        gl = win[:, start[:, 0, None] + torch.arange(BLOCK, device=dev)]
+        px, py, pz = gl[0], gl[1], gl[2]
+        r9 = tuple(gl[3 + k] for k in range(9))
+        hx, hy, hz = gl[12], gl[13], gl[14]
+        mv = gl[17] > 0.0
+        pts_g, dep_g = [], []
+        for (sx, sy, sz) in _BOX_SIGNS:
+            wx, wy, wz = sx * hx, sy * hy, sz * hz
+            cx = px + r9[0] * wx + r9[1] * wy + r9[2] * wz
+            cy = py + r9[3] * wx + r9[4] * wy + r9[5] * wz
+            cz = pz + r9[6] * wx + r9[7] * wy + r9[8] * wz
+            pts_g.append((cx, cy, cz))
+            dep_g.append(ground_height - cy)
+        big_g = torch.full_like(px, _BIG_NEG)
+        gsc = [torch.where(mv & (d > 0.0), d, big_g) for d in dep_g]
+        ra_g = (start + torch.arange(BLOCK, device=dev)).to(f32)
+        one_g = torch.ones_like(px)
+        zero_g = torch.zeros_like(px)
+        for _ in range(kg):
+            best, bidx = _argmax_unrolled(gsc)
+            act = best > 0.0
+            pt = _select(bidx, pts_g)
+            anc = None
+            if anchors:
+                rel = v3.sub(pt, (gl[0], gl[1], gl[2]))
+                anc = (list(_t_apply(gl, rel)) + [pt[0], pt[1], pt[2]]
+                       + [gl[6], gl[7], gl[8]])
+            emit([pt[0], pt[1], pt[2], zero_g, one_g, zero_g,
+                  torch.where(act, best, zero_g), gl[15], gl[16],
+                  gl[18], zero_g, one_g, ra_g, zero_g, bidx.to(f32)],
+                 act, anc)
+            gsc = [torch.where(bidx == s, big_g, gsc[s]) for s in range(8)]
+
+    pay = torch.stack([torch.cat(r, dim=1) for r in rows])  # [rows, NB, E]
+    act = pay[CT_ACT] > 0.0
+    slot = torch.cumsum(act.to(torch.int64), dim=1) - act.to(torch.int64)
+    ok = act & (slot < ccap)
+    idx = torch.where(ok, slot, torch.full_like(slot, ccap))
+    out = torch.zeros((rows_n, nb, ccap + 1), dtype=f32, device=dev)
+    out.scatter_(2, idx[None].expand(rows_n, -1, -1), pay)
+    out = out[:, :, :ccap]
+
+    n_act = act.sum(dim=1)
+    meta = torch.zeros((8, nb, BLOCK), dtype=f32, device=dev)
+    meta[0, :, 0] = torch.clamp(n_act - ccap, min=0).to(f32)
+    meta[0, :, 1] = n_act.to(f32)
+    meta[0, :, 2] = dropped2.to(f32)
+
+    warm = None
+    if pcols is not None:
+        # fresh inactive slots key to (−2, 0) and previous inactive ones
+        # to (−1, −1): never within 0.5 of each other or of a real key
+        ck = (out[CT_KL] + 65536.0 * (2.0 * out[CT_KS] + out[CT_KSGN])
+              + 2.0 * (out[CT_ACT] - 1.0))                 # [NB, ccap]
+        ch = out[CT_KH]
+        pc = pcols.reshape(nb, ccap, 8)
+        eq = ((torch.abs(pc[:, :, 0, None] - ck[:, None, :]) < 0.5)
+              & (torch.abs(pc[:, :, 1, None] - ch[:, None, :]) < 0.5))
+        # keys are unique within a bucket: the first match is the match
+        hit = eq.any(dim=1)                                # [NB, ccap]
+        src = torch.argmax(eq.to(torch.uint8), dim=1)      # [NB, ccap]
+        lam0 = torch.gather(pc[:, :, 4:7], 1,
+                            src[:, :, None].expand(-1, -1, 3))
+        lam0 = torch.where(hit[:, :, None], lam0, torch.zeros_like(lam0))
+        warm = torch.zeros((8, nb, ccap), dtype=f32, device=dev)
+        warm[0:3] = lam0.permute(2, 0, 1)
+        warm = warm.reshape(8, nb * ccap)
+    return (out.reshape(rows_n, nb * ccap), meta.reshape(8, nb * BLOCK),
+            warm)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _launch_kernel(geom, la, lb, pcols, *, ccap, kk, kg, cap2,
+                   ground_height, anchors):
+    from physics_tpu_torch import _build
+
+    dev = geom.device
+    nb, cap = la.shape
+    npad = geom.shape[1]
+    rows_n = CT2_ROWS if anchors else CT_ROWS
+    cp = nb * ccap
+    for name, t, dt in (("geom", geom, torch.float32),
+                        ("la", la, torch.int32), ("lb", lb, torch.int32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"contact table: {name} must be a contiguous "
+                             f"{dt} tensor on {dev}")
+    if geom.shape[0] != 48 or lb.shape != la.shape:
+        raise ValueError("contact table: geom [48, NPAD], la/lb [NB, cap]")
+    if npad < nb * BLOCK + 2 * BLOCK:
+        raise ValueError(f"contact table: NPAD {npad} too small for "
+                         f"{nb} buckets")
+    if pcols is not None and (pcols.shape != (cp, 8) or pcols.device != dev
+                              or pcols.dtype != torch.float32
+                              or not pcols.is_contiguous()):
+        raise ValueError(f"contact table: prev cols must be [{cp}, 8] f32")
+    table = torch.empty((rows_n, cp), dtype=torch.float32, device=dev)
+    meta = torch.empty((8, nb * BLOCK), dtype=torch.float32, device=dev)
+    warm = (torch.empty((8, cp), dtype=torch.float32, device=dev)
+            if pcols is not None else None)
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        err = _build.library().ct_bucket_contact_table(
+            ptr(geom.data_ptr()), ptr(la.data_ptr()), ptr(lb.data_ptr()),
+            ptr(pcols.data_ptr() if pcols is not None else 0),
+            ptr(table.data_ptr()), ptr(meta.data_ptr()),
+            ptr(warm.data_ptr() if warm is not None else 0),
+            nb, cap, cap2, ccap, kk, kg, npad, rows_n,
+            ctypes.c_float(ground_height),
+            ptr(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, "ct_bucket_contact_table")
+    bucket_contact_table.launches += 1
+    return table, meta, warm
+
+
+def bucket_contact_table(
+    state: SimState,
+    cand: PairCandidates,
+    cfg: SimConfig,
+    prev: Tuple[Tensor, Tensor] | None = None,
+    geom: Tensor | None = None,
+    plain: bool = False,
+) -> Tuple[Tensor, Tensor, Tensor | None]:
+    """The contact table of one rebuild. Returns (table [CT_ROWS or
+    CT2_ROWS, NB·ccap], meta [8, NB·128], warm [8, NB·ccap] | None).
+
+    meta[0, b·128 + 0] = contacts bucket b dropped beyond ccap,
+    + 1 = its active contacts, + 2 = prefilter survivors dropped beyond
+    bucket_cap2, + 3 = 0 (in-kernel broad phase only, not ported).
+    `prev = (keys [2, cp] int32, λ [3, cp])` of the previous step gives
+    each fresh contact its warm λ₀ (warm rows 0:3) by matching keys
+    within the same bucket. `geom` is the unified table (built from
+    `state` in sweep order when None — pass the rebuild's own).
+
+    A CPU tensor (or `plain=True`) runs the plain version; a CUDA
+    tensor launches csrc/contact_table.cu."""
+    n = state.num_bodies
+    if n > (1 << 16):
+        raise ValueError(
+            "contact table: the stored feature keys pack body ids in 16 "
+            "bits (table_keys), so scenes above 65,536 bodies would alias "
+            "warm starts")
+    if cfg.bp_inkernel or cand is None:
+        raise NotImplementedError(
+            "the in-kernel broad phase (bp_inkernel) is ROADMAP item 1.10")
+    block, cap, nb_cand = bucket_shape(n, cfg)
+    if block != BLOCK:
+        raise ValueError(f"contact_table requires bucket_block == {BLOCK} "
+                         f"(got {block})")
+    nb, ccap, cp = table_shape(n, cfg)
+    kk = min(cfg.max_contacts_per_pair, _CAP)
+    kg = min(cfg.max_contacts_per_pair, 8) if cfg.ground_plane else 0
+    _, npad = geom_pad(n, cfg)
+    if geom is None or geom.shape != (48, npad):
+        raise ValueError(f"contact table: pass the unified geometry table "
+                         f"[48, {npad}] (unified_geom)")
+    cap2 = cfg.bucket_cap2
+    if cap2:
+        if cap2 % 128:
+            raise ValueError(
+                f"bucket_cap2 must be a 128-multiple; got {cap2}")
+        cap2 = min(cap2, cap)
+        if cap2 == cap:
+            cap2 = 0
+    base = (torch.arange(nb, dtype=torch.int32, device=geom.device)
+            * BLOCK)[:, None]
+    la = torch.where(cand.mask.reshape(nb, cap),
+                     cand.rank_a.reshape(nb, cap) - base, -1).contiguous()
+    lb = torch.where(cand.mask.reshape(nb, cap),
+                     cand.rank_b.reshape(nb, cap) - base, -1).contiguous()
+    pcols = prev_key_cols(*prev) if prev is not None else None
+    kw = dict(ccap=ccap, kk=kk, kg=kg, cap2=cap2,
+              ground_height=float(cfg.ground_height),
+              anchors=cfg.contact_rebuild > 1)
+    if plain or geom.device.type == "cpu":
+        return bucket_contact_table_plain(geom, la, lb, pcols, **kw)
+    if geom.device.type != "cuda":
+        raise ValueError(f"contact table: unsupported device {geom.device}")
+    return _launch_kernel(geom, la, lb, pcols, **kw)
+
+
+bucket_contact_table.launches = 0

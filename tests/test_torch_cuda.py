@@ -1,0 +1,146 @@
+"""The port's three kernels against their plain PyTorch versions on an
+NVIDIA card, and one rebuild and one refresh step of the kernel path
+against the plain path, on a contact-rich two-bucket pile. Every test
+skips without a card. On a GPU machine:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+
+(`--noconftest`: tests/conftest.py configures JAX, which neither the port
+nor this file needs.)
+
+Tolerances: the sweep masks, the contact table's integer rows, its meta
+counters and warm rows are compared exactly (the table kernel computes the
+plain version's f32 operations in the same order, built with
+-fmad=false); its f32 rows to 1e-5 of the scene extent. The solve sums
+impulse deltas with atomics (kernel) or index_add (plain) in an order that
+changes from run to run: 1e-4 of each output row's largest magnitude.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from physics_tpu_torch import scenes
+from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+from physics_tpu_torch.ops import contact_table as tct
+from physics_tpu_torch.ops.broadphase import (
+    body_aabbs,
+    pair_candidates,
+    sweep_order,
+)
+from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
+from physics_tpu_torch.solver.banded_solve import banded_sweeps_fused
+from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
+
+pytestmark = pytest.mark.cuda
+
+N = 192
+EXACT_ROWS = [tct.CT_ACT, tct.CT_KL, tct.CT_KH, tct.CT_KSGN, tct.CT_RA,
+              tct.CT_RB1, tct.CT_KS, tct.CT_MU, tct.CT_REST]
+SOLVE_RTOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.fixture(scope="module")
+def pile(dev):
+    """A box pile squeezed so neighbouring boxes interpenetrate, with
+    random velocities; prepared for the anchored table path."""
+    arrays = to_numpy(scenes.box_pile(N, x_aspect=4.0, layers=3))
+    rng = np.random.default_rng(1)
+    arrays["pos"][:, 0] *= 0.85
+    arrays["pos"][:, 1] *= 0.85
+    arrays["vel"] = rng.normal(0, 0.5, (N, 3)).astype(np.float32)
+    arrays["omega"] = rng.normal(0, 0.5, (N, 3)).astype(np.float32)
+    cfg = scenes.pile_config(N).replace(contact_iters=8)
+    return prepare_contacts(state_from_arrays(arrays, dev), cfg), cfg
+
+
+def _rows_close(name, got, ref, rtol):
+    for r in range(ref.shape[0]):
+        tol = rtol * max(float(ref[r].abs().max()), 1e-3)
+        err = float((got[r] - ref[r]).abs().max())
+        assert err <= tol, f"{name} row {r}: |Δ| {err} > {tol}"
+
+
+@pytest.mark.parametrize("k", [1, 12, 48])
+def test_sweep_masks_kernel(pile, k):
+    s, _ = pile
+    aabbs = body_aabbs(s)
+    oi = sweep_order(s, aabbs).long()
+    aabb_s = aabbs[oi].contiguous()
+    coll_s = (s.shapes.stype != SHAPE_NONE)[oi].contiguous()
+    before = sweep_window_masks.launches
+    mk, lk = sweep_window_masks(aabb_s, coll_s, k)
+    assert sweep_window_masks.launches == before + 1
+    mp, lp = sweep_window_masks(aabb_s, coll_s, k, plain=True)
+    assert torch.equal(mk, mp) and torch.equal(lk, lp)
+    assert int(mk.sum()) > 0
+
+
+def _table(s, cfg, prev, plain):
+    aabbs = body_aabbs(s)
+    order = sweep_order(s, aabbs)
+    cand = pair_candidates(s, cfg, aabbs, order, plain=plain)
+    geom = tct.unified_geom(s, cfg, order)
+    return geom, tct.bucket_contact_table(s, cand, cfg, prev=prev,
+                                          geom=geom, plain=plain)
+
+
+def test_contact_table_kernel(pile):
+    s, cfg = pile
+    # previous keys from a first table, impulses random: warm rows match
+    _, (t0, _, _) = _table(s, cfg, None, plain=True)
+    keys = tct.table_keys(t0)
+    lam = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (3, keys.shape[1])).astype(np.float32)).to(s.device)
+    before = tct.bucket_contact_table.launches
+    geom, (tk, mk, wk) = _table(s, cfg, (keys, lam), plain=False)
+    assert tct.bucket_contact_table.launches == before + 1
+    _, (tp, mp, wp) = _table(s, cfg, (keys, lam), plain=True)
+    for r in EXACT_ROWS:
+        assert torch.equal(tk[r], tp[r]), r
+    assert torch.equal(mk, mp)
+    assert torch.equal(wk, wp)
+    extent = float(geom[0:3, :N].abs().max())
+    assert float((tk - tp).abs().max()) <= 1e-5 * extent
+    assert int(tk[tct.CT_ACT].sum()) > 500
+    assert float(wk[0].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("iters", [8, 4])
+def test_banded_solve_kernel(pile, iters):
+    s, cfg = pile
+    geom, (table, _, warm) = _table(
+        s, cfg, (s.contact_key, s.contact_lam), plain=True)
+    warm = warm.clone()
+    warm[0:3] = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 0.1, (3, warm.shape[1])).astype(np.float32)).to(s.device)
+    out = {}
+    for plain in (False, True):
+        out[plain] = banded_sweeps_fused(
+            table, warm, geom, cfg, vel_iters=iters, pos_iters=iters,
+            use_split=True, integrate=(cfg.dt, True), plain=plain)
+    (zk, lk, pk), (zp, lp, pp) = out[False], out[True]
+    _rows_close("z", zk[:, :N], zp[:, :N], SOLVE_RTOL)
+    _rows_close("lam", lk, lp, SOLVE_RTOL)
+    _rows_close("posq", pk[:, :N], pp[:, :N], SOLVE_RTOL)
+
+
+def test_step_kernel_path_matches_plain(pile):
+    s, cfg = pile
+    for what in ("rebuild", "refresh"):
+        sk, mk = step_with_metrics(s, cfg)
+        sp, mp = step_with_metrics(s, cfg, plain=True)
+        for name in ("pos", "quat", "vel", "omega"):
+            err = float((getattr(sk, name) - getattr(sp, name)).abs().max())
+            assert err <= 1e-4, (what, name, err)
+        assert torch.equal(sk.contact_key, sp.contact_key), what
+        for key in ("contact_count", "pair_overflow", "contact_overflow"):
+            assert int(mk[key]) == int(mp[key]), (what, key)
+        s = sk
