@@ -1,28 +1,40 @@
-"""GPU smoke run of physics_tpu_torch: the 4,096-body box pile stepping on
-one NVIDIA card through the port's three hand-written kernels.
+"""GPU smoke run of physics_tpu_torch on one NVIDIA card: the 4,096-body
+box pile and the 1,024-hull rain stepping through the port's hand-written
+kernels.
 
     python3 chip_smoke.py            # needs CUDA; exits non-zero without
 
 Phases (any failure raises, so the run exits non-zero):
   1. card     name and power limit (nvidia-smi);
-  2. build    compile csrc/*.cu with nvcc and print ptxas's per-kernel
-              report (the Triton kernel compiles at its first launch);
-  3. kernels  each kernel against its plain PyTorch version, on the card,
-              at the main path's shapes (a pile settled by 60 steps), with
-              median times from CUDA events;
-  4. slice    prepare_contacts + 240 steps of pile_config(4096) with
+  2. build    compile csrc/*.cu with nvcc, one process per source, all at
+              once, and print ptxas's per-kernel report (the Triton kernel
+              compiles at its first launch);
+  3. kernels  each pile kernel against its plain PyTorch version, on the
+              card, at the pile's shapes (a pile settled by 60 steps),
+              with median times from CUDA events;
+  4. pile     prepare_contacts + 240 steps of pile_config(4096) with
               contact_iters=8 through step_with_metrics: launch counts,
               finite state, overflow counters, one rebuild and one refresh
-              step of the kernel path against the plain path, the step
-              rate over a timed window, and device time by kernel over 8
-              more steps (torch.profiler).
-The line before the last is a JSON object of per-kernel results; the last
-line is {"ok": true, "device": {...}}.
+              step of the kernel path against the plain path, and the
+              step rate over a timed window;
+  5. rain     mesh_rain(1024) under rain_config(1024), settled 60 steps:
+              the hull contact table and the solve against their plain
+              versions at the rain's shapes, then 240 fresh steps with the
+              same checks and measurements as phase 4;
+  6. mixed    mesh_rain_mixed(128, n_types=3) settled 60 steps: the hull
+              table against its plain version with all 9 ordered hull-type
+              pairs live;
+  7. profile  device time by kernel over 8 more steps of each path
+              (torch.profiler), after every timed window.
+The line before the last is a JSON object of per-kernel results (each
+kernel's least possible time on the card, `bound_ms`, is computed from
+this run's inputs); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,12 +44,14 @@ import torch
 
 from physics_tpu_torch import _build, scenes
 from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+from physics_tpu_torch.ops import hull_table as ht
 from physics_tpu_torch.ops.broadphase import (
     body_aabbs,
     pair_candidates,
     sweep_order,
 )
 from physics_tpu_torch.ops.contact_table import (
+    BLOCK,
     CT_ACT,
     CT_KH,
     CT_KL,
@@ -48,6 +62,9 @@ from physics_tpu_torch.ops.contact_table import (
     CT_RB1,
     CT_REST,
     bucket_contact_table,
+    lane_geometry,
+    obb_prefilter,
+    table_operands,
     unified_geom,
 )
 from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
@@ -56,13 +73,27 @@ from physics_tpu_torch.state import SHAPE_NONE
 
 EXACT_ROWS = [CT_ACT, CT_KL, CT_KH, CT_KSGN, CT_RA, CT_RB1, CT_KS, CT_MU,
               CT_REST]
-# kernel vs plain on the card. The contact table computes the same f32
-# operations in the same order (nvcc -fmad=false), so it should agree to
+# kernel vs plain on the card. The contact tables compute the same f32
+# operations in the same order (nvcc -fmad=false), so they should agree to
 # the bit; 1e-5 of the scene extent is allowed. The solve sums impulse
 # deltas with atomics in a run-dependent order: 1e-4 of each output row's
 # largest magnitude, and 1e-4 absolute for one whole step's state.
+TABLE_TOL = 1e-5
 SOLVE_RTOL = 1e-4
 STEP_ATOL = 1e-4
+
+# NVIDIA H100 SXM published peaks (data sheet, 700 W): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# f32 operations per unit of work, counted from the CUDA sources (each
+# multiply, add, compare, min/max, abs or sqrt is one)
+OPS_OBB_PREFILTER = 140      # face-axis OBB test of one candidate lane
+OPS_BOX_MANIFOLD = 3500      # 15-axis SAT + 4 clips + edge point, one lane
+OPS_EMIT = 60                # one active contact: anchors, keys, warm key
+OPS_SOLVE_CONTACT = 250      # one contact in one Jacobi sweep (3 rows)
+OPS_SOLVE_PREP = 400         # one contact's constants in sweep 0
+OPS_INTEGRATE = 60           # one body's pos/quat integration
 
 
 def log(msg: str) -> None:
@@ -99,6 +130,20 @@ def median_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, what binds it): the larger of the
+    bytes moved once over the memory rate and the f32 operations over the
+    peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 def row_check(name, got, ref, rtol):
     """max |got − ref| over rows, each within rtol · max(|ref row|, 1e-3)."""
     err = 0.0
@@ -111,9 +156,101 @@ def row_check(name, got, ref, rtol):
     return err
 
 
-def check_kernels(state, cfg):
-    """Phase 3: each kernel against its plain version at the pile's
-    shapes. Returns {name: (max_abs_err, ms, plain_ms)}."""
+def sat_lanes(state, geom, cand, cfg, hulls: bool):
+    """(live candidate lanes, the lanes the SAT runs on as two [24, L]
+    lane geometries): the survivors of the tables' OBB prefilter, at most
+    bucket_cap2 per bucket; for hulls, only the lanes the SAT does not
+    skip (two hulls, one of them movable)."""
+    la, lb, _, kw = table_operands(state, cand, cfg, None, geom, "lanes")
+    ga, gb = lane_geometry(geom, la), lane_geometry(geom, lb)
+    if kw["cap2"]:
+        la, lb, _ = obb_prefilter(ga, gb, la, lb, kw["cap2"], hulls)
+        ga, gb = lane_geometry(geom, la), lane_geometry(geom, lb)
+    keep = la >= 0
+    if hulls:
+        keep = keep & ((ga[17] > 0) | (gb[17] > 0)) & (ga[19] > 0) & (
+            gb[19] > 0)
+    return int(cand.mask.sum()), ga[:, keep], gb[:, keep]
+
+
+def solve_bound(table, warm, geom, z, lam, pq, sweeps: int, n: int):
+    act = int((table[CT_ACT] > 0).sum())
+    ops = act * (OPS_SOLVE_PREP + OPS_SOLVE_CONTACT * sweeps) \
+        + n * OPS_INTEGRATE
+    return bound(nbytes(table, warm, geom, z, lam, pq), ops)
+
+
+def check_solve(state, cfg, table, warm, geom, label):
+    """2.3 on a fresh table (rebuild schedule) and on the state's
+    persisted table (refresh schedule). Returns (max err, {schedule:
+    (kernel ms, plain ms, bound)})."""
+    n = state.num_bodies
+    cp = table.shape[1]
+    geom_r = unified_geom(state, cfg, state.contact_order,
+                          hulls=cfg.hull_table)
+    warm_r = torch.cat([state.contact_lam, torch.zeros(
+        (5, cp), device=geom.device)])
+    cases = {"rebuild": (table, warm, geom, cfg.contact_iters),
+             "refresh": (state.contact_table, warm_r, geom_r,
+                         cfg.contact_refresh_iters)}
+    err_s = 0.0
+    out = {}
+    for sched, (tab, wrm, g, it) in cases.items():
+        def run(plain, tab=tab, wrm=wrm, g=g, it=it):
+            return banded_sweeps_fused(
+                tab, wrm, g, cfg, vel_iters=it, pos_iters=it,
+                use_split=True, integrate=(cfg.dt, True), plain=plain)
+        zk, lk4, pk = run(False)
+        zp, lp4, pp = run(True)
+        e = max(row_check(f"solve {sched} z", zk[:, :n], zp[:, :n],
+                          SOLVE_RTOL),
+                row_check(f"solve {sched} lam", lk4, lp4, SOLVE_RTOL),
+                row_check(f"solve {sched} posq", pk[:, :n], pp[:, :n],
+                          SOLVE_RTOL))
+        err_s = max(err_s, e)
+        kms, pms = median_ms(lambda: run(False), 20), median_ms(
+            lambda: run(True), 3)
+        bnd = solve_bound(tab, wrm, g, zk, lk4, pk, it + 1, n)
+        out[sched] = (kms, pms, bnd)
+        log(f"2.3 banded solve ({label} {sched}, {it + 1} sweeps): "
+            f"max |Δ| {e}; kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return err_s, out
+
+
+def check_table(name, fn_kernel, fn_plain, n, geom):
+    """A contact-table kernel against its plain version: integer rows,
+    meta and warm rows identical, f32 rows within TABLE_TOL × extent.
+    Returns (outputs, max err, kernel ms, plain ms, active contacts)."""
+    tk, mk, wk = fn_kernel()
+    tp, mp, wp = fn_plain()
+    for r in EXACT_ROWS:
+        if not torch.equal(tk[r], tp[r]):
+            raise AssertionError(f"{name}: table row {r} differs")
+    if not (torch.equal(mk, mp) and torch.equal(wk, wp)):
+        raise AssertionError(f"{name}: meta/warm rows differ")
+    extent = float(geom[0:3, :n].abs().max())
+    err = float((tk - tp).abs().max())
+    if not err <= TABLE_TOL * extent:
+        raise AssertionError(f"{name}: f32 rows |Δ| {err}")
+    kms = median_ms(fn_kernel, 20)
+    pms = median_ms(fn_plain, 3)
+    return (tk, mk, wk), err, kms, pms, int(tk[CT_ACT].sum())
+
+
+def table_bytes(state, geom, cand, prev, outs, *extra) -> int:
+    """Bytes a table call must move: the narrow-phase rows of the
+    geometry table (24:48, the only rows either table reads) for the
+    scene's ranks, the candidate lanes, the previous keys and impulses,
+    and `extra` (the hull library); the table, meta and warm rows
+    written."""
+    return nbytes(geom[24:48, :state.num_bodies], cand.rank_a, cand.rank_b,
+                  *prev, *outs, *extra)
+
+
+def check_pile_kernels(state, cfg):
+    """Phase 3: each pile kernel against its plain version at the pile's
+    shapes. Returns {name: (max_abs_err, ms, plain_ms, bound)}."""
     n = state.num_bodies
     out = {}
     aabbs = body_aabbs(state)
@@ -128,68 +265,106 @@ def check_kernels(state, cfg):
         raise AssertionError("sweep masks differ from the plain version")
     log(f"2.1 sweep masks: identical ({int(mk.sum())} overlaps, "
         f"{int(lk.sum())} window-edge ranks)")
+    # six interval compares and their conjunction per (rank, offset)
+    bnd = bound(nbytes(aabb_s, coll_s, mk, lk), 8 * n * k)
     out["sweep_window_masks"] = (0.0, median_ms(
         lambda: sweep_window_masks(aabb_s, coll_s, k), 50), median_ms(
-        lambda: sweep_window_masks(aabb_s, coll_s, k, plain=True), 10))
+        lambda: sweep_window_masks(aabb_s, coll_s, k, plain=True), 10), bnd)
 
     cand = pair_candidates(state, cfg, aabbs, order)
     geom = unified_geom(state, cfg, order)
     prev = (state.contact_key, state.contact_lam)
-    tk, mtk, wk = bucket_contact_table(state, cand, cfg, prev=prev,
-                                       geom=geom)
-    tp, mtp, wp = bucket_contact_table(state, cand, cfg, prev=prev,
-                                       geom=geom, plain=True)
-    for r in EXACT_ROWS:
-        if not torch.equal(tk[r], tp[r]):
-            raise AssertionError(f"contact table row {r} differs")
-    if not (torch.equal(mtk, mtp) and torch.equal(wk, wp)):
-        raise AssertionError("contact table meta/warm rows differ")
-    extent = float(geom[0:3, :n].abs().max())
-    err_t = float((tk - tp).abs().max())
-    if not err_t <= 1e-5 * extent:
-        raise AssertionError(f"contact table f32 rows: |Δ| {err_t}")
-    meta = mtk[0].reshape(-1, 128)
+    (tk, mk, wk), err, kms, pms, act = check_table(
+        "contact table",
+        lambda: bucket_contact_table(state, cand, cfg, prev=prev, geom=geom),
+        lambda: bucket_contact_table(state, cand, cfg, prev=prev, geom=geom,
+                                     plain=True),
+        n, geom)
+    meta = mk[0].reshape(-1, BLOCK)
+    live, ga, _ = sat_lanes(state, geom, cand, cfg, hulls=False)
+    sat = ga.shape[1]
+    bnd = bound(table_bytes(state, geom, cand, prev, (tk, mk, wk)),
+                OPS_OBB_PREFILTER * live + OPS_BOX_MANIFOLD * sat
+                + OPS_EMIT * act)
     log(f"2.2 contact table: keys/activity/ranks/meta/warm identical, f32 "
-        f"rows max |Δ| {err_t} (tol {1e-5 * extent:.3g}); "
-        f"{int(tk[CT_ACT].sum())} contacts, dropped {int(meta[:, 0].sum())},"
-        f" prefilter drops {int(meta[:, 2].sum())}")
-    out["bucket_contact_table"] = (err_t, median_ms(
-        lambda: bucket_contact_table(state, cand, cfg, prev=prev,
-                                     geom=geom), 20), median_ms(
-        lambda: bucket_contact_table(state, cand, cfg, prev=prev,
-                                     geom=geom, plain=True), 3))
-
-    # 2.3 on the rebuild schedule (fresh table + warm rows) and on the
-    # refresh schedule (the state's persisted table and rank order)
-    cp = tk.shape[1]
-    r_it = cfg.contact_refresh_iters
-    geom_r = unified_geom(state, cfg, state.contact_order)
-    warm_r = torch.cat([state.contact_lam, torch.zeros(
-        (5, cp), device=geom.device)])
-    cases = {"rebuild": (tk, wk, geom, cfg.contact_iters),
-             "refresh": (state.contact_table, warm_r, geom_r, r_it)}
-    err_s = 0.0
-    times = {}
-    for label, (tab, warm, g, it) in cases.items():
-        def run(plain, tab=tab, warm=warm, g=g, it=it):
-            return banded_sweeps_fused(
-                tab, warm, g, cfg, vel_iters=it, pos_iters=it,
-                use_split=True, integrate=(cfg.dt, True), plain=plain)
-        zk, lk4, pk = run(False)
-        zp, lp4, pp = run(True)
-        e = max(row_check(f"solve {label} z", zk[:, :n], zp[:, :n],
-                          SOLVE_RTOL),
-                row_check(f"solve {label} lam", lk4, lp4, SOLVE_RTOL),
-                row_check(f"solve {label} posq", pk[:, :n], pp[:, :n],
-                          SOLVE_RTOL))
-        err_s = max(err_s, e)
-        times[label] = (median_ms(lambda: run(False), 20),
-                        median_ms(lambda: run(True), 3))
-        log(f"2.3 banded solve ({label}, {it + 1} sweeps): "
-            f"max |Δ| {e}; kernel {times[label][0]:.4f} ms, plain "
-            f"{times[label][1]:.4f} ms")
+        f"rows max |Δ| {err}; {act} contacts, dropped "
+        f"{int(meta[:, 0].sum())}, prefilter drops {int(meta[:, 2].sum())};"
+        f" kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.5f} ms "
+        f"({bnd[1]}; {live} candidate lanes, {sat} SAT lanes)")
+    out["bucket_contact_table"] = (err, kms, pms, bnd)
+    err_s, times = check_solve(state, cfg, tk, wk, geom, "pile")
     out["banded_sweeps_fused"] = (err_s,) + times["rebuild"]
     return out
+
+
+def hull_table_ops(geom, cand, cfg, state, act):
+    """The f32 operations a hull table needs on these inputs: the least
+    work of the function, not of the linear-coefficient form the kernel
+    evaluates. Each SAT lane of ordered type pair (a, b), with F faces,
+    V vertices, D edge directions and E2 edges of each hull from the
+    library: each hull's vertices into the other's frame (18 per
+    vertex); every face against the other hull's vertices, a 3-term dot
+    and a min each (6); D_a·D_b edge axes, each a cross product, its
+    length, both hulls' supports (7 per vertex) and the separation (31);
+    then, counted from csrc/hull_table.cu, the incident face (6 per face
+    of the smaller hull), the two face polygons into world, the clip
+    frame, E clips of 2E slots (19 per slot), the edge-edge point (3 per
+    edge and the chosen axis' supports) and kk top-k picks. The
+    prefilter per live candidate lane; per hull rank the kg lowest of
+    its vertices (6 to place one, kg compares); per active contact its
+    emission. Returns (operations, live lanes, SAT lanes, the SAT lanes'
+    ordered type pairs)."""
+    hs = state.hulls
+    dm = ht.hull_dims(hs)
+    e = dm.e
+    live, ga, gb = sat_lanes(state, geom, cand, cfg, hulls=True)
+    ta, tb = (ga[19] - 1).long(), (gb[19] - 1).long()
+    f, v = hs.face_count.double(), hs.vert_count.double()
+    d, e2 = hs.edge_dir_count.double(), hs.edge_count.double()
+    fa, fb, va, vb = f[ta], f[tb], v[ta], v[tb]
+    sat = (75 + 18 * (va + vb) + 6 * (fa * vb + fb * va) + 2 * (fa + fb)
+           + 15 * d[tb] + d[ta] * d[tb] * (31 + 7 * (va + vb)))
+    manifold = (6 * torch.minimum(fa, fb) + 36 * e + 21 + 30 + 26 * e
+                + e * 2 * e * 19 + 3 * (e2[ta] + e2[tb]) + 7 * (va + vb)
+                + 132 + 56 * min(cfg.max_contacts_per_pair, 2 * e + 1))
+    kg = min(cfg.max_contacts_per_pair, 8, dm.vcap)
+    vr = v[torch.clamp(state.shapes.hull_index, 0).long()]
+    ops = (OPS_OBB_PREFILTER * live + float((sat + manifold).sum())
+           + float(((6 + kg) * vr).sum()) + OPS_EMIT * act)
+    return ops, live, ta.numel(), ta * hs.verts.shape[0] + tb
+
+
+def check_hull_table(state, cfg, label):
+    """2.4 against its plain version at this scene's shapes. Returns
+    (outputs, geom, the ordered type pair of each lane the SAT runs on,
+    max err, kernel ms, plain ms, bound)."""
+    n = state.num_bodies
+    aabbs = body_aabbs(state)
+    order = sweep_order(state, aabbs)
+    cand = pair_candidates(state, cfg, aabbs, order)
+    geom = unified_geom(state, cfg, order, hulls=True)
+    prev = (state.contact_key, state.contact_lam)
+    (tk, mk, wk), err, kms, pms, act = check_table(
+        "hull table",
+        lambda: ht.bucket_hull_contact_table(state, cand, cfg, prev=prev,
+                                             geom=geom),
+        lambda: ht.bucket_hull_contact_table(state, cand, cfg, prev=prev,
+                                             geom=geom, plain=True),
+        n, geom)
+    meta = mk[0].reshape(-1, BLOCK)
+    ops, live, sat, pairs_sat = hull_table_ops(geom, cand, cfg, state, act)
+    library = [getattr(state.hulls, f.name)
+               for f in dataclasses.fields(state.hulls)]
+    bnd = bound(table_bytes(state, geom, cand, prev, (tk, mk, wk),
+                            *library), ops)
+    pairs = int((tk[CT_ACT] * (1 - tk[CT_KSGN])).sum())
+    log(f"2.4 hull table ({label}): keys/activity/ranks/meta/warm "
+        f"identical, f32 rows max |Δ| {err}; {act} contacts ({pairs} "
+        f"pair), dropped {int(meta[:, 0].sum())}, prefilter drops "
+        f"{int(meta[:, 2].sum())}; kernel {kms:.4f} ms, plain {pms:.4f} ms,"
+        f" bound {bnd[0]:.5f} ms ({bnd[1]}; {live} candidate lanes, {sat} "
+        f"SAT lanes)")
+    return (tk, mk, wk), geom, pairs_sat, err, kms, pms, bnd
 
 
 def state_close(a, b, what):
@@ -232,6 +407,72 @@ def profile_steps(state, cfg, steps: int) -> None:
             f"{key[:90]}")
 
 
+COUNTED = (sweep_window_masks, bucket_contact_table,
+           ht.bucket_hull_contact_table, banded_sweeps_fused)
+
+
+def drive(label, make, cfg, steps, want, gpu):
+    """prepare_contacts + `steps` fresh steps with the launch counters set
+    to 0 just before and read just after; the checks and the step rate,
+    then one rebuild and one refresh step of the kernel path against the
+    plain path. Returns (launch counts, the last state)."""
+    for fn in COUNTED:
+        fn.launches = 0
+    st = prepare_contacts(make(), cfg)
+    window0 = min(40, steps // 2)
+    torch.cuda.synchronize()
+    host = {"rebuild": [], "refresh": []}
+    for i in range(steps):
+        if i == window0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ts = time.perf_counter()
+        kind = "refresh" if st.step_count_host % cfg.contact_rebuild else \
+            "rebuild"
+        st, m = step_with_metrics(st, cfg)
+        if i >= window0:
+            host[kind].append(1e3 * (time.perf_counter() - ts))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in COUNTED}
+    log(f"{label}: launches over {steps} steps: {launches}")
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+    for name in ("pos", "quat", "vel", "omega"):
+        if not bool(torch.isfinite(getattr(st, name)).all()):
+            raise AssertionError(f"{label}: non-finite {name} after the run")
+    n = st.num_bodies
+    timed = steps - window0
+    log(f"{label}: state finite; pair_overflow {int(m['pair_overflow'])}, "
+        f"contact_overflow {int(m['contact_overflow'])}, max_penetration "
+        f"{float(m['max_penetration']):.4f}, contacts "
+        f"{int(m['contact_count'])}")
+    log(f"{label}: {1e3 * secs / timed:.4f} ms/step, "
+        f"{n * timed / secs:.1f} body-steps/s over steps {window0}..{steps} "
+        f"on {gpu}")
+    # host time to issue each step (no sync inside the window): median and
+    # 90th percentile per branch
+    for kind, ms in host.items():
+        ms.sort()
+        log(f"{label}: {kind} steps issue in {ms[len(ms) // 2]:.4f} ms "
+            f"median, {ms[9 * len(ms) // 10]:.4f} ms p90 ({len(ms)} steps)")
+    # one rebuild step (step_count % K == 0) and one refresh step, kernel
+    # path against plain path from identical states
+    while st.step_count_host % cfg.contact_rebuild:
+        st, _ = step_with_metrics(st, cfg)
+    for what in ("rebuild", "refresh"):
+        sk, mk = step_with_metrics(st, cfg)
+        sp, mp = step_with_metrics(st, cfg, plain=True)
+        state_close(sk, sp, f"{label} {what} step (step {st.step_count_host})")
+        for key in ("contact_count", "pair_overflow", "contact_overflow"):
+            if int(mk[key]) != int(mp[key]):
+                raise AssertionError(f"{label} {what} step: {key} differs")
+        log(f"{label} {what} step {st.step_count_host}: kernel path matches "
+            f"plain path (atol {STEP_ATOL})")
+        st = sk
+    return launches, st
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--settle", type=int, default=60)
@@ -246,85 +487,99 @@ def main() -> int:
     path, nvcc_s, report = _build.build()
     _build.library()
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {nvcc_s:.1f} s)")
+        f"(nvcc {nvcc_s:.1f} s, one process per source)")
     if report:
         log(report.strip())       # ptxas: registers, stack, spills
+    rebuilds = -(-args.steps // 4)
 
+    # ---- phases 3 and 4: the 4k box pile ----
     n = 4096
     cfg = scenes.pile_config(n).replace(contact_iters=8)
 
     def pile():
         return scenes.box_pile(n, x_aspect=16.0, device=dev)
 
-    # ---- phase 3: kernels against their plain versions ----
     st = prepare_contacts(pile(), cfg)
     for _ in range(args.settle):
         st, m = step_with_metrics(st, cfg)
     torch.cuda.synchronize()
-    log(f"settled {args.settle} steps: contacts {int(m['contact_count'])}")
-    results = check_kernels(st, cfg)
-
-    # ---- phase 4: the slice ----
-    counted = (sweep_window_masks, bucket_contact_table, banded_sweeps_fused)
-    for fn in counted:
-        fn.launches = 0
-    st = prepare_contacts(pile(), cfg)
-    window0 = min(40, args.steps // 2)
-    torch.cuda.synchronize()
-    for i in range(args.steps):
-        if i == window0:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        st, m = step_with_metrics(st, cfg)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
-    timed = args.steps - window0
-    rebuilds = -(-args.steps // cfg.contact_rebuild)
-    want = {"sweep_window_masks": rebuilds, "bucket_contact_table": rebuilds,
-            "banded_sweeps_fused": args.steps}
-    log(f"launches over {args.steps} steps: {launches}")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    for name in ("pos", "quat", "vel", "omega"):
-        if not bool(torch.isfinite(getattr(st, name)).all()):
-            raise AssertionError(f"non-finite {name} after the run")
-    log(f"state finite; pair_overflow {int(m['pair_overflow'])}, "
-        f"contact_overflow {int(m['contact_overflow'])}, max_penetration "
-        f"{float(m['max_penetration']):.4f}, contacts "
+    log(f"pile settled {args.settle} steps: contacts "
         f"{int(m['contact_count'])}")
-    ms = 1e3 * secs / timed
-    log(f"slice: {ms:.4f} ms/step, {n * timed / secs:.1f} body-steps/s "
-        f"over steps {window0}..{args.steps} on {gpu}")
+    results = check_pile_kernels(st, cfg)
+    pile_launches, pile_st = drive("pile", pile, cfg, args.steps, {
+        "sweep_window_masks": rebuilds, "bucket_contact_table": rebuilds,
+        "bucket_hull_contact_table": 0, "banded_sweeps_fused": args.steps},
+        gpu)
 
-    # one rebuild step (step_count % 4 == 0) and one refresh step, kernel
-    # path against plain path from identical states
-    for what in ("rebuild", "refresh"):
-        sk, mk = step_with_metrics(st, cfg)
-        sp, mp = step_with_metrics(st, cfg, plain=True)
-        state_close(sk, sp, f"{what} step (step {st.step_count_host})")
-        for key in ("contact_count", "pair_overflow", "contact_overflow"):
-            if int(mk[key]) != int(mp[key]):
-                raise AssertionError(f"{what} step: {key} differs")
-        log(f"{what} step {st.step_count_host}: kernel path matches plain "
-            f"path (atol {STEP_ATOL})")
-        st = sk
-    profile_steps(st, cfg, 8)
+    # ---- phase 5: the 1,024-hull rain ----
+    n = 1024
+    rcfg = scenes.rain_config(n)
+
+    def rain():
+        return scenes.mesh_rain(n, real_assets=False, device=dev)
+
+    st = prepare_contacts(rain(), rcfg)
+    for _ in range(args.settle):
+        st, m = step_with_metrics(st, rcfg)
+    torch.cuda.synchronize()
+    log(f"rain settled {args.settle} steps: contacts "
+        f"{int(m['contact_count'])}")
+    (tk, _, wk), geom, _, err, kms, pms, bnd = check_hull_table(
+        st, rcfg, "rain 1024")
+    results["bucket_hull_contact_table"] = (err, kms, pms, bnd)
+    _, rain_solve = check_solve(st, rcfg, tk, wk, geom, "rain")
+    rain_launches, rain_st = drive("rain", rain, rcfg, args.steps, {
+        "sweep_window_masks": rebuilds, "bucket_contact_table": 0,
+        "bucket_hull_contact_table": rebuilds,
+        "banded_sweeps_fused": args.steps}, gpu)
+
+    # ---- phase 6: the 3-type hull library, all 9 ordered type pairs ----
+    n = 128
+    mcfg = scenes.rain_config(n)
+    st = prepare_contacts(scenes.mesh_rain_mixed(
+        n, n_types=3, real_assets=False, device=dev), mcfg)
+    for _ in range(args.settle):
+        st, m = step_with_metrics(st, mcfg)
+    torch.cuda.synchronize()
+    _, _, pairs_sat, err_m, _, _, _ = check_hull_table(
+        st, mcfg, "mixed 128 x 3 types")
+    seen = sorted(set(pairs_sat.tolist()))
+    log(f"mixed: ordered type pairs among the lanes the SAT runs on "
+        f"(after the prefilter): {seen}")
+    if seen != list(range(9)):
+        raise AssertionError(f"mixed: type pairs {seen} != all 9")
+    results["bucket_hull_contact_table"] = (
+        max(err, err_m),) + results["bucket_hull_contact_table"][1:]
+
+    # ---- profiles, after every timed window: a finished profiler
+    # session can leave the launch path slower ----
+    for label, st, c in (("pile", pile_st, cfg), ("rain", rain_st, rcfg)):
+        log(f"{label}:")
+        profile_steps(st, c, 8)
 
     sources = {
         "sweep_window_masks": ("triton", "physics_tpu_torch/ops/sweep_kernel.py",
-                               "physics_tpu/ops/sweep_pallas.py:61"),
+                               "physics_tpu/ops/sweep_pallas.py:91"),
         "bucket_contact_table": ("cuda", "physics_tpu_torch/csrc/contact_table.cu",
-                                 "physics_tpu/ops/contact_table.py:844"),
+                                 "physics_tpu/ops/contact_table.py:1032"),
+        "bucket_hull_contact_table": ("cuda", "physics_tpu_torch/csrc/hull_table.cu",
+                                      "physics_tpu/ops/hull_table.py:1218"),
         "banded_sweeps_fused": ("cuda", "physics_tpu_torch/csrc/banded_solve.cu",
-                                "physics_tpu/solver/contacts_pallas.py:736"),
+                                "physics_tpu/solver/contacts_pallas.py:861"),
     }
     kernels = []
     for name, (route, src, rep) in sources.items():
-        err, kms, pms = results[name]
+        err, kms, pms, (bms, by) = results[name]
+        by_path = {"pile": pile_launches[name], "rain": rain_launches[name]}
         kernels.append({"name": name, "route": route, "source": src,
-                        "replaces": rep, "launches": launches[name],
-                        "max_abs_err": err, "ms": kms, "plain_ms": pms})
+                        "replaces": rep,
+                        "launches": by_path["pile"] + by_path["rain"],
+                        "launches_by_path": by_path,
+                        "max_abs_err": err, "ms": kms, "plain_ms": pms,
+                        "bound_ms": bms, "bound_by": by,
+                        # no single PyTorch call computes any of these
+                        "library_ms": None})
+    log(f"rain solve: {json.dumps(rain_solve)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
-"""Build and load the CUDA kernels (csrc/*.cu) as one shared library.
+"""Build and load the CUDA kernels (csrc/*.cu).
 
-The sources have a plain C interface and are compiled with nvcc for
-Hopper (sm_90a) into `_build/`, at first use, keyed by a hash of the
-sources and flags; the library is loaded with ctypes. Every pointer and
-the stream cross as c_void_p, every size as c_int. Nothing here runs
-when the module is imported.
+Each source has a plain C interface and is compiled with nvcc for Hopper
+(sm_90a) into its own shared library under `_build/<hash>/`, at first
+use; the hash covers every source, header and flag. All the nvcc
+processes start together, so the build takes as long as the slowest
+file. The libraries are loaded with ctypes: every pointer and the stream
+cross as c_void_p, every size as c_int. Nothing here runs when the module
+is imported.
 
 `-fmad=false` keeps every multiply and add separately rounded, as
 PyTorch's elementwise operators round them, so a kernel that computes
@@ -22,6 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -43,6 +46,19 @@ SIGNATURES = {
         _P, _P, _P,                # table, meta, warm (or NULL)
         _I, _I, _I, _I, _I, _I,    # nb, cap, cap2, ccap, kk, kg
         _I, _I,                    # npad, rows
+        _F,                        # ground height
+        _P,                        # stream
+    ],
+    "ht_bucket_hull_contact_table": [
+        _P, _P, _P, _P,            # geom, la, lb, prev cols (or NULL)
+        _P, _P, _P, _P, _P,        # c16, c32, c88, c80, cb
+        _P, _P, _P,                # edge indices, ground verts, vertex bias
+        _P, _P, _P,                # table, meta, warm (or NULL)
+        _P, _P, _P, _P,            # scratch: lanes, drops, emissions f/i
+        _I, _I, _I, _I, _I, _I,    # nb, cap, cap2, ccap, kk, kg
+        _I, _I, _I,                # npad, rows, hull types
+        _I, _I, _I, _I, _I,        # fp, vcap, d2, d2p, e2p
+        _I, _I, _I,                # rows of c16, c32, cb per type pair
         _F,                        # ground height
         _P,                        # stream
     ],
@@ -81,49 +97,74 @@ def _sources():
 
 
 def library_path() -> Path:
+    """The directory that holds one built library per source."""
     cus, cuhs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in cus + cuhs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libphysics_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"kernels_{h.hexdigest()[:16]}"
 
 
 def build() -> tuple[Path, float, str]:
-    """Compile the library if it is not built yet. Returns (path,
-    seconds spent compiling, compiler output: ptxas's per-kernel report;
-    empty when the library was already built)."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    """Compile every source not built yet, all nvcc processes at once.
+    Returns (library directory, seconds spent compiling, compiler output:
+    ptxas's per-kernel report; empty when everything was built)."""
+    out_dir = library_path()
     cus, _ = _sources()
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, cus)]
+    todo = [cu for cu in cus if not (out_dir / f"{cu.stem}.so").exists()]
+    if not todo:
+        return out_dir, 0.0, ""
+    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for cu in todo:
+        tmp = out_dir / f"{cu.stem}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(cu)]
+        procs.append((cu, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    reports, failed = [], []
+    for cu, tmp, cmd, proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {cu.name}:\n"
+                          f"{' '.join(cmd)}\n{text}")
+            continue
+        os.replace(tmp, out_dir / f"{cu.stem}.so")
+        reports.append(f"== {cu.name}\n{text}")
     secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    return out, secs, res.stdout + res.stderr
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out_dir, secs, "\n".join(reports)
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.pk_error_string.argtypes = [_I]
-    lib.pk_error_string.restype = ctypes.c_char_p
-    return lib
+def library() -> SimpleNamespace:
+    """Every C entry point of the built libraries (built on first use),
+    as attributes of one namespace."""
+    out_dir, _, _ = build()
+    ns = SimpleNamespace()
+    for so in sorted(out_dir.glob("*.so")):
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name, None)
+            if fn is None:
+                continue
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            setattr(ns, name, fn)
+        fn = getattr(lib, "pk_error_string", None)
+        if fn is not None:
+            fn.argtypes = [_I]
+            fn.restype = ctypes.c_char_p
+            ns.pk_error_string = fn
+    missing = [n for n in [*SIGNATURES, "pk_error_string"]
+               if not hasattr(ns, n)]
+    if missing:
+        raise RuntimeError(f"kernel libraries lack {missing}")
+    return ns
 
 
 def check(err: int, what: str) -> None:

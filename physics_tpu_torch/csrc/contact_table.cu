@@ -72,129 +72,10 @@ __device__ __forceinline__ Box zero_box() {
   return b;
 }
 
-__device__ __forceinline__ float hcomp(V3 h, int k) { return k == 0 ? h.x : (k == 1 ? h.y : h.z); }
-
 // torch.sign(x + 1e-30)
 __device__ __forceinline__ float sgn(float x) {
   const float y = x + 1e-30f;
   return y > 0.f ? 1.f : (y < 0.f ? -1.f : 0.f);
-}
-
-// Rᵀ·w for a row-major rotation (contact_table._t_apply).
-__device__ __forceinline__ V3 t_apply(const float* r, V3 w) {
-  return mk(r[0] * w.x + r[3] * w.y + r[6] * w.z,
-            r[1] * w.x + r[4] * w.y + r[7] * w.z,
-            r[2] * w.x + r[5] * w.y + r[8] * w.z);
-}
-
-// contact_table._face_sat_sep
-__device__ float face_sat_sep(const Box& a, const Box& b) {
-  const V3 t = sub(b.p, a.p);
-  const float* ra = a.r;
-  const float* rb = b.r;
-  float cabs[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      cabs[i][j] = fabsf(ra[i] * rb[j] + ra[3 + i] * rb[3 + j] + ra[6 + i] * rb[6 + j]);
-  float best = 0.f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float ut = ra[i] * t.x + ra[3 + i] * t.y + ra[6 + i] * t.z;
-    const float rad = hcomp(a.h, i) + b.h.x * cabs[i][0] + b.h.y * cabs[i][1] + b.h.z * cabs[i][2];
-    const float s = fabsf(ut) - rad;
-    best = i == 0 ? s : fmaxf(best, s);
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float wt = rb[j] * t.x + rb[3 + j] * t.y + rb[6 + j] * t.z;
-    const float rad = hcomp(b.h, j) + a.h.x * cabs[0][j] + a.h.y * cabs[1][j] + a.h.z * cabs[2][j];
-    best = fmaxf(best, fabsf(wt) - rad);
-  }
-  return best;
-}
-
-// One Sutherland–Hodgman half-plane clip (boxbox_batched._clip): keep
-// cu·u + cv·v <= d of the m-point polygon.
-__device__ __forceinline__ void clip(float (&pu)[kCap], float (&pv)[kCap], float (&ps)[kCap], int& m,
-                                     float cu, float cv, float d) {
-  float g[kCap], gn[kCap], un[kCap], vn[kCap], sn[kCap];
-#pragma unroll
-  for (int i = 0; i < kCap; ++i) g[i] = cu * pu[i] + cv * pv[i] - d;
-#pragma unroll
-  for (int i = 0; i < kCap; ++i) {
-    const bool wrap = (i + 1) == m;
-    const int j = (i + 1) % kCap;
-    gn[i] = wrap ? g[0] : g[j];
-    un[i] = wrap ? pu[0] : pu[j];
-    vn[i] = wrap ? pv[0] : pv[j];
-    sn[i] = wrap ? ps[0] : ps[j];
-  }
-  int pos_cur[kCap], pos_int[kCap];
-  float iu[kCap], iv[kCap], is[kCap];
-  int start = 0, total = 0;
-#pragma unroll
-  for (int i = 0; i < kCap; ++i) {
-    const bool live = i < m;
-    const bool inside = (g[i] <= 0.f) && live;
-    const bool crossing = ((g[i] <= 0.f) != (gn[i] <= 0.f)) && live;
-    const float denom = g[i] - gn[i];
-    const float t = fabsf(denom) > 1e-12f ? g[i] / denom : 0.f;
-    iu[i] = pu[i] + t * (un[i] - pu[i]);
-    iv[i] = pv[i] + t * (vn[i] - pv[i]);
-    is[i] = ps[i] + t * (sn[i] - ps[i]);
-    const int emit = (int)inside + (int)crossing;
-    pos_cur[i] = inside ? start : kCap;
-    pos_int[i] = crossing ? start + (int)inside : kCap;
-    start += emit;
-    total += emit;
-  }
-  float ou[kCap], ov[kCap], os[kCap];
-#pragma unroll
-  for (int j = 0; j < kCap; ++j) {
-    float au = 0.f, av = 0.f, as = 0.f;
-#pragma unroll
-    for (int i = 0; i < kCap; ++i) {
-      const bool mc = pos_cur[i] == j;
-      const bool mi = pos_int[i] == j;
-      au = au + (mc ? pu[i] : 0.f) + (mi ? iu[i] : 0.f);
-      av = av + (mc ? pv[i] : 0.f) + (mi ? iv[i] : 0.f);
-      as = as + (mc ? ps[i] : 0.f) + (mi ? is[i] : 0.f);
-    }
-    ou[j] = au;
-    ov[j] = av;
-    os[j] = as;
-  }
-#pragma unroll
-  for (int j = 0; j < kCap; ++j) {
-    pu[j] = ou[j];
-    pv[j] = ov[j];
-    ps[j] = os[j];
-  }
-  m = total < kCap ? total : kCap;
-}
-
-// (best, idx) over n values; ties keep the lowest index.
-template <int N>
-__device__ __forceinline__ void argmax(const float (&v)[N], float& best, int& idx) {
-  best = v[0];
-  idx = 0;
-#pragma unroll
-  for (int k = 1; k < N; ++k) {
-    if (v[k] > best) {
-      best = v[k];
-      idx = k;
-    }
-  }
-}
-
-template <typename T, int N>
-__device__ __forceinline__ T select(int idx, const T (&items)[N]) {
-  T out = items[0];
-#pragma unroll
-  for (int k = 1; k < N; ++k) out = idx == k ? items[k] : out;
-  return out;
 }
 
 // boxbox_batched.box_box_manifold_batched for one pair. Normal B → A.
@@ -444,7 +325,7 @@ contact_table_kernel(const float* __restrict__ geom, const int* __restrict__ la_
         if (la >= 0) {
           const Box ga = load_box(geom, npad, start + la);
           const Box gb = lb >= 0 ? load_box(geom, npad, start + lb) : zero_box();
-          const float sep = face_sat_sep(ga, gb);
+          const float sep = face_sat_sep(sub(gb.p, ga.p), ga.r, gb.r, ga.h, gb.h);
           keep = (sep < 0.f) && ((ga.movable > 0.f) || (gb.movable > 0.f));
         }
       }

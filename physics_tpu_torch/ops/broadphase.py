@@ -1,5 +1,5 @@
 """Sweep broad phase with rank-block bucketed candidates
-(physics_tpu/ops/broadphase.py: `body_aabbs` for boxes, `sweep_order`,
+(physics_tpu/ops/broadphase.py: `body_aabbs`, `sweep_order`,
 `_sweep_masks`, `band_window`, `bucket_shape`,
 `sweep_candidates_bucketed`, `pair_candidates`).
 
@@ -19,7 +19,13 @@ import torch
 from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import quaternion as quat
 from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
-from physics_tpu_torch.state import SHAPE_BOX, SHAPE_NONE, SimState
+from physics_tpu_torch.state import (
+    SHAPE_BOX,
+    SHAPE_HULL,
+    SHAPE_NONE,
+    SHAPE_SPHERE,
+    SimState,
+)
 
 Tensor = torch.Tensor
 
@@ -34,14 +40,18 @@ class PairCandidates(NamedTuple):
 
 
 def body_aabbs(state: SimState) -> Tensor:
-    """World AABBs [N, 2, 3] (min, max) — the |R|·h extent of each box.
-    Other shapes are the generic narrow phase's (ROADMAP item 1.13)."""
+    """World AABBs [N, 2, 3] (min, max): the |R|·h extent of each box; a
+    bounding sphere of radius params[0] for spheres and hulls (the hull's
+    radius is set at scene build)."""
     stype = state.shapes.stype
+    params = state.shapes.params
     rot = quat.to_matrix(state.quat)                          # [N,3,3]
-    ext = torch.sum(torch.abs(rot) * state.shapes.params[:, None, :],
-                    dim=-1)
-    ext = torch.where((stype == SHAPE_BOX)[:, None], ext,
-                      torch.zeros_like(ext))
+    box_ext = torch.sum(torch.abs(rot) * params[:, None, :], dim=-1)
+    sphere_ext = params[:, 0:1].expand_as(box_ext)
+    round_ = (stype == SHAPE_SPHERE) | (stype == SHAPE_HULL)
+    ext = torch.where((stype == SHAPE_BOX)[:, None], box_ext,
+                      torch.where(round_[:, None], sphere_ext,
+                                  torch.zeros_like(box_ext)))
     return torch.stack([state.pos - ext, state.pos + ext], dim=-2)
 
 

@@ -41,7 +41,7 @@ from physics_tpu_torch.ops.broadphase import (
     band_window,
     bucket_shape,
 )
-from physics_tpu_torch.state import SHAPE_BOX, SimState
+from physics_tpu_torch.state import SHAPE_BOX, SHAPE_HULL, SimState
 
 Tensor = torch.Tensor
 
@@ -89,15 +89,21 @@ def geom_pad(n: int, cfg: SimConfig) -> Tuple[int, int]:
     return wtot, npad
 
 
-def unified_geom(state: SimState, cfg: SimConfig, order: Tensor) -> Tensor:
+def unified_geom(state: SimState, cfg: SimConfig, order: Tensor,
+                 hulls: bool = False) -> Tensor:
     """The rank-space geometry table [48, NPAD] shared by the contact
-    table and the solve (box mode):
+    table and the solve:
 
       rows  0:24  solve block: pos | world I⁻¹ row-major | inv_mass | vel |
                   omega | quat (19:23) | 0
       rows 24:48  narrow-phase block: pos | world R row-major | half
-                  extents | friction | restitution | movable·is_box |
-                  body id | is_box | 0 ×4
+                  extents | friction | restitution | movable·is_shape |
+                  body id | is_shape | tail ×4
+    Box mode: is_shape = is_box, tail = 0. Hull mode (the hull table):
+    the half extents are the hull type's local-AABB half extents, row 43
+    carries is_hull·(1 + hull type) so each candidate lane reads its
+    ordered type pair, and rows 44:47 hold the world OBB centre
+    pos + R·(local-AABB centre), then 0.
     Column r is the body of sweep rank r; columns ≥ N are zero."""
     n = state.num_bodies
     _, npad = geom_pad(n, cfg)
@@ -106,7 +112,28 @@ def unified_geom(state: SimState, cfg: SimConfig, order: Tensor) -> Tensor:
     iw9 = v3.sandwich(r9, v3.mat_unpack(state.inv_inertia))
     zero = torch.zeros((n,), dtype=torch.float32, device=state.device)
     pos3 = [state.pos[:, 0], state.pos[:, 1], state.pos[:, 2]]
-    is_box = (state.shapes.stype == SHAPE_BOX).to(torch.float32)
+    if hulls:
+        hs = state.hulls
+        nh, vcap = hs.verts.shape[0], hs.verts.shape[1]
+        vmask = (torch.arange(vcap, device=state.device)[None, :]
+                 < hs.vert_count[:, None])[..., None]       # [H, V, 1]
+        big = torch.full_like(hs.verts, 1e30)
+        lo_t = torch.amin(torch.where(vmask, hs.verts, big), dim=1)
+        hi_t = torch.amax(torch.where(vmask, hs.verts, -big), dim=1)
+        hidx = torch.clamp(state.shapes.hull_index, 0, nh - 1).long()
+        co_b = ((lo_t + hi_t) * 0.5)[hidx]                  # [n, 3]
+        hh_b = ((hi_t - lo_t) * 0.5)[hidx]
+        half3 = [hh_b[:, 0], hh_b[:, 1], hh_b[:, 2]]
+        tail = [pos3[c] + r9[3 * c] * co_b[:, 0]
+                + r9[3 * c + 1] * co_b[:, 1]
+                + r9[3 * c + 2] * co_b[:, 2] for c in range(3)] + [zero]
+        is_shape = ((state.shapes.stype == SHAPE_HULL).to(torch.float32)
+                    * (1.0 + hidx.to(torch.float32)))
+    else:
+        is_shape = (state.shapes.stype == SHAPE_BOX).to(torch.float32)
+        half3 = [state.shapes.params[:, 0], state.shapes.params[:, 1],
+                 state.shapes.params[:, 2]]
+        tail = [zero] * 4
     rows = torch.stack(
         pos3 + list(iw9)
         + [state.inv_mass,
@@ -114,13 +141,12 @@ def unified_geom(state: SimState, cfg: SimConfig, order: Tensor) -> Tensor:
            state.omega[:, 0], state.omega[:, 1], state.omega[:, 2],
            state.quat[:, 0], state.quat[:, 1], state.quat[:, 2],
            state.quat[:, 3], zero]
-        + pos3 + list(r9)
-        + [state.shapes.params[:, 0], state.shapes.params[:, 1],
-           state.shapes.params[:, 2], state.shapes.friction,
-           state.shapes.restitution, movable * is_box,
+        + pos3 + list(r9) + half3
+        + [state.shapes.friction, state.shapes.restitution,
+           movable * is_shape,
            torch.arange(n, dtype=torch.float32, device=state.device),
-           is_box]
-        + [zero] * 4)                                      # [48, N]
+           is_shape]
+        + tail)                                            # [48, N]
     rows = rows[:, order.long()]
     geom = torch.zeros((48, npad), dtype=torch.float32, device=state.device)
     geom[:, :n] = rows
@@ -207,6 +233,36 @@ def _compact_lanes(keep: Tensor, la: Tensor, lb: Tensor, out_cap: int):
     return out_a[:, :out_cap], out_b[:, :out_cap], dropped
 
 
+def lane_geometry(geom: Tensor, loc: Tensor) -> Tensor:
+    """The narrow-phase block (rows 24:48) of window-local ranks loc
+    [NB, L] (bucket b's window starts at rank b·128; −1 = empty lane,
+    read as zeros) → [24, NB, L]."""
+    nb = loc.shape[0]
+    start = torch.arange(nb, device=geom.device,
+                         dtype=torch.int64)[:, None] * BLOCK
+    g = geom[24:48, start + torch.clamp(loc.to(torch.int64), min=0)]
+    return torch.where((loc >= 0)[None], g, torch.zeros_like(g))
+
+
+def obb_prefilter(ga, gb, la: Tensor, lb: Tensor, cap2: int, hulls: bool):
+    """Both tables' prefilter: the 6 face axes of the two oriented boxes
+    (boxes: the boxes themselves; hulls: their local AABBs, centred at
+    rows 20:23) on every candidate lane; the overlapping lanes with a
+    movable body (and two hulls) compacted, in order, into cap2 lanes.
+    Returns (la, lb, dropped [NB])."""
+    c = 20 if hulls else 0
+    t = (gb[c] - ga[c], gb[c + 1] - ga[c + 1], gb[c + 2] - ga[c + 2])
+    sep_best = _face_sat_sep(
+        t, tuple(ga[3 + k] for k in range(9)),
+        tuple(gb[3 + k] for k in range(9)),
+        (ga[12], ga[13], ga[14]), (gb[12], gb[13], gb[14]))
+    keep = ((sep_best < 0.0) & ((ga[17] > 0.0) | (gb[17] > 0.0))
+            & (la >= 0))
+    if hulls:
+        keep = keep & (ga[19] > 0.0) & (gb[19] > 0.0)
+    return _compact_lanes(keep, la, lb, cap2)
+
+
 def _t_apply(g, w):
     """Rᵀ·w for the row-major rotation at g[3:12]."""
     return (g[3] * w[0] + g[6] * w[1] + g[9] * w[2],
@@ -231,23 +287,11 @@ def bucket_contact_table_plain(geom: Tensor, la: Tensor, lb: Tensor,
     start = torch.arange(nb, device=dev, dtype=torch.int64)[:, None] * BLOCK
     f32 = torch.float32
 
-    def gather(loc):
-        idx = start + torch.clamp(loc.to(torch.int64), min=0)
-        g = win[:, idx]                                    # [24, NB, L]
-        return torch.where((loc >= 0)[None], g, torch.zeros_like(g))
-
-    ga, gb = gather(la), gather(lb)
+    ga, gb = lane_geometry(geom, la), lane_geometry(geom, lb)
     dropped2 = torch.zeros((nb,), dtype=torch.int64, device=dev)
     if cap2:
-        t = (gb[0] - ga[0], gb[1] - ga[1], gb[2] - ga[2])
-        ra = tuple(ga[3 + k] for k in range(9))
-        rb = tuple(gb[3 + k] for k in range(9))
-        sep_best = _face_sat_sep(t, ra, rb, (ga[12], ga[13], ga[14]),
-                                 (gb[12], gb[13], gb[14]))
-        keep = ((sep_best < 0.0) & ((ga[17] > 0.0) | (gb[17] > 0.0))
-                & (la >= 0))
-        la, lb, dropped2 = _compact_lanes(keep, la, lb, cap2)
-        ga, gb = gather(la), gather(lb)
+        la, lb, dropped2 = obb_prefilter(ga, gb, la, lb, cap2, hulls=False)
+        ga, gb = lane_geometry(geom, la), lane_geometry(geom, lb)
 
     man = box_box_manifold_batched(
         (ga[0], ga[1], ga[2]), tuple(ga[3 + k] for k in range(9)),
@@ -330,14 +374,29 @@ def bucket_contact_table_plain(geom: Tensor, la: Tensor, lb: Tensor,
                  act, anc)
             gsc = [torch.where(bidx == s, big_g, gsc[s]) for s in range(8)]
 
+    return compact_emissions(rows, ccap, dropped2, pcols)
+
+
+def compact_emissions(rows, ccap: int, dropped2: Tensor,
+                      pcols: Tensor | None):
+    """The shared tail of both table kernels' plain versions. `rows[r]`
+    lists the emissions' row-r values as [NB, L] tensors in emission
+    order; the active ones take consecutive slots of their bucket (slots
+    ≥ ccap are dropped and counted), then the meta counters and, with
+    `pcols`, each slot's warm λ₀ from the previous contact of its bucket
+    with the same feature key. Returns (table [rows, NB·ccap], meta
+    [8, NB·128], warm [8, NB·ccap] | None)."""
     pay = torch.stack([torch.cat(r, dim=1) for r in rows])  # [rows, NB, E]
+    rows_n, nb = pay.shape[0], pay.shape[1]
+    dev, f32 = pay.device, pay.dtype
     act = pay[CT_ACT] > 0.0
     slot = torch.cumsum(act.to(torch.int64), dim=1) - act.to(torch.int64)
     ok = act & (slot < ccap)
     idx = torch.where(ok, slot, torch.full_like(slot, ccap))
     out = torch.zeros((rows_n, nb, ccap + 1), dtype=f32, device=dev)
     out.scatter_(2, idx[None].expand(rows_n, -1, -1), pay)
-    out = out[:, :, :ccap]
+    # contiguous also for one bucket, where the reshape below is a view
+    out = out[:, :, :ccap].contiguous()
 
     n_act = act.sum(dim=1)
     meta = torch.zeros((8, nb, BLOCK), dtype=f32, device=dev)
@@ -414,6 +473,55 @@ def _launch_kernel(geom, la, lb, pcols, *, ccap, kk, kg, cap2,
     return table, meta, warm
 
 
+def table_operands(state: SimState, cand: PairCandidates, cfg: SimConfig,
+                   prev: Tuple[Tensor, Tensor] | None, geom: Tensor | None,
+                   what: str):
+    """The checks and operands both table kernels share: la/lb [NB, cap]
+    int32 window-local candidate ranks (−1 = empty lane), the previous
+    step's key columns (or None), and the keywords ccap, cap2 (0 when the
+    prefilter cap does not cut), ground_height and anchors."""
+    n = state.num_bodies
+    if n > (1 << 16):
+        raise ValueError(
+            f"{what}: the stored feature keys pack body ids in 16 bits "
+            f"(table_keys), so scenes above 65,536 bodies would alias warm "
+            f"starts")
+    if cfg.bp_inkernel or cand is None:
+        raise NotImplementedError(
+            "the in-kernel broad phase (bp_inkernel) is ROADMAP item 1.10")
+    block, cap, nb_cand = bucket_shape(n, cfg)
+    if block != BLOCK:
+        raise ValueError(f"{what} requires bucket_block == {BLOCK} "
+                         f"(got {block})")
+    nb, ccap, _ = table_shape(n, cfg)
+    if nb != nb_cand:
+        raise ValueError(f"{what}: {nb} table buckets, {nb_cand} candidate "
+                         f"buckets")
+    _, npad = geom_pad(n, cfg)
+    if geom is None or geom.shape != (48, npad):
+        raise ValueError(f"{what}: pass the unified geometry table "
+                         f"[48, {npad}] (unified_geom)")
+    cap2 = cfg.bucket_cap2
+    if cap2:
+        if cap2 % 128:
+            raise ValueError(
+                f"bucket_cap2 must be a 128-multiple; got {cap2}")
+        # a cap2 at or above the bucket's lane count is no cut
+        cap2 = min(cap2, cap)
+        if cap2 == cap:
+            cap2 = 0
+    base = (torch.arange(nb, dtype=torch.int32, device=geom.device)
+            * BLOCK)[:, None]
+    la = torch.where(cand.mask.reshape(nb, cap),
+                     cand.rank_a.reshape(nb, cap) - base, -1).contiguous()
+    lb = torch.where(cand.mask.reshape(nb, cap),
+                     cand.rank_b.reshape(nb, cap) - base, -1).contiguous()
+    pcols = prev_key_cols(*prev) if prev is not None else None
+    kw = dict(ccap=ccap, cap2=cap2, ground_height=float(cfg.ground_height),
+              anchors=cfg.contact_rebuild > 1)
+    return la, lb, pcols, kw
+
+
 def bucket_contact_table(
     state: SimState,
     cand: PairCandidates,
@@ -430,49 +538,15 @@ def bucket_contact_table(
     bucket_cap2, + 3 = 0 (in-kernel broad phase only, not ported).
     `prev = (keys [2, cp] int32, λ [3, cp])` of the previous step gives
     each fresh contact its warm λ₀ (warm rows 0:3) by matching keys
-    within the same bucket. `geom` is the unified table (built from
-    `state` in sweep order when None — pass the rebuild's own).
+    within the same bucket. `geom` is the rebuild's unified geometry
+    table (unified_geom).
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA
     tensor launches csrc/contact_table.cu."""
-    n = state.num_bodies
-    if n > (1 << 16):
-        raise ValueError(
-            "contact table: the stored feature keys pack body ids in 16 "
-            "bits (table_keys), so scenes above 65,536 bodies would alias "
-            "warm starts")
-    if cfg.bp_inkernel or cand is None:
-        raise NotImplementedError(
-            "the in-kernel broad phase (bp_inkernel) is ROADMAP item 1.10")
-    block, cap, nb_cand = bucket_shape(n, cfg)
-    if block != BLOCK:
-        raise ValueError(f"contact_table requires bucket_block == {BLOCK} "
-                         f"(got {block})")
-    nb, ccap, cp = table_shape(n, cfg)
-    kk = min(cfg.max_contacts_per_pair, _CAP)
-    kg = min(cfg.max_contacts_per_pair, 8) if cfg.ground_plane else 0
-    _, npad = geom_pad(n, cfg)
-    if geom is None or geom.shape != (48, npad):
-        raise ValueError(f"contact table: pass the unified geometry table "
-                         f"[48, {npad}] (unified_geom)")
-    cap2 = cfg.bucket_cap2
-    if cap2:
-        if cap2 % 128:
-            raise ValueError(
-                f"bucket_cap2 must be a 128-multiple; got {cap2}")
-        cap2 = min(cap2, cap)
-        if cap2 == cap:
-            cap2 = 0
-    base = (torch.arange(nb, dtype=torch.int32, device=geom.device)
-            * BLOCK)[:, None]
-    la = torch.where(cand.mask.reshape(nb, cap),
-                     cand.rank_a.reshape(nb, cap) - base, -1).contiguous()
-    lb = torch.where(cand.mask.reshape(nb, cap),
-                     cand.rank_b.reshape(nb, cap) - base, -1).contiguous()
-    pcols = prev_key_cols(*prev) if prev is not None else None
-    kw = dict(ccap=ccap, kk=kk, kg=kg, cap2=cap2,
-              ground_height=float(cfg.ground_height),
-              anchors=cfg.contact_rebuild > 1)
+    la, lb, pcols, kw = table_operands(state, cand, cfg, prev, geom,
+                                       "contact table")
+    kw["kk"] = min(cfg.max_contacts_per_pair, _CAP)
+    kw["kg"] = min(cfg.max_contacts_per_pair, 8) if cfg.ground_plane else 0
     if plain or geom.device.type == "cpu":
         return bucket_contact_table_plain(geom, la, lb, pcols, **kw)
     if geom.device.type != "cuda":

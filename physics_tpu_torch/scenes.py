@@ -1,6 +1,8 @@
-"""The box pile scene and its production config (physics_tpu/scenes.py
-`box_pile`, `pile_config`). The same numpy draws in the same order give
-the same scene as the JAX package."""
+"""The box pile and the hull rains with their production configs
+(physics_tpu/scenes.py `box_pile`, `pile_config`, `mesh_rain`,
+`mesh_rain_mixed`, `rain_config`). The same numpy draws in the same order
+give the same scenes as the JAX package. Every scene is built on the card
+unless the caller passes device="cpu" (state.resolve_device)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,8 @@ import numpy as np
 import torch
 
 from physics_tpu_torch.config import SimConfig
-from physics_tpu_torch.io.meshes import box_inertia
+from physics_tpu_torch.io.meshes import box_inertia, sphere_inertia
+from physics_tpu_torch.io.primitives import beveled_cube_mesh
 from physics_tpu_torch.scene import SceneBuilder
 from physics_tpu_torch.state import SimState
 
@@ -19,7 +22,7 @@ def box_pile(
     seed: int = 0,
     layers: int = 4,
     x_aspect: float = 16.0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SimState:
     """N-body box pile dropped above the ground plane, laid out as a long
     trench along x so the sort-by-x sweep keeps a low window density."""
@@ -82,5 +85,132 @@ def pile_config(n_bodies: int, dt: float = 1.0 / 60.0) -> SimConfig:
         max_contacts=6 * n_bodies,
         contact_iters=16,
         pallas_window=384,
+        dt=dt,
+    )
+
+
+def _check_procedural(real_assets: bool | None) -> None:
+    if real_assets:
+        raise NotImplementedError(
+            "the real cube asset (res/cube.obj through io/assets.py, "
+            "io/objloader.py and plane_cut_hull) is not in the repository; "
+            "the port's rain uses the procedural bevelled cube, as the JAX "
+            "package does without the files (ROADMAP item 1.12)")
+
+
+def _rain_grid(b: SceneBuilder, n_bodies: int, size: float, rng,
+               body_hull):
+    """The rain column: square layers of `side`² bodies, 2.5·size apart,
+    3·size between layers, jittered and randomly oriented.
+    `body_hull(count)` gives each body's (hull id, inertia)."""
+    side = max(1, int(np.ceil(np.sqrt(n_bodies / 4))))
+    count = 0
+    for layer in range(10**9):
+        if count >= n_bodies:
+            break
+        for gx in range(side):
+            for gz in range(side):
+                if count >= n_bodies:
+                    break
+                jitter = rng.uniform(-0.2, 0.2, 3)
+                hull, inertia = body_hull(count)
+                i = b.add_body(
+                    pos=(
+                        (gx - side / 2) * 2.5 * size + jitter[0],
+                        1.5 * size + layer * 3.0 * size + jitter[1],
+                        (gz - side / 2) * 2.5 * size + jitter[2],
+                    ),
+                    euler=rng.uniform(-1.5, 1.5, 3),
+                    inertia=inertia,
+                )
+                b.set_hull(i, hull, friction=0.4, restitution=0.05)
+                count += 1
+
+
+def mesh_rain(n_bodies: int = 128, seed: int = 0, size: float = 0.5,
+              bevel: float = 0.1, real_assets: bool | None = None,
+              device: torch.device | str = "cuda") -> SimState:
+    """Convex-hull bevelled cubes raining onto the ground: every body is
+    the procedural bevel-edged cube (24 vertices, 26 faces) as a convex
+    hull, randomly oriented, falling from a column. `real_assets=True`
+    (the reference's res/cube.obj) raises; None means procedural."""
+    _check_procedural(real_assets)
+    rng = np.random.default_rng(seed)
+    verts, _ = beveled_cube_mesh(size=size, bevel=bevel)
+    inertia = box_inertia((size,) * 3, 1.0)
+    b = SceneBuilder()
+    hull = b.add_hull(verts)
+    _rain_grid(b, n_bodies, size, rng, lambda count: (hull, inertia))
+    return b.build(device)
+
+
+def mesh_rain_mixed(n_bodies: int = 128, seed: int = 0, size: float = 0.5,
+                    real_assets: bool | None = None, n_types: int = 2,
+                    device: torch.device | str = "cuda") -> SimState:
+    """Multi-hull-type rain: bodies cycle through `n_types` distinct hull
+    shapes (bevel cube, octahedron, and at n_types=3 a wedge prism)."""
+    _check_procedural(real_assets)
+    rng = np.random.default_rng(seed)
+    cube_verts, _ = beveled_cube_mesh(size=size, bevel=0.1 * size / 0.5)
+    cube_inertia = box_inertia((size,) * 3, 1.0)
+    s = 1.3 * size
+    octa_verts = np.array(
+        [[s, 0, 0], [-s, 0, 0], [0, s, 0], [0, -s, 0],
+         [0, 0, s], [0, 0, -s]], np.float32)
+    octa_inertia = sphere_inertia(0.7 * s, 1.0)
+    # the wedge is not centred on its centre of mass; kept as the JAX
+    # package has it, so both packages build the same scene
+    wedge_verts = np.array(
+        [[s, -0.5 * s, 0.8 * s], [s, -0.5 * s, -0.8 * s],
+         [-s, -0.5 * s, 0.8 * s], [-s, -0.5 * s, -0.8 * s],
+         [s, 0.7 * s, 0.0], [-s, 0.7 * s, 0.0]], np.float32)
+    wedge_inertia = box_inertia((s, 0.6 * s, 0.8 * s), 1.0)
+    if not 2 <= n_types <= 3:
+        raise ValueError(f"mesh_rain_mixed supports 2-3 types, got {n_types}")
+
+    b = SceneBuilder()
+    hull_ids = [b.add_hull(cube_verts), b.add_hull(octa_verts)]
+    inertias = [cube_inertia, octa_inertia]
+    if n_types >= 3:
+        hull_ids.append(b.add_hull(wedge_verts))
+        inertias.append(wedge_inertia)
+    _rain_grid(b, n_bodies, size, rng,
+               lambda count: (hull_ids[count % n_types],
+                              inertias[count % n_types]))
+    return b.build(device)
+
+
+def rain_config(n_bodies: int, dt: float = 1.0 / 60.0) -> SimConfig:
+    """The production rain pipeline: bucketed sweep (window 32, 12N
+    candidates), the fused hull contact table (OBB prefilter to 512 lanes
+    per bucket, 4 points per pair, 16N contacts), the fused banded solve
+    with 8 sweeps, anchored rebuild every 4th step with a 4-sweep refresh
+    and no motion guard (see physics_tpu/scenes.py for the measurements
+    behind each value). `z_bf16` is set as in the JAX config and ignored
+    by the port."""
+    return SimConfig(
+        compat=False,
+        ground_plane=True,
+        pair_collisions=True,
+        hulls_only=True,
+        broadphase="sweep",
+        sweep_window=32,
+        max_pair_candidates=12 * n_bodies,
+        hull_prefilter_cap=4 * n_bodies,
+        max_contacts_per_pair=4,
+        max_contacts=16 * n_bodies,
+        contact_solver="pallas_banded",
+        pair_buckets=True,
+        bucket_block=128,
+        contact_table=True,
+        hull_table=True,
+        bucket_cap2=512,
+        fuse_prep=True,
+        fuse_integrate=True,
+        contact_rebuild=4,
+        contact_rebuild_vel_factor=0.0,
+        contact_refresh_iters=4,
+        contact_iters=8,
+        z_bf16=True,
         dt=dt,
     )

@@ -1,12 +1,12 @@
 """Contact dispatch and the anchored rebuild/refresh schedule
-(physics_tpu/solver/contacts.py: `table_path`, `anchored_path`,
-`fused_integration`, `contact_capacity`, `resolve_contacts`,
-`_resolve_contacts_table`).
+(physics_tpu/solver/contacts.py: `table_path`, `hull_table_path`,
+`anchored_path`, `fused_integration`, `contact_capacity`,
+`resolve_contacts`, `_resolve_contacts_table`).
 
-Only the bucket-aligned box contact-table path is ported. With
-cfg.contact_rebuild = K > 1 (anchored path), every K-th step REBUILDS:
-sweep sort, bucketed candidates, geometry table, contact-table kernel,
-full solve schedule. The other steps REFRESH: the persisted table and
+The two bucket-aligned contact-table paths are ported: boxes (box contact
+table) and hulls (hull contact table). With cfg.contact_rebuild = K > 1
+(anchored path), every K-th step REBUILDS: sweep sort, bucketed
+candidates, geometry table, contact-table kernel, full solve schedule. The other steps REFRESH: the persisted table and
 rank order are kept, the solve's sweep 0 re-derives every contact from
 its body-frame anchors, and the schedule is contact_refresh_iters sweeps.
 The branch depends only on the step count, so the host picks it from
@@ -32,6 +32,11 @@ from physics_tpu_torch.ops.contact_table import (
     table_shape,
     unified_geom,
 )
+from physics_tpu_torch.ops.hull_table import (
+    MAX_TABLE_HULL_TYPES,
+    bucket_hull_contact_table,
+)
+from physics_tpu_torch.ops.narrowphase import hulls_fast_path
 from physics_tpu_torch.solver.banded_solve import solve_impulses_table
 from physics_tpu_torch.state import SimState
 
@@ -39,8 +44,9 @@ Tensor = torch.Tensor
 
 
 def table_path(state: SimState, cfg: SimConfig) -> bool:
-    """True when the step routes through the bucket-aligned contact table
-    (the bucketed sweep feeding it; env_blocks is ROADMAP item 1.10)."""
+    """True when the step routes through the bucket-aligned box contact
+    table (the bucketed sweep feeding it; env_blocks is ROADMAP item
+    1.10)."""
     return bool(
         cfg.contact_solver == "pallas_banded" and cfg.contact_table
         and cfg.boxes_only and cfg.pair_collisions
@@ -48,24 +54,43 @@ def table_path(state: SimState, cfg: SimConfig) -> bool:
         and cfg.broadphase == "sweep" and cfg.pair_buckets)
 
 
+def hull_table_path(state: SimState, cfg: SimConfig) -> bool:
+    """True when the step routes through the fused HULL contact table
+    (ops/hull_table.py), the hulls-only analogue of table_path: the
+    bucketed sweep, the shared-hull fast layout and a library of at most
+    MAX_TABLE_HULL_TYPES hull types. Depends on cfg and shapes only."""
+    return bool(
+        cfg.contact_solver == "pallas_banded" and cfg.contact_table
+        and cfg.hull_table and cfg.pair_collisions
+        and cfg.broadphase == "sweep" and cfg.pair_buckets
+        and state.num_bodies > 1 and not cfg.bp_inkernel
+        and hulls_fast_path(state, cfg)
+        and state.hulls.verts.shape[0] <= MAX_TABLE_HULL_TYPES)
+
+
 def anchored_path(state: SimState, cfg: SimConfig) -> bool:
     """True when contact_rebuild > 1 engages the persistent anchored
-    contacts: the box table with fuse_prep, candidates built outside the
-    table kernel."""
-    return (cfg.contact_rebuild > 1 and cfg.fuse_prep
-            and table_path(state, cfg) and not cfg.bp_inkernel)
+    contacts: a table path with fuse_prep, candidates built outside the
+    table kernel. Anchors are a contact point and normal in body frames,
+    whatever the shapes, so the hull table shares the box table's
+    anchored refresh."""
+    if not (cfg.contact_rebuild > 1 and cfg.fuse_prep):
+        return False
+    return hull_table_path(state, cfg) or (
+        table_path(state, cfg) and not cfg.bp_inkernel)
 
 
 def fused_integration(state: SimState, cfg: SimConfig) -> bool:
     """True when the solve's epilogue integrates pos/quat."""
-    return cfg.fuse_integrate and not cfg.compat and table_path(state, cfg)
+    return cfg.fuse_integrate and not cfg.compat and (
+        table_path(state, cfg) or hull_table_path(state, cfg))
 
 
 def contact_capacity(state: SimState, cfg: SimConfig) -> int:
     """Contact-slot count of one step (the table width)."""
-    if not table_path(state, cfg):
+    if not (table_path(state, cfg) or hull_table_path(state, cfg)):
         raise NotImplementedError(
-            "only the contact-table path is ported; the generic contact "
+            "only the contact-table paths are ported; the generic contact "
             "paths are ROADMAP item 1.13")
     return table_shape(state.num_bodies, cfg)[2]
 
@@ -73,20 +98,23 @@ def contact_capacity(state: SimState, cfg: SimConfig) -> int:
 def _check_ported(state: SimState, cfg: SimConfig) -> None:
     if cfg.compat:
         raise NotImplementedError("compat mode is ROADMAP item 1.11")
-    if cfg.hull_table or cfg.hulls_only:
-        raise NotImplementedError("the hull table is ROADMAP item 1.12")
     if cfg.broadphase == "env_blocks" or cfg.bp_inkernel:
         raise NotImplementedError(
             "env_blocks and the in-kernel broad phase are ROADMAP item 1.10")
-    if not table_path(state, cfg):
+    hulls = hull_table_path(state, cfg)
+    if not (table_path(state, cfg) or hulls):
         raise NotImplementedError(
-            "only the contact-table path is ported; the generic contact "
+            "only the contact-table paths are ported; the generic contact "
             "paths are ROADMAP item 1.13")
     if not (cfg.fuse_prep and fused_integration(state, cfg)):
         raise NotImplementedError(
             "only the fused-prep solve with fused integration is ported; "
             "the unfused table solve is ROADMAP kernels 2.5/2.6")
     if cfg.contact_rebuild > 1 and cfg.contact_rebuild_vel_factor > 0:
+        if hulls:
+            raise NotImplementedError(
+                "the hull path's global motion guard "
+                "(contact_rebuild_vel_factor > 0) is ROADMAP item 1.12")
         raise NotImplementedError(
             "the per-bucket displacement gate (contact_rebuild_vel_factor "
             "> 0) is ROADMAP item 1.10")
@@ -107,10 +135,12 @@ def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool):
     aabbs = body_aabbs(st)
     order = sweep_order(st, aabbs)
     cand = pair_candidates(st, cfg, aabbs=aabbs, order=order, plain=plain)
-    geom = unified_geom(st, cfg, order)
+    hulls = hull_table_path(st, cfg)
+    geom = unified_geom(st, cfg, order, hulls=hulls)
     prev = (st.contact_key, st.contact_lam) if use_warm else None
-    table, meta, warm = bucket_contact_table(st, cand, cfg, prev=prev,
-                                             geom=geom, plain=plain)
+    table_fn = bucket_hull_contact_table if hulls else bucket_contact_table
+    table, meta, warm = table_fn(st, cand, cfg, prev=prev, geom=geom,
+                                 plain=plain)
     m = meta[0].reshape(-1, BLOCK)
     ovf = torch.stack([
         cand.overflow + torch.sum(m[:, 2]).to(torch.int32),
@@ -139,7 +169,8 @@ def _resolve_contacts_table(state: SimState, cfg: SimConfig,
         else:
             order = state.contact_order
             table = state.contact_table
-            geom = unified_geom(state, cfg, order)
+            geom = unified_geom(state, cfg, order,
+                                hulls=hull_table_path(state, cfg))
             warm = torch.cat([state.contact_lam, torch.zeros(
                 (5, cp), dtype=torch.float32, device=state.device)])
             ovf = state.contact_meta

@@ -66,7 +66,8 @@ class Shapes:
 
 @dataclasses.dataclass
 class HullSet:
-    """Convex-hull library (carried, not used by the box pile)."""
+    """Convex-hull library [H, ...], padded to shared capacities (see
+    scene._pack_hulls); the hull contact table reads it."""
 
     verts: Tensor
     vert_count: Tensor
@@ -164,10 +165,13 @@ def _empty_arrays(n: int) -> Dict[str, np.ndarray]:
 
 
 def make_arrays(pos, quat, vel, omega, mass, inertia,
-                shapes: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Assemble the numpy arrays of a joint-free, hull-free state (the
-    numpy half of physics_tpu.state.make_state: inv_mass and
-    inv_inertia with statics zeroed)."""
+                shapes: Dict[str, np.ndarray],
+                hulls: Dict[str, np.ndarray] | None = None
+                ) -> Dict[str, np.ndarray]:
+    """Assemble the numpy arrays of a joint-free state (the numpy half of
+    physics_tpu.state.make_state: inv_mass and inv_inertia with statics
+    zeroed). `hulls` holds the HullSet fields (scene._pack_hulls); None
+    gives the empty one-entry library."""
     pos = np.asarray(pos, np.float32)
     n = pos.shape[0]
     mass = np.asarray(mass, np.float32)
@@ -194,6 +198,8 @@ def make_arrays(pos, quat, vel, omega, mass, inertia,
         "inv_inertia": inv_inertia,
     })
     arrays.update({f"shapes.{k}": v for k, v in shapes.items()})
+    if hulls is not None:
+        arrays.update({f"hulls.{k}": v for k, v in hulls.items()})
     return arrays
 
 
@@ -201,12 +207,27 @@ _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32}
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The device an entry point builds on. The default of every entry
+    point is "cuda": without a CUDA device that raises, and the caller
+    must ask for the CPU explicitly (device="cpu"); nothing falls back to
+    the CPU silently."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: physics_tpu_torch builds scenes on the card by "
+            "default; pass device='cpu' to run on the CPU")
+    return dev
+
+
 def state_from_arrays(arrays: Dict[str, np.ndarray],
-                      device: torch.device | str = "cpu") -> SimState:
+                      device: torch.device | str = "cuda") -> SimState:
     """Build a SimState from a flat dict of numpy arrays keyed by field
     name (dotted for the nested structs), e.g. the fields of a JAX state
     passed through np.asarray. Every field is f32 or int32; all of them
-    travel to `device` in ONE copy of a packed byte buffer."""
+    travel to `device` (the card by default, see resolve_device) in ONE
+    copy of a packed byte buffer."""
+    device = resolve_device(device)
     keys = sorted(arrays)
     arrs = [np.asarray(arrays[k]) for k in keys]
     offs, total = [], 0
@@ -218,7 +239,7 @@ def state_from_arrays(arrays: Dict[str, np.ndarray],
     packed = np.zeros((max(total, 16),), np.uint8)
     for a, o in zip(arrs, offs):
         packed[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-    buf = torch.from_numpy(packed).to(torch.device(device))
+    buf = torch.from_numpy(packed).to(device)
     nested: Dict[str, Dict[str, Tensor]] = {k: {} for k in _NESTED}
     top: Dict[str, object] = {}
     for key, a, o in zip(keys, arrs, offs):

@@ -36,7 +36,7 @@ def _scenes():
 @pytest.mark.parametrize("scene", ["pile", "ghosts"])
 def test_aabbs_and_stable_sort_order(scene):
     js = _scenes()[scene]
-    ts = state_from_arrays(jax_arrays(js))
+    ts = state_from_arrays(jax_arrays(js), "cpu")
     ja = jbp.body_aabbs(js)
     ta = tbp.body_aabbs(ts)
     # |R|·h as a 3-term sum: a few ulps apart between XLA's einsum and
@@ -56,7 +56,7 @@ def test_aabbs_and_stable_sort_order(scene):
 @pytest.mark.parametrize("k", [1, 12, 48])
 def test_sweep_masks_identical(scene, k):
     js = _scenes()[scene]
-    ts = state_from_arrays(jax_arrays(js))
+    ts = state_from_arrays(jax_arrays(js), "cpu")
     aabbs = jbp.body_aabbs(js)
     jo, jm, jl = map(np.asarray, jbp._sweep_masks(js, aabbs, k))
     to, tm, tl = tbp._sweep_masks(ts, torch.from_numpy(np.array(aabbs)),
@@ -91,7 +91,7 @@ def test_bucketed_candidates_identical(scene, overrides):
     js = _scenes()[scene]
     cfg_j, cfg_t = configs(192)
     cfg_j, cfg_t = cfg_j.replace(**overrides), cfg_t.replace(**overrides)
-    ts = state_from_arrays(jax_arrays(js))
+    ts = state_from_arrays(jax_arrays(js), "cpu")
     jc = jbp.pair_candidates(js, cfg_j)
     aabbs = torch.from_numpy(np.array(jbp.body_aabbs(js)))
     tc = tbp.pair_candidates(ts, cfg_t, aabbs=aabbs)

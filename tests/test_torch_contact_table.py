@@ -59,7 +59,7 @@ def tables():
     jt, jm, jw = map(np.asarray, run(cand, jnp.asarray(geom),
                                      jnp.asarray(keys), jnp.asarray(lam)))
 
-    ts = state_from_arrays(jax_arrays(s))
+    ts = state_from_arrays(jax_arrays(s), "cpu")
     tc = PairCandidates(*[torch.from_numpy(np.array(x)) for x in cand])
     tt, tm, tw = tct.bucket_contact_table(
         ts, tc, cfg_t, prev=(torch.from_numpy(keys), torch.from_numpy(lam)),

@@ -1,7 +1,9 @@
-"""The port's three kernels against their plain PyTorch versions on an
-NVIDIA card, and one rebuild and one refresh step of the kernel path
-against the plain path, on a contact-rich two-bucket pile. Every test
-skips without a card. On a GPU machine:
+"""The port's kernels against their plain PyTorch versions on an NVIDIA
+card, and one rebuild and one refresh step of the kernel path against the
+plain path, on a contact-rich two-bucket pile and on hull rains (the
+hull contact table: two buckets of bevelled cubes, and one bucket of the
+3-type library with all 9 ordered type pairs). Every test skips without
+a card. On a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -23,6 +25,7 @@ import torch
 from physics_tpu_torch import scenes
 from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
 from physics_tpu_torch.ops import contact_table as tct
+from physics_tpu_torch.ops import hull_table as tht
 from physics_tpu_torch.ops.broadphase import (
     body_aabbs,
     pair_candidates,
@@ -132,8 +135,7 @@ def test_banded_solve_kernel(pile, iters):
     _rows_close("posq", pk[:, :N], pp[:, :N], SOLVE_RTOL)
 
 
-def test_step_kernel_path_matches_plain(pile):
-    s, cfg = pile
+def _steps_match(s, cfg):
     for what in ("rebuild", "refresh"):
         sk, mk = step_with_metrics(s, cfg)
         sp, mp = step_with_metrics(s, cfg, plain=True)
@@ -144,3 +146,56 @@ def test_step_kernel_path_matches_plain(pile):
         for key in ("contact_count", "pair_overflow", "contact_overflow"):
             assert int(mk[key]) == int(mp[key]), (what, key)
         s = sk
+
+
+def test_step_kernel_path_matches_plain(pile):
+    _steps_match(*pile)
+
+
+@pytest.fixture(scope="module", params=[(256, 1), (128, 3)],
+                ids=["rain256", "mixed128x3"])
+def rain(dev, request):
+    """A hull rain (two full buckets of bevelled cubes, or one bucket of
+    the 3-type library) prepared for rain_config and stepped twice along
+    the plain path, so the warm keys are live."""
+    n, types = request.param
+    if types == 1:
+        s = scenes.mesh_rain(n, real_assets=False, device=dev)
+    else:
+        s = scenes.mesh_rain_mixed(n, n_types=types, real_assets=False,
+                                   device=dev)
+    cfg = scenes.rain_config(n)
+    s = prepare_contacts(s, cfg)
+    for _ in range(2):
+        s, _ = step_with_metrics(s, cfg, plain=True)
+    return s, cfg
+
+
+def _hull_table(s, cfg, kernel):
+    aabbs = body_aabbs(s)
+    order = sweep_order(s, aabbs)
+    cand = pair_candidates(s, cfg, aabbs, order, plain=True)
+    geom = tct.unified_geom(s, cfg, order, hulls=True)
+    return geom, tht.bucket_hull_contact_table(
+        s, cand, cfg, prev=(s.contact_key, s.contact_lam), geom=geom,
+        plain=not kernel)
+
+
+def test_hull_table_kernel(rain):
+    s, cfg = rain
+    before = tht.bucket_hull_contact_table.launches
+    geom, (tk, mk, wk) = _hull_table(s, cfg, kernel=True)
+    assert tht.bucket_hull_contact_table.launches == before + 1
+    _, (tp, mp, wp) = _hull_table(s, cfg, kernel=False)
+    for r in EXACT_ROWS:
+        assert torch.equal(tk[r], tp[r]), r
+    assert torch.equal(mk, mp)
+    assert torch.equal(wk, wp)
+    extent = float(geom[0:3, :s.num_bodies].abs().max())
+    assert float((tk - tp).abs().max()) <= 1e-5 * extent
+    assert int(tk[tct.CT_ACT].sum()) > 100
+    assert int((tk[tct.CT_ACT] * (1 - tk[tct.CT_KSGN])).sum()) > 20
+
+
+def test_rain_step_kernel_path_matches_plain(rain):
+    _steps_match(*rain)

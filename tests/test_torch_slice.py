@@ -49,7 +49,8 @@ def jax_run():
 def test_step_matches(jax_run, which):
     src, dst, jm = jax_run[which]
     _, cfg_t = configs(N)
-    ts, tm = step_with_metrics(state_from_arrays(jax_arrays(src)), cfg_t)
+    ts, tm = step_with_metrics(
+        state_from_arrays(jax_arrays(src), "cpu"), cfg_t)
     ja, ta = jax_arrays(dst), to_numpy(ts)
     assert ts.step_count_host == int(ja["step_count"])
     for k, tol in TOL.items():

@@ -35,7 +35,8 @@ def jax_run():
 def test_step_matches_k1(jax_run, k):
     src, dst, jm = jax_run[k]
     cfg_t = configs(N)[1].replace(contact_rebuild=1)
-    ts, tm = step_with_metrics(state_from_arrays(jax_arrays(src)), cfg_t)
+    ts, tm = step_with_metrics(
+        state_from_arrays(jax_arrays(src), "cpu"), cfg_t)
     ja, ta = jax_arrays(dst), to_numpy(ts)
     assert ta["contact_table"].shape == (0, 0)       # nothing persisted
     for key, tol in TOL.items():
