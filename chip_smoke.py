@@ -1,6 +1,6 @@
 """GPU smoke run of physics_tpu_torch on one NVIDIA card: the 4,096-body
-box pile and the 1,024-hull rain stepping through the port's hand-written
-kernels.
+box pile (on the contact-table path and on the two-kernel path) and the
+1,024-hull rain stepping through the port's hand-written kernels.
 
     python3 chip_smoke.py            # needs CUDA; exits non-zero without
 
@@ -24,7 +24,17 @@ Phases (any failure raises, so the run exits non-zero):
   6. mixed    mesh_rain_mixed(128, n_types=3) settled 60 steps: the hull
               table against its plain version with all 9 ordered hull-type
               pairs live;
-  7. profile  device time by kernel over 8 more steps of each path
+  7. two-kernel pile
+              the 4k pile under pile_config(4096).replace(contact_iters=8,
+              contact_table=False), settled 60 steps: the pair manifolds,
+              the solve constants and the unfused sweeps against their
+              plain versions at the path's shapes, then 240 fresh steps
+              with the checks and measurements of phase 4 (one cold step,
+              with no warm buffers, and one warm step, with live keys,
+              against the plain path); and one warm step of
+              the unfused table solve (fuse_prep=False), with and without
+              fuse_integrate, against the plain path;
+  8. profile  device time by kernel over 8 more steps of each path
               (torch.profiler), after every timed window.
 The line before the last is a JSON object of per-kernel results (each
 kernel's least possible time on the card, `bound_ms`, is computed from
@@ -67,20 +77,39 @@ from physics_tpu_torch.ops.contact_table import (
     table_operands,
     unified_geom,
 )
+from physics_tpu_torch.ops.narrowphase_banded import (
+    pair_manifolds_banded,
+    pair_operands,
+)
 from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
-from physics_tpu_torch.solver.banded_solve import banded_sweeps_fused
+from physics_tpu_torch.solver.banded_solve import (
+    R_PREP,
+    banded_operands,
+    banded_sweeps,
+    banded_sweeps_fused,
+    banded_z0,
+    prep_consts,
+)
+from physics_tpu_torch.solver.contacts import (
+    anchored_path,
+    banded_contact_list,
+)
 from physics_tpu_torch.state import SHAPE_NONE
 
 EXACT_ROWS = [CT_ACT, CT_KL, CT_KH, CT_KSGN, CT_RA, CT_RB1, CT_KS, CT_MU,
               CT_REST]
-# kernel vs plain on the card. The contact tables compute the same f32
-# operations in the same order (nvcc -fmad=false), so they should agree to
-# the bit; 1e-5 of the scene extent is allowed. The solve sums impulse
+# kernel vs plain on the card. The contact tables and the pair manifolds
+# compute the same f32 operations in the same order (nvcc -fmad=false), so
+# they should agree to the bit; 1e-5 of the scene extent is allowed. The
+# solve constants have no sums across contacts: 1e-6 of each row's largest
+# magnitude on the live contacts (0 expected). The solves sum impulse
 # deltas with atomics in a run-dependent order: 1e-4 of each output row's
 # largest magnitude, and 1e-4 absolute for one whole step's state.
 TABLE_TOL = 1e-5
+PREP_RTOL = 1e-6
 SOLVE_RTOL = 1e-4
 STEP_ATOL = 1e-4
+N_PILE = 4096
 
 # NVIDIA H100 SXM published peaks (data sheet, 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -94,6 +123,11 @@ OPS_EMIT = 60                # one active contact: anchors, keys, warm key
 OPS_SOLVE_CONTACT = 250      # one contact in one Jacobi sweep (3 rows)
 OPS_SOLVE_PREP = 400         # one contact's constants in sweep 0
 OPS_INTEGRATE = 60           # one body's pos/quat integration
+# device-kernel names of csrc/*.cu and ops/sweep_kernel.py
+PORT_KERNELS = ("masks_kernel", "contact_table_kernel", "hull_prefilter_kernel",
+                "hull_sat_kernel", "hull_emit_kernel", "init_kernel",
+                "prep_kernel", "sweep_kernel", "integrate_kernel",
+                "prep_consts_kernel", "pair_manifolds_kernel")
 
 
 def log(msg: str) -> None:
@@ -405,20 +439,114 @@ def profile_steps(state, cfg, steps: int) -> None:
     for us, count, key in rows[:15]:
         log(f"  {us / steps:9.1f} us/step  {count / steps:6.1f}/step  "
             f"{key[:90]}")
+    # the port's own kernels, wherever they rank: their device time alone,
+    # without the wrappers' glue that the CUDA-event times include
+    for us, count, key in rows:
+        if any(k in key for k in PORT_KERNELS):
+            log(f"  port {us / count:8.1f} us/launch {count / steps:6.2f}/step"
+                f"  {key[:70]}")
 
 
 COUNTED = (sweep_window_masks, bucket_contact_table,
-           ht.bucket_hull_contact_table, banded_sweeps_fused)
+           ht.bucket_hull_contact_table, banded_sweeps_fused,
+           pair_manifolds_banded, prep_consts, banded_sweeps)
+
+
+def check_np_kernels(state, cfg):
+    """Phase 7: the two-kernel path's kernels (2.8, 2.6, 2.5) against
+    their plain versions at the path's shapes, 2.5 fed 2.6's plain
+    output. Returns {name: (max_abs_err, ms, plain_ms, bound)}."""
+    n = state.num_bodies
+    out = {}
+    contacts, ranks, _, geom, cand, cp = banded_contact_list(state, cfg)
+    bases, la, lb, tile, kk = pair_operands(state, cand, cfg, geom)
+
+    def np_run(plain):
+        return pair_manifolds_banded(state, cand, cfg, geom, plain=plain)[0]
+    rk, rp = np_run(False), np_run(True)
+    for r in [5 * p + 4 for p in range(kk)] + [5 * kk + 5, 5 * kk + 6]:
+        if not torch.equal(rk[r], rp[r]):
+            raise AssertionError(f"pair manifolds: row {r} differs")
+    for p in range(kk):
+        if not torch.equal(rk[5 * p + 3] > 0, rp[5 * p + 3] > 0):
+            raise AssertionError(f"pair manifolds: activity of pick {p}")
+    extent = float(geom[24:27, :n].abs().max())
+    err = float((rk - rp).abs().max())
+    if not err <= TABLE_TOL * extent:
+        raise AssertionError(f"pair manifolds: f32 rows |Δ| {err}")
+    live = int((la >= 0).sum())
+    act = int(sum(int((rk[5 * p + 3] > 0).sum()) for p in range(kk)))
+    bnd = bound(nbytes(geom[24:43, :n], bases, la, lb, rk),
+                OPS_BOX_MANIFOLD * live)
+    kms, pms = median_ms(lambda: np_run(False), 20), median_ms(
+        lambda: np_run(True), 3)
+    log(f"2.8 pair manifolds: slot/id rows and activity identical, f32 rows "
+        f"max |Δ| {err}; {la.shape[0]} lanes, {live} live, {act} active "
+        f"slots; kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
+    out["pair_manifolds_banded"] = (err, kms, pms, bnd)
+
+    ops = banded_operands(state, contacts, cfg,
+                          (state.contact_key, state.contact_lam), ranks, cp)
+    args = (geom, ops.bases, ops.la, ops.lb, ops.cin, cfg)
+
+    def prep_run(plain):
+        return prep_consts(*args, tile=ops.tile, use_split=ops.use_split,
+                           plain=plain)
+    ck, cpl = prep_run(False), prep_run(True)
+    live = ops.la >= 0
+    n_live = int(live.sum())
+    err = row_check("prep consts", ck[:, live], cpl[:, live], PREP_RTOL)
+    bnd = bound(nbytes(geom[0:19, :n], ops.bases, ops.la, ops.lb, ops.cin,
+                       ck), OPS_SOLVE_PREP * n_live)
+    kms, pms = median_ms(lambda: prep_run(False), 20), median_ms(
+        lambda: prep_run(True), 3)
+    log(f"2.6 prep consts (warm {ops.use_split}): max |Δ| {err} on "
+        f"{n_live} live of {cp} contacts (band overflow "
+        f"{int(ops.band_overflow)}, capacity overflow "
+        f"{int(ops.cap_overflow)}); kernel {kms:.4f} ms, plain {pms:.4f} ms,"
+        f" bound {bnd[0]:.5f} ms ({bnd[1]})")
+    out["prep_consts"] = (err, kms, pms, bnd)
+
+    z0 = banded_z0(geom)
+    pos_iters = cfg.position_iters if ops.use_split else 0
+    sweeps = max(cfg.contact_iters, pos_iters) + 1
+
+    def sw_run(plain):
+        return banded_sweeps(z0, ops.bases, ops.la, ops.lb, cpl,
+                             tile=ops.tile, vel_iters=cfg.contact_iters,
+                             pos_iters=pos_iters, warm_sweep=ops.use_split,
+                             plain=plain)
+    (zk, lk, _), (zp, lp, _) = sw_run(False), sw_run(True)
+    err = max(row_check("sweeps z", zk[:, :n], zp[:, :n], SOLVE_RTOL),
+              row_check("sweeps lam", lk, lp, SOLVE_RTOL))
+    # the rows that hold data: z0's (v, ω), the constants the sweeps read
+    # (λ₀ rows 42:45 only when warm), z's velocities, pseudo-velocities
+    # and degrees, and λ
+    read = R_PREP if ops.use_split else R_PREP - 3
+    bnd = bound(nbytes(z0[0:6, :n], ops.bases, ops.la, ops.lb, cpl[:read],
+                       zk[0:6, :n], zk[8:15, :n], lk),
+                OPS_SOLVE_CONTACT * sweeps * n_live)
+    kms, pms = median_ms(lambda: sw_run(False), 20), median_ms(
+        lambda: sw_run(True), 3)
+    log(f"2.5 banded sweeps ({sweeps} sweeps, tile {ops.tile}): max |Δ| "
+        f"{err}; kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
+    out["banded_sweeps"] = (err, kms, pms, bnd)
+    return out
 
 
 def drive(label, make, cfg, steps, want, gpu):
     """prepare_contacts + `steps` fresh steps with the launch counters set
-    to 0 just before and read just after; the checks and the step rate,
-    then one rebuild and one refresh step of the kernel path against the
-    plain path. Returns (launch counts, the last state)."""
+    to 0 just before and read just after (`want` names the counts that
+    are not 0); the checks and the step rate, then two steps of the
+    kernel path against the plain path. Returns (launch counts, the last
+    state)."""
     for fn in COUNTED:
         fn.launches = 0
     st = prepare_contacts(make(), cfg)
+    # the rebuild period the path really has (1 off the anchored paths)
+    k_eff = cfg.contact_rebuild if anchored_path(st, cfg) else 1
     window0 = min(40, steps // 2)
     torch.cuda.synchronize()
     host = {"rebuild": [], "refresh": []}
@@ -427,14 +555,14 @@ def drive(label, make, cfg, steps, want, gpu):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         ts = time.perf_counter()
-        kind = "refresh" if st.step_count_host % cfg.contact_rebuild else \
-            "rebuild"
+        kind = "refresh" if st.step_count_host % k_eff else "rebuild"
         st, m = step_with_metrics(st, cfg)
         if i >= window0:
             host[kind].append(1e3 * (time.perf_counter() - ts))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in COUNTED}
+    want = {name: want.get(name, 0) for name in launches}   # unnamed: 0
     log(f"{label}: launches over {steps} steps: {launches}")
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != {want}")
@@ -444,32 +572,48 @@ def drive(label, make, cfg, steps, want, gpu):
     n = st.num_bodies
     timed = steps - window0
     log(f"{label}: state finite; pair_overflow {int(m['pair_overflow'])}, "
-        f"contact_overflow {int(m['contact_overflow'])}, max_penetration "
+        f"contact_overflow {int(m['contact_overflow'])}, band_overflow "
+        f"{int(m['band_overflow'])}, max_penetration "
         f"{float(m['max_penetration']):.4f}, contacts "
         f"{int(m['contact_count'])}")
+    if int(m["band_overflow"]) != 0:
+        raise AssertionError(f"{label}: band_overflow {int(m['band_overflow'])}")
     log(f"{label}: {1e3 * secs / timed:.4f} ms/step, "
         f"{n * timed / secs:.1f} body-steps/s over steps {window0}..{steps} "
         f"on {gpu}")
     # host time to issue each step (no sync inside the window): median and
     # 90th percentile per branch
     for kind, ms in host.items():
+        if not ms:
+            continue
         ms.sort()
         log(f"{label}: {kind} steps issue in {ms[len(ms) // 2]:.4f} ms "
             f"median, {ms[9 * len(ms) // 10]:.4f} ms p90 ({len(ms)} steps)")
-    # one rebuild step (step_count % K == 0) and one refresh step, kernel
-    # path against plain path from identical states
-    while st.step_count_host % cfg.contact_rebuild:
-        st, _ = step_with_metrics(st, cfg)
-    for what in ("rebuild", "refresh"):
-        sk, mk = step_with_metrics(st, cfg)
-        sp, mp = step_with_metrics(st, cfg, plain=True)
+    # kernel path against plain path from identical states: one rebuild
+    # step (step_count % K == 0) and one refresh step on an anchored path,
+    # else one cold step (the warm buffers of a fresh scene: no warm start,
+    # no position sweeps) and one warm step (the live keys of the run)
+    if k_eff > 1:
+        while st.step_count_host % k_eff:
+            st, _ = step_with_metrics(st, cfg)
+        kinds = ("rebuild", "refresh")
+    else:
+        kinds = ("cold", "warm")
+    for what in kinds:
+        src = st
+        if what == "cold":
+            src = st.replace(contact_key=st.contact_key.new_zeros((0,)),
+                             contact_lam=st.contact_lam.new_zeros((3, 0)))
+        sk, mk = step_with_metrics(src, cfg)
+        sp, mp = step_with_metrics(src, cfg, plain=True)
         state_close(sk, sp, f"{label} {what} step (step {st.step_count_host})")
         for key in ("contact_count", "pair_overflow", "contact_overflow"):
             if int(mk[key]) != int(mp[key]):
                 raise AssertionError(f"{label} {what} step: {key} differs")
         log(f"{label} {what} step {st.step_count_host}: kernel path matches "
             f"plain path (atol {STEP_ATOL})")
-        st = sk
+        if what != "cold":
+            st = sk
     return launches, st
 
 
@@ -497,7 +641,7 @@ def main() -> int:
     cfg = scenes.pile_config(n).replace(contact_iters=8)
 
     def pile():
-        return scenes.box_pile(n, x_aspect=16.0, device=dev)
+        return scenes.box_pile(N_PILE, x_aspect=16.0, device=dev)
 
     st = prepare_contacts(pile(), cfg)
     for _ in range(args.settle):
@@ -551,9 +695,39 @@ def main() -> int:
     results["bucket_hull_contact_table"] = (
         max(err, err_m),) + results["bucket_hull_contact_table"][1:]
 
+    # ---- phase 7: the two-kernel 4k pile ----
+    ncfg = scenes.pile_config(N_PILE).replace(contact_iters=8,
+                                              contact_table=False)
+    st = prepare_contacts(pile(), ncfg)
+    for _ in range(args.settle):
+        st, m = step_with_metrics(st, ncfg)
+    torch.cuda.synchronize()
+    log(f"two-kernel pile settled {args.settle} steps: contacts "
+        f"{int(m['contact_count'])}, band_overflow {int(m['band_overflow'])}")
+    results.update(check_np_kernels(st, ncfg))
+    np_launches, np_st = drive("two-kernel pile", pile, ncfg, args.steps, {
+        "sweep_window_masks": args.steps,
+        "pair_manifolds_banded": args.steps, "prep_consts": args.steps,
+        "banded_sweeps": args.steps}, gpu)
+    # the unfused table solve (2.6 + 2.5 on the table), one warm step
+    for fuse in (True, False):
+        ucfg = cfg.replace(fuse_prep=False, fuse_integrate=fuse)
+        su, _ = step_with_metrics(prepare_contacts(pile_st, ucfg), ucfg,
+                                  plain=True)
+        sk, mk = step_with_metrics(su, ucfg)
+        sp, mp = step_with_metrics(su, ucfg, plain=True)
+        state_close(sk, sp, f"unfused table step (fuse_integrate {fuse})")
+        for key in ("contact_count", "pair_overflow", "contact_overflow"):
+            if int(mk[key]) != int(mp[key]):
+                raise AssertionError(f"unfused table step: {key} differs")
+        log(f"unfused table step (fuse_integrate {fuse}): kernel path "
+            f"matches plain path (atol {STEP_ATOL}); contacts "
+            f"{int(mk['contact_count'])}")
+
     # ---- profiles, after every timed window: a finished profiler
     # session can leave the launch path slower ----
-    for label, st, c in (("pile", pile_st, cfg), ("rain", rain_st, rcfg)):
+    for label, st, c in (("pile", pile_st, cfg), ("rain", rain_st, rcfg),
+                         ("two-kernel pile", np_st, ncfg)):
         log(f"{label}:")
         profile_steps(st, c, 8)
 
@@ -566,14 +740,22 @@ def main() -> int:
                                       "physics_tpu/ops/hull_table.py:1218"),
         "banded_sweeps_fused": ("cuda", "physics_tpu_torch/csrc/banded_solve.cu",
                                 "physics_tpu/solver/contacts_pallas.py:861"),
+        "banded_sweeps": ("cuda", "physics_tpu_torch/csrc/banded_solve.cu",
+                          "physics_tpu/solver/contacts_pallas.py:723"),
+        "prep_consts": ("cuda", "physics_tpu_torch/csrc/banded_solve.cu",
+                        "physics_tpu/solver/contacts_pallas.py:1241"),
+        "pair_manifolds_banded": ("cuda",
+                                  "physics_tpu_torch/csrc/narrowphase_banded.cu",
+                                  "physics_tpu/ops/narrowphase_pallas.py:232"),
     }
     kernels = []
     for name, (route, src, rep) in sources.items():
         err, kms, pms, (bms, by) = results[name]
-        by_path = {"pile": pile_launches[name], "rain": rain_launches[name]}
+        by_path = {"pile": pile_launches[name], "rain": rain_launches[name],
+                   "two_kernel_pile": np_launches[name]}
         kernels.append({"name": name, "route": route, "source": src,
                         "replaces": rep,
-                        "launches": by_path["pile"] + by_path["rain"],
+                        "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
                         "max_abs_err": err, "ms": kms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by,

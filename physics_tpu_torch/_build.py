@@ -72,9 +72,32 @@ SIGNATURES = {
         _F, _I,                    # dt, flags
         _P,                        # stream
     ],
+    "bs_prep_consts": [
+        _P, _P, _P, _P, _P,        # geom, bases, la, lb, cin
+        _P,                        # consts out
+        _I, _I, _I,                # cp, npad, tile
+        _F, _F, _F,                # baumgarte/dt, slop, relaxation
+        _I, _P,                    # flags, stream
+    ],
+    "bs_banded_sweeps": [
+        _P, _P, _P, _P, _P,        # z0, bases, la, lb, consts
+        _P,                        # posq (or NULL)
+        _P, _P, _P,                # z out, lam out, posq out (or NULL)
+        _P,                        # scratch: z snapshot
+        _I, _I, _I, _I,            # cp, npad, tile, n sweeps
+        _I, _I,                    # vel iters, pos iters
+        _F, _I,                    # dt, flags
+        _P,                        # stream
+    ],
+    "np_pair_manifolds": [
+        _P, _P, _P, _P,            # geom, bases, la, lb
+        _P,                        # rows out
+        _I, _I, _I, _I,            # pp, tile, npad, kk
+        _P,                        # stream
+    ],
 }
 
-# bs_banded_solve flags
+# bs_banded_solve / bs_banded_sweeps / bs_prep_consts flags
 FLAG_USE_SPLIT = 1
 FLAG_ANCHORED = 2
 FLAG_INTEGRATE = 4
@@ -165,6 +188,17 @@ def library() -> SimpleNamespace:
     if missing:
         raise RuntimeError(f"kernel libraries lack {missing}")
     return ns
+
+
+def check_operands(what: str, dev, *named) -> None:
+    """Raise unless each (name, tensor, dtype, shape) is a contiguous
+    tensor of that dtype and shape on `dev`: what a C entry point
+    takes."""
+    for name, t, dt, shape in named:
+        if (t.device != dev or t.dtype != dt or not t.is_contiguous()
+                or tuple(t.shape) != tuple(shape)):
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} "
+                             f"{list(shape)} tensor on {dev}")
 
 
 def check(err: int, what: str) -> None:

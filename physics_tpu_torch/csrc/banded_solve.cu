@@ -1,15 +1,21 @@
-// Banded contact solve over the bucket-aligned contact table (Hopper, sm_90a).
+// Banded contact solves (Hopper, sm_90a): three TPU kernels share this file.
 //
-// Replaces the TPU kernel banded_sweeps_fused
-// (physics_tpu/solver/contacts_pallas.py:736; body _make_kernel with prep=
-// and integrate=, :245-626; sweep math _sweep_tile_math :92; constants
-// _prep_consts_math :1086). Plain version: physics_tpu_torch/solver/
-// banded_solve.py banded_sweeps_fused_plain, which the device functions below
+//   bs_banded_solve   replaces banded_sweeps_fused (kernel 2.3,
+//                     physics_tpu/solver/contacts_pallas.py:736; body
+//                     _make_kernel with prep= and integrate=, :245-626);
+//   bs_prep_consts    replaces prep_consts (kernel 2.6, :1199; body
+//                     _make_prep_kernel :1154);
+//   bs_banded_sweeps  replaces banded_sweeps (kernel 2.5, :628; body
+//                     _make_kernel without prep=, with or without its
+//                     integrate= epilogue).
+// Sweep math _sweep_tile_math :92, constants _prep_consts_math :1086. Plain
+// versions: physics_tpu_torch/solver/banded_solve.py (banded_sweeps_fused_plain,
+// prep_consts_plain, banded_sweeps_plain), which the device functions below
 // follow operation by operation.
 //
 // The solve is projected Jacobi with split impulses on a packed velocity
 // table z [16, NPAD] (rows 0:3 v, 3:6 ω, 8:11 pseudo v, 11:14 pseudo ω,
-// 14 contact degree). Launch sequence, all on the caller's stream:
+// 14 contact degree). Launch sequence of 2.3, all on the caller's stream:
 //   init      z and its snapshot ← (v, ω) of the geometry table, rest 0;
 //   sweep 0   one thread per contact: endpoints from the table, the anchored
 //             re-derivation of point/normal/depth, the [48, Cp] constants,
@@ -18,9 +24,14 @@
 //             snapshot and atomically adds its deltas into z — Jacobi: every
 //             contact of a sweep sees the same snapshot;
 //   integrate one thread per rank: pos/quat from the final z.
-// On the TPU the whole loop was one kernel whose grid ran in order, so tile t
-// could integrate its ranks right after its last scatter; blocks on the GPU
-// run in no order, so integration is its own launch.
+// 2.5 is the same sequence over constants that 2.6 computed beforehand (one
+// thread per contact, both endpoints gathered by rank): z and its snapshot
+// start as a copy of z0, sweep 0 is the degree / warm-start pre-pass alone,
+// and endpoint ranks come from the tile's window base plus la/lb (−1: no
+// endpoint, as the TPU kernel's band check left it). On the TPU the whole
+// loop was one kernel whose grid ran in order, so tile t could integrate its
+// ranks right after its last scatter; blocks on the GPU run in no order, so
+// integration is its own launch.
 //
 // What bounds it on the H100: per sweep 24.6k contacts × (45 constant loads,
 // 28 z gathers, ~250 flops, 24 atomics) — about 6 MB of traffic, L2-resident,
@@ -30,7 +41,8 @@
 // it lives in global memory/L2 and blocks communicate through atomics. A
 // persistent kernel or a CUDA graph is later work. Atomic f32 sums land in a
 // different order every run, so results match the plain version to a
-// tolerance, not bitwise.
+// tolerance, not bitwise; 2.6 has no sums across contacts and matches bit for
+// bit.
 
 #include "common.cuh"
 
@@ -45,6 +57,7 @@ constexpr int R_RA = 0, R_RB = 3, R_N = 6, R_T1 = 9, R_T2 = 12;
 constexpr int R_IKN = 15, R_IKT1 = 16, R_IKT2 = 17, R_VTGT = 18, R_BIAS = 19;
 constexpr int R_FRIC = 20, R_RELAX = 21, R_IMA = 22, R_IMB = 23, R_IWA = 24, R_IWB = 33;
 constexpr int R_LAM0 = 42, R_DEPTH = 45, R_RANKA = 46, R_RANKB = 47;
+constexpr int kPrepRows = R_DEPTH;  // rows the constants math fills: 2.6's output
 
 constexpr int FLAG_USE_SPLIT = 1, FLAG_ANCHORED = 2, FLAG_INTEGRATE = 4, FLAG_RENORM = 8;
 
@@ -57,6 +70,8 @@ struct Params {
   float* lam;
   float* consts;
   float* pq;
+  const float* pos0;   // rows of the pre-step pos (x, y, z) ...
+  const float* quat0;  // ... and quat (w, x, y, z), row stride npad
   int cp, npad;
   float baum_over_dt, slop, relaxation, dt;
   int flags;
@@ -90,13 +105,11 @@ __device__ __forceinline__ void load_solve(const float* geom, int npad, int rank
 
 __device__ __forceinline__ float cget(const Params& p, int row, int j) { return p.consts[(size_t)row * p.cp + j]; }
 
-// One Jacobi sweep for contact j (contacts_pallas._sweep_tile_math), reading
-// the snapshot and adding the deltas into z. vel_on/pos_on/warm_f/degf are
-// the sweep's 0/1 switches.
-__device__ void sweep_contact(const Params& p, int j, float vel_on, float pos_on, float warm_f, float degf,
-                              bool last) {
-  const int rank_a = (int)cget(p, R_RANKA, j);
-  const int rank_b = (int)cget(p, R_RANKB, j);
+// One Jacobi sweep for contact j with endpoint ranks rank_a/rank_b (−1: none)
+// (contacts_pallas._sweep_tile_math), reading the snapshot and adding the
+// deltas into z. vel_on/pos_on/warm_f/degf are the sweep's 0/1 switches.
+__device__ void sweep_contact(const Params& p, int j, int rank_a, int rank_b, float vel_on, float pos_on,
+                              float warm_f, float degf, bool last) {
   float za[kZRows], zb[kZRows];
 #pragma unroll
   for (int k = 0; k < kZRows; ++k) {
@@ -200,6 +213,57 @@ __global__ void init_kernel(Params p) {
   }
 }
 
+// contacts_pallas._prep_consts_math: the solve constants of one contact, rows
+// 0:45 of c (R_* layout), from its endpoint gathers ga/gb (solve rows 0:24 of
+// the geometry table; zeros for a missing endpoint) and its fields. Shared by
+// 2.3's sweep 0 and 2.6.
+__device__ __forceinline__ void prep_consts_math(const Params& p, const float* ga, const float* gb, V3 pt, V3 nrm,
+                                                 float depth, float fric, float rest, float actf,
+                                                 const float* lam0, float has_bf, float* c) {
+  const float inv_m_a = ga[12] * actf;
+  const float inv_m_b = gb[12] * has_bf;
+  float iw_a[9], iw_b[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    iw_a[k] = ga[3 + k] * actf;
+    iw_b[k] = gb[3 + k] * has_bf;
+  }
+  const V3 r_a = sub(pt, mk(ga[0], ga[1], ga[2]));
+  const V3 r_b = sub(pt, mk(gb[0], gb[1], gb[2]));
+  const float ax = fabsf(nrm.x), ay = fabsf(nrm.y), az = fabsf(nrm.z);
+  const bool use_x = (ax <= ay) && (ax <= az);
+  const bool use_y = (!use_x) && (ay <= az);
+  const V3 e = mk((float)use_x, (float)use_y, (float)(!(use_x || use_y)));
+  V3 t1 = cross(nrm, e);
+  t1 = scale(t1, 1.0f / fmaxf(sqrtf(fmaxf(dot(t1, t1), 0.f)), 1e-9f));
+  const V3 t2 = cross(nrm, t1);
+  const float inv_k_n = 1.0f / fmaxf(effmass(nrm, inv_m_a, inv_m_b, iw_a, iw_b, r_a, r_b), 1e-9f);
+  const float inv_k_t1 = 1.0f / fmaxf(effmass(t1, inv_m_a, inv_m_b, iw_a, iw_b, r_a, r_b), 1e-9f);
+  const float inv_k_t2 = 1.0f / fmaxf(effmass(t2, inv_m_a, inv_m_b, iw_a, iw_b, r_a, r_b), 1e-9f);
+  const V3 va0 = add(mk(ga[13], ga[14], ga[15]), cross(mk(ga[16], ga[17], ga[18]), r_a));
+  const V3 vb0 = scale(add(mk(gb[13], gb[14], gb[15]), cross(mk(gb[16], gb[17], gb[18]), r_b)), has_bf);
+  const float v_n0 = dot(nrm, sub(va0, vb0));
+  const float bias = p.baum_over_dt * fmaxf(depth - p.slop, 0.f);
+  const float bounce = rest * fmaxf(-v_n0, 0.f);
+  const float v_target = (p.flags & FLAG_USE_SPLIT) ? bounce : fmaxf(bias, bounce);
+
+  c[R_RA] = r_a.x; c[R_RA + 1] = r_a.y; c[R_RA + 2] = r_a.z;
+  c[R_RB] = r_b.x; c[R_RB + 1] = r_b.y; c[R_RB + 2] = r_b.z;
+  c[R_N] = nrm.x; c[R_N + 1] = nrm.y; c[R_N + 2] = nrm.z;
+  c[R_T1] = t1.x; c[R_T1 + 1] = t1.y; c[R_T1 + 2] = t1.z;
+  c[R_T2] = t2.x; c[R_T2 + 1] = t2.y; c[R_T2 + 2] = t2.z;
+  c[R_IKN] = inv_k_n; c[R_IKT1] = inv_k_t1; c[R_IKT2] = inv_k_t2;
+  c[R_VTGT] = v_target; c[R_BIAS] = bias; c[R_FRIC] = fric; c[R_RELAX] = p.relaxation * actf;
+  c[R_IMA] = inv_m_a; c[R_IMB] = inv_m_b;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    c[R_IWA + k] = iw_a[k];
+    c[R_IWB + k] = iw_b[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c[R_LAM0 + k] = lam0[k] * actf;
+}
+
 // Sweep 0: constants (contacts_pallas._prep_consts_math, with the anchored
 // refresh of :440-481), then the degree / warm-start pass.
 __global__ void __launch_bounds__(kThreads) prep_kernel(Params p, bool last) {
@@ -248,52 +312,9 @@ __global__ void __launch_bounds__(kThreads) prep_kernel(Params p, bool last) {
   }
   const float has_bf = (float)(has_b && (actf_t > 0.f));
 
-  // ---- _prep_consts_math ----
-  const float inv_m_a = ga[12] * actf_t;
-  const float inv_m_b = gb[12] * has_bf;
-  float iw_a[9], iw_b[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    iw_a[k] = ga[3 + k] * actf_t;
-    iw_b[k] = gb[3 + k] * has_bf;
-  }
-  const V3 r_a = sub(p_t, mk(ga[0], ga[1], ga[2]));
-  const V3 r_b = sub(p_t, mk(gb[0], gb[1], gb[2]));
-  const V3 nrm = n_t;
-  const float ax = fabsf(nrm.x), ay = fabsf(nrm.y), az = fabsf(nrm.z);
-  const bool use_x = (ax <= ay) && (ax <= az);
-  const bool use_y = (!use_x) && (ay <= az);
-  const V3 e = mk((float)use_x, (float)use_y, (float)(!(use_x || use_y)));
-  V3 t1 = cross(nrm, e);
-  t1 = scale(t1, 1.0f / fmaxf(sqrtf(fmaxf(dot(t1, t1), 0.f)), 1e-9f));
-  const V3 t2 = cross(nrm, t1);
-  const float inv_k_n = 1.0f / fmaxf(effmass(nrm, inv_m_a, inv_m_b, iw_a, iw_b, r_a, r_b), 1e-9f);
-  const float inv_k_t1 = 1.0f / fmaxf(effmass(t1, inv_m_a, inv_m_b, iw_a, iw_b, r_a, r_b), 1e-9f);
-  const float inv_k_t2 = 1.0f / fmaxf(effmass(t2, inv_m_a, inv_m_b, iw_a, iw_b, r_a, r_b), 1e-9f);
-  const V3 va0 = add(mk(ga[13], ga[14], ga[15]), cross(mk(ga[16], ga[17], ga[18]), r_a));
-  const V3 vb0 = scale(add(mk(gb[13], gb[14], gb[15]), cross(mk(gb[16], gb[17], gb[18]), r_b)), has_bf);
-  const float v_n0 = dot(nrm, sub(va0, vb0));
-  const float bias = p.baum_over_dt * fmaxf(d_t - p.slop, 0.f);
-  const float bounce = tb[8] * fmaxf(-v_n0, 0.f);
-  const float v_target = (p.flags & FLAG_USE_SPLIT) ? bounce : fmaxf(bias, bounce);
-  const float relax = p.relaxation * actf_t;
-
   float c[kRConst];
-  c[R_RA] = r_a.x; c[R_RA + 1] = r_a.y; c[R_RA + 2] = r_a.z;
-  c[R_RB] = r_b.x; c[R_RB + 1] = r_b.y; c[R_RB + 2] = r_b.z;
-  c[R_N] = nrm.x; c[R_N + 1] = nrm.y; c[R_N + 2] = nrm.z;
-  c[R_T1] = t1.x; c[R_T1 + 1] = t1.y; c[R_T1 + 2] = t1.z;
-  c[R_T2] = t2.x; c[R_T2 + 1] = t2.y; c[R_T2 + 2] = t2.z;
-  c[R_IKN] = inv_k_n; c[R_IKT1] = inv_k_t1; c[R_IKT2] = inv_k_t2;
-  c[R_VTGT] = v_target; c[R_BIAS] = bias; c[R_FRIC] = tb[7]; c[R_RELAX] = relax;
-  c[R_IMA] = inv_m_a; c[R_IMB] = inv_m_b;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    c[R_IWA + k] = iw_a[k];
-    c[R_IWB + k] = iw_b[k];
-  }
-#pragma unroll
-  for (int k = 0; k < 3; ++k) c[R_LAM0 + k] = p.warm8[(size_t)k * cp + j] * actf_t;
+  const float lam0[3] = {p.warm8[j], p.warm8[cp + j], p.warm8[2 * cp + j]};
+  prep_consts_math(p, ga, gb, p_t, n_t, d_t, tb[7], tb[8], actf_t, lam0, has_bf, c);
   c[R_DEPTH] = (p.flags & FLAG_ANCHORED) ? d_t * actf_t : 0.f;
   c[R_RANKA] = (float)rank_a;
   c[R_RANKB] = (float)rank_b;
@@ -302,13 +323,13 @@ __global__ void __launch_bounds__(kThreads) prep_kernel(Params p, bool last) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) p.lam[(size_t)k * cp + j] = 0.f;
 
-  sweep_contact(p, j, 0.f, 0.f, 1.0f, 1.0f, last);
+  sweep_contact(p, j, rank_a, rank_b, 0.f, 0.f, 1.0f, 1.0f, last);
 }
 
 __global__ void __launch_bounds__(kThreads) sweep_kernel(Params p, float vel_on, float pos_on, bool last) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= p.cp) return;
-  sweep_contact(p, j, vel_on, pos_on, 0.f, 0.f, last);
+  sweep_contact(p, j, (int)cget(p, R_RANKA, j), (int)cget(p, R_RANKB, j), vel_on, pos_on, 0.f, 0.f, last);
 }
 
 // exp-map of a rotation vector (identity at 0), as the TPU epilogue's expq
@@ -346,7 +367,7 @@ __global__ void integrate_kernel(Params p) {
 #pragma unroll
   for (int r = 0; r < kZRows; ++r) own[r] = p.z[r * np + c];
   const float dt = p.dt;
-  const float q0[4] = {p.geom[19 * np + c], p.geom[20 * np + c], p.geom[21 * np + c], p.geom[22 * np + c]};
+  const float q0[4] = {p.quat0[c], p.quat0[np + c], p.quat0[2 * np + c], p.quat0[3 * np + c]};
   float e1[4], q1[4], e2[4], q2[4];
   expq(own[11] * dt, own[12] * dt, own[13] * dt, e1);
   qmul(e1, q0, q1);
@@ -354,12 +375,50 @@ __global__ void integrate_kernel(Params p) {
   expq(own[3] * dt, own[4] * dt, own[5] * dt, e2);
   qmul(e2, q1, q2);
   if (p.flags & FLAG_RENORM) qnorm(q2);
-  p.pq[0 * np + c] = p.geom[0 * np + c] + (own[0] + own[8]) * dt;
-  p.pq[1 * np + c] = p.geom[1 * np + c] + (own[1] + own[9]) * dt;
-  p.pq[2 * np + c] = p.geom[2 * np + c] + (own[2] + own[10]) * dt;
+  p.pq[0 * np + c] = p.pos0[0 * np + c] + (own[0] + own[8]) * dt;
+  p.pq[1 * np + c] = p.pos0[1 * np + c] + (own[1] + own[9]) * dt;
+  p.pq[2 * np + c] = p.pos0[2 * np + c] + (own[2] + own[10]) * dt;
 #pragma unroll
   for (int k = 0; k < 4; ++k) p.pq[(3 + k) * np + c] = q2[k];
   p.pq[7 * np + c] = 0.f;
+}
+
+// Endpoint rank of a window-local index (−1: none).
+__device__ __forceinline__ int win_rank(const int* bases, const int* loc, int tile, int j) {
+  const int l = loc[j];
+  return l >= 0 ? bases[j / tile] + l : -1;
+}
+
+// 2.6: the solve constants of contact j from its cin rows (point 0:3, normal
+// 3:6, depth, friction, restitution, activity, λ₀ 10:13, has_b) and its
+// endpoints' geometry: rows 0:45 (the fused solve's depth and rank rows are
+// not part of 2.6's output; 2.5 refuses the anchored flag that reads depth).
+__global__ void __launch_bounds__(kThreads) prep_consts_kernel(Params p, const int* bases, const int* la,
+                                                               const int* lb, const float* cin, int tile) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= p.cp) return;
+  const size_t cp = (size_t)p.cp;
+  float ci[14];
+#pragma unroll
+  for (int k = 0; k < 14; ++k) ci[k] = cin[(size_t)k * cp + j];
+  float ga[24], gb[24];
+  load_solve(p.geom, p.npad, win_rank(bases, la, tile, j), ga);
+  load_solve(p.geom, p.npad, win_rank(bases, lb, tile, j), gb);
+  float c[kPrepRows];
+  prep_consts_math(p, ga, gb, mk(ci[0], ci[1], ci[2]), mk(ci[3], ci[4], ci[5]), ci[6], ci[7], ci[8], ci[9], ci + 10,
+                   ci[13], c);
+#pragma unroll
+  for (int k = 0; k < kPrepRows; ++k) p.consts[(size_t)k * cp + j] = c[k];
+}
+
+// 2.5: one sweep over constants computed beforehand.
+__global__ void __launch_bounds__(kThreads) banded_sweep_kernel(Params p, const int* bases, const int* la,
+                                                                const int* lb, int tile, float vel_on, float pos_on,
+                                                                float warm_f, float degf) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= p.cp) return;
+  sweep_contact(p, j, win_rank(bases, la, tile, j), win_rank(bases, lb, tile, j), vel_on, pos_on, warm_f, degf,
+                false);
 }
 
 }  // namespace
@@ -381,6 +440,8 @@ extern "C" int bs_banded_solve(const float* table, const float* warm8, const flo
   p.lam = lam_out;
   p.consts = consts;
   p.pq = pq_out;
+  p.pos0 = geom;
+  p.quat0 = geom + 19 * (size_t)npad;
   p.cp = cp;
   p.npad = npad;
   p.baum_over_dt = baum_over_dt;
@@ -401,5 +462,63 @@ extern "C" int bs_banded_solve(const float* table, const float* warm8, const flo
                                                  s == n_sweeps - 1);
   }
   if (flags & FLAG_INTEGRATE) integrate_kernel<<<rgrid, kThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bs_prep_consts(const float* geom, const int* bases, const int* la, const int* lb, const float* cin,
+                              float* consts, int cp, int npad, int tile, float baum_over_dt, float slop,
+                              float relaxation, int flags, void* stream_ptr) {
+  if (cp < 1 || tile < 1 || cp % tile) return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.geom = geom;
+  p.consts = consts;
+  p.cp = cp;
+  p.npad = npad;
+  p.baum_over_dt = baum_over_dt;
+  p.slop = slop;
+  p.relaxation = relaxation;
+  p.flags = flags & FLAG_USE_SPLIT;
+  prep_consts_kernel<<<(cp + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream_ptr>>>(p, bases, la, lb,
+                                                                                                cin, tile);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bs_banded_sweeps(const float* z0, const int* bases, const int* la, const int* lb, const float* consts,
+                                const float* posq, float* z_out, float* lam_out, float* pq_out, float* zread, int cp,
+                                int npad, int tile, int n_sweeps, int vel_iters, int pos_iters, float dt, int flags,
+                                void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const bool integrate = flags & FLAG_INTEGRATE;
+  if (cp < 1 || tile < 1 || cp % tile || n_sweeps < 1 || (flags & FLAG_ANCHORED) ||
+      (integrate && (pq_out == nullptr || posq == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.z = z_out;
+  p.zread = zread;
+  p.lam = lam_out;
+  p.consts = const_cast<float*>(consts);  // read only: no sweep writes consts
+  p.pq = pq_out;
+  p.pos0 = posq;
+  p.quat0 = posq + 3 * (size_t)npad;
+  p.cp = cp;
+  p.npad = npad;
+  p.dt = dt;
+  p.flags = flags;
+  const size_t zbytes = sizeof(float) * kZRows * (size_t)npad;
+  cudaError_t err = cudaMemcpyAsync(z_out, z0, zbytes, cudaMemcpyDeviceToDevice, stream);
+  if (err == cudaSuccess) err = cudaMemcpyAsync(zread, z0, zbytes, cudaMemcpyDeviceToDevice, stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(lam_out, 0, sizeof(float) * 4 * (size_t)cp, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int cgrid = (cp + kThreads - 1) / kThreads;
+  // sweep 0: the degree scatter and, with warm start, λ: 0 → λ₀
+  banded_sweep_kernel<<<cgrid, kThreads, 0, stream>>>(p, bases, la, lb, tile, 0.f, 0.f, 1.0f, 1.0f);
+  for (int s = 1; s < n_sweeps; ++s) {
+    err = cudaMemcpyAsync(zread, z_out, zbytes, cudaMemcpyDeviceToDevice, stream);
+    if (err != cudaSuccess) return (int)err;
+    const int i = s - 1;
+    banded_sweep_kernel<<<cgrid, kThreads, 0, stream>>>(p, bases, la, lb, tile, i < vel_iters ? 1.0f : 0.0f,
+                                                        i < pos_iters ? 1.0f : 0.0f, 0.f, 0.f);
+  }
+  if (integrate) integrate_kernel<<<(npad + kThreads - 1) / kThreads, kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }

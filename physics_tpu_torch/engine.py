@@ -7,6 +7,7 @@ the device.
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Tuple
 
 import torch
@@ -22,7 +23,9 @@ from physics_tpu_torch.solver.contacts import (
     anchored_path,
     contact_capacity,
     fused_integration,
+    hull_table_path,
     resolve_contacts,
+    table_path,
 )
 from physics_tpu_torch.state import SimState
 
@@ -64,15 +67,25 @@ def step(state: SimState, cfg: SimConfig) -> SimState:
 
 
 def prepare_contacts(state: SimState, cfg: SimConfig) -> SimState:
-    """Allocate the warm-start buffers (and, for contact_rebuild > 1, the
-    persisted table, rank order, overflow counters and reference poses)
-    that the table path carries across steps. The JAX package's z_bf16
-    guard is not needed: the port moves z in f32."""
+    """Allocate the warm-start buffers (and, for contact_rebuild > 1 on an
+    anchored path, the persisted table, rank order, overflow counters and
+    reference poses) that the contact paths carry across steps: [2, c]
+    component-form keys on the table paths, [c] packed keys on the
+    generic path. The JAX package's z_bf16 guard is not needed: the port
+    moves z in f32."""
     c = contact_capacity(state, cfg)
     dev = state.device
     n = state.num_bodies
+    table = table_path(state, cfg) or hull_table_path(state, cfg)
     extra = {}
-    if cfg.contact_rebuild > 1 and anchored_path(state, cfg):
+    if cfg.contact_rebuild > 1 and not anchored_path(state, cfg):
+        warnings.warn(
+            "cfg.contact_rebuild > 1 has no effect here (needs an "
+            "unsharded contact-table path — box or hull — with fuse_prep on "
+            "the bucketed sweep broad phase; see "
+            "solver.contacts.anchored_path) — rebuilding contacts every "
+            "step", stacklevel=2)
+    elif cfg.contact_rebuild > 1:
         extra = dict(
             contact_table=torch.zeros((CT2_ROWS, c), dtype=torch.float32,
                                       device=dev),
@@ -81,7 +94,8 @@ def prepare_contacts(state: SimState, cfg: SimConfig) -> SimState:
             contact_ref=torch.cat([state.pos, state.quat], dim=1),
         )
     return state.replace(
-        contact_key=torch.zeros((2, c), dtype=torch.int32, device=dev),
+        contact_key=torch.zeros((2, c) if table else (c,),
+                                dtype=torch.int32, device=dev),
         contact_lam=torch.zeros((3, c), dtype=torch.float32, device=dev),
         **extra,
     )

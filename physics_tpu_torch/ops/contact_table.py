@@ -90,9 +90,11 @@ def geom_pad(n: int, cfg: SimConfig) -> Tuple[int, int]:
 
 
 def unified_geom(state: SimState, cfg: SimConfig, order: Tensor,
-                 hulls: bool = False) -> Tensor:
+                 hulls: bool = False, npad: int | None = None) -> Tensor:
     """The rank-space geometry table [48, NPAD] shared by the contact
-    table and the solve:
+    table and the solve (NPAD from geom_pad unless `npad` is given: the
+    generic banded path sizes it to its solve window, and its pair
+    manifolds read the narrow-phase block):
 
       rows  0:24  solve block: pos | world I⁻¹ row-major | inv_mass | vel |
                   omega | quat (19:23) | 0
@@ -106,7 +108,8 @@ def unified_geom(state: SimState, cfg: SimConfig, order: Tensor,
     pos + R·(local-AABB centre), then 0.
     Column r is the body of sweep rank r; columns ≥ N are zero."""
     n = state.num_bodies
-    _, npad = geom_pad(n, cfg)
+    if npad is None:
+        _, npad = geom_pad(n, cfg)
     movable = (state.inv_mass > 0.0).to(torch.float32)
     r9 = v3.quat_to_mat(state.quat)
     iw9 = v3.sandwich(r9, v3.mat_unpack(state.inv_inertia))

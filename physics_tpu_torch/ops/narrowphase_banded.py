@@ -1,0 +1,200 @@
+"""Banded box-box pair manifolds: CUDA kernel and its plain PyTorch version
+(physics_tpu/ops/narrowphase_pallas.py `pair_manifolds_banded`).
+
+The bucketed sweep's candidate lanes are cut into tiles of `tile` lanes;
+tile t reads the bodies of ranks [base_t, base_t + pallas_window) of the
+rank-space body table. Bases are static: tile t covers whole buckets of
+`bucket_block` ranks, whose candidates reach at most `sweep_window` ranks
+further, so a span wider than the window is a configuration error, raised
+here before anything runs, never a silent drop. A lane whose endpoint
+falls outside its window reads as empty (−1).
+
+For each lane the kernel computes the 15-axis box-box manifold and writes
+its kk deepest valid points. Output rows [5·kk + 7, Pp]: for each pick
+s < kk, rows 5s:5s+5 = point xyz, depth (0 when inactive), source
+manifold slot; then normal xyz (B → A), friction √(μa·μb), restitution
+max, and the two body ids. The TPU kernel's zero rows up to a multiple
+of 8 (sublane alignment) are not written: nothing reads them. An empty lane
+reads two all-zero bodies, whose movable 0 leaves every slot inactive.
+
+Replaces the TPU kernel `pair_manifolds_banded` (physics_tpu/ops/
+narrowphase_pallas.py:128, body `_make_np_kernel` :59-125), which
+gathered each lane's bodies with one-hot matmuls through hi/lo bf16
+splits (about 2⁻¹⁷ of each value); here they are exact loads, so f32 rows
+differ from the TPU kernel's by that split's rounding, and the integer
+rows (slots, ids) agree.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from physics_tpu_torch.config import SimConfig
+from physics_tpu_torch.ops.boxbox_batched import (
+    _CAP,
+    _argmax_unrolled,
+    _select,
+    box_box_manifold_batched,
+)
+from physics_tpu_torch.ops.broadphase import PairCandidates, bucket_shape
+from physics_tpu_torch.ops.contact_table import _round_up
+from physics_tpu_torch.state import SimState
+
+Tensor = torch.Tensor
+
+# endpoint body ids ride the kernel's rows exactly below this count (the
+# TPU kernel's hi/lo bf16 split carried them exactly up to 2¹⁶)
+NP_ID_EXACT_MAX = 1 << 16
+_BIG_NEG = -1e30
+
+
+def np_shape(n: int, p0: int, cfg: SimConfig) -> Tuple[int, int, int]:
+    """(kk, tile, pp) for p0 candidate lanes over n bodies."""
+    kk = min(cfg.max_contacts_per_pair, _CAP)
+    tile = min(cfg.pallas_tile, max(_round_up(p0, 128), 128))
+    return kk, tile, _round_up(p0, tile)
+
+
+def body_table_width(n: int, cfg: SimConfig) -> int:
+    """NPAD of the rank-space body table the kernel reads."""
+    wtot = cfg.pallas_window
+    return _round_up(max(n + wtot, wtot), 128)
+
+
+@functools.lru_cache(maxsize=32)
+def _static_bases(n: int, p0: int, cfg: SimConfig,
+                  device: torch.device) -> Tensor:
+    """Window start of each tile: tile t covers candidate lanes
+    [t·tile, (t+1)·tile), i.e. buckets [t·tile/cap, ((t+1)·tile − 1)/cap],
+    whose ranks span [lo·block, hi·block + block − 1 + sweep_window].
+    Cached per shape: every caller shares the one (read-only) tensor, so
+    the host copies it to the device once."""
+    _, tile, pp = np_shape(n, p0, cfg)
+    wtot = cfg.pallas_window
+    npad = body_table_width(n, cfg)
+    block, cap, _ = bucket_shape(n, cfg)
+    k_sweep = min(cfg.sweep_window, n - 1)
+    t = np.arange(pp // tile)
+    lo_blk = (t * tile) // cap
+    hi_blk = ((t + 1) * tile - 1) // cap
+    max_rank = np.minimum(hi_blk * block + block - 1 + k_sweep, n - 1)
+    bases = np.clip((lo_blk * block // 128) * 128, 0, npad - wtot)
+    span = int((max_rank - bases).max()) + 1
+    if span > wtot:
+        raise ValueError(
+            f"banded narrow phase: bucketed tile rank span {span} > "
+            f"pallas_window {wtot}; raise pallas_window or lower "
+            f"bucket_block/pallas_tile")
+    return torch.as_tensor(bases.astype(np.int32), device=device)
+
+
+def pair_operands(state: SimState, cand: PairCandidates, cfg: SimConfig,
+                  geom: Tensor):
+    """(bases [Pp / tile] int32, la, lb [Pp] int32 window-local endpoint
+    ranks, −1 for empty or out-of-band lanes, tile, kk)."""
+    n = state.num_bodies
+    p0 = cand.body_a.shape[0]
+    kk, tile, pp = np_shape(n, p0, cfg)
+    npad = body_table_width(n, cfg)
+    if geom.shape != (48, npad):
+        raise ValueError(f"banded narrow phase: pass the rank-space "
+                         f"geometry table [48, {npad}] (unified_geom)")
+    bases = _static_bases(n, p0, cfg, geom.device)
+    wtot = cfg.pallas_window
+    base = bases.repeat_interleave(tile)
+    pad = (0, pp - p0)
+    mask = torch.nn.functional.pad(cand.mask, pad)
+    la = torch.nn.functional.pad(cand.rank_a, pad) - base
+    lb = torch.nn.functional.pad(cand.rank_b, pad) - base
+    ok = mask & (la >= 0) & (la < wtot) & (lb >= 0) & (lb < wtot)
+    la = torch.where(ok, la, -1).to(torch.int32)
+    lb = torch.where(ok, lb, -1).to(torch.int32)
+    return bases, la, lb, tile, kk
+
+
+def pair_manifolds_banded_plain(geom: Tensor, bases: Tensor, la: Tensor,
+                                lb: Tensor, *, tile: int, kk: int) -> Tensor:
+    """Plain version of the kernel, all lanes at once: rows [R, Pp]."""
+    base = bases.to(torch.int64).repeat_interleave(tile)
+
+    def lanes(loc):
+        rank = base + torch.clamp(loc.to(torch.int64), min=0)
+        g = geom[24:48, rank]
+        return torch.where((loc >= 0)[None], g, torch.zeros_like(g))
+
+    ga, gb = lanes(la), lanes(lb)
+    man = box_box_manifold_batched(
+        (ga[0], ga[1], ga[2]), tuple(ga[3 + k] for k in range(9)),
+        (ga[12], ga[13], ga[14]),
+        (gb[0], gb[1], gb[2]), tuple(gb[3 + k] for k in range(9)),
+        (gb[12], gb[13], gb[14]))
+    movable = (ga[17] > 0.0) | (gb[17] > 0.0)
+    big_neg = torch.full_like(ga[0], _BIG_NEG)
+    score = [torch.where(man.valid[s] & movable, man.depth[s], big_neg)
+             for s in range(_CAP)]
+    rows = []
+    for _ in range(kk):
+        best, bidx = _argmax_unrolled(score)
+        pt = _select(bidx, man.points)
+        rows += [pt[0], pt[1], pt[2],
+                 torch.where(best > 0.0, best, torch.zeros_like(best)),
+                 bidx.to(torch.float32)]
+        score = [torch.where(bidx == s, big_neg, score[s])
+                 for s in range(_CAP)]
+    rows += [man.normal[0], man.normal[1], man.normal[2],
+             torch.sqrt(ga[15] * gb[15]), torch.maximum(ga[16], gb[16]),
+             ga[18], gb[18]]
+    return torch.stack(rows)
+
+
+def _launch_kernel(geom, bases, la, lb, *, tile, kk):
+    from physics_tpu_torch import _build
+
+    dev = geom.device
+    pp = la.shape[0]
+    npad = geom.shape[1]
+    _build.check_operands("banded narrow phase", dev,
+                          ("geom", geom, torch.float32, (48, npad)),
+                          ("bases", bases, torch.int32, (pp // tile,)),
+                          ("la", la, torch.int32, (pp,)),
+                          ("lb", lb, torch.int32, (pp,)))
+    out = torch.empty((5 * kk + 7, pp), dtype=torch.float32, device=dev)
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        err = _build.library().np_pair_manifolds(
+            ptr(geom.data_ptr()), ptr(bases.data_ptr()), ptr(la.data_ptr()),
+            ptr(lb.data_ptr()), ptr(out.data_ptr()), pp, tile, npad, kk,
+            ptr(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, "np_pair_manifolds")
+    pair_manifolds_banded.launches += 1
+    return out
+
+
+def pair_manifolds_banded(state: SimState, cand: PairCandidates,
+                          cfg: SimConfig, geom: Tensor,
+                          plain: bool = False) -> Tuple[Tensor, int, int]:
+    """The manifold rows of every candidate lane. Returns (rows [R, Pp],
+    Pp, kk), the lane axis padded to the tile.
+
+    `geom` is the rank-space geometry table [48, NPAD] of the step's sweep
+    order (unified_geom at body_table_width): its narrow-phase block
+    (rows 24:48) is the body table. A CPU tensor (or `plain=True`) runs
+    the plain version; a CUDA tensor launches csrc/narrowphase_banded.cu."""
+    bases, la, lb, tile, kk = pair_operands(state, cand, cfg, geom)
+    if plain or geom.device.type == "cpu":
+        rows = pair_manifolds_banded_plain(geom, bases, la, lb, tile=tile,
+                                           kk=kk)
+    elif geom.device.type == "cuda":
+        rows = _launch_kernel(geom, bases, la, lb, tile=tile, kk=kk)
+    else:
+        raise ValueError(
+            f"banded narrow phase: unsupported device {geom.device}")
+    return rows, la.shape[0], kk
+
+
+pair_manifolds_banded.launches = 0

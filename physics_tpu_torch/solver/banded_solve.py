@@ -1,16 +1,22 @@
-"""Banded contact solve over the bucket-aligned contact table: CUDA kernel
-and its plain PyTorch version (counterpart of physics_tpu/solver/
-contacts_pallas.py: `_prep_consts_math`, `banded_sweeps_fused`,
-`solve_impulses_table` (fused branch) and `_table_solve_outputs`).
+"""Banded contact solves: three CUDA kernels and their plain PyTorch
+versions (counterpart of physics_tpu/solver/contacts_pallas.py:
+`_prep_consts_math`, `banded_sweeps_fused`, `prep_consts`,
+`banded_sweeps`, `solve_shape`, `padded_contact_count`,
+`solve_impulses_banded`, `solve_impulses_table` and
+`_table_solve_outputs`).
 
 Projected Jacobi with split impulses on a packed velocity table
 z [16, NPAD] in sweep-rank order (rows 0:3 v, 3:6 ω, 8:11 pseudo v, 11:14
-pseudo ω, 14 contact degree). Sweep 0 builds each contact's constants
-from the table and the geometry (re-deriving point, normal and depth from
-the body-frame anchors on anchored paths), scatters the endpoint degrees
-and applies the warm-start impulses; sweeps 1..S each read a snapshot of
-z and add every contact's impulse deltas, relaxed by 1/degree and
+pseudo ω, 14 contact degree). Sweep 0 scatters the endpoint degrees and
+applies the warm-start impulses; sweeps 1..S each read a snapshot of z
+and add every contact's impulse deltas, relaxed by 1/degree and
 Coulomb-clamped; the epilogue integrates pos/quat from the final z.
+The fused solve (kernel 2.3) builds each contact's constants in its
+sweep 0 from the contact table and the geometry (re-deriving point,
+normal and depth from the body-frame anchors on anchored paths); the
+unfused one computes them first (prep_consts, 2.6) and sweeps over them
+(banded_sweeps, 2.5), for the generic banded path and the table path
+with fuse_prep off.
 
 The TPU kernel moved z through one-hot matmuls with hi/lo bf16 splits
 (about 2⁻¹⁷ relative per read); here every read is an exact f32 gather,
@@ -21,19 +27,28 @@ an order that is not the TPU's — so results agree to a tolerance.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import vec3c as v3
 from physics_tpu_torch.ops.contact_table import (
+    BLOCK,
     CT_ACT,
     CT_D,
+    CT_MU,
+    CT_N,
+    CT_PT,
+    CT_RA,
+    CT_RB1,
+    CT_REST,
+    _round_up,
     geom_pad,
     table_keys,
     table_shape,
 )
+from physics_tpu_torch.ops.narrowphase_banded import body_table_width
 from physics_tpu_torch.state import SimState
 
 Tensor = torch.Tensor
@@ -43,7 +58,9 @@ _R_RA, _R_RB, _R_N, _R_T1, _R_T2 = 0, 3, 6, 9, 12
 _R_IKN, _R_IKT1, _R_IKT2, _R_VTGT, _R_BIAS = 15, 16, 17, 18, 19
 _R_FRIC, _R_RELAX, _R_IMA, _R_IMB, _R_IWA, _R_IWB = 20, 21, 22, 23, 24, 33
 _R_LAM0 = 42
-R_CONST = 48
+R_PREP = 45      # rows the constants math fills (the unfused solve's consts)
+R_CONST = 48     # + depth and endpoint ranks in the fused solve's scratch
+CIN_ROWS = 14
 Z_ROWS = 16
 
 
@@ -129,14 +146,114 @@ def _qnorm(a):
     return (w * inv, x * inv, y * inv, z * inv)
 
 
+def _sweep_loop(z, cs, rank_a, rank_b, *, n_sweeps, vel_iters, pos_iters,
+                warm):
+    """The Jacobi sweeps of both solves on z [16, NPAD] (updated in place)
+    over the constant rows cs (R_* layout; rows 42:45 = λ₀) of contacts
+    with endpoint ranks rank_a/rank_b (−1: none). Sweep 0 scatters the
+    contact degrees (and, with `warm`, applies λ: 0 → λ₀); sweep s ≥ 1 is
+    velocity sweep s−1 while s−1 < vel_iters and position sweep while
+    s−1 < pos_iters. Returns the final [λn, λt1, λt2, λb]."""
+    r_a = (cs[0], cs[1], cs[2])
+    r_b = (cs[3], cs[4], cs[5])
+    nrm = (cs[6], cs[7], cs[8])
+    t1 = (cs[9], cs[10], cs[11])
+    t2 = (cs[12], cs[13], cs[14])
+    inv_k_n, inv_k_t1, inv_k_t2 = cs[_R_IKN], cs[_R_IKT1], cs[_R_IKT2]
+    v_target, bias = cs[_R_VTGT], cs[_R_BIAS]
+    friction, relax0 = cs[_R_FRIC], cs[_R_RELAX]
+    inv_m_a, inv_m_b = cs[_R_IMA], cs[_R_IMB]
+    iw_a = tuple(cs[_R_IWA:_R_IWA + 9])
+    iw_b = tuple(cs[_R_IWB:_R_IWB + 9])
+    lam0 = cs[_R_LAM0:_R_LAM0 + 3]
+
+    zero = torch.zeros_like(cs[0])
+    lam = [zero] * 4
+    ok_a, ok_b = rank_a >= 0, rank_b >= 0
+    idx_a, idx_b = rank_a[ok_a], rank_b[ok_b]
+
+    for s in range(n_sweeps):
+        snap = z.clone()
+        za = _gather(snap, rank_a)
+        zb = _gather(snap, rank_b)
+        i = s - 1
+        vel_on = 1.0 if 0 <= i < vel_iters else 0.0
+        pos_on = 1.0 if 0 <= i < pos_iters else 0.0
+        relax = relax0 / torch.clamp(torch.maximum(za[14], zb[14]), min=1.0)
+
+        def rel_vel(base):
+            va = v3.add((za[base], za[base + 1], za[base + 2]),
+                        v3.cross((za[base + 3], za[base + 4], za[base + 5]),
+                                 r_a))
+            vb = v3.add((zb[base], zb[base + 1], zb[base + 2]),
+                        v3.cross((zb[base + 3], zb[base + 4], zb[base + 5]),
+                                 r_b))
+            return v3.sub(va, vb)
+
+        lam_n, lam_t1, lam_t2, lam_b = lam
+        v = rel_vel(0)
+        v_n = v3.dot(nrm, v)
+        d_lam = (v_target - v_n) * inv_k_n * relax * vel_on
+        lam_n_new = torch.clamp(lam_n + d_lam, min=0.0)
+        lim = friction * lam_n_new
+        v_t1 = v3.dot(t1, v)
+        lam_t1_new = torch.minimum(torch.maximum(
+            lam_t1 - v_t1 * inv_k_t1 * relax * vel_on, -lim), lim)
+        v_t2 = v3.dot(t2, v)
+        lam_t2_new = torch.minimum(torch.maximum(
+            lam_t2 - v_t2 * inv_k_t2 * relax * vel_on, -lim), lim)
+        pv_n = v3.dot(nrm, rel_vel(8))
+        d_lam_b = (bias - pv_n) * inv_k_n * relax * pos_on
+        lam_b_new = torch.clamp(lam_b + d_lam_b, min=0.0)
+        if warm:
+            wf = 1.0 if s == 0 else 0.0
+            nf = 1.0 - wf
+            lam_n_new = wf * lam0[0] + nf * lam_n_new
+            lam_t1_new = wf * lam0[1] + nf * lam_t1_new
+            lam_t2_new = wf * lam0[2] + nf * lam_t2_new
+            lam_b_new = nf * lam_b_new
+        imp = v3.add(v3.add(v3.scale(nrm, lam_n_new - lam_n),
+                            v3.scale(t1, lam_t1_new - lam_t1)),
+                     v3.scale(t2, lam_t2_new - lam_t2))
+        pimp = v3.scale(nrm, lam_b_new - lam_b)
+        deg = torch.full_like(zero, 1.0 if s == 0 else 0.0)
+
+        def contrib(inv_m, iw, r, sign):
+            dv = v3.scale(imp, sign * inv_m)
+            dw = v3.scale(v3.mat_vec(iw, v3.cross(r, imp)), sign)
+            pdv = v3.scale(pimp, sign * inv_m)
+            pdw = v3.scale(v3.mat_vec(iw, v3.cross(r, pimp)), sign)
+            return torch.stack([*dv, *dw, zero, zero, *pdv, *pdw, deg, zero])
+
+        ca = contrib(inv_m_a, iw_a, r_a, 1.0)
+        cb = contrib(inv_m_b, iw_b, r_b, -1.0)
+        z.index_add_(1, idx_a, ca[:, ok_a])
+        z.index_add_(1, idx_b, cb[:, ok_b])
+        lam = [lam_n_new, lam_t1_new, lam_t2_new, lam_b_new]
+    return lam
+
+
+def _integrate_plain(z, pos0, quat0, dt, renorm):
+    """pos/quat of every rank from the final z: pos += (v + pv)·dt,
+    q ← exp(ω dt) ∘ normalize(exp(pω dt) ∘ q). pos0 [3, NPAD], quat0
+    [4, NPAD] (w, x, y, z). Returns posq [8, NPAD]."""
+    q0 = (quat0[0], quat0[1], quat0[2], quat0[3])
+    q1 = _qnorm(_qmul(_expq(z[11] * dt, z[12] * dt, z[13] * dt), q0))
+    q2 = _qmul(_expq(z[3] * dt, z[4] * dt, z[5] * dt), q1)
+    if renorm:
+        q2 = _qnorm(q2)
+    return torch.stack([pos0[0] + (z[0] + z[8]) * dt,
+                        pos0[1] + (z[1] + z[9]) * dt,
+                        pos0[2] + (z[2] + z[10]) * dt,
+                        *q2, torch.zeros_like(pos0[0])])
+
+
 def banded_sweeps_fused_plain(table, warm8, geom, *, vel_iters, pos_iters,
                               use_split, anchored, integrate,
                               baum_over_dt, slop, relaxation):
-    """Plain version of the solve kernel, all contacts at once. Returns
-    (z [16, NPAD], lam4 [4, Cp], posq [8, NPAD] | None); lam4 row 3 is the
-    refreshed depth·activity on anchored paths, λ_b otherwise."""
-    dev = geom.device
-    npad = geom.shape[1]
+    """Plain version of the fused solve kernel, all contacts at once.
+    Returns (z [16, NPAD], lam4 [4, Cp], posq [8, NPAD] | None); lam4 row
+    3 is the refreshed depth·activity on anchored paths, λ_b otherwise."""
     f32 = torch.float32
     tb = table
     actf = tb[CT_ACT]
@@ -175,104 +292,19 @@ def banded_sweeps_fused_plain(table, warm8, geom, *, vel_iters, pos_iters,
         (has_b & (actf_t > 0.0)).to(f32),
         baum_over_dt=baum_over_dt, slop=slop, relaxation=relaxation,
         use_split=use_split)
-    r_a = (cs[0], cs[1], cs[2])
-    r_b = (cs[3], cs[4], cs[5])
-    nrm = (cs[6], cs[7], cs[8])
-    t1 = (cs[9], cs[10], cs[11])
-    t2 = (cs[12], cs[13], cs[14])
-    inv_k_n, inv_k_t1, inv_k_t2 = cs[_R_IKN], cs[_R_IKT1], cs[_R_IKT2]
-    v_target, bias = cs[_R_VTGT], cs[_R_BIAS]
-    friction, relax0 = cs[_R_FRIC], cs[_R_RELAX]
-    inv_m_a, inv_m_b = cs[_R_IMA], cs[_R_IMB]
-    iw_a = tuple(cs[_R_IWA:_R_IWA + 9])
-    iw_b = tuple(cs[_R_IWB:_R_IWB + 9])
-    lam0 = cs[_R_LAM0:_R_LAM0 + 3]
 
-    z = torch.zeros((Z_ROWS, npad), dtype=f32, device=dev)
+    z = torch.zeros((Z_ROWS, geom.shape[1]), dtype=f32, device=geom.device)
     z[0:6] = geom[13:19]
-    cp = tb.shape[1]
-    lam = [torch.zeros((cp,), dtype=f32, device=dev) for _ in range(4)]
-    ok_a, ok_b = rank_a >= 0, rank_b >= 0
-    idx_a, idx_b = rank_a[ok_a], rank_b[ok_b]
-    n_sweeps = max(vel_iters, pos_iters) + 1
-    zero = torch.zeros((cp,), dtype=f32, device=dev)
-
-    for s in range(n_sweeps):
-        snap = z.clone()
-        za = _gather(snap, rank_a)
-        zb = _gather(snap, rank_b)
-        i = s - 1
-        vel_on = 1.0 if 0 <= i < vel_iters else 0.0
-        pos_on = 1.0 if 0 <= i < pos_iters else 0.0
-        relax = relax0 / torch.clamp(torch.maximum(za[14], zb[14]), min=1.0)
-
-        def rel_vel(base):
-            va = v3.add((za[base], za[base + 1], za[base + 2]),
-                        v3.cross((za[base + 3], za[base + 4], za[base + 5]),
-                                 r_a))
-            vb = v3.add((zb[base], zb[base + 1], zb[base + 2]),
-                        v3.cross((zb[base + 3], zb[base + 4], zb[base + 5]),
-                                 r_b))
-            return v3.sub(va, vb)
-
-        lam_n, lam_t1, lam_t2, lam_b = lam
-        v = rel_vel(0)
-        v_n = v3.dot(nrm, v)
-        d_lam = (v_target - v_n) * inv_k_n * relax * vel_on
-        lam_n_new = torch.clamp(lam_n + d_lam, min=0.0)
-        lim = friction * lam_n_new
-        v_t1 = v3.dot(t1, v)
-        lam_t1_new = torch.minimum(torch.maximum(
-            lam_t1 - v_t1 * inv_k_t1 * relax * vel_on, -lim), lim)
-        v_t2 = v3.dot(t2, v)
-        lam_t2_new = torch.minimum(torch.maximum(
-            lam_t2 - v_t2 * inv_k_t2 * relax * vel_on, -lim), lim)
-        pv_n = v3.dot(nrm, rel_vel(8))
-        d_lam_b = (bias - pv_n) * inv_k_n * relax * pos_on
-        lam_b_new = torch.clamp(lam_b + d_lam_b, min=0.0)
-        if use_split:
-            wf = 1.0 if s == 0 else 0.0
-            nf = 1.0 - wf
-            lam_n_new = wf * lam0[0] + nf * lam_n_new
-            lam_t1_new = wf * lam0[1] + nf * lam_t1_new
-            lam_t2_new = wf * lam0[2] + nf * lam_t2_new
-            lam_b_new = nf * lam_b_new
-        imp = v3.add(v3.add(v3.scale(nrm, lam_n_new - lam_n),
-                            v3.scale(t1, lam_t1_new - lam_t1)),
-                     v3.scale(t2, lam_t2_new - lam_t2))
-        pimp = v3.scale(nrm, lam_b_new - lam_b)
-        deg = torch.full_like(zero, 1.0 if s == 0 else 0.0)
-
-        def contrib(inv_m, iw, r, sign):
-            dv = v3.scale(imp, sign * inv_m)
-            dw = v3.scale(v3.mat_vec(iw, v3.cross(r, imp)), sign)
-            pdv = v3.scale(pimp, sign * inv_m)
-            pdw = v3.scale(v3.mat_vec(iw, v3.cross(r, pimp)), sign)
-            return torch.stack([*dv, *dw, zero, zero, *pdv, *pdw, deg, zero])
-
-        ca = contrib(inv_m_a, iw_a, r_a, 1.0)
-        cb = contrib(inv_m_b, iw_b, r_b, -1.0)
-        z.index_add_(1, idx_a, ca[:, ok_a])
-        z.index_add_(1, idx_b, cb[:, ok_b])
-        lam = [lam_n_new, lam_t1_new, lam_t2_new, lam_b_new]
-
+    lam = _sweep_loop(z, cs, rank_a, rank_b,
+                      n_sweeps=max(vel_iters, pos_iters) + 1,
+                      vel_iters=vel_iters, pos_iters=pos_iters,
+                      warm=use_split)
     if anchored:
         lam[3] = d_t * actf_t
-    lam4 = torch.stack(lam)
-
     pq = None
     if integrate is not None:
-        dt, renorm = integrate
-        q0 = (geom[19], geom[20], geom[21], geom[22])
-        q1 = _qnorm(_qmul(_expq(z[11] * dt, z[12] * dt, z[13] * dt), q0))
-        q2 = _qmul(_expq(z[3] * dt, z[4] * dt, z[5] * dt), q1)
-        if renorm:
-            q2 = _qnorm(q2)
-        pq = torch.stack([geom[0] + (z[0] + z[8]) * dt,
-                          geom[1] + (z[1] + z[9]) * dt,
-                          geom[2] + (z[2] + z[10]) * dt,
-                          *q2, torch.zeros_like(geom[0])])
-    return z, lam4, pq
+        pq = _integrate_plain(z, geom[0:3], geom[19:23], *integrate)
+    return z, torch.stack(lam), pq
 
 
 def banded_sweeps_fused(table: Tensor, warm8: Tensor, geom: Tensor,
@@ -312,13 +344,10 @@ def _launch_kernel(table, warm8, geom, *, vel_iters, pos_iters, use_split,
     trows, cp = table.shape
     npad = geom.shape[1]
     need_rows = 25 if anchored else 16
-    for name, t, shape in (("table", table, (trows, cp)),
-                           ("warm8", warm8, (8, cp)),
-                           ("geom", geom, (48, npad))):
-        if (t.device != dev or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(f"banded solve: {name} must be a contiguous "
-                             f"f32 {list(shape)} tensor on {dev}")
+    _build.check_operands("banded solve", dev,
+                          ("table", table, torch.float32, (trows, cp)),
+                          ("warm8", warm8, torch.float32, (8, cp)),
+                          ("geom", geom, torch.float32, (48, npad)))
     if trows < need_rows:
         raise ValueError(f"banded solve: table [{trows}, {cp}] too small")
     n_sweeps = max(vel_iters, pos_iters) + 1
@@ -352,55 +381,428 @@ def _launch_kernel(table, warm8, geom, *, vel_iters, pos_iters, use_split,
     return z, lam4, pq
 
 
+# ---------------------------------------------------------------------------
+# the unfused solve: prep_consts (2.6), then banded_sweeps (2.5)
+# ---------------------------------------------------------------------------
+
+def _win_rank(bases: Tensor, loc: Tensor, tile: int) -> Tensor:
+    """Rank of each contact's window-local index loc [Cp] (−1: none):
+    the base of its tile of `tile` contacts plus loc."""
+    base = bases.to(torch.int64).repeat_interleave(tile)
+    return torch.where(loc >= 0, base + loc.to(torch.int64), -1)
+
+
+def _cin(point, normal, depth, friction, restitution, actf, lam0, has_bf):
+    """The contact rows prep_consts reads, cin [CIN_ROWS, Cp]: point 0:3,
+    normal 3:6, depth, friction, restitution, activity, λ₀ 10:13, has_b."""
+    return torch.stack([*point, *normal, depth, friction, restitution, actf,
+                        *lam0, has_bf])
+
+
+def prep_consts_plain(geom, bases, la, lb, cin, *, tile, baum_over_dt, slop,
+                      relaxation, use_split):
+    """Plain version of the constants kernel: cin [CIN_ROWS, Cp] (see
+    _cin) → consts [R_PREP, Cp]."""
+    ga = _gather(geom[0:24], _win_rank(bases, la, tile))
+    gb = _gather(geom[0:24], _win_rank(bases, lb, tile))
+    cs = _prep_consts_math(
+        ga, gb, (cin[0], cin[1], cin[2]), (cin[3], cin[4], cin[5]), cin[6],
+        cin[7], cin[8], cin[9], (cin[10], cin[11], cin[12]), cin[13],
+        baum_over_dt=baum_over_dt, slop=slop, relaxation=relaxation,
+        use_split=use_split)
+    return torch.stack(cs)
+
+
+def prep_consts(geom: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
+                cin: Tensor, cfg: SimConfig, *, tile: int, use_split: bool,
+                plain: bool = False) -> Tensor:
+    """The per-contact solve constants [R_PREP, Cp] of the unfused solves.
+    The TPU kernel's rows 45:48 (zero there, and read by no sweep) are not
+    written.
+
+    geom [48, NPAD] rank-space geometry table (solve rows 0:24 read);
+    bases [Cp / tile] int32 window starts; la/lb [Cp] int32 window-local
+    endpoint ranks (−1: none); cin [CIN_ROWS, Cp] contact rows (see
+    _cin). A CPU tensor (or `plain=True`) runs the plain
+    version; a CUDA tensor launches csrc/banded_solve.cu bs_prep_consts."""
+    kw = dict(tile=tile, baum_over_dt=cfg.baumgarte / cfg.dt,
+              slop=cfg.penetration_slop, relaxation=cfg.contact_relaxation,
+              use_split=use_split)
+    if plain or geom.device.type == "cpu":
+        return prep_consts_plain(geom, bases, la, lb, cin, **kw)
+    if geom.device.type != "cuda":
+        raise ValueError(f"prep consts: unsupported device {geom.device}")
+    from physics_tpu_torch import _build
+
+    dev = geom.device
+    cp = la.shape[0]
+    npad = geom.shape[1]
+    if cp % tile:
+        raise ValueError(f"prep consts: {cp} contacts, tile {tile}")
+    _build.check_operands("prep consts", dev,
+                    ("geom", geom, torch.float32, (48, npad)),
+                    ("bases", bases, torch.int32, (cp // tile,)),
+                    ("la", la, torch.int32, (cp,)),
+                    ("lb", lb, torch.int32, (cp,)),
+                    ("cin", cin, torch.float32, (CIN_ROWS, cp)))
+    consts = torch.empty((R_PREP, cp), dtype=torch.float32, device=dev)
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        err = _build.library().bs_prep_consts(
+            ptr(geom.data_ptr()), ptr(bases.data_ptr()), ptr(la.data_ptr()),
+            ptr(lb.data_ptr()), ptr(cin.data_ptr()), ptr(consts.data_ptr()),
+            cp, npad, tile, ctypes.c_float(kw["baum_over_dt"]),
+            ctypes.c_float(kw["slop"]), ctypes.c_float(kw["relaxation"]),
+            _build.FLAG_USE_SPLIT if use_split else 0,
+            ptr(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, "bs_prep_consts")
+    prep_consts.launches += 1
+    return consts
+
+
+prep_consts.launches = 0
+
+
+def banded_sweeps_plain(z0, bases, la, lb, consts, *, tile, vel_iters,
+                        pos_iters, warm_sweep, posq, integrate):
+    """Plain version of the sweep kernel. Returns (z [16, NPAD],
+    lam4 [4, Cp], posq [8, NPAD] | None)."""
+    z = z0.clone()
+    lam = _sweep_loop(z, consts, _win_rank(bases, la, tile),
+                      _win_rank(bases, lb, tile),
+                      n_sweeps=max(vel_iters, pos_iters) + 1,
+                      vel_iters=vel_iters, pos_iters=pos_iters,
+                      warm=warm_sweep)
+    pq = None
+    if integrate is not None:
+        pq = _integrate_plain(z, posq[0:3], posq[3:7], *integrate)
+    return z, torch.stack(lam), pq
+
+
+def banded_sweeps(z0: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
+                  consts: Tensor, *, tile: int, vel_iters: int,
+                  pos_iters: int, warm_sweep: bool,
+                  posq: Tensor | None = None,
+                  integrate: Tuple[float, bool] | None = None,
+                  plain: bool = False):
+    """The Jacobi sweep loop over precomputed constants: z0 [16, NPAD]
+    packed rank-space velocities, bases/la/lb as for prep_consts, consts
+    [R_PREP, Cp]. max(vel_iters, pos_iters) + 1 sweeps, sweep 0 the degree
+    (and, with warm_sweep, warm-start) pre-pass. posq [8, NPAD] (pos xyz,
+    quat wxyz) with integrate=(dt, renormalize) adds the integration
+    epilogue. Returns (z, lam4 [4, Cp], posq out | None).
+
+    A CPU tensor (or `plain=True`) runs the plain version; a CUDA tensor
+    launches csrc/banded_solve.cu bs_banded_sweeps."""
+    if (posq is None) != (integrate is None):
+        raise ValueError("banded sweeps: posq and integrate go together")
+    kw = dict(tile=tile, vel_iters=vel_iters, pos_iters=pos_iters,
+              warm_sweep=warm_sweep, posq=posq, integrate=integrate)
+    if plain or z0.device.type == "cpu":
+        return banded_sweeps_plain(z0, bases, la, lb, consts, **kw)
+    if z0.device.type != "cuda":
+        raise ValueError(f"banded sweeps: unsupported device {z0.device}")
+    from physics_tpu_torch import _build
+
+    dev = z0.device
+    cp = la.shape[0]
+    npad = z0.shape[1]
+    if cp % tile:
+        raise ValueError(f"banded sweeps: {cp} contacts, tile {tile}")
+    _build.check_operands("banded sweeps", dev,
+                    ("z0", z0, torch.float32, (Z_ROWS, npad)),
+                    ("bases", bases, torch.int32, (cp // tile,)),
+                    ("la", la, torch.int32, (cp,)),
+                    ("lb", lb, torch.int32, (cp,)),
+                    ("consts", consts, torch.float32, (R_PREP, cp)),
+                    *([("posq", posq, torch.float32, (8, npad))]
+                      if posq is not None else []))
+    f32 = torch.float32
+    z = torch.empty((Z_ROWS, npad), dtype=f32, device=dev)
+    zread = torch.empty((Z_ROWS, npad), dtype=f32, device=dev)
+    lam4 = torch.empty((4, cp), dtype=f32, device=dev)
+    pq = (torch.empty((8, npad), dtype=f32, device=dev)
+          if integrate is not None else None)
+    flags = _build.FLAG_USE_SPLIT if warm_sweep else 0
+    dt = 0.0
+    if integrate is not None:
+        dt = integrate[0]
+        flags |= _build.FLAG_INTEGRATE
+        flags |= _build.FLAG_RENORM if integrate[1] else 0
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        err = _build.library().bs_banded_sweeps(
+            ptr(z0.data_ptr()), ptr(bases.data_ptr()), ptr(la.data_ptr()),
+            ptr(lb.data_ptr()), ptr(consts.data_ptr()),
+            ptr(posq.data_ptr() if posq is not None else 0),
+            ptr(z.data_ptr()), ptr(lam4.data_ptr()),
+            ptr(pq.data_ptr() if pq is not None else 0),
+            ptr(zread.data_ptr()), cp, npad, tile,
+            max(vel_iters, pos_iters) + 1, vel_iters, pos_iters,
+            ctypes.c_float(dt), flags,
+            ptr(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, "bs_banded_sweeps")
+    banded_sweeps.launches += 1
+    return z, lam4, pq
+
+
+banded_sweeps.launches = 0
+
+
+def banded_z0(geom: Tensor) -> Tensor:
+    """The packed velocity table z0 [16, NPAD]: rows 0:6 the (v, ω) of
+    the geometry table's solve block, the rest zero."""
+    z0 = torch.zeros((Z_ROWS, geom.shape[1]), dtype=torch.float32,
+                     device=geom.device)
+    z0[0:6] = geom[13:19]
+    return z0
+
+
+def _unpermute(rows: Tensor, order: Tensor | None, n: int) -> Tensor:
+    """Rank-space rows → body order: body b's values live at column
+    rank[b] (column b when order is None)."""
+    if order is None:
+        return rows[:, :n]
+    rank_inv = torch.empty((n,), dtype=torch.int64, device=rows.device)
+    rank_inv[order.long()] = torch.arange(n, device=rows.device)
+    return rows[:, rank_inv]
+
+
+# ---------------------------------------------------------------------------
+# the generic banded solve (contacts_pallas.solve_impulses_banded)
+# ---------------------------------------------------------------------------
+
+def solve_shape(n: int, c: int, cfg: SimConfig) -> Tuple[int, int, int]:
+    """(tile, wtot, npad) for a solve of c contacts over n bodies; npad is
+    the pair manifolds' body-table width, as one geometry table serves
+    both."""
+    tile = min(cfg.pallas_tile, max(_round_up(c, 128), 128))
+    return tile, cfg.pallas_window, body_table_width(n, cfg)
+
+
+def padded_contact_count(n: int, c: int, cfg: SimConfig) -> int:
+    tile, _, _ = solve_shape(n, c, cfg)
+    return _round_up(max(c, 1), tile)
+
+
+def _pad_contacts(contacts, cp: int):
+    """Zero-pad every field to cp slots (zero ⇒ inactive, key 0)."""
+    pad = cp - contacts.body_a.shape[0]
+    if pad == 0:
+        return contacts
+    return type(contacts)(*[
+        torch.nn.functional.pad(getattr(contacts, f), (0, pad))
+        for f in contacts._fields])
+
+
+class BandedOperands(NamedTuple):
+    """What the generic banded solve's prologue hands its kernels."""
+
+    contacts: object       # Contacts sorted by rank, compacted, padded
+    bases: Tensor          # [Cp / tile] int32 window starts
+    la: Tensor             # [Cp] int32 window-local ranks (−1: none)
+    lb: Tensor
+    cin: Tensor            # [CIN_ROWS, Cp] prep_consts rows
+    tile: int
+    use_split: bool        # warm-started
+    band_overflow: Tensor  # [] int32 active contacts out of their band
+    cap_overflow: Tensor   # [] int32 active contacts beyond capacity
+
+
+def banded_operands(state: SimState, contacts, cfg: SimConfig,
+                    warm: Tuple[Tensor, Tensor] | None,
+                    ranks: Tuple[Tensor, Tensor],
+                    capacity: int) -> BandedOperands:
+    """The prologue of solve_impulses_banded: sort, compaction, band
+    check and the warm match (see there)."""
+    from physics_tpu_torch.solver.contacts import (
+        _field_gather,
+        warm_start_lambda_keys,
+    )
+
+    n = state.num_bodies
+    dev = state.device
+    cp = capacity
+    tile, wtot, npad = solve_shape(n, cp, cfg)
+    lo_all, rb_all = ranks
+    c0 = contacts.body_a.shape[0]
+    key = torch.where(contacts.active, lo_all, npad - 1)
+    sort_idx = torch.argsort(key, stable=True)
+    cap_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if c0 > cp:
+        cap_overflow = torch.clamp(
+            contacts.active.sum() - cp, min=0).to(torch.int32)
+        sort_idx = sort_idx[:cp]
+    contacts = _pad_contacts(_field_gather(contacts, sort_idx), cp)
+    pad = cp - sort_idx.shape[0]
+    ra = torch.nn.functional.pad(key[sort_idx], (0, pad), value=npad - 1)
+    rb = torch.nn.functional.pad(rb_all[sort_idx], (0, pad), value=-1)
+    has_b = contacts.body_b >= 0
+
+    bases = torch.clamp(
+        torch.div(ra.reshape(cp // tile, tile).amin(dim=1), 128,
+                  rounding_mode="floor") * 128,
+        0, npad - wtot).to(torch.int32)
+    base = bases.repeat_interleave(tile)
+    la = ra - base
+    lb = torch.where(has_b, rb - base, -1)
+    in_band = (la >= 0) & (la < wtot) & (lb < wtot)
+    band_overflow = torch.sum(contacts.active & ~in_band).to(torch.int32)
+    live = contacts.active & in_band
+    actf = live.to(torch.float32)
+    la = torch.where(live, la, -1).to(torch.int32)
+    lb = torch.where(live & has_b, lb, -1).to(torch.int32)
+
+    use_split = warm is not None
+    zero = torch.zeros((cp,), dtype=torch.float32, device=dev)
+    lam0 = (zero, zero, zero)
+    if use_split:
+        lam0 = tuple(x * actf for x in warm_start_lambda_keys(
+            contacts.key, contacts.active, warm, cp))
+    has_bf = (has_b & contacts.active & (lb >= 0)).to(torch.float32)
+    cin = _cin(contacts.point, contacts.normal, contacts.depth,
+               contacts.friction, contacts.restitution, actf, lam0, has_bf)
+    return BandedOperands(contacts, bases, la, lb, cin, tile, use_split,
+                          band_overflow, cap_overflow)
+
+
+def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
+                          order: Tensor | None, geom: Tensor,
+                          warm: Tuple[Tensor, Tensor] | None,
+                          ranks: Tuple[Tensor, Tensor], capacity: int,
+                          plain: bool = False):
+    """The banded solve of a flat contact list, in the `ranks=` /
+    `capacity=` form the generic resolve uses.
+
+    ranks = (lo, rank_b): each contact's endpoint ranks from the broad
+    phase (lo the rank of endpoint a, the lower one; rank_b −1 for the
+    ground). The contacts are sorted, stably, by lo (inactive last); the
+    `capacity` lowest-rank ones are kept and the active contacts beyond
+    are counted in `contact_overflow`; the rest pad to capacity. Each tile
+    of contacts gets a window of pallas_window ranks from its lowest rank
+    (rounded down to 128); a contact whose endpoints leave its window is
+    deactivated and counted in `band_overflow`, as the TPU kernel's band
+    required. `warm` = (sorted keys [Cp], λ [3, Cp]) of the previous step
+    gives matching contacts their λ₀. `geom` is the step's rank-space
+    geometry table [48, NPAD] (solve_shape's npad). Then prep_consts
+    (2.6), banded_sweeps (2.5) and the un-permute.
+
+    Returns (vel, omega, pvel, pomega, lam3, metrics, contacts): the
+    sorted, padded contacts whose slots lam3 follows."""
+    n = state.num_bodies
+    _, _, npad = solve_shape(n, capacity, cfg)
+    if geom.shape != (48, npad):
+        raise ValueError(f"geom must be [48, {npad}]")
+    ops = banded_operands(state, contacts, cfg, warm, ranks, capacity)
+    consts = prep_consts(geom, ops.bases, ops.la, ops.lb, ops.cin, cfg,
+                         tile=ops.tile, use_split=ops.use_split, plain=plain)
+    z, lam4, _ = banded_sweeps(
+        banded_z0(geom), ops.bases, ops.la, ops.lb, consts, tile=ops.tile,
+        vel_iters=cfg.contact_iters,
+        pos_iters=cfg.position_iters if ops.use_split else 0,
+        warm_sweep=ops.use_split, plain=plain)
+
+    zz = _unpermute(z, order, n)
+    lam3 = lam4[:3].contiguous()
+    act = ops.contacts.active
+    depth = ops.contacts.depth
+    metrics: Dict[str, Tensor] = {
+        "contact_count": act.sum().to(torch.int32),
+        "max_penetration": torch.clamp(torch.max(torch.where(
+            act, depth, torch.zeros_like(depth))), min=0.0),
+        "normal_impulse_sum": torch.sum(lam3[0]),
+        "band_overflow": ops.band_overflow,
+        "contact_overflow": ops.cap_overflow,
+    }
+    return (zz[0:3].T.contiguous(), zz[3:6].T.contiguous(),
+            zz[8:11].T.contiguous(), zz[11:14].T.contiguous(), lam3,
+            metrics, ops.contacts)
+
+
+# ---------------------------------------------------------------------------
+# the table-path solve (contacts_pallas.solve_impulses_table)
+# ---------------------------------------------------------------------------
+
 def solve_impulses_table(state: SimState, table: Tensor, cfg: SimConfig,
                          order: Tensor, warm_rows: Tensor | None,
-                         geom: Tensor, plain: bool = False):
-    """Banded solve over the contact table (the branch of the JAX
-    package's solve_impulses_table with fused prep and fused
-    integration). Returns (vel, omega, lam3, metrics, keys, (pos, quat))
-    — body fields in body-id order, `keys` the table-aligned feature keys
-    for the next step's warm match."""
+                         geom: Tensor, fuse: bool, plain: bool = False):
+    """Banded solve over the bucket-aligned contact table: one tile per
+    bucket (ccap contacts), window bases the static b·128. With
+    cfg.fuse_prep the fused kernel (2.3) runs the whole solve from the
+    table; without, prep_consts (2.6) then banded_sweeps (2.5). `fuse`
+    adds the integration epilogue.
+
+    Returns (vel, omega, pvel, pomega, lam3, metrics, keys, posquat):
+    body fields in body-id order; pvel/pomega are None when fused, and
+    posquat = (pos, quat) only then; `keys` are the table-aligned feature
+    keys for the next step's warm match."""
     n = state.num_bodies
     nb, ccap, cp = table_shape(n, cfg)
     if table.shape[1] != cp:
         raise ValueError(f"table width {table.shape[1]} != {cp}")
-    _, npad = geom_pad(n, cfg)
-    if not (cfg.fuse_prep and cfg.fuse_integrate):
-        raise NotImplementedError(
-            "only the fused prep + fused integration solve is ported; the "
-            "unfused table solve is ROADMAP kernels 2.5/2.6")
+    wtot, npad = geom_pad(n, cfg)
     if geom.shape != (48, npad):
         raise ValueError(f"geom must be [48, {npad}]")
     keys = table_keys(table)
     use_split = warm_rows is not None
-    warm8 = (warm_rows if use_split
-             else torch.zeros((8, cp), dtype=torch.float32,
-                              device=table.device))
-    z, lam4, pq = banded_sweeps_fused(
-        table, warm8, geom, cfg,
-        vel_iters=cfg.contact_iters,
-        pos_iters=cfg.position_iters if use_split else 0,
-        use_split=use_split, integrate=(cfg.dt, cfg.renormalize_quat),
-        plain=plain)
-    if cfg.contact_rebuild > 1:
-        depth_act = lam4[3]
-        act_t = depth_act > 0.0
-    else:
+    integrate = (cfg.dt, cfg.renormalize_quat) if fuse else None
+    pos_iters = cfg.position_iters if use_split else 0
+
+    def table_depth():
         act = table[CT_ACT] > 0.0
-        depth_act = torch.where(act, table[CT_D], torch.zeros_like(
-            table[CT_D]))
-        act_t = act
-    return _table_solve_outputs(z, lam4, pq, depth_act, act_t, keys, order,
-                                n)
+        return act, torch.where(act, table[CT_D],
+                                torch.zeros_like(table[CT_D]))
+
+    if cfg.fuse_prep:
+        warm8 = (warm_rows if use_split
+                 else torch.zeros((8, cp), dtype=torch.float32,
+                                  device=table.device))
+        z, lam4, pq = banded_sweeps_fused(
+            table, warm8, geom, cfg, vel_iters=cfg.contact_iters,
+            pos_iters=pos_iters, use_split=use_split, integrate=integrate,
+            plain=plain)
+        if cfg.contact_rebuild > 1:
+            # anchored refresh: depth·activity re-derived in the kernel
+            act, depth_act = lam4[3] > 0.0, lam4[3]
+        else:
+            act, depth_act = table_depth()
+        return _table_solve_outputs(z, lam4, pq, depth_act, act, keys,
+                                    order, n)
+
+    act, depth_act = table_depth()
+
+    dev = table.device
+    bases = torch.clamp(torch.arange(nb, dtype=torch.int32, device=dev)
+                        * BLOCK, 0, npad - wtot).to(torch.int32)
+    base = bases.repeat_interleave(ccap)
+    has_b = act & (table[CT_RB1] > 0.0)
+    ra = table[CT_RA].to(torch.int32)
+    rb1 = table[CT_RB1].to(torch.int32)
+    la = torch.where(act, ra - base, -1).to(torch.int32)
+    lb = torch.where(has_b, rb1 - 1 - base, -1).to(torch.int32)
+    zero = torch.zeros((cp,), dtype=torch.float32, device=dev)
+    lam0 = list(warm_rows[0:3]) if use_split else [zero] * 3
+    cin = _cin(table[CT_PT:CT_PT + 3], table[CT_N:CT_N + 3], table[CT_D],
+               table[CT_MU], table[CT_REST], table[CT_ACT], lam0,
+               has_b.to(torch.float32))
+    consts = prep_consts(geom, bases, la, lb, cin, cfg, tile=ccap,
+                         use_split=use_split, plain=plain)
+    posq = None
+    if fuse:
+        posq = torch.cat([geom[0:3], geom[19:23], torch.zeros_like(
+            geom[0:1])])
+    z, lam4, pq = banded_sweeps(
+        banded_z0(geom), bases, la, lb, consts, tile=ccap,
+        vel_iters=cfg.contact_iters, pos_iters=pos_iters,
+        warm_sweep=use_split, posq=posq, integrate=integrate, plain=plain)
+    return _table_solve_outputs(z, lam4, pq, depth_act, act, keys, order, n)
 
 
 def _table_solve_outputs(z, lam4, pq, depth_act, act, keys, order, n):
     """Un-permute the solved rank-space rows to body order, plus the
     solve's metrics."""
-    big = torch.cat([z[0:6], pq[0:7]])
-    rank_inv = torch.empty((n,), dtype=torch.int64, device=z.device)
-    rank_inv[order.long()] = torch.arange(n, device=z.device)
-    zz = big[:, rank_inv]
+    fused = pq is not None
+    zz = _unpermute(torch.cat([z[0:6], pq[0:7]]) if fused else z, order, n)
     lam3 = lam4[:3].contiguous()
     metrics: Dict[str, Tensor] = {
         "contact_count": torch.sum(act.to(torch.int32)).to(torch.int32),
@@ -411,6 +813,8 @@ def _table_solve_outputs(z, lam4, pq, depth_act, act, keys, order, n):
     }
     vel = zz[0:3].T.contiguous()
     omega = zz[3:6].T.contiguous()
-    pos = zz[6:9].T.contiguous()
-    quat = zz[9:13].T.contiguous()
-    return vel, omega, lam3, metrics, keys, (pos, quat)
+    if fused:
+        return (vel, omega, None, None, lam3, metrics, keys,
+                (zz[6:9].T.contiguous(), zz[9:13].T.contiguous()))
+    return (vel, omega, zz[8:11].T.contiguous(), zz[11:14].T.contiguous(),
+            lam3, metrics, keys, None)

@@ -1,10 +1,17 @@
 """Contact dispatch and the anchored rebuild/refresh schedule
 (physics_tpu/solver/contacts.py: `table_path`, `hull_table_path`,
 `anchored_path`, `fused_integration`, `contact_capacity`,
-`resolve_contacts`, `_resolve_contacts_table`).
+`warm_start_lambda_keys`, `_field_gather`, `resolve_contacts`,
+`_resolve_contacts_table`).
 
-The two bucket-aligned contact-table paths are ported: boxes (box contact
-table) and hulls (hull contact table). With cfg.contact_rebuild = K > 1
+Three paths are ported. The two bucket-aligned contact-table paths:
+boxes (box contact table) and hulls (hull contact table), each with the
+fused-prep solve or, with fuse_prep off, the unfused one. And the
+generic banded branch for boxes (the two-kernel pile): box ground
+corners and the banded pair manifolds give a flat contact list, which
+the banded solve sorts by rank, compacts, warm-starts by feature key and
+solves (prep_consts, banded_sweeps); the split-impulse pseudo velocities
+move the poses right after. With cfg.contact_rebuild = K > 1
 (anchored path), every K-th step REBUILDS: sweep sort, bucketed
 candidates, geometry table, contact-table kernel, full solve schedule. The other steps REFRESH: the persisted table and
 rank order are kept, the solve's sweep 0 re-derives every contact from
@@ -20,14 +27,18 @@ from typing import Dict, Tuple
 import torch
 
 from physics_tpu_torch.config import SimConfig
+from physics_tpu_torch.maths import quaternion as quat
+from physics_tpu_torch.ops.boxbox_batched import _CAP
 from physics_tpu_torch.ops.broadphase import (
     body_aabbs,
+    bucket_shape,
     pair_candidates,
     sweep_order,
 )
 from physics_tpu_torch.ops.contact_table import (
     CT2_ROWS,
     BLOCK,
+    _BOX_SIGNS,
     bucket_contact_table,
     table_shape,
     unified_geom,
@@ -36,8 +47,20 @@ from physics_tpu_torch.ops.hull_table import (
     MAX_TABLE_HULL_TYPES,
     bucket_hull_contact_table,
 )
-from physics_tpu_torch.ops.narrowphase import hulls_fast_path
-from physics_tpu_torch.solver.banded_solve import solve_impulses_table
+from physics_tpu_torch.ops.narrowphase import (
+    Contacts,
+    banded_pairs,
+    concat_contacts,
+    ground_contacts,
+    hulls_fast_path,
+    pair_contacts,
+)
+from physics_tpu_torch.solver.banded_solve import (
+    padded_contact_count,
+    solve_impulses_banded,
+    solve_impulses_table,
+    solve_shape,
+)
 from physics_tpu_torch.state import SimState
 
 Tensor = torch.Tensor
@@ -86,13 +109,44 @@ def fused_integration(state: SimState, cfg: SimConfig) -> bool:
         table_path(state, cfg) or hull_table_path(state, cfg))
 
 
+def banded_boxes_path(state: SimState, cfg: SimConfig) -> bool:
+    """True when the step takes the generic banded branch the port
+    carries: boxes only, the banded solve without a contact table, and
+    pairs (if any) through the bucketed sweep and the banded
+    pair-manifold kernel. Depends on cfg and shapes only."""
+    if table_path(state, cfg) or hull_table_path(state, cfg):
+        return False
+    if not (cfg.contact_solver == "pallas_banded" and cfg.boxes_only):
+        return False
+    return not (cfg.pair_collisions and state.num_bodies > 1) or \
+        banded_pairs(cfg)
+
+
+def _unported_generic():
+    return NotImplementedError(
+        "only the contact-table paths and the generic banded box path are "
+        "ported; the other generic contact paths are ROADMAP item 1.13")
+
+
 def contact_capacity(state: SimState, cfg: SimConfig) -> int:
-    """Contact-slot count of one step (the table width)."""
-    if not (table_path(state, cfg) or hull_table_path(state, cfg)):
-        raise NotImplementedError(
-            "only the contact-table paths are ported; the generic contact "
-            "paths are ROADMAP item 1.13")
-    return table_shape(state.num_bodies, cfg)[2]
+    """Contact-slot count of one step: the table width on the table
+    paths; on the generic banded path the ground corners (k·N) plus the
+    pair slots (kk·P), capped at max_contacts and padded to the solve
+    tile."""
+    n = state.num_bodies
+    if table_path(state, cfg) or hull_table_path(state, cfg):
+        return table_shape(n, cfg)[2]
+    if not banded_boxes_path(state, cfg):
+        raise _unported_generic()
+    c = 0
+    if cfg.ground_plane:
+        c += min(cfg.max_contacts_per_pair, len(_BOX_SIGNS)) * n
+    if cfg.pair_collisions and n > 1:
+        block, cap, n_blocks = bucket_shape(n, cfg)
+        c += min(cfg.max_contacts_per_pair, _CAP) * n_blocks * cap
+    if cfg.max_contacts > 0:
+        c = min(c, cfg.max_contacts)
+    return padded_contact_count(n, c, cfg)
 
 
 def _check_ported(state: SimState, cfg: SimConfig) -> None:
@@ -102,14 +156,8 @@ def _check_ported(state: SimState, cfg: SimConfig) -> None:
         raise NotImplementedError(
             "env_blocks and the in-kernel broad phase are ROADMAP item 1.10")
     hulls = hull_table_path(state, cfg)
-    if not (table_path(state, cfg) or hulls):
-        raise NotImplementedError(
-            "only the contact-table paths are ported; the generic contact "
-            "paths are ROADMAP item 1.13")
-    if not (cfg.fuse_prep and fused_integration(state, cfg)):
-        raise NotImplementedError(
-            "only the fused-prep solve with fused integration is ported; "
-            "the unfused table solve is ROADMAP kernels 2.5/2.6")
+    if not (table_path(state, cfg) or hulls or banded_boxes_path(state, cfg)):
+        raise _unported_generic()
     if cfg.contact_rebuild > 1 and cfg.contact_rebuild_vel_factor > 0:
         if hulls:
             raise NotImplementedError(
@@ -122,13 +170,134 @@ def _check_ported(state: SimState, cfg: SimConfig) -> None:
 
 def resolve_contacts(state: SimState, cfg: SimConfig,
                      plain: bool = False) -> Tuple[SimState, Dict]:
-    """Broad phase → contact table → banded solve (+ integration).
+    """Broad phase → narrow phase → banded solve (+ integration).
     `plain=True` runs every kernel's plain version (on any device) — the
     reference the kernel path is checked against on the card."""
     if cfg.contact_rebuild > 1 and not anchored_path(state, cfg):
         cfg = cfg.replace(contact_rebuild=1)
     _check_ported(state, cfg)
-    return _resolve_contacts_table(state, cfg, plain)
+    if table_path(state, cfg) or hull_table_path(state, cfg):
+        return _resolve_contacts_table(state, cfg, plain)
+    return _resolve_contacts_banded(state, cfg, plain)
+
+
+def _split_impulse_pose(state: SimState, cfg: SimConfig, pvel: Tensor,
+                        pomega: Tensor) -> Tuple[Tensor, Tensor]:
+    """The split-impulse position correction: the pseudo velocities move
+    the pose at once and never enter the momentum state."""
+    pos = state.pos + pvel * cfg.dt
+    dq = quat.exp_map(pomega * cfg.dt)
+    return pos, quat.normalize(quat.mul(dq, state.quat))
+
+
+def warm_start_lambda_keys(keys: Tensor, active: Tensor,
+                           warm: Tuple[Tensor, Tensor], c: int):
+    """Match the previous step's impulses to this step's contact keys:
+    one stable sort of the previous and current keys, packed as
+    key·2 + tag (previous 0, current 1) so each previous entry lands just
+    before the current entry with the same key; a current entry whose
+    predecessor is that previous entry takes its λ. Returns (λn, λt1,
+    λt2) [c], zero on inactive or unkeyed contacts."""
+    prev_keys, prev_lam = warm
+    kp = prev_keys.shape[0]
+    dev = keys.device
+    tag = torch.cat([torch.zeros((kp,), dtype=torch.int32, device=dev),
+                     torch.ones((c,), dtype=torch.int32, device=dev)])
+    comb = torch.cat([prev_keys, keys]) * 2 + tag
+    sk2, perm = torch.sort(comb, stable=True)
+    st = tag[perm]
+    prev_tag = torch.cat([st.new_ones((1,)), st[:-1]])
+    prev_sk2 = torch.cat([sk2[:1] - 2, sk2[:-1]])
+    match = (st == 1) & (prev_tag == 0) & (sk2 == prev_sk2 + 1) & (sk2 != 1)
+    zc = torch.zeros((3, c), dtype=torch.float32, device=dev)
+    pl = torch.cat([prev_lam, zc], dim=1)[:, perm]
+    # predecessor's payload: the matching previous entry's λ
+    pred = torch.cat([pl[:, :1], pl[:, :-1]], dim=1) * match.to(
+        torch.float32)
+    # delivery: current entries back to their own slots
+    slot = perm[st == 1] - kp
+    out = torch.empty((3, c), dtype=torch.float32, device=dev)
+    out[:, slot] = pred[:, st == 1]
+    actf = (active & (keys != 0)).to(torch.float32)
+    return out[0] * actf, out[1] * actf, out[2] * actf
+
+
+def _field_gather(contacts: Contacts, idx: Tensor) -> Contacts:
+    """Every field of `contacts` reordered by idx (plain indexing; the
+    TPU's packed single-gather encoding is not needed)."""
+    return Contacts(*[
+        getattr(contacts, f)[:, idx] if f in ("point", "normal")
+        else getattr(contacts, f)[idx] for f in Contacts._fields])
+
+
+def banded_contact_list(state: SimState, cfg: SimConfig,
+                        plain: bool = False):
+    """The contact list of the generic banded branch for boxes: ground
+    corners (slot-major [k·N], the TPU route) and banded pair manifolds
+    (slot-major [kk·P]), each contact with its endpoint ranks. Returns
+    (contacts | None, (lo, rank_b), order | None, geom, candidates |
+    None, capacity): `geom` is the rank-space geometry table at the
+    solve's width, whose narrow-phase block the pair kernel reads and
+    whose solve block the solve reads."""
+    n = state.num_bodies
+    dev = state.device
+    pairs = cfg.pair_collisions and n > 1
+    order = cand = None
+    rank = torch.arange(n, dtype=torch.int32, device=dev)
+    if pairs:
+        aabbs = body_aabbs(state)
+        order = sweep_order(state, aabbs)
+        rank = torch.empty_like(rank)
+        rank[order.long()] = torch.arange(n, dtype=torch.int32, device=dev)
+    groups, lo_rows, rb_rows = [], [], []
+    if cfg.ground_plane:
+        gc = ground_contacts(state, cfg)
+        kg = gc.body_a.shape[0] // n
+        groups.append(gc)
+        lo_rows.append(rank.repeat(kg))
+        rb_rows.append(torch.full((kg * n,), -1, dtype=torch.int32,
+                                  device=dev))
+    cp = contact_capacity(state, cfg)
+    geom = unified_geom(state, cfg, order if order is not None else rank,
+                        npad=solve_shape(n, cp, cfg)[2])
+    if pairs:
+        cand = pair_candidates(state, cfg, aabbs=aabbs, order=order,
+                               plain=plain)
+        pc = pair_contacts(state, cand, cfg, geom, plain=plain)
+        kk = pc.body_a.shape[0] // cand.body_a.shape[0]
+        groups.append(pc)
+        lo_rows.append(cand.rank_a.repeat(kk))
+        rb_rows.append(cand.rank_b.repeat(kk))
+    if not groups:
+        return None, None, order, geom, cand, cp
+    return (concat_contacts(*groups), (torch.cat(lo_rows), torch.cat(rb_rows)),
+            order, geom, cand, cp)
+
+
+def _resolve_contacts_banded(state: SimState, cfg: SimConfig,
+                             plain: bool) -> Tuple[SimState, Dict]:
+    """The generic banded branch for boxes: the contact list, the banded
+    solve, the split-impulse pose update, the warm keys sorted with
+    their λ."""
+    contacts, ranks, order, geom, cand, cp = banded_contact_list(
+        state, cfg, plain)
+    metrics: Dict = {}
+    if cand is not None:
+        metrics["pair_overflow"] = cand.overflow
+    if contacts is None:
+        return state, metrics
+    use_warm = tuple(state.contact_key.shape) == (cp,)
+    warm = (state.contact_key, state.contact_lam) if use_warm else None
+    vel, omega, pvel, pomega, lam3, solve_metrics, contacts = \
+        solve_impulses_banded(state, contacts, cfg, order, geom, warm,
+                              ranks, cp, plain=plain)
+    pos, q = _split_impulse_pose(state, cfg, pvel, pomega)
+    state = state.replace(vel=vel, omega=omega, pos=pos, quat=q)
+    if use_warm:
+        key_s, perm = torch.sort(contacts.key, stable=True)
+        state = state.replace(contact_key=key_s,
+                              contact_lam=lam3[:, perm].contiguous())
+    return state, {**metrics, **solve_metrics}
 
 
 def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool):
@@ -147,6 +316,19 @@ def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool):
         torch.sum(m[:, 0]).to(torch.int32),
     ]).to(torch.int32)
     return table, order, geom, warm, ovf
+
+
+def _solve_table(state, table, cfg, order, warm, geom, plain):
+    """solve_impulses_table and the new pose: the solve's integration
+    epilogue under fused integration, else the split-impulse update
+    (engine.integrate_positions then follows). Returns (vel, omega, lam3,
+    metrics, keys, (pos, quat))."""
+    vel, omega, pvel, pomega, lam3, metrics, keys, posquat = \
+        solve_impulses_table(state, table, cfg, order, warm, geom,
+                             fuse=fused_integration(state, cfg), plain=plain)
+    if posquat is None:
+        posquat = _split_impulse_pose(state, cfg, pvel, pomega)
+    return vel, omega, lam3, metrics, keys, posquat
 
 
 def _resolve_contacts_table(state: SimState, cfg: SimConfig,
@@ -180,11 +362,10 @@ def _resolve_contacts_table(state: SimState, cfg: SimConfig,
                 solve_cfg = cfg.replace(
                     contact_iters=r_it,
                     position_iters=min(cfg.position_iters, r_it))
-        vel, omega, lam3, solve_metrics, keys, (pos, quat) = \
-            solve_impulses_table(state, table, solve_cfg, order, warm, geom,
-                                 plain=plain)
+        vel, omega, lam3, solve_metrics, keys, (pos, q) = _solve_table(
+            state, table, solve_cfg, order, warm, geom, plain)
         state = state.replace(
-            vel=vel, omega=omega, pos=pos, quat=quat,
+            vel=vel, omega=omega, pos=pos, quat=q,
             contact_key=keys, contact_lam=lam3, contact_table=table,
             contact_order=order, contact_meta=ovf, contact_ref=ref)
         return state, {"pair_overflow": ovf[0], "contact_overflow": ovf[1],
@@ -192,10 +373,9 @@ def _resolve_contacts_table(state: SimState, cfg: SimConfig,
 
     # K = 1: rebuild every step
     table, order, geom, warm, ovf = _rebuild(state, cfg, use_warm, plain)
-    vel, omega, lam3, solve_metrics, keys, (pos, quat) = \
-        solve_impulses_table(state, table, cfg, order, warm, geom,
-                             plain=plain)
-    state = state.replace(vel=vel, omega=omega, pos=pos, quat=quat)
+    vel, omega, lam3, solve_metrics, keys, (pos, q) = _solve_table(
+        state, table, cfg, order, warm, geom, plain)
+    state = state.replace(vel=vel, omega=omega, pos=pos, quat=q)
     if use_warm:
         state = state.replace(contact_key=keys, contact_lam=lam3)
     return state, {"pair_overflow": ovf[0], "contact_overflow": ovf[1],

@@ -212,7 +212,7 @@ def test_unported_branches_raise():
     s = prepare_contacts(state_from_arrays(jax_arrays(dense_pile()), "cpu"),
                          cfg_t)
     for bad, item in ((dict(contact_rebuild_vel_factor=2.0), "1.10"),
-                      (dict(fuse_prep=False), "2.5"),
+                      (dict(contact_solver="jacobi"), "1.13"),
                       (dict(compat=True), "1.11"),
                       (dict(broadphase="allpairs"), "1.13")):
         with pytest.raises(NotImplementedError, match=item):

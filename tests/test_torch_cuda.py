@@ -2,8 +2,10 @@
 card, and one rebuild and one refresh step of the kernel path against the
 plain path, on a contact-rich two-bucket pile and on hull rains (the
 hull contact table: two buckets of bevelled cubes, and one bucket of the
-3-type library with all 9 ordered type pairs). Every test skips without
-a card. On a GPU machine:
+3-type library with all 9 ordered type pairs); on the same pile, the
+two-kernel path's pair manifolds, solve constants and unfused sweeps, two
+of its steps, and a step of the unfused table solve. Every test skips
+without a card. On a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -13,9 +15,12 @@ nor this file needs.)
 Tolerances: the sweep masks, the contact table's integer rows, its meta
 counters and warm rows are compared exactly (the table kernel computes the
 plain version's f32 operations in the same order, built with
--fmad=false); its f32 rows to 1e-5 of the scene extent. The solve sums
-impulse deltas with atomics (kernel) or index_add (plain) in an order that
-changes from run to run: 1e-4 of each output row's largest magnitude.
+-fmad=false); its f32 rows to 1e-5 of the scene extent, as the pair
+manifolds' (whose slot and id rows are exact). The solve constants have
+no sums across contacts: 1e-6 of each row's largest magnitude on the
+active contacts. The solves sum impulse deltas with atomics (kernel) or
+index_add (plain) in an order that changes from run to run: 1e-4 of each
+output row's largest magnitude.
 """
 
 import numpy as np
@@ -31,8 +36,16 @@ from physics_tpu_torch.ops.broadphase import (
     pair_candidates,
     sweep_order,
 )
+from physics_tpu_torch.ops.narrowphase_banded import pair_manifolds_banded
 from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
-from physics_tpu_torch.solver.banded_solve import banded_sweeps_fused
+from physics_tpu_torch.solver.banded_solve import (
+    banded_operands,
+    banded_sweeps,
+    banded_sweeps_fused,
+    banded_z0,
+    prep_consts,
+)
+from physics_tpu_torch.solver.contacts import banded_contact_list
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
 
 pytestmark = pytest.mark.cuda
@@ -41,6 +54,10 @@ N = 192
 EXACT_ROWS = [tct.CT_ACT, tct.CT_KL, tct.CT_KH, tct.CT_KSGN, tct.CT_RA,
               tct.CT_RB1, tct.CT_KS, tct.CT_MU, tct.CT_REST]
 SOLVE_RTOL = 1e-4
+PREP_RTOL = 1e-6
+# the two-kernel pile at test sizes (tests/test_torch_pair_manifolds.py)
+NP_KW = dict(contact_table=False, contact_rebuild=1, bucket_block=8,
+             bucket_cap=128, pallas_tile=128, pallas_window=256)
 
 
 @pytest.fixture(scope="module")
@@ -136,7 +153,9 @@ def test_banded_solve_kernel(pile, iters):
 
 
 def _steps_match(s, cfg):
-    for what in ("rebuild", "refresh"):
+    """Two steps (on the anchored paths a rebuild and a refresh), each
+    from the kernel path's state."""
+    for what in ("first", "second"):
         sk, mk = step_with_metrics(s, cfg)
         sp, mp = step_with_metrics(s, cfg, plain=True)
         for name in ("pos", "quat", "vel", "omega"):
@@ -199,3 +218,73 @@ def test_hull_table_kernel(rain):
 
 def test_rain_step_kernel_path_matches_plain(rain):
     _steps_match(*rain)
+
+
+@pytest.fixture(scope="module")
+def np_pile(pile):
+    """The pile prepared for the two-kernel path and stepped once along
+    the plain path, so its warm keys are live."""
+    s, cfg = pile
+    cfg = cfg.replace(**NP_KW)
+    s, _ = step_with_metrics(prepare_contacts(s, cfg), cfg, plain=True)
+    return s, cfg
+
+
+def test_pair_manifolds_kernel(np_pile):
+    s, cfg = np_pile
+    _, _, _, geom, cand, _ = banded_contact_list(s, cfg, plain=True)
+    before = pair_manifolds_banded.launches
+    rk, pp, kk = pair_manifolds_banded(s, cand, cfg, geom)
+    assert pair_manifolds_banded.launches == before + 1
+    rp, _, _ = pair_manifolds_banded(s, cand, cfg, geom, plain=True)
+    exact = [5 * p + 4 for p in range(kk)] + [5 * kk + 5, 5 * kk + 6]
+    for r in exact:
+        assert torch.equal(rk[r], rp[r]), r
+    for p in range(kk):
+        assert torch.equal(rk[5 * p + 3] > 0, rp[5 * p + 3] > 0), p
+    extent = float(geom[24:27, :N].abs().max())
+    assert float((rk - rp).abs().max()) <= 1e-5 * extent
+    assert int((rk[3] > 0).sum()) > 200
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_prep_consts_and_banded_sweeps_kernels(np_pile, warm):
+    s, cfg = np_pile
+    contacts, ranks, _, geom, _, cp = banded_contact_list(s, cfg,
+                                                         plain=True)
+    ops = banded_operands(s, contacts, cfg,
+                          (s.contact_key, s.contact_lam) if warm else None,
+                          ranks, cp)
+    args = (geom, ops.bases, ops.la, ops.lb, ops.cin, cfg)
+    before = prep_consts.launches
+    ck = prep_consts(*args, tile=ops.tile, use_split=warm)
+    assert prep_consts.launches == before + 1
+    cpl = prep_consts(*args, tile=ops.tile, use_split=warm, plain=True)
+    live = ops.la >= 0
+    assert int(live.sum()) > 500
+    _rows_close("consts", ck[:, live], cpl[:, live], PREP_RTOL)
+    posq = torch.cat([geom[0:3], geom[19:23], torch.zeros_like(geom[0:1])])
+    for integrate in (None, (cfg.dt, True)):
+        out = {}
+        for plain in (False, True):
+            out[plain] = banded_sweeps(
+                banded_z0(geom), ops.bases, ops.la, ops.lb, cpl,
+                tile=ops.tile, vel_iters=8, pos_iters=8 if warm else 0,
+                warm_sweep=warm, posq=posq if integrate else None,
+                integrate=integrate, plain=plain)
+        (zk, lk, pk), (zp, lp, pp) = out[False], out[True]
+        _rows_close("z", zk[:, :N], zp[:, :N], SOLVE_RTOL)
+        _rows_close("lam", lk, lp, SOLVE_RTOL)
+        if integrate:
+            _rows_close("posq", pk[:, :N], pp[:, :N], SOLVE_RTOL)
+
+
+def test_two_kernel_step_kernel_path_matches_plain(np_pile):
+    _steps_match(*np_pile)
+
+
+@pytest.mark.parametrize("fuse_integrate", [True, False])
+def test_unfused_table_step_kernel_path_matches_plain(pile, fuse_integrate):
+    s, cfg = pile
+    _steps_match(s, cfg.replace(contact_rebuild=1, fuse_prep=False,
+                                fuse_integrate=fuse_integrate))
