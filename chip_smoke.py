@@ -1,6 +1,7 @@
 """GPU smoke run of physics_tpu_torch on one NVIDIA card: the 4,096-body
 box pile (on the contact-table path and on the two-kernel path) and the
-1,024-hull rain stepping through the port's hand-written kernels.
+1,024-hull rain stepping through the port's hand-written kernels, on one
+process and row-sharded over 4 ranks.
 
     python3 chip_smoke.py            # needs CUDA; exits non-zero without
 
@@ -34,7 +35,22 @@ Phases (any failure raises, so the run exits non-zero):
               against the plain path); and one warm step of
               the unfused table solve (fuse_prep=False), with and without
               fuse_integrate, against the plain path;
-  8. profile  device time by kernel over 8 more steps of each path
+  8. sharded  the single-sweep kernel (2.7) against its plain version on
+              one rank's quarter of each sharded path's solve (the 4k
+              table pile's timed), in each of its four switch
+              combinations; the pair-manifold kernel (2.8) in chunked mode
+              on each rank's quarter of the two-kernel pile's candidate
+              lanes; the box and hull table kernels by bucket range
+              against the full-range kernels' blocks; then 4 ranks (gloo,
+              all on this card; NCCL with a card each when there are 4)
+              step the 4k table pile, the 1,024-hull rain and the
+              two-kernel pile through row_sharded_step, from the states
+              phases 4, 5 and 7 ended with: launch counts summed over the
+              ranks, finite state; then one more sharded step, through
+              step_with_metrics with the rank's shard: overflow counters,
+              every rank's state bitwise equal to rank 0's, and the step
+              against the one-process kernel path from the same state;
+  9. profile  device time by kernel over 8 more steps of each path
               (torch.profiler), after every timed window.
 The line before the last is a JSON object of per-kernel results (each
 kernel's least possible time on the card, `bound_ms`, is computed from
@@ -50,18 +66,21 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from physics_tpu_torch import _build, scenes
 from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
 from physics_tpu_torch.ops import hull_table as ht
 from physics_tpu_torch.ops.broadphase import (
+    PairCandidates,
     body_aabbs,
     pair_candidates,
     sweep_order,
 )
 from physics_tpu_torch.ops.contact_table import (
     BLOCK,
+    table_shape,
     CT_ACT,
     CT_KH,
     CT_KL,
@@ -82,19 +101,30 @@ from physics_tpu_torch.ops.narrowphase_banded import (
     pair_operands,
 )
 from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
+from physics_tpu_torch.parallel.collectives import (
+    Shard,
+    all_reduce_sum,
+    chunk,
+)
+from physics_tpu_torch.parallel.sharding import launch, row_sharded_step
 from physics_tpu_torch.solver.banded_solve import (
     R_PREP,
     banded_operands,
+    banded_sweep_once,
     banded_sweeps,
     banded_sweeps_fused,
+    banded_sweeps_plain,
     banded_z0,
     prep_consts,
+    table_solve_operands,
 )
 from physics_tpu_torch.solver.contacts import (
+    _rebuild,
+    _sharded_capacity,
     anchored_path,
     banded_contact_list,
 )
-from physics_tpu_torch.state import SHAPE_NONE
+from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
 
 EXACT_ROWS = [CT_ACT, CT_KL, CT_KH, CT_KSGN, CT_RA, CT_RB1, CT_KS, CT_MU,
               CT_REST]
@@ -110,6 +140,10 @@ PREP_RTOL = 1e-6
 SOLVE_RTOL = 1e-4
 STEP_ATOL = 1e-4
 N_PILE = 4096
+N_RAIN = 1024
+RANKS = 4
+STEP_COUNTERS = ("contact_count", "pair_overflow", "contact_overflow",
+                 "band_overflow")
 
 # NVIDIA H100 SXM published peaks (data sheet, 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -449,7 +483,54 @@ def profile_steps(state, cfg, steps: int) -> None:
 
 COUNTED = (sweep_window_masks, bucket_contact_table,
            ht.bucket_hull_contact_table, banded_sweeps_fused,
-           pair_manifolds_banded, prep_consts, banded_sweeps)
+           pair_manifolds_banded, prep_consts, banded_sweeps,
+           banded_sweep_once)
+
+
+def touched_columns(bases, tile, *locs) -> int:
+    """How many columns of a rank-space table the live lanes of window-
+    local ranks `locs` (−1: none) reach, each window starting at its
+    tile's base: the columns the function must read."""
+    base = bases.long().repeat_interleave(tile)
+    return int(torch.cat([(base + loc.long())[loc >= 0]
+                          for loc in locs]).unique().numel())
+
+
+def check_manifolds(label, state, cand, cfg, geom, chunked=False):
+    """2.8 against its plain version on these candidate lanes (`chunked`:
+    one rank's slice, window bases from the lanes). Returns (max err,
+    kernel ms, plain ms, bound)."""
+    n = state.num_bodies
+    bases, la, lb, tile, kk = pair_operands(state, cand, cfg, geom, chunked)
+
+    def np_run(plain):
+        return pair_manifolds_banded(state, cand, cfg, geom, plain=plain,
+                                     chunked=chunked)[0]
+    rk, rp = np_run(False), np_run(True)
+    for r in [5 * p + 4 for p in range(kk)] + [5 * kk + 5, 5 * kk + 6]:
+        if not torch.equal(rk[r], rp[r]):
+            raise AssertionError(f"{label}: row {r} differs")
+    for p in range(kk):
+        if not torch.equal(rk[5 * p + 3] > 0, rp[5 * p + 3] > 0):
+            raise AssertionError(f"{label}: activity of pick {p}")
+    extent = float(geom[24:27, :n].abs().max())
+    err = float((rk - rp).abs().max())
+    if not err <= TABLE_TOL * extent:
+        raise AssertionError(f"{label}: f32 rows |Δ| {err}")
+    live = int((la >= 0).sum())
+    act = int(sum(int((rk[5 * p + 3] > 0).sum()) for p in range(kk)))
+    # the body-table rows 24:43 of the bodies the live lanes reach, the
+    # lane operands, the rows written
+    cols = touched_columns(bases, tile, la, lb)
+    bnd = bound(19 * 4 * cols + nbytes(bases, la, lb, rk),
+                OPS_BOX_MANIFOLD * live)
+    kms, pms = median_ms(lambda: np_run(False), 20), median_ms(
+        lambda: np_run(True), 3)
+    log(f"{label}: slot/id rows and activity identical, f32 rows max |Δ| "
+        f"{err}; {la.shape[0]} lanes, {live} live reaching {cols} bodies, "
+        f"{act} active slots; kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+        f"bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return err, kms, pms, bnd
 
 
 def check_np_kernels(state, cfg):
@@ -459,32 +540,8 @@ def check_np_kernels(state, cfg):
     n = state.num_bodies
     out = {}
     contacts, ranks, _, geom, cand, cp = banded_contact_list(state, cfg)
-    bases, la, lb, tile, kk = pair_operands(state, cand, cfg, geom)
-
-    def np_run(plain):
-        return pair_manifolds_banded(state, cand, cfg, geom, plain=plain)[0]
-    rk, rp = np_run(False), np_run(True)
-    for r in [5 * p + 4 for p in range(kk)] + [5 * kk + 5, 5 * kk + 6]:
-        if not torch.equal(rk[r], rp[r]):
-            raise AssertionError(f"pair manifolds: row {r} differs")
-    for p in range(kk):
-        if not torch.equal(rk[5 * p + 3] > 0, rp[5 * p + 3] > 0):
-            raise AssertionError(f"pair manifolds: activity of pick {p}")
-    extent = float(geom[24:27, :n].abs().max())
-    err = float((rk - rp).abs().max())
-    if not err <= TABLE_TOL * extent:
-        raise AssertionError(f"pair manifolds: f32 rows |Δ| {err}")
-    live = int((la >= 0).sum())
-    act = int(sum(int((rk[5 * p + 3] > 0).sum()) for p in range(kk)))
-    bnd = bound(nbytes(geom[24:43, :n], bases, la, lb, rk),
-                OPS_BOX_MANIFOLD * live)
-    kms, pms = median_ms(lambda: np_run(False), 20), median_ms(
-        lambda: np_run(True), 3)
-    log(f"2.8 pair manifolds: slot/id rows and activity identical, f32 rows "
-        f"max |Δ| {err}; {la.shape[0]} lanes, {live} live, {act} active "
-        f"slots; kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
-        f"{bnd[0]:.5f} ms ({bnd[1]})")
-    out["pair_manifolds_banded"] = (err, kms, pms, bnd)
+    out["pair_manifolds_banded"] = check_manifolds(
+        "2.8 pair manifolds", state, cand, cfg, geom)
 
     ops = banded_operands(state, contacts, cfg,
                           (state.contact_key, state.contact_lam), ranks, cp)
@@ -617,10 +674,295 @@ def drive(label, make, cfg, steps, want, gpu):
     return launches, st
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the row-sharded step
+# ---------------------------------------------------------------------------
+
+SWEEP_CASES = {      # (vel_on, pos_on, warm, deg_pass) of one sharded sweep
+    "sweep 0 (degrees, warm start)": (False, False, True, True),
+    "velocity + position": (True, True, False, False),
+    "velocity only": (True, False, False, False),
+    "position only": (False, True, False, False),
+}
+
+
+def unfused(cfg):
+    """The solve the sharded step runs: the unfused table solve, rebuilt
+    every step, with the split-impulse pose update."""
+    return cfg.replace(contact_rebuild=1, fuse_prep=False,
+                       fuse_integrate=False)
+
+
+def table_sweep_operands(state, cfg):
+    """The sharded table solve's operands from this state (the unfused
+    solve, warm): (z0, bases, la, lb, consts, tile)."""
+    n = state.num_bodies
+    ucfg = unfused(cfg)
+    table, _, geom, warm, _ = _rebuild(state, ucfg, True, plain=False)
+    bases, la, lb, cin = table_solve_operands(table, warm, n, ucfg)
+    ccap = table_shape(n, ucfg)[1]
+    consts = prep_consts(geom, bases, la, lb, cin, ucfg, tile=ccap,
+                         use_split=True)
+    return banded_z0(geom), bases, la, lb, consts, ccap
+
+
+def np_sharded_operands(state, cfg):
+    """The sharded two-kernel solve's operands from this state, at the
+    capacity the ranks round up to: ((z0, bases, la, lb, consts, tile),
+    the candidates and the geometry table of the pair kernel)."""
+    n = state.num_bodies
+    contacts, ranks, _, geom, cand, _ = banded_contact_list(state, cfg)
+    cp = _sharded_capacity(n, contacts.body_a.shape[0], cfg,
+                           Shard(None, 0, RANKS))
+    warm = ((state.contact_key, state.contact_lam)
+            if tuple(state.contact_key.shape) == (cp,) else None)
+    ops = banded_operands(state, contacts, cfg, warm, ranks, cp)
+    consts = prep_consts(geom, ops.bases, ops.la, ops.lb, ops.cin, cfg,
+                         tile=ops.tile, use_split=ops.use_split)
+    return (banded_z0(geom), ops.bases, ops.la, ops.lb, consts,
+            ops.tile), cand, geom
+
+
+def check_sweep_once(label, n, z0, bases, la, lb, consts, tile,
+                     timed=True):
+    """2.7 against its plain version on rank 0's quarter of a sharded
+    solve's tiles, each switch combination; the later sweeps on the
+    snapshot after sweep 0 and one velocity sweep. Returns (max err, ms,
+    plain ms, bound) of the velocity + position sweep, the one the
+    schedule runs most (times None unless `timed`)."""
+    z1, lam1, _ = banded_sweeps_plain(z0, bases, la, lb, consts, tile=tile,
+                                      vel_iters=1, pos_iters=0,
+                                      warm_sweep=True, posq=None,
+                                      integrate=None)
+    t_loc = bases.shape[0] // RANKS
+    c_loc = t_loc * tile
+    ops = (bases[:t_loc].contiguous(), la[:c_loc].contiguous(),
+           lb[:c_loc].contiguous(), consts[:, :c_loc].contiguous())
+    n_live = int((ops[1] >= 0).sum())
+    # the data rows of z (v, ω; pseudo v, ω; degrees) at the bodies the
+    # rank's live contacts reach
+    cols = touched_columns(ops[0], tile, ops[1], ops[2])
+    log(f"2.7 operands ({label}): {la.shape[0]} contacts, tile {tile}, "
+        f"{bases.shape[0]} tiles, {t_loc} a rank; rank 0: {n_live} live "
+        f"reaching {cols} bodies")
+    out = {}
+    for case, (vel_on, pos_on, warm_on, deg) in SWEEP_CASES.items():
+        z, lam = (z0, torch.zeros((4, c_loc), device=z0.device)) if deg \
+            else (z1, lam1[:, :c_loc].contiguous())
+
+        def run(plain, z=z, lam=lam, v=vel_on, p=pos_on, w=warm_on, d=deg):
+            return banded_sweep_once(z, *ops, lam, tile=tile, vel_on=v,
+                                     pos_on=p, warm=w, deg_pass=d,
+                                     plain=plain)
+        (dk, lk), (dp, lp) = run(False), run(True)
+        err = max(row_check(f"2.7 {label} {case} dz", dk[:, :n], dp[:, :n],
+                            SOLVE_RTOL),
+                  row_check(f"2.7 {label} {case} lam", lk, lp, SOLVE_RTOL))
+        if not timed:
+            log(f"2.7 banded sweep once ({label}), {case}: max |Δ| {err}")
+            out[case] = (err, None, None, None)
+            continue
+        # those z columns, the lane operands, the constants the sweep
+        # reads (λ₀ only when warm), λ in; the whole delta (its data
+        # rows) and λ out
+        read = R_PREP if warm_on else R_PREP - 3
+        bnd = bound(13 * 4 * cols + nbytes(*ops[:3], ops[3][:read], lam,
+                                           dk[0:6, :n], dk[8:15, :n], lk),
+                    OPS_SOLVE_CONTACT * n_live)
+        kms = median_ms(lambda: run(False), 50)
+        pms = median_ms(lambda: run(True), 5)
+        log(f"2.7 banded sweep once ({label}), {case}: max |Δ| {err}; "
+            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]})")
+        out[case] = (err, kms, pms, bnd)
+    err = max(v[0] for v in out.values())
+    return (err,) + out["velocity + position"][1:]
+
+
+def check_bucket_ranges(state, cfg, hulls: bool, label: str) -> None:
+    """The table kernel over each rank's bucket range equals the
+    full-range kernel's block of those buckets, bit for bit."""
+    n = state.num_bodies
+    fn = ht.bucket_hull_contact_table if hulls else bucket_contact_table
+    aabbs = body_aabbs(state)
+    order = sweep_order(state, aabbs)
+    cand = pair_candidates(state, cfg, aabbs, order)
+    geom = unified_geom(state, cfg, order, hulls=hulls)
+    prev = (state.contact_key, state.contact_lam)
+    full = fn(state, cand, cfg, prev=prev, geom=geom)
+    nb, ccap, _ = table_shape(n, cfg)
+    nb_l = nb // RANKS
+    cap = cand.mask.shape[0] // nb
+    for r in range(RANKS):
+        b0 = r * nb_l
+        lanes = slice(b0 * cap, (b0 + nb_l) * cap)
+        cols = slice(b0 * ccap, (b0 + nb_l) * ccap)
+        part = fn(state, type(cand)(*[x[lanes] if x.dim() else x
+                                      for x in cand]), cfg,
+                  prev=(prev[0][:, cols], prev[1][:, cols]), geom=geom,
+                  buckets=(b0, nb_l))
+        blocks = (full[0][:, cols], full[1][:, b0 * BLOCK:(b0 + nb_l) * BLOCK],
+                  full[2][:, cols])
+        for got, ref in zip(part, blocks):
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{label}: bucket range {b0}..{b0 + nb_l}"
+                                     f" differs from the full table")
+    log(f"{label}: the kernel over each of {RANKS} bucket ranges of {nb_l} "
+        f"buckets equals the full-range kernel's block, bit for bit")
+
+
+def sharded_configs():
+    """path → config of the row-sharded drives: the configs of phases 4,
+    5 and 7."""
+    pile_cfg = scenes.pile_config(N_PILE).replace(contact_iters=8)
+    return {"sharded_pile": pile_cfg,
+            "sharded_rain": scenes.rain_config(N_RAIN),
+            "sharded_two_kernel_pile": pile_cfg.replace(contact_table=False)}
+
+
+def sharded_rank(shard, steps: int, states):
+    """One rank of the sharded drives: for each path, from the state that
+    path's one-process drive ended with (prepared, warm keys live),
+    `steps` row_sharded_step steps with the launch counts set to 0 just
+    before and read just after, timed after 8 steps; then one more step
+    through step_with_metrics with the shard. Returns {path: (launches,
+    ms/step, the extra step's metrics, state before and after it, its
+    counters)}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    warm_up = min(8, steps // 2)
+    out = {}
+    for name, cfg in sharded_configs().items():
+        step = row_sharded_step(cfg)
+        st = state_from_arrays(states[name], dev)
+        for fn in COUNTED:
+            fn.launches = 0
+        for i in range(steps):
+            if i == warm_up:
+                torch.distributed.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            st = step(st)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / (steps - warm_up)
+        launches = {fn.__name__: fn.launches for fn in COUNTED}
+        before = to_numpy(st)
+        # the same step with its metrics
+        st, m = step_with_metrics(st, cfg, shard=shard)
+        out[name] = (launches, ms, {k: float(v) for k, v in m.items()},
+                     before, to_numpy(st),
+                     {k: int(m[k]) for k in STEP_COUNTERS})
+    out["probes"] = rank_probes(shard, dev)
+    return out
+
+
+def rank_probes(shard, dev, reps: int = 50):
+    """What a sweep of the sharded solve costs on this rank while all the
+    ranks run the same loop: ms per call, each call ending in a
+    synchronize, of the all-reduce of a [16, NPAD] delta as the solve
+    makes it (host-staged under gloo), of its host round trip alone
+    (device → host → device copies), and of one 2.7 launch on a quarter
+    of the 4k pile's slots."""
+    npad = 4352
+    dz = torch.zeros((16, npad), device=dev)
+    n_c = 6144
+    zeros = torch.zeros((n_c,), dtype=torch.int32, device=dev)
+    ops = (torch.zeros((n_c // 768,), dtype=torch.int32, device=dev), zeros,
+           zeros, torch.zeros((R_PREP, n_c), device=dev))
+    lam = torch.zeros((4, n_c), device=dev)
+
+    def timed(fn):
+        for i in range(reps + 5):
+            if i == 5:
+                torch.distributed.barrier()
+                t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+    return {
+        "all_reduce": timed(lambda: all_reduce_sum(dz, shard)),
+        "host_round_trip": timed(lambda: dz.copy_(dz.cpu())),
+        "sweep_once": timed(lambda: banded_sweep_once(
+            dz, *ops, lam, tile=768, vel_on=True, pos_on=True, warm=False,
+            deg_pass=False)),
+    }
+
+
+def run_sharded(steps: int, gpu: str, states):
+    """Phase 8's drives from `states` (path → state arrays): spawn the
+    ranks, check what they return. Returns {path: launch counts summed
+    over the ranks}."""
+    n_dev = torch.cuda.device_count()
+    backend = "nccl" if n_dev >= RANKS else "gloo"
+    where = (f"{RANKS} ranks, one card each, over NCCL" if backend == "nccl"
+             else f"{RANKS} ranks sharing one {gpu} over gloo")
+    log(f"sharded: {where} ({n_dev} card(s) visible); gloo stages every "
+        f"collective's CUDA tensors through the host")
+    t0 = time.perf_counter()
+    ranks = launch(sharded_rank, RANKS, (steps, states), backend=backend)
+    log(f"sharded: {RANKS} ranks ran in {time.perf_counter() - t0:.1f} s "
+        f"(spawn and set-up included)")
+    for what in ranks[0]["probes"]:
+        times = " ".join(f"{r['probes'][what]:.4f}" for r in ranks)
+        log(f"sharded: ms per {what} (synchronized), ranks 0..{RANKS - 1} "
+            f"at once: {times}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    summed = {}
+    for name, cfg in sharded_configs().items():
+        # warm from the first step: prepare_contacts sized the keys
+        sweeps = 1 + max(cfg.contact_iters, cfg.position_iters)
+        launches = {k: sum(r[name][0][k] for r in ranks)
+                    for k in ranks[0][name][0]}
+        per_rank = {"sweep_window_masks": steps,
+                    "prep_consts": steps,
+                    "banded_sweep_once": steps * sweeps,
+                    {"sharded_pile": "bucket_contact_table",
+                     "sharded_rain": "bucket_hull_contact_table",
+                     "sharded_two_kernel_pile": "pair_manifolds_banded"}[name]:
+                    steps}
+        want = {k: RANKS * per_rank.get(k, 0) for k in launches}
+        log(f"{name}: launches over {steps} steps, summed over the ranks: "
+            f"{launches}")
+        if launches != want:
+            raise AssertionError(f"{name}: launch counts {launches} != {want}")
+        _, ms, m, before, after, counters = ranks[0][name]
+        for r in range(1, RANKS):
+            for k in before:
+                for a, b in ((ranks[r][name][3], before),
+                             (ranks[r][name][4], after)):
+                    if not np.array_equal(a[k], b[k]):
+                        raise AssertionError(
+                            f"{name}: rank {r}'s {k} differs from rank 0's")
+        for k in ("pos", "quat", "vel", "omega"):
+            if not np.isfinite(before[k]).all():
+                raise AssertionError(f"{name}: non-finite {k}")
+        log(f"{name}: every rank's state bitwise equal to rank 0's; state "
+            f"finite; pair_overflow {int(m['pair_overflow'])}, "
+            f"contact_overflow {int(m['contact_overflow'])}, band_overflow "
+            f"{int(m['band_overflow'])}, contacts {int(m['contact_count'])}")
+        if int(m["band_overflow"]) != 0:
+            raise AssertionError(f"{name}: band_overflow {m['band_overflow']}")
+        log(f"{name}: {' '.join(f'{r[name][1]:.4f}' for r in ranks)} "
+            f"ms/step on ranks 0..{RANKS - 1} ({where})")
+        # one more sharded step against the one-process kernel path
+        src = state_from_arrays(before, dev)
+        sk, mk = step_with_metrics(src, unfused(cfg))
+        sh = state_from_arrays(after, dev)
+        state_close(sh, sk, f"{name} warm step")
+        if counters != {k: int(mk[k]) for k in STEP_COUNTERS}:
+            raise AssertionError(f"{name} warm step: counters {counters} != "
+                                 f"{ {k: int(mk[k]) for k in STEP_COUNTERS} }")
+        log(f"{name} warm step: matches the one-process kernel path (atol "
+            f"{STEP_ATOL}; keys and counters identical)")
+        summed[name] = launches
+    return summed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--settle", type=int, default=60)
     ap.add_argument("--steps", type=int, default=240)
+    ap.add_argument("--sharded-steps", type=int, default=48)
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -724,6 +1066,34 @@ def main() -> int:
             f"matches plain path (atol {STEP_ATOL}); contacts "
             f"{int(mk['contact_count'])}")
 
+    # ---- phase 8: the row-sharded step (no profile: it runs in the ranks)
+    # 2.7 at the shapes each sharded path gives it (the pile's row is the
+    # one timed), 2.8 in chunked mode on each rank's quarter of the lanes
+    sweep = check_sweep_once("pile", N_PILE,
+                             *table_sweep_operands(pile_st, cfg))
+    np_ops, np_cand, np_geom = np_sharded_operands(np_st, ncfg)
+    err = max(sweep[0],
+              check_sweep_once("rain", N_RAIN,
+                               *table_sweep_operands(rain_st, rcfg),
+                               timed=False)[0],
+              check_sweep_once("two-kernel pile", N_PILE, *np_ops,
+                               timed=False)[0])
+    results["banded_sweep_once"] = (err,) + sweep[1:]
+    err = max(check_manifolds(
+        f"2.8 pair manifolds (chunked, rank {r} of {RANKS})", np_st,
+        PairCandidates(*[x if x.dim() == 0 else chunk(x, Shard(None, r,
+                                                               RANKS))
+                         for x in np_cand]), ncfg, np_geom, chunked=True)[0]
+        for r in range(RANKS))
+    manifolds = results["pair_manifolds_banded"]
+    results["pair_manifolds_banded"] = (max(manifolds[0], err),) + \
+        manifolds[1:]
+    check_bucket_ranges(pile_st, cfg, False, "2.2 contact table (pile 4096)")
+    check_bucket_ranges(rain_st, rcfg, True, "2.4 hull table (rain 1024)")
+    sharded_launches = run_sharded(args.sharded_steps, gpu, {
+        "sharded_pile": to_numpy(pile_st), "sharded_rain": to_numpy(rain_st),
+        "sharded_two_kernel_pile": to_numpy(np_st)})
+
     # ---- profiles, after every timed window: a finished profiler
     # session can leave the launch path slower ----
     for label, st, c in (("pile", pile_st, cfg), ("rain", rain_st, rcfg),
@@ -747,12 +1117,16 @@ def main() -> int:
         "pair_manifolds_banded": ("cuda",
                                   "physics_tpu_torch/csrc/narrowphase_banded.cu",
                                   "physics_tpu/ops/narrowphase_pallas.py:232"),
+        "banded_sweep_once": ("cuda", "physics_tpu_torch/csrc/banded_solve.cu",
+                              "physics_tpu/solver/contacts_pallas.py:1001"),
     }
     kernels = []
     for name, (route, src, rep) in sources.items():
         err, kms, pms, (bms, by) = results[name]
         by_path = {"pile": pile_launches[name], "rain": rain_launches[name],
-                   "two_kernel_pile": np_launches[name]}
+                   "two_kernel_pile": np_launches[name],
+                   **{path: counts[name]
+                      for path, counts in sharded_launches.items()}}
         kernels.append({"name": name, "route": route, "source": src,
                         "replaces": rep,
                         "launches": sum(by_path.values()),

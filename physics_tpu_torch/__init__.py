@@ -2,14 +2,17 @@
 
 The JAX package (physics_tpu/) is the reference; this package imports
 torch and never jax. Ported so far: the box pile's step (scenes.box_pile
-under scenes.pile_config) and the hull rains' step (scenes.mesh_rain and
-mesh_rain_mixed under scenes.rain_config), through four hand-written
-Hopper kernels — the sweep-window masks (Triton, ops/sweep_kernel.py),
-the box contact table (CUDA, csrc/contact_table.cu), the hull contact
-table (CUDA, csrc/hull_table.cu) and the banded solve (CUDA,
-csrc/banded_solve.cu). Each kernel wrapper runs its plain PyTorch version
-on CPU tensors and launches the kernel on CUDA tensors. Scenes are built
-on the card unless the caller passes device="cpu".
+under scenes.pile_config, with or without the contact table) and the
+hull rains' step (scenes.mesh_rain and mesh_rain_mixed under
+scenes.rain_config), on one process or row-sharded over the ranks of a
+torch.distributed group (parallel/sharding.py), through eight
+hand-written Hopper kernels: the sweep-window masks (Triton,
+ops/sweep_kernel.py), the box and hull contact tables
+(csrc/contact_table.cu, csrc/hull_table.cu), the banded pair manifolds
+(csrc/narrowphase_banded.cu) and four banded solve kernels
+(csrc/banded_solve.cu). Each kernel wrapper runs its plain PyTorch
+version on CPU tensors and launches the kernel on CUDA tensors. Scenes
+are built on the card unless the caller passes device="cpu".
 """
 
 from physics_tpu_torch.config import SimConfig

@@ -44,7 +44,7 @@ SIGNATURES = {
     "ct_bucket_contact_table": [
         _P, _P, _P, _P,            # geom, la, lb, prev cols (or NULL)
         _P, _P, _P,                # table, meta, warm (or NULL)
-        _I, _I, _I, _I, _I, _I,    # nb, cap, cap2, ccap, kk, kg
+        _I, _I, _I, _I, _I, _I, _I,  # nb, bucket0, cap, cap2, ccap, kk, kg
         _I, _I,                    # npad, rows
         _F,                        # ground height
         _P,                        # stream
@@ -55,7 +55,7 @@ SIGNATURES = {
         _P, _P, _P,                # edge indices, ground verts, vertex bias
         _P, _P, _P,                # table, meta, warm (or NULL)
         _P, _P, _P, _P,            # scratch: lanes, drops, emissions f/i
-        _I, _I, _I, _I, _I, _I,    # nb, cap, cap2, ccap, kk, kg
+        _I, _I, _I, _I, _I, _I, _I,  # nb, bucket0, cap, cap2, ccap, kk, kg
         _I, _I, _I,                # npad, rows, hull types
         _I, _I, _I, _I, _I,        # fp, vcap, d2, d2p, e2p
         _I, _I, _I,                # rows of c16, c32, cb per type pair
@@ -87,6 +87,13 @@ SIGNATURES = {
         _I, _I, _I, _I,            # cp, npad, tile, n sweeps
         _I, _I,                    # vel iters, pos iters
         _F, _I,                    # dt, flags
+        _P,                        # stream
+    ],
+    "bs_banded_sweep_once": [
+        _P, _P, _P, _P, _P, _P,    # z snapshot, bases, la, lb, consts, lam
+        _P, _P,                    # dz out, lam out
+        _I, _I, _I,                # cp, npad, tile
+        _F, _F, _I, _I,            # vel on, pos on, warm, degree pass
         _P,                        # stream
     ],
     "np_pair_manifolds": [

@@ -1,17 +1,20 @@
-// Banded contact solves (Hopper, sm_90a): three TPU kernels share this file.
+// Banded contact solves (Hopper, sm_90a): four TPU kernels share this file.
 //
-//   bs_banded_solve   replaces banded_sweeps_fused (kernel 2.3,
-//                     physics_tpu/solver/contacts_pallas.py:736; body
-//                     _make_kernel with prep= and integrate=, :245-626);
-//   bs_prep_consts    replaces prep_consts (kernel 2.6, :1199; body
-//                     _make_prep_kernel :1154);
-//   bs_banded_sweeps  replaces banded_sweeps (kernel 2.5, :628; body
-//                     _make_kernel without prep=, with or without its
-//                     integrate= epilogue).
+//   bs_banded_solve       replaces banded_sweeps_fused (kernel 2.3,
+//                         physics_tpu/solver/contacts_pallas.py:736; body
+//                         _make_kernel with prep= and integrate=, :245-626);
+//   bs_prep_consts        replaces prep_consts (kernel 2.6, :1199; body
+//                         _make_prep_kernel :1154);
+//   bs_banded_sweeps      replaces banded_sweeps (kernel 2.5, :628; body
+//                         _make_kernel without prep=, with or without its
+//                         integrate= epilogue);
+//   bs_banded_sweep_once  replaces banded_sweep_once (kernel 2.7, :956; body
+//                         _make_sweep1_kernel :914), one sweep of the
+//                         row-sharded solve (at the end of this file).
 // Sweep math _sweep_tile_math :92, constants _prep_consts_math :1086. Plain
 // versions: physics_tpu_torch/solver/banded_solve.py (banded_sweeps_fused_plain,
-// prep_consts_plain, banded_sweeps_plain), which the device functions below
-// follow operation by operation.
+// prep_consts_plain, banded_sweeps_plain, banded_sweep_once_plain), which the
+// device functions below follow operation by operation.
 //
 // The solve is projected Jacobi with split impulses on a packed velocity
 // table z [16, NPAD] (rows 0:3 v, 3:6 ω, 8:11 pseudo v, 11:14 pseudo ω,
@@ -520,5 +523,35 @@ extern "C" int bs_banded_sweeps(const float* z0, const int* bases, const int* la
                                                         i < pos_iters ? 1.0f : 0.0f, 0.f, 0.f);
   }
   if (integrate) integrate_kernel<<<(npad + kThreads - 1) / kThreads, kThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// 2.7 (banded_sweep_once, contacts_pallas.py:956; body _make_sweep1_kernel
+// :914): one sweep of a rank's contact tiles for the row-sharded solve. Every
+// contact reads the snapshot z (never written) and adds its deltas into dz,
+// which starts at zero; λ starts as a copy of lam_in and is updated in place.
+// The caller sums dz over the ranks and adds it to z, which makes the next
+// snapshot, so no snapshot copy is needed here. One launch of 2.5's sweep
+// kernel with zread = z and z = dz; warm start is gated by FLAG_USE_SPLIT.
+extern "C" int bs_banded_sweep_once(const float* z, const int* bases, const int* la, const int* lb,
+                                    const float* consts, const float* lam_in, float* dz, float* lam_out, int cp,
+                                    int npad, int tile, float vel_on, float pos_on, int warm, int deg_pass,
+                                    void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (cp < 1 || tile < 1 || cp % tile) return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.z = dz;
+  p.zread = const_cast<float*>(z);        // read only: the sweep writes dz
+  p.lam = lam_out;
+  p.consts = const_cast<float*>(consts);  // read only
+  p.cp = cp;
+  p.npad = npad;
+  p.flags = warm ? FLAG_USE_SPLIT : 0;
+  cudaError_t err = cudaMemsetAsync(dz, 0, sizeof(float) * kZRows * (size_t)npad, stream);
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(lam_out, lam_in, sizeof(float) * 4 * (size_t)cp, cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess) return (int)err;
+  banded_sweep_kernel<<<(cp + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      p, bases, la, lb, tile, vel_on, pos_on, warm ? 1.0f : 0.0f, deg_pass ? 1.0f : 0.0f);
   return (int)cudaGetLastError();
 }

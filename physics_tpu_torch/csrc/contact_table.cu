@@ -7,7 +7,9 @@
 // the kernel below and its box-box manifold (boxbox.cuh, shared with the
 // banded pair-manifold kernel) compute the same operations in the same order.
 //
-// One block per bucket of 128 sweep ranks:
+// One block per bucket of 128 sweep ranks; a call builds the nb buckets from
+// bucket0 on (all of them, or one rank's range in the row-sharded step), and
+// its outputs are that range's blocks:
 //   1. face-axis SAT prefilter over the bucket's `cap` candidate lanes;
 //      survivors compacted, order preserved, into `cap2` lanes (block scan);
 //   2. the 15-axis box-box manifold per surviving lane (one lane per thread),
@@ -81,13 +83,13 @@ __device__ Smem carve(char* base, int sat_cap, int e, int ccap, bool warm) {
 __global__ void __launch_bounds__(kThreads, 1)
 contact_table_kernel(const float* __restrict__ geom_all, const int* __restrict__ la_in, const int* __restrict__ lb_in,
                      const float* __restrict__ pcols, float* __restrict__ table, float* __restrict__ meta,
-                     float* __restrict__ warm, int nb, int cap, int cap2, int ccap, int kk, int kg, int npad,
-                     int rows, float gh) {
+                     float* __restrict__ warm, int nb, int bucket0, int cap, int cap2, int ccap, int kk, int kg,
+                     int npad, int rows, float gh) {
   extern __shared__ __align__(16) char smem_raw[];
   const float* geom = geom_all + (size_t)kGeomRow0 * npad;  // the boxes' rows
-  const int b = blockIdx.x;
+  const int b = blockIdx.x;  // the bucket within the range: outputs and candidates
   const int tid = threadIdx.x;
-  const int start = b * kBlock;
+  const int start = (bucket0 + b) * kBlock;  // its first rank
   const int sat_cap = cap2 ? cap2 : cap;
   const int n_pair_e = kk * sat_cap;
   const int e_tot = n_pair_e + kg * kBlock;
@@ -344,9 +346,12 @@ contact_table_kernel(const float* __restrict__ geom_all, const int* __restrict__
 }  // namespace
 
 extern "C" int ct_bucket_contact_table(const float* geom, const int* la, const int* lb, const float* pcols,
-                                       float* table, float* meta, float* warm, int nb, int cap, int cap2,
-                                       int ccap, int kk, int kg, int npad, int rows, float gh, void* stream) {
-  if (kk > kCap || kg > 8 || rows > 32 || (cap2 && cap2 > cap)) return (int)cudaErrorInvalidValue;
+                                       float* table, float* meta, float* warm, int nb, int bucket0, int cap,
+                                       int cap2, int ccap, int kk, int kg, int npad, int rows, float gh,
+                                       void* stream) {
+  if (kk > kCap || kg > 8 || rows > 32 || (cap2 && cap2 > cap) || bucket0 < 0 ||
+      (size_t)(bucket0 + nb + 2) * kBlock > (size_t)npad)
+    return (int)cudaErrorInvalidValue;
   const int sat_cap = cap2 ? cap2 : cap;
   const int e_tot = kk * sat_cap + kg * kBlock;
   const size_t smem = smem_bytes(sat_cap, e_tot, ccap, pcols != nullptr);
@@ -354,7 +359,8 @@ extern "C" int ct_bucket_contact_table(const float* geom, const int* la, const i
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   contact_table_kernel<<<nb, kThreads, smem, (cudaStream_t)stream>>>(geom, la, lb, pcols, table, meta, warm, nb,
-                                                                     cap, cap2, ccap, kk, kg, npad, rows, gh);
+                                                                     bucket0, cap, cap2, ccap, kk, kg, npad, rows,
+                                                                     gh);
   return (int)cudaGetLastError();
 }
 

@@ -45,6 +45,7 @@ constexpr int kGeomRow0 = 24;      // narrow-phase block of the unified table
 
 struct Dims {
   int nb, cap, cap2, sat_cap, ccap, kk, kg, npad, rows, h;
+  int bucket0;  // the range's first bucket: bucket b of a launch starts at rank (bucket0 + b)·128
   int fp, vcap, d2, d2p, e2p;
   int r16, r32, rcb;   // rows of c16 / c32 / cb per type pair
   float gh;
@@ -126,7 +127,7 @@ hull_prefilter_kernel(const float* __restrict__ geom, const int* __restrict__ la
   __shared__ int warp_sums[32];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int start = b * kBlock;
+  const int start = (d.bucket0 + b) * kBlock;
   int* la2 = lanes + (size_t)b * d.sat_cap;
   int* lb2 = lanes + ((size_t)d.nb + b) * d.sat_cap;
   if (!d.cap2) {
@@ -182,7 +183,7 @@ hull_sat_kernel(const float* __restrict__ geom, const int* __restrict__ lanes, c
   const int b = blockIdx.y;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= d.sat_cap) return;
-  const int start = b * kBlock;
+  const int start = (d.bucket0 + b) * kBlock;
   const size_t n_em = (size_t)d.nb * d.kk * d.sat_cap;
   const size_t e0 = (size_t)b * d.kk * d.sat_cap + lane;
   const int la = lanes[(size_t)b * d.sat_cap + lane];
@@ -505,7 +506,7 @@ hull_emit_kernel(const float* __restrict__ geom, const int* __restrict__ lanes, 
   extern __shared__ __align__(16) char smem_raw[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int start = b * kBlock;
+  const int start = (d.bucket0 + b) * kBlock;
   const int n_pair_e = d.kk * d.sat_cap;
   const int n_gnd = d.kg * kBlock;
   const int e_tot = n_pair_e + n_gnd;
@@ -706,15 +707,16 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
                                             const float* c16, const float* c32, const float* c88,
                                             const float* c80, const float* cb, const int* eidx, const float* gv,
                                             const float* vbias, float* table, float* meta, float* warm,
-                                            int* lanes, int* dropped2, float* em_f, int* em_i, int nb, int cap,
-                                            int cap2, int ccap, int kk, int kg, int npad, int rows, int h, int fp,
+                                            int* lanes, int* dropped2, float* em_f, int* em_i, int nb,
+                                            int bucket0, int cap, int cap2, int ccap, int kk, int kg, int npad, int rows, int h, int fp,
                                             int vcap, int d2, int d2p, int e2p, int r16, int r32, int rcb,
                                             float gh, void* stream) {
   if (kk > kNs || kg > 8 || kg > vcap || vcap > 128 || rows > 32 || (cap2 && cap2 > cap) || h < 1 ||
-      ((uintptr_t)c16 & 15))
+      ((uintptr_t)c16 & 15) || bucket0 < 0 || (size_t)(bucket0 + nb + 2) * kBlock > (size_t)npad)
     return (int)cudaErrorInvalidValue;
   Dims d;
   d.nb = nb;
+  d.bucket0 = bucket0;
   d.cap = cap;
   d.cap2 = cap2;
   d.sat_cap = cap2 ? cap2 : cap;

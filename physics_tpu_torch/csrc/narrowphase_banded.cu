@@ -7,8 +7,11 @@
 // contact table (contact_table.cu) shares, so with -fmad=false kernel and
 // plain version agree bit for bit.
 //
-// One thread per candidate lane j of the bucketed sweep's candidate array:
-// tile t = j / tile reads its window base, the lane's endpoints are the
+// One thread per candidate lane j of the bucketed sweep's candidate array
+// (or of one rank's slice of it, in the row-sharded step): tile t = j / tile
+// reads its window base from `bases`, a device array either way (the static
+// bucket-derived bases, or the slice's tile-min bases computed on the device,
+// ops/narrowphase_banded.py _tile_min_bases), the lane's endpoints are the
 // bodies of ranks base + la and base + lb of the rank-space body table (an
 // out-of-band or empty endpoint, −1, reads an all-zero body, whose movable
 // 0 kills every slot, as the TPU kernel's zero one-hot column did), the

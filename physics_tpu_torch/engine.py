@@ -19,6 +19,7 @@ from physics_tpu_torch.ops.integrator import (
     integrate_positions,
     integrate_velocities,
 )
+from physics_tpu_torch.parallel.collectives import Shard
 from physics_tpu_torch.solver.contacts import (
     anchored_path,
     contact_capacity,
@@ -31,13 +32,20 @@ from physics_tpu_torch.state import SimState
 
 
 def step_with_metrics(state: SimState, cfg: SimConfig,
-                      plain: bool = False) -> Tuple[SimState, Dict]:
+                      plain: bool = False,
+                      shard: Shard | None = None) -> Tuple[SimState, Dict]:
     """One simulation step; returns (new_state, metrics) with the metrics
     as device tensors. `plain=True` runs the kernels' plain versions on
-    any device (the reference for checking the kernel path on the card)."""
+    any device (the reference for checking the kernel path on the card).
+    `shard` (parallel.collectives.Shard) is the calling rank's place in a
+    row-sharded step: every rank passes the same state and gets the same
+    new state, and the contact work is split by rank (parallel.sharding.
+    row_sharded_step)."""
     if state.joints.capacity > 0:
         raise NotImplementedError("joints are ROADMAP item 1.11")
     dev = state.device
+    if shard is not None:
+        shard.check_device(dev)
     joint_metrics = {
         "cg_iters": torch.zeros((), dtype=torch.int32, device=dev),
         "cg_converged": torch.ones((), dtype=torch.bool, device=dev),
@@ -47,8 +55,9 @@ def step_with_metrics(state: SimState, cfg: SimConfig,
     contact_metrics: Dict = {}
     contacts_on = cfg.ground_plane or cfg.pair_collisions
     if contacts_on:
-        state, contact_metrics = resolve_contacts(state, cfg, plain=plain)
-    if contacts_on and fused_integration(state, cfg):
+        state, contact_metrics = resolve_contacts(state, cfg, plain=plain,
+                                                  shard=shard)
+    if contacts_on and fused_integration(state, cfg, shard):
         # pos/quat were integrated by the solve's epilogue
         state = state.replace(
             force=torch.zeros_like(state.force),

@@ -236,13 +236,17 @@ def _compact_lanes(keep: Tensor, la: Tensor, lb: Tensor, out_cap: int):
     return out_a[:, :out_cap], out_b[:, :out_cap], dropped
 
 
-def lane_geometry(geom: Tensor, loc: Tensor) -> Tensor:
+def _bucket_starts(nb: int, bucket0: int, device) -> Tensor:
+    """First rank of each of the nb buckets from bucket0 on, [NB, 1]."""
+    return (bucket0 + torch.arange(nb, device=device,
+                                   dtype=torch.int64))[:, None] * BLOCK
+
+
+def lane_geometry(geom: Tensor, loc: Tensor, bucket0: int = 0) -> Tensor:
     """The narrow-phase block (rows 24:48) of window-local ranks loc
-    [NB, L] (bucket b's window starts at rank b·128; −1 = empty lane,
-    read as zeros) → [24, NB, L]."""
-    nb = loc.shape[0]
-    start = torch.arange(nb, device=geom.device,
-                         dtype=torch.int64)[:, None] * BLOCK
+    [NB, L] of the buckets from bucket0 on (bucket b's window starts at
+    rank b·128; −1 = empty lane, read as zeros) → [24, NB, L]."""
+    start = _bucket_starts(loc.shape[0], bucket0, geom.device)
     g = geom[24:48, start + torch.clamp(loc.to(torch.int64), min=0)]
     return torch.where((loc >= 0)[None], g, torch.zeros_like(g))
 
@@ -276,25 +280,27 @@ def _t_apply(g, w):
 def bucket_contact_table_plain(geom: Tensor, la: Tensor, lb: Tensor,
                                pcols: Tensor | None, *, ccap: int, kk: int,
                                kg: int, cap2: int, ground_height: float,
-                               anchors: bool):
+                               anchors: bool, bucket0: int = 0):
     """Plain version of the contact-table kernel, all buckets at once.
 
     geom [48, NPAD] unified table; la/lb [NB, cap] int32 window-local
-    candidate ranks (−1 = empty lane); pcols [NB·ccap, 8] previous-step
-    key columns or None. Returns (table [rows, NB·ccap], meta
-    [8, NB·128], warm [8, NB·ccap] or None)."""
+    candidate ranks (−1 = empty lane) of the NB buckets from bucket0 on;
+    pcols [NB·ccap, 8] previous-step key columns or None. Returns (table
+    [rows, NB·ccap], meta [8, NB·128], warm [8, NB·ccap] or None)."""
     dev = geom.device
     nb, cap = la.shape
     rows_n = CT2_ROWS if anchors else CT_ROWS
     win = geom[24:48]
-    start = torch.arange(nb, device=dev, dtype=torch.int64)[:, None] * BLOCK
+    start = _bucket_starts(nb, bucket0, dev)
     f32 = torch.float32
 
-    ga, gb = lane_geometry(geom, la), lane_geometry(geom, lb)
+    ga, gb = lane_geometry(geom, la, bucket0), lane_geometry(geom, lb,
+                                                             bucket0)
     dropped2 = torch.zeros((nb,), dtype=torch.int64, device=dev)
     if cap2:
         la, lb, dropped2 = obb_prefilter(ga, gb, la, lb, cap2, hulls=False)
-        ga, gb = lane_geometry(geom, la), lane_geometry(geom, lb)
+        ga, gb = lane_geometry(geom, la, bucket0), lane_geometry(
+            geom, lb, bucket0)
 
     man = box_box_manifold_batched(
         (ga[0], ga[1], ga[2]), tuple(ga[3 + k] for k in range(9)),
@@ -435,7 +441,7 @@ def compact_emissions(rows, ccap: int, dropped2: Tensor,
 # ---------------------------------------------------------------------------
 
 def _launch_kernel(geom, la, lb, pcols, *, ccap, kk, kg, cap2,
-                   ground_height, anchors):
+                   ground_height, anchors, bucket0):
     from physics_tpu_torch import _build
 
     dev = geom.device
@@ -450,9 +456,10 @@ def _launch_kernel(geom, la, lb, pcols, *, ccap, kk, kg, cap2,
                              f"{dt} tensor on {dev}")
     if geom.shape[0] != 48 or lb.shape != la.shape:
         raise ValueError("contact table: geom [48, NPAD], la/lb [NB, cap]")
-    if npad < nb * BLOCK + 2 * BLOCK:
+    # the last bucket of the range reads ranks up to its start + 2·128
+    if npad < (bucket0 + nb) * BLOCK + 2 * BLOCK:
         raise ValueError(f"contact table: NPAD {npad} too small for "
-                         f"{nb} buckets")
+                         f"{bucket0 + nb} buckets")
     if pcols is not None and (pcols.shape != (cp, 8) or pcols.device != dev
                               or pcols.dtype != torch.float32
                               or not pcols.is_contiguous()):
@@ -468,7 +475,7 @@ def _launch_kernel(geom, la, lb, pcols, *, ccap, kk, kg, cap2,
             ptr(pcols.data_ptr() if pcols is not None else 0),
             ptr(table.data_ptr()), ptr(meta.data_ptr()),
             ptr(warm.data_ptr() if warm is not None else 0),
-            nb, cap, cap2, ccap, kk, kg, npad, rows_n,
+            nb, bucket0, cap, cap2, ccap, kk, kg, npad, rows_n,
             ctypes.c_float(ground_height),
             ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "ct_bucket_contact_table")
@@ -478,11 +485,13 @@ def _launch_kernel(geom, la, lb, pcols, *, ccap, kk, kg, cap2,
 
 def table_operands(state: SimState, cand: PairCandidates, cfg: SimConfig,
                    prev: Tuple[Tensor, Tensor] | None, geom: Tensor | None,
-                   what: str):
+                   what: str, buckets: Tuple[int, int] | None = None):
     """The checks and operands both table kernels share: la/lb [NB, cap]
     int32 window-local candidate ranks (−1 = empty lane), the previous
     step's key columns (or None), and the keywords ccap, cap2 (0 when the
-    prefilter cap does not cut), ground_height and anchors."""
+    prefilter cap does not cut), ground_height, anchors and bucket0.
+    `buckets = (bucket0, NB)` takes the candidates and previous keys of
+    those NB buckets only (None: all buckets)."""
     n = state.num_bodies
     if n > (1 << 16):
         raise ValueError(
@@ -500,6 +509,12 @@ def table_operands(state: SimState, cand: PairCandidates, cfg: SimConfig,
     if nb != nb_cand:
         raise ValueError(f"{what}: {nb} table buckets, {nb_cand} candidate "
                          f"buckets")
+    bucket0, nb_l = buckets if buckets is not None else (0, nb)
+    if not (0 <= bucket0 and nb_l >= 1 and bucket0 + nb_l <= nb):
+        raise ValueError(f"{what}: bucket range {buckets} of {nb} buckets")
+    if cand.mask.shape[0] != nb_l * cap:
+        raise ValueError(f"{what}: {cand.mask.shape[0]} candidate lanes "
+                         f"for {nb_l} buckets of {cap}")
     _, npad = geom_pad(n, cfg)
     if geom is None or geom.shape != (48, npad):
         raise ValueError(f"{what}: pass the unified geometry table "
@@ -513,15 +528,15 @@ def table_operands(state: SimState, cand: PairCandidates, cfg: SimConfig,
         cap2 = min(cap2, cap)
         if cap2 == cap:
             cap2 = 0
-    base = (torch.arange(nb, dtype=torch.int32, device=geom.device)
-            * BLOCK)[:, None]
-    la = torch.where(cand.mask.reshape(nb, cap),
-                     cand.rank_a.reshape(nb, cap) - base, -1).contiguous()
-    lb = torch.where(cand.mask.reshape(nb, cap),
-                     cand.rank_b.reshape(nb, cap) - base, -1).contiguous()
+    base = _bucket_starts(nb_l, bucket0, geom.device).to(torch.int32)
+    mask = cand.mask.reshape(nb_l, cap)
+    la = torch.where(mask, cand.rank_a.reshape(nb_l, cap) - base,
+                     -1).contiguous()
+    lb = torch.where(mask, cand.rank_b.reshape(nb_l, cap) - base,
+                     -1).contiguous()
     pcols = prev_key_cols(*prev) if prev is not None else None
     kw = dict(ccap=ccap, cap2=cap2, ground_height=float(cfg.ground_height),
-              anchors=cfg.contact_rebuild > 1)
+              anchors=cfg.contact_rebuild > 1, bucket0=bucket0)
     return la, lb, pcols, kw
 
 
@@ -532,9 +547,14 @@ def bucket_contact_table(
     prev: Tuple[Tensor, Tensor] | None = None,
     geom: Tensor | None = None,
     plain: bool = False,
+    buckets: Tuple[int, int] | None = None,
 ) -> Tuple[Tensor, Tensor, Tensor | None]:
     """The contact table of one rebuild. Returns (table [CT_ROWS or
     CT2_ROWS, NB·ccap], meta [8, NB·128], warm [8, NB·ccap] | None).
+    `buckets = (bucket0, NB)` builds the NB buckets from bucket0 on (the
+    row-sharded step: each rank its own range against the whole geometry
+    table); `cand` and `prev` are then those buckets' slices, and the
+    outputs are the range's [*, NB·ccap] and [8, NB·128] blocks.
 
     meta[0, b·128 + 0] = contacts bucket b dropped beyond ccap,
     + 1 = its active contacts, + 2 = prefilter survivors dropped beyond
@@ -547,7 +567,7 @@ def bucket_contact_table(
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA
     tensor launches csrc/contact_table.cu."""
     la, lb, pcols, kw = table_operands(state, cand, cfg, prev, geom,
-                                       "contact table")
+                                       "contact table", buckets)
     kw["kk"] = min(cfg.max_contacts_per_pair, _CAP)
     kw["kg"] = min(cfg.max_contacts_per_pair, 8) if cfg.ground_plane else 0
     if plain or geom.device.type == "cpu":

@@ -49,6 +49,7 @@ from physics_tpu_torch.ops.contact_table import (
     BLOCK,
     CT2_ROWS,
     CT_ROWS,
+    _bucket_starts,
     _t_apply,
     compact_emissions,
     lane_geometry,
@@ -546,10 +547,11 @@ def _select_pass(outs, pair):
 
 def bucket_hull_contact_table_plain(geom, la, lb, pcols, tc: HullTableCoef,
                                     *, ccap, kk, kg, cap2, ground_height,
-                                    anchors):
+                                    anchors, bucket0=0):
     """Plain version of the hull table kernel, all buckets at once, on the
     kernel's operands: geom [48, NPAD] in hull mode, la/lb [NB, cap] int32
-    window-local candidate ranks (−1 = empty lane), pcols [NB·ccap, 8]
+    window-local candidate ranks (−1 = empty lane) of the NB buckets from
+    bucket0 on, pcols [NB·ccap, 8]
     previous-step key columns or None, the library's coefficient tables.
     Returns (table [rows, NB·ccap], meta [8, NB·128], warm [8, NB·ccap]
     or None)."""
@@ -561,13 +563,15 @@ def bucket_hull_contact_table_plain(geom, la, lb, pcols, tc: HullTableCoef,
     cap_sl = 2 * e
     rows_n = CT2_ROWS if anchors else CT_ROWS
     win = geom[24:48]
-    start = torch.arange(nb, device=dev, dtype=torch.int64)[:, None] * BLOCK
+    start = _bucket_starts(nb, bucket0, dev)
 
-    ga, gb = lane_geometry(geom, la), lane_geometry(geom, lb)
+    ga, gb = lane_geometry(geom, la, bucket0), lane_geometry(geom, lb,
+                                                             bucket0)
     dropped2 = torch.zeros((nb,), dtype=torch.int64, device=dev)
     if cap2:
         la, lb, dropped2 = obb_prefilter(ga, gb, la, lb, cap2, hulls=True)
-        ga, gb = lane_geometry(geom, la), lane_geometry(geom, lb)
+        ga, gb = lane_geometry(geom, la, bucket0), lane_geometry(
+            geom, lb, bucket0)
 
     valid = ((la >= 0) & ((ga[17] > 0.0) | (gb[17] > 0.0))
              & (ga[19] > 0.0) & (gb[19] > 0.0))
@@ -686,7 +690,7 @@ def bucket_hull_contact_table_plain(geom, la, lb, pcols, tc: HullTableCoef,
 # ---------------------------------------------------------------------------
 
 def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
-                   cap2, ground_height, anchors):
+                   cap2, ground_height, anchors, bucket0):
     from physics_tpu_torch import _build
 
     dev = geom.device
@@ -710,9 +714,10 @@ def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
                              f"tensor on {dev}")
     if geom.shape[0] != 48 or lb.shape != la.shape:
         raise ValueError("hull table: geom [48, NPAD], la/lb [NB, cap]")
-    if npad < nb * BLOCK + 2 * BLOCK:
-        raise ValueError(f"hull table: NPAD {npad} too small for {nb} "
-                         f"buckets")
+    # the last bucket of the range reads ranks up to its start + 2·128
+    if npad < (bucket0 + nb) * BLOCK + 2 * BLOCK:
+        raise ValueError(f"hull table: NPAD {npad} too small for "
+                         f"{bucket0 + nb} buckets")
     if pcols is not None and pcols.shape != (cp, 8):
         raise ValueError(f"hull table: prev cols must be [{cp}, 8]")
     if dm.e != 4:
@@ -742,7 +747,7 @@ def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
             ptr(warm.data_ptr() if warm is not None else 0),
             ptr(lanes.data_ptr()), ptr(dropped2.data_ptr()),
             ptr(em_f.data_ptr()), ptr(em_i.data_ptr()),
-            nb, cap, cap2, ccap, kk, kg, npad, rows_n, tc.ntypes,
+            nb, bucket0, cap, cap2, ccap, kk, kg, npad, rows_n, tc.ntypes,
             dm.fp, dm.vcap, dm.d2, dm.d2p, dm.e2p,
             c.c16.shape[1], c.c32.shape[1], c.cb.shape[1],
             ctypes.c_float(ground_height),
@@ -753,7 +758,7 @@ def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
 
 
 def _prepare(state: SimState, cand: PairCandidates, cfg: SimConfig,
-             prev, geom):
+             prev, geom, buckets=None):
     """The wrapper's and the plain version's operands: (la, lb, pcols,
     coefficient tables, keywords)."""
     if state.hulls.verts.shape[0] > MAX_TABLE_HULL_TYPES:
@@ -761,7 +766,7 @@ def _prepare(state: SimState, cand: PairCandidates, cfg: SimConfig,
             f"hull table: at most {MAX_TABLE_HULL_TYPES} hull types (larger "
             f"libraries take the generic narrow phase, ROADMAP item 1.13)")
     la, lb, pcols, kw = table_operands(state, cand, cfg, prev, geom,
-                                       "hull table")
+                                       "hull table", buckets)
     tc = hull_table_coef(state)
     dm = tc.dims
     if 2 * dm.e + 1 > _KS_LIMIT or dm.vcap > _KS_LIMIT:
@@ -779,6 +784,7 @@ def bucket_hull_contact_table(
     prev: Tuple[Tensor, Tensor] | None = None,
     geom: Tensor | None = None,
     plain: bool = False,
+    buckets: Tuple[int, int] | None = None,
 ) -> Tuple[Tensor, Tensor, Tensor | None]:
     """The hull contact table of one rebuild, with the box table's
     contract (ops/contact_table.bucket_contact_table): returns (table
@@ -786,10 +792,12 @@ def bucket_hull_contact_table(
     dropped contacts / active contacts / prefilter survivors dropped
     beyond bucket_cap2 — and warm [8, NB·ccap] | None). `geom` is the
     unified geometry table in hull mode (unified_geom(..., hulls=True)).
+    `buckets = (bucket0, NB)` builds those NB buckets only, with the box
+    table's contract.
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA tensor
     launches csrc/hull_table.cu."""
-    la, lb, pcols, tc, kw = _prepare(state, cand, cfg, prev, geom)
+    la, lb, pcols, tc, kw = _prepare(state, cand, cfg, prev, geom, buckets)
     if plain or geom.device.type == "cpu":
         return bucket_hull_contact_table_plain(geom, la, lb, pcols, tc, **kw)
     if geom.device.type != "cuda":

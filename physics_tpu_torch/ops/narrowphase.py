@@ -141,7 +141,8 @@ def _ground_contacts_boxes(state: SimState, cfg: SimConfig) -> Contacts:
 
 def _pair_contacts_boxes_pallas(state: SimState, cand: PairCandidates,
                                 cfg: SimConfig, geom: Tensor,
-                                plain: bool = False) -> Contacts:
+                                plain: bool = False,
+                                chunked: bool = False) -> Contacts:
     """The banded pair-manifold kernel's rows (ops/narrowphase_banded.py)
     as slot-major [kk·P] contacts. `geom` is the rank-space geometry table
     of the step (its narrow-phase block is the kernel's body table). Pair
@@ -149,7 +150,8 @@ def _pair_contacts_boxes_pallas(state: SimState, cand: PairCandidates,
     else 0; the endpoint ids ride the kernel's rows."""
     n = state.num_bodies
     p0 = cand.body_a.shape[0]
-    rows, _, kk = pair_manifolds_banded(state, cand, cfg, geom, plain=plain)
+    rows, _, kk = pair_manifolds_banded(state, cand, cfg, geom, plain=plain,
+                                        chunked=chunked)
     if n < NP_ID_EXACT_MAX:
         zero = torch.zeros_like(cand.body_a)
         ia = torch.where(cand.mask, rows[5 * kk + 5, :p0].to(torch.int32),
@@ -201,12 +203,15 @@ def ground_contacts(state: SimState, cfg: SimConfig) -> Contacts:
 
 
 def pair_contacts(state: SimState, cand: PairCandidates, cfg: SimConfig,
-                  geom: Tensor, plain: bool = False) -> Contacts:
-    """Pair contacts of the bucketed candidates through the banded
-    pair-manifold kernel; the other narrow phases are ROADMAP item 1.13."""
+                  geom: Tensor, plain: bool = False,
+                  chunked: bool = False) -> Contacts:
+    """Pair contacts of the bucketed candidates (`chunked`: one rank's
+    slice of them) through the banded pair-manifold kernel; the other
+    narrow phases are ROADMAP item 1.13."""
     if not banded_pairs(cfg):
         raise NotImplementedError(
             "only the banded box narrow phase (boxes_only, "
             "narrowphase_pallas, bucketed sweep) is ported; the generic "
             "narrow phases are ROADMAP item 1.13")
-    return _pair_contacts_boxes_pallas(state, cand, cfg, geom, plain=plain)
+    return _pair_contacts_boxes_pallas(state, cand, cfg, geom, plain=plain,
+                                       chunked=chunked)

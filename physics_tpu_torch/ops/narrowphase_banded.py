@@ -6,8 +6,11 @@ tile t reads the bodies of ranks [base_t, base_t + pallas_window) of the
 rank-space body table. Bases are static: tile t covers whole buckets of
 `bucket_block` ranks, whose candidates reach at most `sweep_window` ranks
 further, so a span wider than the window is a configuration error, raised
-here before anything runs, never a silent drop. A lane whose endpoint
-falls outside its window reads as empty (−1).
+here before anything runs, never a silent drop. In chunked mode (one
+rank's slice of the candidate lanes, in the row-sharded step) the slice
+need not start at a bucket, so each tile's base is computed on the
+device instead: its lowest live rank, rounded down to 128. A lane whose
+endpoint falls outside its window reads as empty (−1) in either mode.
 
 For each lane the kernel computes the 15-axis box-box manifold and writes
 its kk deepest valid points. Output rows [5·kk + 7, Pp]: for each pick
@@ -93,10 +96,23 @@ def _static_bases(n: int, p0: int, cfg: SimConfig,
     return torch.as_tensor(bases.astype(np.int32), device=device)
 
 
+def _tile_min_bases(mask: Tensor, rank_a: Tensor, tile: int, npad: int,
+                    wtot: int) -> Tensor:
+    """Window start of each tile from its lanes: the lowest live rank
+    (npad − 1 when none is live), rounded down to 128, within
+    [0, npad − wtot]."""
+    key = torch.where(mask, rank_a, npad - 1)
+    tmin = key.reshape(-1, tile).amin(dim=1)
+    return torch.clamp(torch.div(tmin, 128, rounding_mode="floor") * 128,
+                       0, npad - wtot).to(torch.int32)
+
+
 def pair_operands(state: SimState, cand: PairCandidates, cfg: SimConfig,
-                  geom: Tensor):
+                  geom: Tensor, chunked: bool = False):
     """(bases [Pp / tile] int32, la, lb [Pp] int32 window-local endpoint
-    ranks, −1 for empty or out-of-band lanes, tile, kk)."""
+    ranks, −1 for empty or out-of-band lanes, tile, kk). `chunked`: cand
+    is a slice of the bucketed lanes, and the bases come from the lanes
+    (_tile_min_bases) instead of the bucket layout."""
     n = state.num_bodies
     p0 = cand.body_a.shape[0]
     kk, tile, pp = np_shape(n, p0, cfg)
@@ -104,12 +120,16 @@ def pair_operands(state: SimState, cand: PairCandidates, cfg: SimConfig,
     if geom.shape != (48, npad):
         raise ValueError(f"banded narrow phase: pass the rank-space "
                          f"geometry table [48, {npad}] (unified_geom)")
-    bases = _static_bases(n, p0, cfg, geom.device)
     wtot = cfg.pallas_window
-    base = bases.repeat_interleave(tile)
     pad = (0, pp - p0)
     mask = torch.nn.functional.pad(cand.mask, pad)
-    la = torch.nn.functional.pad(cand.rank_a, pad) - base
+    rank_a = torch.nn.functional.pad(cand.rank_a, pad)
+    if chunked:
+        bases = _tile_min_bases(mask, rank_a, tile, npad, wtot)
+    else:
+        bases = _static_bases(n, p0, cfg, geom.device)
+    base = bases.repeat_interleave(tile)
+    la = rank_a - base
     lb = torch.nn.functional.pad(cand.rank_b, pad) - base
     ok = mask & (la >= 0) & (la < wtot) & (lb >= 0) & (lb < wtot)
     la = torch.where(ok, la, -1).to(torch.int32)
@@ -177,15 +197,18 @@ def _launch_kernel(geom, bases, la, lb, *, tile, kk):
 
 def pair_manifolds_banded(state: SimState, cand: PairCandidates,
                           cfg: SimConfig, geom: Tensor,
-                          plain: bool = False) -> Tuple[Tensor, int, int]:
+                          plain: bool = False,
+                          chunked: bool = False) -> Tuple[Tensor, int, int]:
     """The manifold rows of every candidate lane. Returns (rows [R, Pp],
-    Pp, kk), the lane axis padded to the tile.
+    Pp, kk), the lane axis padded to the tile. `chunked=True`: cand is
+    one rank's slice of the bucketed lanes (window bases from the lanes;
+    see pair_operands).
 
     `geom` is the rank-space geometry table [48, NPAD] of the step's sweep
     order (unified_geom at body_table_width): its narrow-phase block
     (rows 24:48) is the body table. A CPU tensor (or `plain=True`) runs
     the plain version; a CUDA tensor launches csrc/narrowphase_banded.cu."""
-    bases, la, lb, tile, kk = pair_operands(state, cand, cfg, geom)
+    bases, la, lb, tile, kk = pair_operands(state, cand, cfg, geom, chunked)
     if plain or geom.device.type == "cpu":
         rows = pair_manifolds_banded_plain(geom, bases, la, lb, tile=tile,
                                            kk=kk)

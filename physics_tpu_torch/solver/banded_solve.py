@@ -1,9 +1,9 @@
-"""Banded contact solves: three CUDA kernels and their plain PyTorch
+"""Banded contact solves: four CUDA kernels and their plain PyTorch
 versions (counterpart of physics_tpu/solver/contacts_pallas.py:
 `_prep_consts_math`, `banded_sweeps_fused`, `prep_consts`,
-`banded_sweeps`, `solve_shape`, `padded_contact_count`,
-`solve_impulses_banded`, `solve_impulses_table` and
-`_table_solve_outputs`).
+`banded_sweeps`, `banded_sweep_once`, `banded_sweeps_sharded`,
+`solve_shape`, `padded_contact_count`, `solve_impulses_banded`,
+`solve_impulses_table` and `_table_solve_outputs`).
 
 Projected Jacobi with split impulses on a packed velocity table
 z [16, NPAD] in sweep-rank order (rows 0:3 v, 3:6 ω, 8:11 pseudo v, 11:14
@@ -16,7 +16,10 @@ sweep 0 from the contact table and the geometry (re-deriving point,
 normal and depth from the body-frame anchors on anchored paths); the
 unfused one computes them first (prep_consts, 2.6) and sweeps over them
 (banded_sweeps, 2.5), for the generic banded path and the table path
-with fuse_prep off.
+with fuse_prep off. The row-sharded solve splits the unfused sweeps'
+tiles over the ranks: each sweep is one launch of banded_sweep_once
+(2.7) per rank, which writes the sweep's delta of z, and an all-reduce of
+that delta (banded_sweeps_sharded).
 
 The TPU kernel moved z through one-hot matmuls with hi/lo bf16 splits
 (about 2⁻¹⁷ relative per read); here every read is an exact f32 gather,
@@ -49,6 +52,11 @@ from physics_tpu_torch.ops.contact_table import (
     table_shape,
 )
 from physics_tpu_torch.ops.narrowphase_banded import body_table_width
+from physics_tpu_torch.parallel.collectives import (
+    Shard,
+    all_gather_last,
+    all_reduce_sum,
+)
 from physics_tpu_torch.state import SimState
 
 Tensor = torch.Tensor
@@ -146,14 +154,15 @@ def _qnorm(a):
     return (w * inv, x * inv, y * inv, z * inv)
 
 
-def _sweep_loop(z, cs, rank_a, rank_b, *, n_sweeps, vel_iters, pos_iters,
-                warm):
-    """The Jacobi sweeps of both solves on z [16, NPAD] (updated in place)
-    over the constant rows cs (R_* layout; rows 42:45 = λ₀) of contacts
-    with endpoint ranks rank_a/rank_b (−1: none). Sweep 0 scatters the
-    contact degrees (and, with `warm`, applies λ: 0 → λ₀); sweep s ≥ 1 is
-    velocity sweep s−1 while s−1 < vel_iters and position sweep while
-    s−1 < pos_iters. Returns the final [λn, λt1, λt2, λb]."""
+def _sweep_once(snap, acc, cs, rank_a, rank_b, lam, *, vel_on, pos_on,
+                warm_f, degf):
+    """One Jacobi sweep of both solves: every contact reads the snapshot
+    snap [16, NPAD] and adds its deltas into acc (snap itself or a zero
+    table). cs are the constant rows (R_* layout; rows 42:45 = λ₀) of
+    contacts with endpoint ranks rank_a/rank_b (−1: none), lam their
+    [λn, λt1, λt2, λb]. vel_on/pos_on switch the velocity and position
+    rows; warm_f (None: no warm start) blends λ₀ in; degf scatters the
+    contact degrees. Returns the new lam."""
     r_a = (cs[0], cs[1], cs[2])
     r_b = (cs[3], cs[4], cs[5])
     nrm = (cs[6], cs[7], cs[8])
@@ -168,68 +177,78 @@ def _sweep_loop(z, cs, rank_a, rank_b, *, n_sweeps, vel_iters, pos_iters,
     lam0 = cs[_R_LAM0:_R_LAM0 + 3]
 
     zero = torch.zeros_like(cs[0])
-    lam = [zero] * 4
     ok_a, ok_b = rank_a >= 0, rank_b >= 0
-    idx_a, idx_b = rank_a[ok_a], rank_b[ok_b]
+    za = _gather(snap, rank_a)
+    zb = _gather(snap, rank_b)
+    relax = relax0 / torch.clamp(torch.maximum(za[14], zb[14]), min=1.0)
 
+    def rel_vel(base):
+        va = v3.add((za[base], za[base + 1], za[base + 2]),
+                    v3.cross((za[base + 3], za[base + 4], za[base + 5]),
+                             r_a))
+        vb = v3.add((zb[base], zb[base + 1], zb[base + 2]),
+                    v3.cross((zb[base + 3], zb[base + 4], zb[base + 5]),
+                             r_b))
+        return v3.sub(va, vb)
+
+    lam_n, lam_t1, lam_t2, lam_b = lam
+    v = rel_vel(0)
+    v_n = v3.dot(nrm, v)
+    d_lam = (v_target - v_n) * inv_k_n * relax * vel_on
+    lam_n_new = torch.clamp(lam_n + d_lam, min=0.0)
+    lim = friction * lam_n_new
+    v_t1 = v3.dot(t1, v)
+    lam_t1_new = torch.minimum(torch.maximum(
+        lam_t1 - v_t1 * inv_k_t1 * relax * vel_on, -lim), lim)
+    v_t2 = v3.dot(t2, v)
+    lam_t2_new = torch.minimum(torch.maximum(
+        lam_t2 - v_t2 * inv_k_t2 * relax * vel_on, -lim), lim)
+    pv_n = v3.dot(nrm, rel_vel(8))
+    d_lam_b = (bias - pv_n) * inv_k_n * relax * pos_on
+    lam_b_new = torch.clamp(lam_b + d_lam_b, min=0.0)
+    if warm_f is not None:
+        nf = 1.0 - warm_f
+        lam_n_new = warm_f * lam0[0] + nf * lam_n_new
+        lam_t1_new = warm_f * lam0[1] + nf * lam_t1_new
+        lam_t2_new = warm_f * lam0[2] + nf * lam_t2_new
+        lam_b_new = nf * lam_b_new
+    imp = v3.add(v3.add(v3.scale(nrm, lam_n_new - lam_n),
+                        v3.scale(t1, lam_t1_new - lam_t1)),
+                 v3.scale(t2, lam_t2_new - lam_t2))
+    pimp = v3.scale(nrm, lam_b_new - lam_b)
+    deg = torch.full_like(zero, degf)
+
+    def contrib(inv_m, iw, r, sign):
+        dv = v3.scale(imp, sign * inv_m)
+        dw = v3.scale(v3.mat_vec(iw, v3.cross(r, imp)), sign)
+        pdv = v3.scale(pimp, sign * inv_m)
+        pdw = v3.scale(v3.mat_vec(iw, v3.cross(r, pimp)), sign)
+        return torch.stack([*dv, *dw, zero, zero, *pdv, *pdw, deg, zero])
+
+    ca = contrib(inv_m_a, iw_a, r_a, 1.0)
+    cb = contrib(inv_m_b, iw_b, r_b, -1.0)
+    acc.index_add_(1, rank_a[ok_a], ca[:, ok_a])
+    acc.index_add_(1, rank_b[ok_b], cb[:, ok_b])
+    return [lam_n_new, lam_t1_new, lam_t2_new, lam_b_new]
+
+
+def _sweep_loop(z, cs, rank_a, rank_b, *, n_sweeps, vel_iters, pos_iters,
+                warm):
+    """The Jacobi sweeps of both solves on z [16, NPAD] (updated in place)
+    over the constant rows cs (R_* layout; rows 42:45 = λ₀) of contacts
+    with endpoint ranks rank_a/rank_b (−1: none). Sweep 0 scatters the
+    contact degrees (and, with `warm`, applies λ: 0 → λ₀); sweep s ≥ 1 is
+    velocity sweep s−1 while s−1 < vel_iters and position sweep while
+    s−1 < pos_iters. Returns the final [λn, λt1, λt2, λb]."""
+    lam = [torch.zeros_like(cs[0])] * 4
     for s in range(n_sweeps):
-        snap = z.clone()
-        za = _gather(snap, rank_a)
-        zb = _gather(snap, rank_b)
         i = s - 1
-        vel_on = 1.0 if 0 <= i < vel_iters else 0.0
-        pos_on = 1.0 if 0 <= i < pos_iters else 0.0
-        relax = relax0 / torch.clamp(torch.maximum(za[14], zb[14]), min=1.0)
-
-        def rel_vel(base):
-            va = v3.add((za[base], za[base + 1], za[base + 2]),
-                        v3.cross((za[base + 3], za[base + 4], za[base + 5]),
-                                 r_a))
-            vb = v3.add((zb[base], zb[base + 1], zb[base + 2]),
-                        v3.cross((zb[base + 3], zb[base + 4], zb[base + 5]),
-                                 r_b))
-            return v3.sub(va, vb)
-
-        lam_n, lam_t1, lam_t2, lam_b = lam
-        v = rel_vel(0)
-        v_n = v3.dot(nrm, v)
-        d_lam = (v_target - v_n) * inv_k_n * relax * vel_on
-        lam_n_new = torch.clamp(lam_n + d_lam, min=0.0)
-        lim = friction * lam_n_new
-        v_t1 = v3.dot(t1, v)
-        lam_t1_new = torch.minimum(torch.maximum(
-            lam_t1 - v_t1 * inv_k_t1 * relax * vel_on, -lim), lim)
-        v_t2 = v3.dot(t2, v)
-        lam_t2_new = torch.minimum(torch.maximum(
-            lam_t2 - v_t2 * inv_k_t2 * relax * vel_on, -lim), lim)
-        pv_n = v3.dot(nrm, rel_vel(8))
-        d_lam_b = (bias - pv_n) * inv_k_n * relax * pos_on
-        lam_b_new = torch.clamp(lam_b + d_lam_b, min=0.0)
-        if warm:
-            wf = 1.0 if s == 0 else 0.0
-            nf = 1.0 - wf
-            lam_n_new = wf * lam0[0] + nf * lam_n_new
-            lam_t1_new = wf * lam0[1] + nf * lam_t1_new
-            lam_t2_new = wf * lam0[2] + nf * lam_t2_new
-            lam_b_new = nf * lam_b_new
-        imp = v3.add(v3.add(v3.scale(nrm, lam_n_new - lam_n),
-                            v3.scale(t1, lam_t1_new - lam_t1)),
-                     v3.scale(t2, lam_t2_new - lam_t2))
-        pimp = v3.scale(nrm, lam_b_new - lam_b)
-        deg = torch.full_like(zero, 1.0 if s == 0 else 0.0)
-
-        def contrib(inv_m, iw, r, sign):
-            dv = v3.scale(imp, sign * inv_m)
-            dw = v3.scale(v3.mat_vec(iw, v3.cross(r, imp)), sign)
-            pdv = v3.scale(pimp, sign * inv_m)
-            pdw = v3.scale(v3.mat_vec(iw, v3.cross(r, pimp)), sign)
-            return torch.stack([*dv, *dw, zero, zero, *pdv, *pdw, deg, zero])
-
-        ca = contrib(inv_m_a, iw_a, r_a, 1.0)
-        cb = contrib(inv_m_b, iw_b, r_b, -1.0)
-        z.index_add_(1, idx_a, ca[:, ok_a])
-        z.index_add_(1, idx_b, cb[:, ok_b])
-        lam = [lam_n_new, lam_t1_new, lam_t2_new, lam_b_new]
+        lam = _sweep_once(
+            z.clone(), z, cs, rank_a, rank_b, lam,
+            vel_on=1.0 if 0 <= i < vel_iters else 0.0,
+            pos_on=1.0 if 0 <= i < pos_iters else 0.0,
+            warm_f=(1.0 if s == 0 else 0.0) if warm else None,
+            degf=1.0 if s == 0 else 0.0)
     return lam
 
 
@@ -549,6 +568,122 @@ def banded_sweeps(z0: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
 banded_sweeps.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# the sharded sweeps: banded_sweep_once (2.7) and its loop
+# ---------------------------------------------------------------------------
+
+def banded_sweep_once_plain(z, bases, la, lb, consts, lam, *, tile, vel_on,
+                            pos_on, warm, deg_pass):
+    """Plain version of the single-sweep kernel: the deltas of one sweep
+    summed into a zero table. Returns (dz [16, NPAD], λ [4, Cp])."""
+    dz = torch.zeros_like(z)
+    lam_new = _sweep_once(
+        z, dz, consts, _win_rank(bases, la, tile), _win_rank(bases, lb, tile),
+        list(lam), vel_on=1.0 if vel_on else 0.0,
+        pos_on=1.0 if pos_on else 0.0, warm_f=1.0 if warm else None,
+        degf=1.0 if deg_pass else 0.0)
+    return dz, torch.stack(lam_new)
+
+
+def banded_sweep_once(z: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
+                      consts: Tensor, lam: Tensor, *, tile: int,
+                      vel_on: bool, pos_on: bool, warm: bool,
+                      deg_pass: bool, plain: bool = False
+                      ) -> Tuple[Tensor, Tensor]:
+    """One Jacobi sweep over a range of contact tiles: every contact reads
+    the snapshot z [16, NPAD] (not written) and its deltas are summed into
+    dz, the pure delta that the caller sums over the ranks and adds to z.
+    bases [Cp / tile] int32 window starts and la/lb [Cp] int32
+    window-local endpoint ranks of the range's contacts, consts [R_PREP,
+    Cp] their constants, lam [4, Cp] their impulses before the sweep.
+    vel_on/pos_on switch the velocity and position rows, `warm` applies
+    λ: 0 → λ₀, `deg_pass` scatters the contact degrees (sweep 0). Returns
+    (dz, λ [4, Cp]).
+
+    A CPU tensor (or `plain=True`) runs the plain version; a CUDA tensor
+    launches csrc/banded_solve.cu bs_banded_sweep_once."""
+    kw = dict(tile=tile, vel_on=vel_on, pos_on=pos_on, warm=warm,
+              deg_pass=deg_pass)
+    if plain or z.device.type == "cpu":
+        return banded_sweep_once_plain(z, bases, la, lb, consts, lam, **kw)
+    if z.device.type != "cuda":
+        raise ValueError(f"banded sweep once: unsupported device {z.device}")
+    from physics_tpu_torch import _build
+
+    dev = z.device
+    cp = la.shape[0]
+    npad = z.shape[1]
+    if cp < 1 or cp % tile:
+        raise ValueError(f"banded sweep once: {cp} contacts, tile {tile}")
+    _build.check_operands("banded sweep once", dev,
+                          ("z", z, torch.float32, (Z_ROWS, npad)),
+                          ("bases", bases, torch.int32, (cp // tile,)),
+                          ("la", la, torch.int32, (cp,)),
+                          ("lb", lb, torch.int32, (cp,)),
+                          ("consts", consts, torch.float32, (R_PREP, cp)),
+                          ("lam", lam, torch.float32, (4, cp)))
+    dz = torch.empty((Z_ROWS, npad), dtype=torch.float32, device=dev)
+    lam_new = torch.empty((4, cp), dtype=torch.float32, device=dev)
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        err = _build.library().bs_banded_sweep_once(
+            ptr(z.data_ptr()), ptr(bases.data_ptr()), ptr(la.data_ptr()),
+            ptr(lb.data_ptr()), ptr(consts.data_ptr()), ptr(lam.data_ptr()),
+            ptr(dz.data_ptr()), ptr(lam_new.data_ptr()), cp, npad, tile,
+            ctypes.c_float(1.0 if vel_on else 0.0),
+            ctypes.c_float(1.0 if pos_on else 0.0), int(warm), int(deg_pass),
+            ptr(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, "bs_banded_sweep_once")
+    banded_sweep_once.launches += 1
+    return dz, lam_new
+
+
+banded_sweep_once.launches = 0
+
+
+def banded_sweeps_sharded(z0: Tensor, bases: Tensor, la: Tensor,
+                          lb: Tensor, consts: Tensor, *, tile: int,
+                          vel_iters: int, pos_iters: int, warm_sweep: bool,
+                          shard: Shard, plain: bool = False
+                          ) -> Tuple[Tensor, Tensor]:
+    """The sweep loop of banded_sweeps with the contact tiles split over
+    the ranks of `shard` (parallel.collectives.Shard): rank r sweeps tiles
+    [r·T, (r+1)·T), T = ntiles / ranks, against the replicated z; after
+    each sweep the ranks all-reduce the delta and add it to z. The same
+    schedule as banded_sweeps: sweep 0 (degrees, warm start), then
+    max(vel_iters, pos_iters) sweeps. Takes the whole (replicated)
+    operands; returns (z [16, NPAD], λ [4, Cp]) with λ all-gathered in
+    rank order. Needs ntiles % ranks == 0."""
+    cp = la.shape[0]
+    ntiles = cp // tile
+    if ntiles * tile != cp or ntiles % shard.size:
+        raise ValueError(
+            f"sharded banded solve needs whole tiles divisible by the rank "
+            f"count: {cp} contacts, tile {tile}, {shard.size} ranks; round "
+            f"the contact capacity up to tile·ranks")
+    t_loc = ntiles // shard.size
+    c_loc = t_loc * tile
+    t0, c0 = shard.rank * t_loc, shard.rank * c_loc
+    bases_l = bases[t0:t0 + t_loc].contiguous()
+    la_l = la[c0:c0 + c_loc].contiguous()
+    lb_l = lb[c0:c0 + c_loc].contiguous()
+    consts_l = consts[:, c0:c0 + c_loc].contiguous()
+    lam = torch.zeros((4, c_loc), dtype=torch.float32, device=z0.device)
+    z = z0
+    kw = dict(tile=tile, plain=plain)
+    dz, lam = banded_sweep_once(z, bases_l, la_l, lb_l, consts_l, lam,
+                                vel_on=False, pos_on=False, warm=warm_sweep,
+                                deg_pass=True, **kw)
+    z = z + all_reduce_sum(dz, shard)
+    for i in range(max(vel_iters, pos_iters)):
+        dz, lam = banded_sweep_once(z, bases_l, la_l, lb_l, consts_l, lam,
+                                    vel_on=i < vel_iters,
+                                    pos_on=i < pos_iters, warm=False,
+                                    deg_pass=False, **kw)
+        z = z + all_reduce_sum(dz, shard)
+    return z, all_gather_last(lam, shard)
+
+
 def banded_z0(geom: Tensor) -> Tensor:
     """The packed velocity table z0 [16, NPAD]: rows 0:6 the (v, ω) of
     the geometry table's solve block, the rest zero."""
@@ -670,7 +805,7 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
                           order: Tensor | None, geom: Tensor,
                           warm: Tuple[Tensor, Tensor] | None,
                           ranks: Tuple[Tensor, Tensor], capacity: int,
-                          plain: bool = False):
+                          plain: bool = False, shard: Shard | None = None):
     """The banded solve of a flat contact list, in the `ranks=` /
     `capacity=` form the generic resolve uses.
 
@@ -685,7 +820,10 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
     required. `warm` = (sorted keys [Cp], λ [3, Cp]) of the previous step
     gives matching contacts their λ₀. `geom` is the step's rank-space
     geometry table [48, NPAD] (solve_shape's npad). Then prep_consts
-    (2.6), banded_sweeps (2.5) and the un-permute.
+    (2.6), banded_sweeps (2.5) and the un-permute; with `shard`
+    (parallel.collectives.Shard, the whole contact list on every rank) the
+    sweeps are banded_sweeps_sharded (2.7), and everything else runs on
+    every rank.
 
     Returns (vel, omega, pvel, pomega, lam3, metrics, contacts): the
     sorted, padded contacts whose slots lam3 follows."""
@@ -696,11 +834,15 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
     ops = banded_operands(state, contacts, cfg, warm, ranks, capacity)
     consts = prep_consts(geom, ops.bases, ops.la, ops.lb, ops.cin, cfg,
                          tile=ops.tile, use_split=ops.use_split, plain=plain)
-    z, lam4, _ = banded_sweeps(
-        banded_z0(geom), ops.bases, ops.la, ops.lb, consts, tile=ops.tile,
-        vel_iters=cfg.contact_iters,
-        pos_iters=cfg.position_iters if ops.use_split else 0,
-        warm_sweep=ops.use_split, plain=plain)
+    kw = dict(tile=ops.tile, vel_iters=cfg.contact_iters,
+              pos_iters=cfg.position_iters if ops.use_split else 0,
+              warm_sweep=ops.use_split, plain=plain)
+    if shard is not None:
+        z, lam4 = banded_sweeps_sharded(banded_z0(geom), ops.bases, ops.la,
+                                        ops.lb, consts, shard=shard, **kw)
+    else:
+        z, lam4, _ = banded_sweeps(banded_z0(geom), ops.bases, ops.la,
+                                   ops.lb, consts, **kw)
 
     zz = _unpermute(z, order, n)
     lam3 = lam4[:3].contiguous()
@@ -723,24 +865,52 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
 # the table-path solve (contacts_pallas.solve_impulses_table)
 # ---------------------------------------------------------------------------
 
+def table_solve_operands(table: Tensor, warm_rows: Tensor | None, n: int,
+                         cfg: SimConfig):
+    """The unfused table solve's operands: (bases [NB] int32, the static
+    b·128 window starts; la/lb [Cp] int32 window-local endpoint ranks;
+    cin [CIN_ROWS, Cp], λ₀ from warm_rows (None: zero))."""
+    nb, ccap, cp = table_shape(n, cfg)
+    wtot, npad = geom_pad(n, cfg)
+    dev = table.device
+    act = table[CT_ACT] > 0.0
+    bases = torch.clamp(torch.arange(nb, dtype=torch.int32, device=dev)
+                        * BLOCK, 0, npad - wtot).to(torch.int32)
+    base = bases.repeat_interleave(ccap)
+    has_b = act & (table[CT_RB1] > 0.0)
+    ra = table[CT_RA].to(torch.int32)
+    rb1 = table[CT_RB1].to(torch.int32)
+    la = torch.where(act, ra - base, -1).to(torch.int32)
+    lb = torch.where(has_b, rb1 - 1 - base, -1).to(torch.int32)
+    zero = torch.zeros((cp,), dtype=torch.float32, device=dev)
+    lam0 = list(warm_rows[0:3]) if warm_rows is not None else [zero] * 3
+    cin = _cin(table[CT_PT:CT_PT + 3], table[CT_N:CT_N + 3], table[CT_D],
+               table[CT_MU], table[CT_REST], table[CT_ACT], lam0,
+               has_b.to(torch.float32))
+    return bases, la, lb, cin
+
+
 def solve_impulses_table(state: SimState, table: Tensor, cfg: SimConfig,
                          order: Tensor, warm_rows: Tensor | None,
-                         geom: Tensor, fuse: bool, plain: bool = False):
+                         geom: Tensor, fuse: bool, plain: bool = False,
+                         shard: Shard | None = None):
     """Banded solve over the bucket-aligned contact table: one tile per
     bucket (ccap contacts), window bases the static b·128. With
     cfg.fuse_prep the fused kernel (2.3) runs the whole solve from the
     table; without, prep_consts (2.6) then banded_sweeps (2.5). `fuse`
-    adds the integration epilogue.
+    adds the integration epilogue. With `shard` (parallel.collectives.Shard,
+    the whole table on every rank) the solve is always unfused and has no
+    epilogue: prep_consts on every rank, then banded_sweeps_sharded (2.7).
 
     Returns (vel, omega, pvel, pomega, lam3, metrics, keys, posquat):
     body fields in body-id order; pvel/pomega are None when fused, and
     posquat = (pos, quat) only then; `keys` are the table-aligned feature
     keys for the next step's warm match."""
     n = state.num_bodies
-    nb, ccap, cp = table_shape(n, cfg)
+    _, ccap, cp = table_shape(n, cfg)
     if table.shape[1] != cp:
         raise ValueError(f"table width {table.shape[1]} != {cp}")
-    wtot, npad = geom_pad(n, cfg)
+    _, npad = geom_pad(n, cfg)
     if geom.shape != (48, npad):
         raise ValueError(f"geom must be [48, {npad}]")
     keys = table_keys(table)
@@ -753,7 +923,10 @@ def solve_impulses_table(state: SimState, table: Tensor, cfg: SimConfig,
         return act, torch.where(act, table[CT_D],
                                 torch.zeros_like(table[CT_D]))
 
-    if cfg.fuse_prep:
+    if shard is not None and fuse:
+        raise ValueError("the sharded table solve has no integration "
+                         "epilogue")
+    if cfg.fuse_prep and shard is None:
         warm8 = (warm_rows if use_split
                  else torch.zeros((8, cp), dtype=torch.float32,
                                   device=table.device))
@@ -770,23 +943,16 @@ def solve_impulses_table(state: SimState, table: Tensor, cfg: SimConfig,
                                     order, n)
 
     act, depth_act = table_depth()
-
-    dev = table.device
-    bases = torch.clamp(torch.arange(nb, dtype=torch.int32, device=dev)
-                        * BLOCK, 0, npad - wtot).to(torch.int32)
-    base = bases.repeat_interleave(ccap)
-    has_b = act & (table[CT_RB1] > 0.0)
-    ra = table[CT_RA].to(torch.int32)
-    rb1 = table[CT_RB1].to(torch.int32)
-    la = torch.where(act, ra - base, -1).to(torch.int32)
-    lb = torch.where(has_b, rb1 - 1 - base, -1).to(torch.int32)
-    zero = torch.zeros((cp,), dtype=torch.float32, device=dev)
-    lam0 = list(warm_rows[0:3]) if use_split else [zero] * 3
-    cin = _cin(table[CT_PT:CT_PT + 3], table[CT_N:CT_N + 3], table[CT_D],
-               table[CT_MU], table[CT_REST], table[CT_ACT], lam0,
-               has_b.to(torch.float32))
+    bases, la, lb, cin = table_solve_operands(table, warm_rows, n, cfg)
     consts = prep_consts(geom, bases, la, lb, cin, cfg, tile=ccap,
                          use_split=use_split, plain=plain)
+    if shard is not None:
+        z, lam4 = banded_sweeps_sharded(
+            banded_z0(geom), bases, la, lb, consts, tile=ccap,
+            vel_iters=cfg.contact_iters, pos_iters=pos_iters,
+            warm_sweep=use_split, shard=shard, plain=plain)
+        return _table_solve_outputs(z, lam4, None, depth_act, act, keys,
+                                    order, n)
     posq = None
     if fuse:
         posq = torch.cat([geom[0:3], geom[19:23], torch.zeros_like(

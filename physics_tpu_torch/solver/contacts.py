@@ -18,6 +18,16 @@ rank order are kept, the solve's sweep 0 re-derives every contact from
 its body-frame anchors, and the schedule is contact_refresh_iters sweeps.
 The branch depends only on the step count, so the host picks it from
 its mirror of step_count — no device sync.
+
+With `shard` (parallel.collectives.Shard, the row-sharded step) every rank
+holds the whole state and the contact work is split by rank: on the
+table paths each rank builds the table of its own bucket range and the
+ranks all-gather it; on the generic branch each rank computes the ground
+corners and pair manifolds of its slice of the contact slots and the
+ranks all-gather the contacts back into the one-process order. The
+solve's sweeps are split by rank too (banded_sweeps_sharded); the rest
+runs on every rank. Under `shard` contact_rebuild is 1 and the solve has
+no integration epilogue.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import quaternion as quat
 from physics_tpu_torch.ops.boxbox_batched import _CAP
 from physics_tpu_torch.ops.broadphase import (
+    PairCandidates,
     body_aabbs,
     bucket_shape,
     pair_candidates,
@@ -54,6 +65,12 @@ from physics_tpu_torch.ops.narrowphase import (
     ground_contacts,
     hulls_fast_path,
     pair_contacts,
+)
+from physics_tpu_torch.parallel.collectives import (
+    Shard,
+    all_gather_last,
+    chunk,
+    chunk_contacts,
 )
 from physics_tpu_torch.solver.banded_solve import (
     padded_contact_count,
@@ -103,9 +120,11 @@ def anchored_path(state: SimState, cfg: SimConfig) -> bool:
         table_path(state, cfg) and not cfg.bp_inkernel)
 
 
-def fused_integration(state: SimState, cfg: SimConfig) -> bool:
-    """True when the solve's epilogue integrates pos/quat."""
-    return cfg.fuse_integrate and not cfg.compat and (
+def fused_integration(state: SimState, cfg: SimConfig,
+                      shard: Shard | None = None) -> bool:
+    """True when the solve's epilogue integrates pos/quat (never under
+    `shard`: the sharded solve has no epilogue)."""
+    return shard is None and cfg.fuse_integrate and not cfg.compat and (
         table_path(state, cfg) or hull_table_path(state, cfg))
 
 
@@ -169,16 +188,20 @@ def _check_ported(state: SimState, cfg: SimConfig) -> None:
 
 
 def resolve_contacts(state: SimState, cfg: SimConfig,
-                     plain: bool = False) -> Tuple[SimState, Dict]:
+                     plain: bool = False,
+                     shard: Shard | None = None) -> Tuple[SimState, Dict]:
     """Broad phase → narrow phase → banded solve (+ integration).
     `plain=True` runs every kernel's plain version (on any device) — the
-    reference the kernel path is checked against on the card."""
-    if cfg.contact_rebuild > 1 and not anchored_path(state, cfg):
+    reference the kernel path is checked against on the card. `shard`
+    splits the contact work over the ranks (see the module docstring)."""
+    if cfg.contact_rebuild > 1 and (shard is not None
+                                    or not anchored_path(state, cfg)):
+        # the anchored pipeline engages on the unsharded table paths only
         cfg = cfg.replace(contact_rebuild=1)
     _check_ported(state, cfg)
     if table_path(state, cfg) or hull_table_path(state, cfg):
-        return _resolve_contacts_table(state, cfg, plain)
-    return _resolve_contacts_banded(state, cfg, plain)
+        return _resolve_contacts_table(state, cfg, plain, shard)
+    return _resolve_contacts_banded(state, cfg, plain, shard)
 
 
 def _split_impulse_pose(state: SimState, cfg: SimConfig, pvel: Tensor,
@@ -230,15 +253,61 @@ def _field_gather(contacts: Contacts, idx: Tensor) -> Contacts:
         else getattr(contacts, f)[idx] for f in Contacts._fields])
 
 
+def _gather_contacts(contacts: Contacts, lo: Tensor, rb: Tensor,
+                     shard: Shard, k: int = 1):
+    """The ranks' slices of one contact group (and its endpoint ranks)
+    gathered back into the one-process order, through one all-gather of
+    their bits as int32 rows. Each rank holds k slot-major blocks ([k·P],
+    its P lanes in each block, the pair manifolds' layout); k = 1 is a
+    contiguous slice of the group."""
+    i32 = torch.int32
+    f = {name: getattr(contacts, name) for name in Contacts._fields}
+    rows = torch.cat([
+        torch.stack([f["body_a"], f["body_b"]]),
+        f["point"].view(i32), f["normal"].view(i32),
+        torch.stack([f["depth"].view(i32), f["active"].to(i32),
+                     f["friction"].view(i32), f["restitution"].view(i32),
+                     f["key"], lo, rb])])
+    g = all_gather_last(rows, shard)
+    g = g.reshape(g.shape[0], shard.size, k, -1).transpose(1, 2).reshape(
+        g.shape[0], -1)
+    f32 = torch.float32
+    full = Contacts(
+        body_a=g[0], body_b=g[1], point=g[2:5].view(f32),
+        normal=g[5:8].view(f32), depth=g[8].view(f32), active=g[9] != 0,
+        friction=g[10].view(f32), restitution=g[11].view(f32), key=g[12])
+    return full, g[13], g[14]
+
+
+def _sharded_capacity(n: int, c_total: int, cfg: SimConfig,
+                      shard: Shard) -> int:
+    """Contact capacity of the sharded generic solve: the gathered slots
+    capped at max_contacts and padded to the tile, then rounded up to
+    whole tiles per rank (tile grows with the capacity, up to
+    pallas_tile, so this iterates to the fixed point)."""
+    c_eff = min(c_total, cfg.max_contacts) if cfg.max_contacts > 0 \
+        else c_total
+    cp = padded_contact_count(n, c_eff, cfg)
+    for _ in range(3):
+        tile = solve_shape(n, cp, cfg)[0]
+        cp_new = -(-cp // (tile * shard.size)) * (tile * shard.size)
+        if cp_new == cp:
+            break
+        cp = cp_new
+    return cp
+
+
 def banded_contact_list(state: SimState, cfg: SimConfig,
-                        plain: bool = False):
+                        plain: bool = False, shard: Shard | None = None):
     """The contact list of the generic banded branch for boxes: ground
     corners (slot-major [k·N], the TPU route) and banded pair manifolds
     (slot-major [kk·P]), each contact with its endpoint ranks. Returns
     (contacts | None, (lo, rank_b), order | None, geom, candidates |
     None, capacity): `geom` is the rank-space geometry table at the
     solve's width, whose narrow-phase block the pair kernel reads and
-    whose solve block the solve reads."""
+    whose solve block the solve reads. With `shard` each rank computes
+    its slice of the ground slots and of the candidate lanes (the pair
+    kernel in chunked mode), and the whole list is all-gathered."""
     n = state.num_bodies
     dev = state.device
     pairs = cfg.pair_collisions and n > 1
@@ -249,38 +318,57 @@ def banded_contact_list(state: SimState, cfg: SimConfig,
         order = sweep_order(state, aabbs)
         rank = torch.empty_like(rank)
         rank[order.long()] = torch.arange(n, dtype=torch.int32, device=dev)
-    groups, lo_rows, rb_rows = [], [], []
+    groups = []        # (contacts, lo, rank_b, slot blocks) of each group
     if cfg.ground_plane:
         gc = ground_contacts(state, cfg)
         kg = gc.body_a.shape[0] // n
-        groups.append(gc)
-        lo_rows.append(rank.repeat(kg))
-        rb_rows.append(torch.full((kg * n,), -1, dtype=torch.int32,
-                                  device=dev))
+        lo_g = rank.repeat(kg)
+        rb_g = torch.full((kg * n,), -1, dtype=torch.int32, device=dev)
+        if shard is not None:
+            gc = chunk_contacts(gc, shard)
+            lo_g, rb_g = chunk(lo_g, shard), chunk(rb_g, shard)
+        groups.append((gc, lo_g, rb_g, 1))
     cp = contact_capacity(state, cfg)
     geom = unified_geom(state, cfg, order if order is not None else rank,
                         npad=solve_shape(n, cp, cfg)[2])
     if pairs:
         cand = pair_candidates(state, cfg, aabbs=aabbs, order=order,
                                plain=plain)
-        pc = pair_contacts(state, cand, cfg, geom, plain=plain)
-        kk = pc.body_a.shape[0] // cand.body_a.shape[0]
-        groups.append(pc)
-        lo_rows.append(cand.rank_a.repeat(kk))
-        rb_rows.append(cand.rank_b.repeat(kk))
+        cand_l = cand
+        if shard is not None:
+            cand_l = PairCandidates(
+                chunk(cand.body_a, shard), chunk(cand.body_b, shard),
+                chunk(cand.mask, shard), cand.overflow,
+                chunk(cand.rank_a, shard), chunk(cand.rank_b, shard))
+        pc = pair_contacts(state, cand_l, cfg, geom, plain=plain,
+                           chunked=shard is not None)
+        kk = pc.body_a.shape[0] // cand_l.body_a.shape[0]
+        groups.append((pc, cand_l.rank_a.repeat(kk),
+                       cand_l.rank_b.repeat(kk), kk))
     if not groups:
         return None, None, order, geom, cand, cp
-    return (concat_contacts(*groups), (torch.cat(lo_rows), torch.cat(rb_rows)),
-            order, geom, cand, cp)
+    if shard is not None:
+        # each group gathered on its own, back into the one-process order
+        # (the JAX package gathers each rank's concatenation: the same
+        # contacts, in another order among contacts of equal rank)
+        groups = [(*_gather_contacts(c, lo, rb, shard, k), k)
+                  for c, lo, rb, k in groups]
+    contacts = concat_contacts(*[g[0] for g in groups])
+    lo = torch.cat([g[1] for g in groups])
+    rb = torch.cat([g[2] for g in groups])
+    if shard is not None:
+        cp = _sharded_capacity(n, contacts.body_a.shape[0], cfg, shard)
+    return contacts, (lo, rb), order, geom, cand, cp
 
 
 def _resolve_contacts_banded(state: SimState, cfg: SimConfig,
-                             plain: bool) -> Tuple[SimState, Dict]:
+                             plain: bool, shard: Shard | None
+                             ) -> Tuple[SimState, Dict]:
     """The generic banded branch for boxes: the contact list, the banded
     solve, the split-impulse pose update, the warm keys sorted with
     their λ."""
     contacts, ranks, order, geom, cand, cp = banded_contact_list(
-        state, cfg, plain)
+        state, cfg, plain, shard)
     metrics: Dict = {}
     if cand is not None:
         metrics["pair_overflow"] = cand.overflow
@@ -290,7 +378,7 @@ def _resolve_contacts_banded(state: SimState, cfg: SimConfig,
     warm = (state.contact_key, state.contact_lam) if use_warm else None
     vel, omega, pvel, pomega, lam3, solve_metrics, contacts = \
         solve_impulses_banded(state, contacts, cfg, order, geom, warm,
-                              ranks, cp, plain=plain)
+                              ranks, cp, plain=plain, shard=shard)
     pos, q = _split_impulse_pose(state, cfg, pvel, pomega)
     state = state.replace(vel=vel, omega=omega, pos=pos, quat=q)
     if use_warm:
@@ -300,7 +388,40 @@ def _resolve_contacts_banded(state: SimState, cfg: SimConfig,
     return state, {**metrics, **solve_metrics}
 
 
-def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool):
+def _sharded_table(table_fn, st: SimState, cand: PairCandidates,
+                   cfg: SimConfig, prev, geom: Tensor, plain: bool,
+                   shard: Shard):
+    """The contact table built by bucket range: rank r builds buckets
+    [r·B, (r+1)·B), B = nb / ranks, from its slices of the candidates and
+    previous keys, and the ranks all-gather table, meta and warm rows."""
+    n = st.num_bodies
+    nb, ccap, _ = table_shape(n, cfg)
+    if nb % shard.size:
+        raise ValueError(
+            f"the sharded contact table needs its {nb} buckets divisible by "
+            f"the {shard.size} ranks: pad the scene above "
+            f"{BLOCK}·{shard.size} bodies")
+    nb_l = nb // shard.size
+    b0 = shard.rank * nb_l
+    _, cap, _ = bucket_shape(n, cfg)
+
+    def loc(x, per, dim=0):
+        return x.narrow(dim, b0 * per, nb_l * per)
+
+    cand_l = PairCandidates(loc(cand.body_a, cap), loc(cand.body_b, cap),
+                            loc(cand.mask, cap), cand.overflow,
+                            loc(cand.rank_a, cap), loc(cand.rank_b, cap))
+    prev_l = None
+    if prev is not None:
+        prev_l = (loc(prev[0], ccap, 1), loc(prev[1], ccap, 1))
+    table, meta, warm = table_fn(st, cand_l, cfg, prev=prev_l, geom=geom,
+                                 plain=plain, buckets=(b0, nb_l))
+    return (all_gather_last(table, shard), all_gather_last(meta, shard),
+            all_gather_last(warm, shard) if warm is not None else None)
+
+
+def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool,
+             shard: Shard | None = None):
     aabbs = body_aabbs(st)
     order = sweep_order(st, aabbs)
     cand = pair_candidates(st, cfg, aabbs=aabbs, order=order, plain=plain)
@@ -308,8 +429,12 @@ def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool):
     geom = unified_geom(st, cfg, order, hulls=hulls)
     prev = (st.contact_key, st.contact_lam) if use_warm else None
     table_fn = bucket_hull_contact_table if hulls else bucket_contact_table
-    table, meta, warm = table_fn(st, cand, cfg, prev=prev, geom=geom,
-                                 plain=plain)
+    if shard is not None:
+        table, meta, warm = _sharded_table(table_fn, st, cand, cfg, prev,
+                                           geom, plain, shard)
+    else:
+        table, meta, warm = table_fn(st, cand, cfg, prev=prev, geom=geom,
+                                     plain=plain)
     m = meta[0].reshape(-1, BLOCK)
     ovf = torch.stack([
         cand.overflow + torch.sum(m[:, 2]).to(torch.int32),
@@ -318,21 +443,23 @@ def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool):
     return table, order, geom, warm, ovf
 
 
-def _solve_table(state, table, cfg, order, warm, geom, plain):
+def _solve_table(state, table, cfg, order, warm, geom, plain, shard=None):
     """solve_impulses_table and the new pose: the solve's integration
     epilogue under fused integration, else the split-impulse update
     (engine.integrate_positions then follows). Returns (vel, omega, lam3,
     metrics, keys, (pos, quat))."""
     vel, omega, pvel, pomega, lam3, metrics, keys, posquat = \
         solve_impulses_table(state, table, cfg, order, warm, geom,
-                             fuse=fused_integration(state, cfg), plain=plain)
+                             fuse=fused_integration(state, cfg, shard),
+                             plain=plain, shard=shard)
     if posquat is None:
         posquat = _split_impulse_pose(state, cfg, pvel, pomega)
     return vel, omega, lam3, metrics, keys, posquat
 
 
 def _resolve_contacts_table(state: SimState, cfg: SimConfig,
-                            plain: bool) -> Tuple[SimState, Dict]:
+                            plain: bool, shard: Shard | None
+                            ) -> Tuple[SimState, Dict]:
     n = state.num_bodies
     nb, ccap, cp = table_shape(n, cfg)
     use_warm = tuple(state.contact_key.shape) == (2, cp)
@@ -372,9 +499,10 @@ def _resolve_contacts_table(state: SimState, cfg: SimConfig,
                        **solve_metrics}
 
     # K = 1: rebuild every step
-    table, order, geom, warm, ovf = _rebuild(state, cfg, use_warm, plain)
+    table, order, geom, warm, ovf = _rebuild(state, cfg, use_warm, plain,
+                                             shard)
     vel, omega, lam3, solve_metrics, keys, (pos, q) = _solve_table(
-        state, table, cfg, order, warm, geom, plain)
+        state, table, cfg, order, warm, geom, plain, shard)
     state = state.replace(vel=vel, omega=omega, pos=pos, quat=q)
     if use_warm:
         state = state.replace(contact_key=keys, contact_lam=lam3)

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from physics_tpu.ops import broadphase as jbp
 from physics_tpu.ops import contact_table as jct
+from physics_tpu_torch.ops import broadphase as tbp
 from physics_tpu_torch.ops import contact_table as tct
 from physics_tpu_torch.ops.broadphase import PairCandidates
 from physics_tpu_torch.state import state_from_arrays
@@ -94,3 +95,34 @@ def test_warm_start_matches(tables):
     assert np.count_nonzero(jw[0]) > 100
     assert np.count_nonzero(jw[0] == 0) > 100            # cold slots
     np.testing.assert_array_equal(tw, jw)
+
+
+@pytest.mark.parametrize("buckets", [(0, 1), (1, 1)])
+def test_bucket_range_is_the_column_block(buckets):
+    """The row-sharded step's mode: buckets=(bucket0, nb) from the
+    candidates and previous keys of those buckets gives exactly the full
+    table's blocks of those buckets (plain version; the kernel is held to
+    the same on the card)."""
+    _, cfg_t = configs(N)
+    ts = state_from_arrays(jax_arrays(dense_pile(N)), "cpu")
+    order = tbp.sweep_order(ts, tbp.body_aabbs(ts))
+    cand = tbp.pair_candidates(ts, cfg_t, order=order)
+    geom = tct.unified_geom(ts, cfg_t, order)
+    t0, _, _ = tct.bucket_contact_table(ts, cand, cfg_t, geom=geom)
+    nb, ccap, cp = tct.table_shape(N, cfg_t)
+    _, cap, _ = tbp.bucket_shape(N, cfg_t)
+    rng = np.random.default_rng(5)
+    prev = (tct.table_keys(t0), torch.from_numpy(
+        rng.uniform(0.0, 1.0, (3, cp)).astype(np.float32)))
+    full = tct.bucket_contact_table(ts, cand, cfg_t, prev=prev, geom=geom)
+    b0, nbl = buckets
+    lanes = slice(b0 * cap, (b0 + nbl) * cap)
+    cols = slice(b0 * ccap, (b0 + nbl) * ccap)
+    part = tct.bucket_contact_table(
+        ts, PairCandidates(*[x[lanes] if x.dim() else x for x in cand]),
+        cfg_t, prev=(prev[0][:, cols], prev[1][:, cols]), geom=geom,
+        buckets=buckets)
+    assert full[0][tct.CT_ACT, cols].sum() > 100
+    assert torch.equal(part[0], full[0][:, cols])
+    assert torch.equal(part[1], full[1][:, b0 * 128:(b0 + nbl) * 128])
+    assert torch.equal(part[2], full[2][:, cols])

@@ -4,8 +4,10 @@ plain path, on a contact-rich two-bucket pile and on hull rains (the
 hull contact table: two buckets of bevelled cubes, and one bucket of the
 3-type library with all 9 ordered type pairs); on the same pile, the
 two-kernel path's pair manifolds, solve constants and unfused sweeps, two
-of its steps, and a step of the unfused table solve. Every test skips
-without a card. On a GPU machine:
+of its steps, and a step of the unfused table solve; the row-sharded
+step's single-sweep kernel (2.7) in each of its switch combinations, the
+table kernels' bucket-range mode and the pair manifolds' chunked mode.
+Every test skips without a card. On a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -40,10 +42,12 @@ from physics_tpu_torch.ops.narrowphase_banded import pair_manifolds_banded
 from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
 from physics_tpu_torch.solver.banded_solve import (
     banded_operands,
+    banded_sweep_once,
     banded_sweeps,
     banded_sweeps_fused,
     banded_z0,
     prep_consts,
+    table_solve_operands,
 )
 from physics_tpu_torch.solver.contacts import banded_contact_list
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
@@ -288,3 +292,86 @@ def test_unfused_table_step_kernel_path_matches_plain(pile, fuse_integrate):
     s, cfg = pile
     _steps_match(s, cfg.replace(contact_rebuild=1, fuse_prep=False,
                                 fuse_integrate=fuse_integrate))
+
+
+SWEEP_CASES = {      # (vel_on, pos_on, warm, deg_pass)
+    "sweep0": (False, False, True, True),
+    "vel_pos": (True, True, False, False),
+    "vel": (True, False, False, False),
+    "pos": (False, True, False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_banded_sweep_once_kernel(pile, case):
+    """Kernel 2.7 on the unfused table solve's operands, each switch
+    combination, on the snapshot after sweep 0 and one velocity sweep
+    (sweep 0 itself from z0)."""
+    s, cfg = pile
+    cfg = cfg.replace(contact_rebuild=1, fuse_prep=False)
+    geom, (table, _, warm) = _table(
+        s, cfg, (s.contact_key, s.contact_lam), plain=True)
+    bases, la, lb, cin = table_solve_operands(table, warm, N, cfg)
+    ccap = tct.table_shape(N, cfg)[1]
+    consts = prep_consts(geom, bases, la, lb, cin, cfg, tile=ccap,
+                         use_split=True, plain=True)
+    ops = (bases, la, lb, consts)
+    z = banded_z0(geom)
+    lam = torch.zeros((4, la.shape[0]), device=s.device)
+    vel_on, pos_on, warm_on, deg = SWEEP_CASES[case]
+    if not deg:
+        for v, w in ((False, True), (True, False)):
+            dz, lam = banded_sweep_once(z, *ops, lam, tile=ccap, vel_on=v,
+                                        pos_on=False, warm=w, deg_pass=w,
+                                        plain=True)
+            z = z + dz
+    before = banded_sweep_once.launches
+    dk, lk = banded_sweep_once(z, *ops, lam, tile=ccap, vel_on=vel_on,
+                               pos_on=pos_on, warm=warm_on, deg_pass=deg)
+    assert banded_sweep_once.launches == before + 1
+    dp, lp = banded_sweep_once(z, *ops, lam, tile=ccap, vel_on=vel_on,
+                               pos_on=pos_on, warm=warm_on, deg_pass=deg,
+                               plain=True)
+    assert int((la >= 0).sum()) > 500
+    _rows_close("dz", dk[:, :N], dp[:, :N], SOLVE_RTOL)
+    _rows_close("lam", lk, lp, SOLVE_RTOL)
+
+
+def test_table_kernels_bucket_range(pile, rain):
+    """The box and hull table kernels with buckets=(1, 1) equal the
+    full-range kernel's block of bucket 1, bit for bit."""
+    for s, cfg, fn, hulls in ((*pile, tct.bucket_contact_table, False),
+                              (*rain, tht.bucket_hull_contact_table, True)):
+        if -(-s.num_bodies // 128) < 2:
+            continue
+        aabbs = body_aabbs(s)
+        order = sweep_order(s, aabbs)
+        cand = pair_candidates(s, cfg, aabbs, order)
+        geom = tct.unified_geom(s, cfg, order, hulls=hulls)
+        prev = (s.contact_key, s.contact_lam)
+        full = fn(s, cand, cfg, prev=prev, geom=geom)
+        ccap = tct.table_shape(s.num_bodies, cfg)[1]
+        cap = len(cand.mask) // -(-s.num_bodies // 128)
+        part = fn(s, type(cand)(*[x[cap:2 * cap] if x.dim() else x
+                                  for x in cand]), cfg,
+                  prev=(prev[0][:, ccap:2 * ccap], prev[1][:, ccap:2 * ccap]),
+                  geom=geom, buckets=(1, 1))
+        assert torch.equal(part[0], full[0][:, ccap:2 * ccap])
+        assert torch.equal(part[1], full[1][:, 128:256])
+        assert torch.equal(part[2], full[2][:, ccap:2 * ccap])
+
+
+def test_pair_manifolds_kernel_chunked(np_pile):
+    """Kernel 2.8 in chunked mode (device-side tile-min bases) on the
+    second half of the candidate lanes."""
+    s, cfg = np_pile
+    _, _, _, geom, cand, _ = banded_contact_list(s, cfg, plain=True)
+    half = len(cand.mask) // 2
+    cand = type(cand)(*[x[half:] if x.dim() else x for x in cand])
+    rk, _, kk = pair_manifolds_banded(s, cand, cfg, geom, chunked=True)
+    rp, _, _ = pair_manifolds_banded(s, cand, cfg, geom, plain=True,
+                                     chunked=True)
+    for r in [5 * p + 4 for p in range(kk)] + [5 * kk + 5, 5 * kk + 6]:
+        assert torch.equal(rk[r], rp[r]), r
+    extent = float(geom[24:27, :N].abs().max())
+    assert float((rk - rp).abs().max()) <= 1e-5 * extent

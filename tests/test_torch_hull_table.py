@@ -35,6 +35,7 @@ from physics_tpu.ops import hull_table as jht
 
 from physics_tpu_torch import scenes as tscenes
 from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+from physics_tpu_torch.ops import broadphase as tbp
 from physics_tpu_torch.ops import contact_table as tct
 from physics_tpu_torch.ops import hull_table as tht
 from physics_tpu_torch.ops.broadphase import PairCandidates
@@ -124,3 +125,34 @@ def test_warm_rows_identical(tables):
     (_, _, jw), (_, _, tw), _, _ = tables
     assert np.count_nonzero(jw[0]) > 5
     np.testing.assert_array_equal(tw, jw)
+
+
+@pytest.mark.parametrize("buckets", [(0, 1), (1, 1)])
+def test_bucket_range_is_the_column_block(buckets):
+    """buckets=(bucket0, nb) gives exactly the full table's blocks of
+    those buckets (plain version), on a two-bucket rain with warm keys."""
+    n = 192
+    cfg = tscenes.rain_config(n).replace(contact_rebuild=1,
+                                         contact_refresh_iters=0)
+    ts = prepare_contacts(tscenes.mesh_rain(n, real_assets=False,
+                                            device="cpu"), cfg)
+    for _ in range(2):
+        ts, _ = step_with_metrics(ts, cfg)
+    order = tbp.sweep_order(ts, tbp.body_aabbs(ts))
+    cand = tbp.pair_candidates(ts, cfg, order=order)
+    geom = tct.unified_geom(ts, cfg, order, hulls=True)
+    prev = (ts.contact_key, ts.contact_lam)
+    full = tht.bucket_hull_contact_table(ts, cand, cfg, prev=prev, geom=geom)
+    _, ccap, _ = tct.table_shape(n, cfg)
+    _, cap, _ = tbp.bucket_shape(n, cfg)
+    b0, nbl = buckets
+    lanes = slice(b0 * cap, (b0 + nbl) * cap)
+    cols = slice(b0 * ccap, (b0 + nbl) * ccap)
+    part = tht.bucket_hull_contact_table(
+        ts, PairCandidates(*[x[lanes] if x.dim() else x for x in cand]),
+        cfg, prev=(prev[0][:, cols], prev[1][:, cols]), geom=geom,
+        buckets=buckets)
+    assert full[0][tct.CT_ACT, cols].sum() > 5
+    assert torch.equal(part[0], full[0][:, cols])
+    assert torch.equal(part[1], full[1][:, b0 * 128:(b0 + nbl) * 128])
+    assert torch.equal(part[2], full[2][:, cols])

@@ -96,13 +96,9 @@ def scene():
     return (s, cand, order, cfg_j), (ts, tcand, geom, cfg_t)
 
 
-def test_pair_manifold_rows_match(scene, monkeypatch):
-    (s, cand, order, cfg_j), (ts, tcand, geom, cfg_t) = scene
-    _split_exact_rotations(monkeypatch)
-    jrows = np.asarray(jax.jit(
-        lambda c: jpm(s, c, cfg_j, order)[0])(cand))
-    trows, pp, kk = pair_manifolds_banded(ts, tcand, cfg_t, geom)
-    trows = trows.numpy()
+def _check_rows(trows, jrows, pp, kk):
+    """The port's rows against the JAX kernel's; returns the active
+    slots of the first pick."""
     assert kk == 4 and trows.shape == (5 * kk + 7, pp)
     assert jrows.shape == (32, pp) and not jrows[5 * kk + 7:].any()
     live = np.zeros(pp, bool)
@@ -118,7 +114,33 @@ def test_pair_manifold_rows_match(scene, monkeypatch):
     assert np.array_equal(trows[r0 + 5:r0 + 7], jrows[r0 + 5:r0 + 7])
     np.testing.assert_allclose(trows[r0:r0 + 5, live],
                                jrows[r0:r0 + 5, live], rtol=0, atol=F32_TOL)
-    assert (jrows[3] > 0).sum() > 200                       # contact-rich
+    return int((jrows[3] > 0).sum())
+
+
+def test_pair_manifold_rows_match(scene, monkeypatch):
+    (s, cand, order, cfg_j), (ts, tcand, geom, cfg_t) = scene
+    _split_exact_rotations(monkeypatch)
+    jrows = np.asarray(jax.jit(
+        lambda c: jpm(s, c, cfg_j, order)[0])(cand))
+    trows, pp, kk = pair_manifolds_banded(ts, tcand, cfg_t, geom)
+    assert _check_rows(trows.numpy(), jrows, pp, kk) > 200  # contact-rich
+
+
+@pytest.mark.parametrize("half", [0, 1])
+def test_pair_manifold_rows_chunked_match(scene, monkeypatch, half):
+    """Chunked mode (one rank's half of the candidate lanes in a
+    two-rank step): window bases from each tile's lowest live rank, in
+    both packages."""
+    (s, cand, order, cfg_j), (ts, tcand, geom, cfg_t) = scene
+    _split_exact_rotations(monkeypatch)
+    p = cand.body_a.shape[0] // 2
+    cut = slice(half * p, (half + 1) * p)
+    jcand = jbp.PairCandidates(*[x[cut] if np.ndim(x) else x for x in cand])
+    tc = PairCandidates(*[x[cut] if x.dim() else x for x in tcand])
+    jrows = np.asarray(jax.jit(
+        lambda c: jpm(s, c, cfg_j, order, chunked=True)[0])(jcand))
+    trows, pp, kk = pair_manifolds_banded(ts, tc, cfg_t, geom, chunked=True)
+    assert _check_rows(trows.numpy(), jrows, pp, kk) > 80
 
 
 def _check_contacts(tc, jc, f32_tol):
