@@ -27,8 +27,9 @@ Phases (any failure raises, so the run exits non-zero):
               pairs live;
   7. two-kernel pile
               the 4k pile under pile_config(4096).replace(contact_iters=8,
-              contact_table=False), settled 60 steps: the pair manifolds,
-              the solve constants and the unfused sweeps against their
+              contact_table=False), settled 60 steps: the contact list
+              (ground corners and pair manifolds in one launch), the
+              solve constants and the unfused sweeps against their
               plain versions at the path's shapes, then 240 fresh steps
               with the checks and measurements of phase 4 (one cold step,
               with no warm buffers, and one warm step, with live keys,
@@ -38,12 +39,12 @@ Phases (any failure raises, so the run exits non-zero):
   8. sharded  the single-sweep kernel (2.7) against its plain version on
               one rank's quarter of each sharded path's solve (the 4k
               table pile's timed), in each of its four switch
-              combinations; the pair-manifold kernel (2.8) in chunked mode
-              on each rank's quarter of the two-kernel pile's candidate
-              lanes; the box and hull table kernels by bucket range
-              against the full-range kernels' blocks; then 4 ranks (gloo,
-              all on this card; NCCL with a card each when there are 4)
-              step the 4k table pile, the 1,024-hull rain and the
+              combinations; the contact-list kernel (2.8) on each rank's
+              quarter of the two-kernel pile's ground slots and candidate
+              lanes (chunked mode); the box and hull table kernels by
+              bucket range against the full-range kernels' blocks; then 4
+              ranks (gloo, all on this card; NCCL with a card each when
+              there are 4) step the 4k table pile, the 1,024-hull rain and the
               two-kernel pile through row_sharded_step, from the states
               phases 4, 5 and 7 ended with: launch counts summed over the
               ranks, finite state; then one more sharded step, through
@@ -96,16 +97,10 @@ from physics_tpu_torch.ops.contact_table import (
     table_operands,
     unified_geom,
 )
-from physics_tpu_torch.ops.narrowphase_banded import (
-    pair_manifolds_banded,
-    pair_operands,
-)
+from physics_tpu_torch.ops.narrowphase import banded_contacts
+from physics_tpu_torch.ops.narrowphase_banded import pair_operands
 from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
-from physics_tpu_torch.parallel.collectives import (
-    Shard,
-    all_reduce_sum,
-    chunk,
-)
+from physics_tpu_torch.parallel.collectives import Shard, all_reduce_sum
 from physics_tpu_torch.parallel.sharding import launch, row_sharded_step
 from physics_tpu_torch.solver.banded_solve import (
     R_PREP,
@@ -123,12 +118,13 @@ from physics_tpu_torch.solver.contacts import (
     _sharded_capacity,
     anchored_path,
     banded_contact_list,
+    banded_inputs,
 )
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
 
 EXACT_ROWS = [CT_ACT, CT_KL, CT_KH, CT_KSGN, CT_RA, CT_RB1, CT_KS, CT_MU,
               CT_REST]
-# kernel vs plain on the card. The contact tables and the pair manifolds
+# kernel vs plain on the card. The contact tables and the contact list
 # compute the same f32 operations in the same order (nvcc -fmad=false), so
 # they should agree to the bit; 1e-5 of the scene extent is allowed. The
 # solve constants have no sums across contacts: 1e-6 of each row's largest
@@ -153,15 +149,21 @@ PEAK_F32 = 67e12
 # multiply, add, compare, min/max, abs or sqrt is one)
 OPS_OBB_PREFILTER = 140      # face-axis OBB test of one candidate lane
 OPS_BOX_MANIFOLD = 3500      # 15-axis SAT + 4 clips + edge point, one lane
+OPS_GROUND_BODY = 190        # a box's rotation, 8 corners and depths, k picks
 OPS_EMIT = 60                # one active contact: anchors, keys, warm key
 OPS_SOLVE_CONTACT = 250      # one contact in one Jacobi sweep (3 rows)
 OPS_SOLVE_PREP = 400         # one contact's constants in sweep 0
 OPS_INTEGRATE = 60           # one body's pos/quat integration
 # device-kernel names of csrc/*.cu and ops/sweep_kernel.py
 PORT_KERNELS = ("masks_kernel", "contact_table_kernel", "hull_prefilter_kernel",
-                "hull_sat_kernel", "hull_emit_kernel", "init_kernel",
-                "prep_kernel", "sweep_kernel", "integrate_kernel",
-                "prep_consts_kernel", "pair_manifolds_kernel")
+                "hull_sat_kernel", "hull_manifold_kernel", "hull_ground_kernel",
+                "hull_scan_kernel", "hull_rows_kernel", "hull_warm_kernel",
+                "init_kernel", "prep_kernel", "sweep_kernel",
+                "integrate_kernel", "prep_consts_kernel",
+                "ground_corners_kernel", "pair_contacts_kernel")
+PORT_GROUPS = {"2.4 hull table": ("hull_",),
+               "2.8 banded contacts": ("ground_corners_kernel",
+                                       "pair_contacts_kernel")}
 
 
 def log(msg: str) -> None:
@@ -479,12 +481,35 @@ def profile_steps(state, cfg, steps: int) -> None:
         if any(k in key for k in PORT_KERNELS):
             log(f"  port {us / count:8.1f} us/launch {count / steps:6.2f}/step"
                 f"  {key[:70]}")
+    # a wrapper launch of the redesigned kernels: all of its __global__s
+    for name, parts in PORT_GROUPS.items():
+        got = [(us, count) for us, count, key in rows
+               if any(p in key for p in parts)]
+        if got:
+            calls = max(c for _, c in got)
+            log(f"  port {sum(u for u, _ in got) / calls:8.1f} us/launch "
+                f"{calls / steps:6.2f}/step  {name}: all {len(got)} kernels")
 
 
-COUNTED = (sweep_window_masks, bucket_contact_table,
-           ht.bucket_hull_contact_table, banded_sweeps_fused,
-           pair_manifolds_banded, prep_consts, banded_sweeps,
-           banded_sweep_once)
+# kernel (named after the TPU function it replaces) → its wrapper, whose
+# `launches` counts the kernel's launches
+COUNTED = {"sweep_window_masks": sweep_window_masks,
+           "bucket_contact_table": bucket_contact_table,
+           "bucket_hull_contact_table": ht.bucket_hull_contact_table,
+           "banded_sweeps_fused": banded_sweeps_fused,
+           "pair_manifolds_banded": banded_contacts,
+           "prep_consts": prep_consts,
+           "banded_sweeps": banded_sweeps,
+           "banded_sweep_once": banded_sweep_once}
+
+
+def zero_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
 
 
 def touched_columns(bases, tile, *locs) -> int:
@@ -496,40 +521,59 @@ def touched_columns(bases, tile, *locs) -> int:
                           for loc in locs]).unique().numel())
 
 
-def check_manifolds(label, state, cand, cfg, geom, chunked=False):
-    """2.8 against its plain version on these candidate lanes (`chunked`:
-    one rank's slice, window bases from the lanes). Returns (max err,
-    kernel ms, plain ms, bound)."""
+def check_banded_contacts(label, state, cfg, shard=None):
+    """2.8, the contact list in one launch, against its plain composition
+    (`shard`: one rank's ground slots and chunked candidate lanes). Ids,
+    keys, activity and rank rows identical, f32 fields within TABLE_TOL
+    × extent. Returns (max err, kernel ms, plain ms, bound)."""
     n = state.num_bodies
-    bases, la, lb, tile, kk = pair_operands(state, cand, cfg, geom, chunked)
+    _, rank, cand, geom, _ = banded_inputs(state, cfg)
 
-    def np_run(plain):
-        return pair_manifolds_banded(state, cand, cfg, geom, plain=plain,
-                                     chunked=chunked)[0]
-    rk, rp = np_run(False), np_run(True)
-    for r in [5 * p + 4 for p in range(kk)] + [5 * kk + 5, 5 * kk + 6]:
-        if not torch.equal(rk[r], rp[r]):
-            raise AssertionError(f"{label}: row {r} differs")
-    for p in range(kk):
-        if not torch.equal(rk[5 * p + 3] > 0, rp[5 * p + 3] > 0):
-            raise AssertionError(f"{label}: activity of pick {p}")
+    def run(plain):
+        return banded_contacts(state, cfg, rank, cand, geom, plain=plain,
+                               shard=shard)
+    (ck, lok, rbk, ng), (cp, lop, rbp, ngp) = run(False), run(True)
+    if ng != ngp:
+        raise AssertionError(f"{label}: ground slots {ng} != {ngp}")
+    for f in ("body_a", "body_b", "key", "active"):
+        if not torch.equal(getattr(ck, f), getattr(cp, f)):
+            raise AssertionError(f"{label}: {f} differs")
+    if not (torch.equal(lok, lop) and torch.equal(rbk, rbp)):
+        raise AssertionError(f"{label}: rank rows differ")
     extent = float(geom[24:27, :n].abs().max())
-    err = float((rk - rp).abs().max())
+    err = max(float((getattr(ck, f) - getattr(cp, f)).abs().max())
+              for f in ("point", "normal", "depth", "friction",
+                        "restitution"))
     if not err <= TABLE_TOL * extent:
-        raise AssertionError(f"{label}: f32 rows |Δ| {err}")
+        raise AssertionError(f"{label}: f32 fields |Δ| {err}")
+    # the work of this call: its ground slots' bodies (pos, quat, half
+    # extents, inverse mass, shape type, friction, restitution, rank: 15
+    # words a body) and their corners; its candidate lanes (mask, ranks,
+    # ids) and the body-table rows 24:43 of the bodies its live lanes
+    # reach, with the manifold of each live lane; the contact list written
+    size = shard.size if shard is not None else 1
+    r = shard.rank if shard is not None else 0
+    kg = ng // n if shard is None else min(cfg.max_contacts_per_pair, 8)
+    g_bodies = len(set(g % n for g in range(r * ng, min((r + 1) * ng,
+                                                         kg * n))))
+    p_loc = -(-cand.mask.shape[0] // size)
+    sl = slice(r * p_loc, (r + 1) * p_loc)
+    cand_l = PairCandidates(*[x if x.dim() == 0 else x[sl] for x in cand])
+    bases, la, lb, tile, _ = pair_operands(state, cand_l, cfg, geom,
+                                           shard is not None)
     live = int((la >= 0).sum())
-    act = int(sum(int((rk[5 * p + 3] > 0).sum()) for p in range(kk)))
-    # the body-table rows 24:43 of the bodies the live lanes reach, the
-    # lane operands, the rows written
     cols = touched_columns(bases, tile, la, lb)
-    bnd = bound(19 * 4 * cols + nbytes(bases, la, lb, rk),
-                OPS_BOX_MANIFOLD * live)
-    kms, pms = median_ms(lambda: np_run(False), 20), median_ms(
-        lambda: np_run(True), 3)
-    log(f"{label}: slot/id rows and activity identical, f32 rows max |Δ| "
-        f"{err}; {la.shape[0]} lanes, {live} live reaching {cols} bodies, "
-        f"{act} active slots; kernel {kms:.4f} ms, plain {pms:.4f} ms, "
-        f"bound {bnd[0]:.5f} ms ({bnd[1]})")
+    bnd = bound(15 * 4 * g_bodies + 17 * cand_l.mask.numel()
+                + 19 * 4 * cols + nbytes(*ck, lok, rbk),
+                OPS_GROUND_BODY * g_bodies + OPS_BOX_MANIFOLD * live)
+    kms, pms = median_ms(lambda: run(False), 20), median_ms(
+        lambda: run(True), 3)
+    log(f"{label}: ids/keys/activity/rank rows identical, f32 fields max "
+        f"|Δ| {err}; {ng} ground slots ({int(ck.active[:ng].sum())} "
+        f"active), {cand_l.mask.numel()} lanes, {live} live reaching "
+        f"{cols} bodies, {int(ck.active[ng:].sum())} active pair slots; "
+        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.5f} ms "
+        f"({bnd[1]})")
     return err, kms, pms, bnd
 
 
@@ -539,9 +583,9 @@ def check_np_kernels(state, cfg):
     output. Returns {name: (max_abs_err, ms, plain_ms, bound)}."""
     n = state.num_bodies
     out = {}
+    out["pair_manifolds_banded"] = check_banded_contacts(
+        "2.8 banded contacts", state, cfg)
     contacts, ranks, _, geom, cand, cp = banded_contact_list(state, cfg)
-    out["pair_manifolds_banded"] = check_manifolds(
-        "2.8 pair manifolds", state, cand, cfg, geom)
 
     ops = banded_operands(state, contacts, cfg,
                           (state.contact_key, state.contact_lam), ranks, cp)
@@ -599,8 +643,7 @@ def drive(label, make, cfg, steps, want, gpu):
     are not 0); the checks and the step rate, then two steps of the
     kernel path against the plain path. Returns (launch counts, the last
     state)."""
-    for fn in COUNTED:
-        fn.launches = 0
+    zero_counts()
     st = prepare_contacts(make(), cfg)
     # the rebuild period the path really has (1 off the anchored paths)
     k_eff = cfg.contact_rebuild if anchored_path(st, cfg) else 1
@@ -618,7 +661,7 @@ def drive(label, make, cfg, steps, want, gpu):
             host[kind].append(1e3 * (time.perf_counter() - ts))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in COUNTED}
+    launches = read_counts()
     want = {name: want.get(name, 0) for name in launches}   # unnamed: 0
     log(f"{label}: launches over {steps} steps: {launches}")
     if launches != want:
@@ -708,10 +751,9 @@ def table_sweep_operands(state, cfg):
 
 def np_sharded_operands(state, cfg):
     """The sharded two-kernel solve's operands from this state, at the
-    capacity the ranks round up to: ((z0, bases, la, lb, consts, tile),
-    the candidates and the geometry table of the pair kernel)."""
+    capacity the ranks round up to: (z0, bases, la, lb, consts, tile)."""
     n = state.num_bodies
-    contacts, ranks, _, geom, cand, _ = banded_contact_list(state, cfg)
+    contacts, ranks, _, geom, _, _ = banded_contact_list(state, cfg)
     cp = _sharded_capacity(n, contacts.body_a.shape[0], cfg,
                            Shard(None, 0, RANKS))
     warm = ((state.contact_key, state.contact_lam)
@@ -719,8 +761,7 @@ def np_sharded_operands(state, cfg):
     ops = banded_operands(state, contacts, cfg, warm, ranks, cp)
     consts = prep_consts(geom, ops.bases, ops.la, ops.lb, ops.cin, cfg,
                          tile=ops.tile, use_split=ops.use_split)
-    return (banded_z0(geom), ops.bases, ops.la, ops.lb, consts,
-            ops.tile), cand, geom
+    return (banded_z0(geom), ops.bases, ops.la, ops.lb, consts, ops.tile)
 
 
 def check_sweep_once(label, n, z0, bases, la, lb, consts, tile,
@@ -835,8 +876,7 @@ def sharded_rank(shard, steps: int, states):
     for name, cfg in sharded_configs().items():
         step = row_sharded_step(cfg)
         st = state_from_arrays(states[name], dev)
-        for fn in COUNTED:
-            fn.launches = 0
+        zero_counts()
         for i in range(steps):
             if i == warm_up:
                 torch.distributed.barrier()
@@ -845,7 +885,7 @@ def sharded_rank(shard, steps: int, states):
             st = step(st)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0) / (steps - warm_up)
-        launches = {fn.__name__: fn.launches for fn in COUNTED}
+        launches = read_counts()
         before = to_numpy(st)
         # the same step with its metrics
         st, m = step_with_metrics(st, cfg, shard=shard)
@@ -1071,7 +1111,7 @@ def main() -> int:
     # one timed), 2.8 in chunked mode on each rank's quarter of the lanes
     sweep = check_sweep_once("pile", N_PILE,
                              *table_sweep_operands(pile_st, cfg))
-    np_ops, np_cand, np_geom = np_sharded_operands(np_st, ncfg)
+    np_ops = np_sharded_operands(np_st, ncfg)
     err = max(sweep[0],
               check_sweep_once("rain", N_RAIN,
                                *table_sweep_operands(rain_st, rcfg),
@@ -1079,11 +1119,9 @@ def main() -> int:
               check_sweep_once("two-kernel pile", N_PILE, *np_ops,
                                timed=False)[0])
     results["banded_sweep_once"] = (err,) + sweep[1:]
-    err = max(check_manifolds(
-        f"2.8 pair manifolds (chunked, rank {r} of {RANKS})", np_st,
-        PairCandidates(*[x if x.dim() == 0 else chunk(x, Shard(None, r,
-                                                               RANKS))
-                         for x in np_cand]), ncfg, np_geom, chunked=True)[0]
+    err = max(check_banded_contacts(
+        f"2.8 banded contacts (rank {r} of {RANKS}: ground slots, chunked "
+        f"lanes)", np_st, ncfg, shard=Shard(None, r, RANKS))[0]
         for r in range(RANKS))
     manifolds = results["pair_manifolds_banded"]
     results["pair_manifolds_banded"] = (max(manifolds[0], err),) + \

@@ -54,7 +54,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P,        # c16, c32, c88, c80, cb
         _P, _P, _P,                # edge indices, ground verts, vertex bias
         _P, _P, _P,                # table, meta, warm (or NULL)
-        _P, _P, _P, _P,            # scratch: lanes, drops, emissions f/i
+        _P, _I,                    # int32 scratch and its words
         _I, _I, _I, _I, _I, _I, _I,  # nb, bucket0, cap, cap2, ccap, kk, kg
         _I, _I, _I,                # npad, rows, hull types
         _I, _I, _I, _I, _I,        # fp, vcap, d2, d2p, e2p
@@ -62,6 +62,8 @@ SIGNATURES = {
         _F,                        # ground height
         _P,                        # stream
     ],
+    # the hull table's scratch words: nb, SAT lanes, kk, kg, ccap, fp, d2
+    "ht_scratch_words": [_I, _I, _I, _I, _I, _I, _I],
     "bs_banded_solve": [
         _P, _P, _P,                # table, warm8, geom
         _P, _P, _P,                # z out, lam out, posq out (or NULL)
@@ -96,10 +98,16 @@ SIGNATURES = {
         _F, _F, _I, _I,            # vel on, pos on, warm, degree pass
         _P,                        # stream
     ],
-    "np_pair_manifolds": [
-        _P, _P, _P, _P,            # geom, bases, la, lb
-        _P,                        # rows out
-        _I, _I, _I, _I,            # pp, tile, npad, kk
+    "np_banded_contacts": [
+        _P, _P, _P, _P,            # pos, quat, box params, inverse mass
+        _P, _P, _P, _P,            # shape type, friction, restitution, rank
+        _P, _P,                    # geom, static tile bases (or NULL)
+        _P, _P, _P, _P, _P,        # candidates: mask, rank a/b, body a/b
+        _P, _P, _P,                # f32 [9, C], int32 [5, C], active [C]
+        _I, _I, _I, _I,            # n, kg, first ground slot, ground slots
+        _F,                        # ground height
+        _I, _I, _I,                # lanes: all, first, this rank's
+        _I, _I, _I, _I, _I,        # tile, npad, window, kk, flags
         _P,                        # stream
     ],
 }

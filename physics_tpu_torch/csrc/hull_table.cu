@@ -7,27 +7,48 @@
 // same operations in the same order (built with -fmad=false), so the two
 // agree bit for bit.
 //
-// Three launches on the caller's stream:
+// Seven launches on the caller's stream:
 //   1. prefilter (one block per bucket of 128 ranks): the OBB face-axis test
 //      over the bucket's `cap` candidate lanes; survivors compacted, order
 //      preserved, into `cap2` lanes with the stable block scan (common.cuh);
-//   2. SAT (one thread per surviving lane, 64-lane blocks over a
-//      (lane chunk, bucket) grid): the linear hull-hull SAT of the lane's
-//      ordered type pair — every face / edge separation a 16-term dot of a
-//      coefficient row (read from global memory: warp-uniform, L2-resident)
-//      with m_ext = [R_aᵀR_b | dpa | dpb | 1], min-reduced over the vertex
-//      rows — then the axis choice, the incident face, the reference-face
-//      clip, the edge-edge closest point and the kk deepest slots, written
-//      to a per-emission scratch record;
-//   3. emit (one block per bucket): the kg lowest hull vertices of each of
-//      the bucket's ranks, the stable block scan over all emissions in the
-//      reference's order (pick-major over the lanes, then pick-major over the
-//      ranks) into ccap slots, the table rows with body-frame anchors, the
-//      meta counters and the warm match within the bucket.
-// The TPU kernel's H² masked passes become one pass per lane with the
-// lane's own coefficient slice; its one-hot selection matmuls become
-// indexed reads.
+//   2. SAT separations, a tiled product with fused reductions: block
+//      (lane tile, bucket, split) stages one split of the lanes' ordered type
+//      pair coefficient rows in shared memory (8 faces by vertex, or 3 edge
+//      axes: the 3 axis rows, then A's and B's vertex rows by direction),
+//      and each of its 128 threads dots them with its lane's
+//      m_ext = [R_aᵀR_b | dpa | dpb | 1]: the min over a face's vertex rows,
+//      for an edge axis the separation from the min and max over A's and B's
+//      vertex rows with its length guard, and the best face or axis of the
+//      split (first index on ties) goes to a per-split scratch record;
+//   3. manifold (8 threads per lane): the splits' bests combined in order,
+//      the axis choice, the incident face (faces over the 8 threads), the
+//      reference-face clip (each thread, redundantly), the edge-edge
+//      closest point (vertex supports and edges over the 8 threads) and
+//      the kk deepest slots, written to a per-emission scratch record;
+//   4. ground (one warp per rank): the kg lowest hull vertices below the
+//      plane, vertices over the warp;
+//   5. scan (one block per bucket): the stable block scan over the bucket's
+//      emissions in the reference's order (pick-major over the lanes, then
+//      pick-major over the ranks) into ccap slots, and the meta counters;
+//   6. rows (one thread per emission): the table rows with body-frame
+//      anchors and each slot's warm key; the slots beyond the bucket's count
+//      zeroed;
+//   7. warm (a warp per 8 slots): each slot's first previous slot of the
+//      bucket with the same key, ballots over 4 × 32 previous slots at a
+//      time, up to the last previous slot that can match.
+// What bounds it on the H100: the SAT's ~5,700 16-term dots a lane, about
+// 0.7 G f32 operations at the 1,024-hull rain; shared among the lanes of a
+// type pair, the coefficient rows are read from shared memory as warp-wide
+// broadcasts while 4 warps of each of ~1,100 blocks keep the FP pipes busy.
+// The sums stay left to right with no FMA, so each value equals the plain
+// version's; min and max are exact in any order, and each split's best is
+// combined in index order with the serial rule, so the split keeps the bits;
+// the warp-wide argmaxes take the lowest index among equal values, which is
+// the serial loops' first-index rule.
+// The TPU kernel's H² masked passes become one pass per ordered type pair
+// present in a block; its one-hot selection matmuls become indexed reads.
 
+#include <climits>
 #include <cstdint>
 
 #include "common.cuh"
@@ -38,8 +59,17 @@ constexpr int kBlock = 128;        // ranks per bucket
 constexpr int kE = 4;              // vertices per face polygon (clip slots 2E)
 constexpr int kSl = 2 * kE;        // clip slots
 constexpr int kNs = kSl + 1;       // contact slots incl. the edge-edge one
-constexpr int kSatThreads = 64;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // prefilter
+constexpr int kSatThreads = 128;   // SAT lanes a block
+constexpr int kFacesPerSplit = 8;
+constexpr int kAxesPerSplit = 3;
+constexpr int kWarps = 4;          // ground blocks: a warp per rank
+constexpr int kGroup = 8;          // manifold: threads a lane
+constexpr int kManThreads = 128;   // manifold blocks: 16 lanes
+constexpr int kScanThreads = 1024;
+constexpr int kRowThreads = 128;
+constexpr int kWarmThreads = 256;
+constexpr int kWarmSlots = 64;     // slots a warm-match block (8 a warp)
 constexpr float kBig = 1e30f;
 constexpr int kGeomRow0 = 24;      // narrow-phase block of the unified table
 
@@ -48,8 +78,57 @@ struct Dims {
   int bucket0;  // the range's first bucket: bucket b of a launch starts at rank (bucket0 + b)·128
   int fp, vcap, d2, d2p, e2p;
   int r16, r32, rcb;   // rows of c16 / c32 / cb per type pair
+  int ns_face, ns_edge;  // SAT splits over the 2·fp faces and the d2 edge axes
   float gh;
 };
+
+// Scratch carved from one int32 buffer, in 4-byte words.
+struct Scratch {
+  int* lanes;     // [2, nb, sat_cap] surviving lanes (A, B window-local ranks)
+  int* dropped2;  // [nb] prefilter survivors beyond cap2
+  float* part_v;  // [ns, nb, sat_cap] best separation of each SAT split
+  int* part_i;    // [ns, nb, sat_cap] its face / axis index
+  float* em_f;    // [8, n_em] pair emissions: point xyz, normal xyz, depth, slot id
+  int* em_i;      // [n_em] activity
+  float* gnd_f;   // [8, n_g] ground emissions: point xyz, local vertex xyz, depth, vertex id
+  int* gnd_i;     // [n_g] activity
+  int* slot;      // [nb, e_tot] table slot of each emission (−1 inactive)
+  int* nact;      // [nb] active emissions
+  float* keys;    // [2, nb·ccap] warm key (ck, KH) of each slot
+  size_t words;
+};
+
+__host__ __device__ inline size_t round4(size_t x) { return (x + 3) / 4 * 4; }
+
+__host__ __device__ inline Scratch carve_scratch(int* base, const Dims& d) {
+  const size_t ns = (size_t)d.ns_face + d.ns_edge;
+  const size_t lanes = (size_t)d.nb * d.sat_cap;
+  const size_t n_em = (size_t)d.nb * d.kk * d.sat_cap;
+  const size_t n_g = (size_t)d.nb * d.kg * kBlock;
+  const size_t e_tot = (size_t)d.kk * d.sat_cap + (size_t)d.kg * kBlock;
+  const size_t sizes[11] = {2 * lanes, (size_t)d.nb, ns * lanes, ns * lanes, 8 * n_em, n_em,
+                            8 * n_g, n_g, (size_t)d.nb * e_tot, (size_t)d.nb, 2 * (size_t)d.nb * d.ccap};
+  int* p[11];
+  size_t off = 0;
+  for (int k = 0; k < 11; ++k) {
+    p[k] = base ? base + off : nullptr;
+    off += round4(sizes[k]);
+  }
+  Scratch s;
+  s.lanes = p[0];
+  s.dropped2 = p[1];
+  s.part_v = reinterpret_cast<float*>(p[2]);
+  s.part_i = p[3];
+  s.em_f = reinterpret_cast<float*>(p[4]);
+  s.em_i = p[5];
+  s.gnd_f = reinterpret_cast<float*>(p[6]);
+  s.gnd_i = p[7];
+  s.slot = p[8];
+  s.nact = p[9];
+  s.keys = reinterpret_cast<float*>(p[10]);
+  s.words = off;
+  return s;
+}
 
 struct Hull {
   V3 p;
@@ -86,10 +165,9 @@ __device__ __forceinline__ Hull zero_hull() {
   return b;
 }
 
-// A coefficient row dotted with m_ext, summed left to right (_lin16).
-__device__ __forceinline__ float dot16(const float* __restrict__ row, const float (&m)[16]) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  const float4 a = __ldg(r4), b = __ldg(r4 + 1), c = __ldg(r4 + 2), d = __ldg(r4 + 3);
+// A coefficient row (4 float4) dotted with m_ext, summed left to right (_lin16).
+__device__ __forceinline__ float sum16(const float4 a, const float4 b, const float4 c, const float4 d,
+                                       const float (&m)[16]) {
   float s = a.x * m[0];
   s = s + a.y * m[1];
   s = s + a.z * m[2];
@@ -109,12 +187,78 @@ __device__ __forceinline__ float dot16(const float* __restrict__ row, const floa
   return s;
 }
 
+// ... of a row in device memory
+__device__ __forceinline__ float dot16(const float* __restrict__ row, const float (&m)[16]) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  return sum16(__ldg(r4), __ldg(r4 + 1), __ldg(r4 + 2), __ldg(r4 + 3), m);
+}
+
+// ... of a row staged in shared memory (every thread of a warp reads the
+// same row: a broadcast)
+__device__ __forceinline__ float dot16s(const float4* r, const float (&m)[16]) {
+  return sum16(r[0], r[1], r[2], r[3], m);
+}
+
 // 9 coefficients at stride `stride` dotted with M, left to right (_lin9).
 __device__ __forceinline__ float dot9(const float* __restrict__ c, size_t stride, const float (&m9)[9]) {
   float s = __ldg(c) * m9[0];
 #pragma unroll
   for (int k = 1; k < 9; ++k) s = s + __ldg(c + k * stride) * m9[k];
   return s;
+}
+
+// (best, index) over an aligned group of G threads of a warp (`mask` its
+// bits): the largest value, the lowest index among equals, on every thread
+// of the group. With each thread's own items taken in index order by the
+// serial rule (first wins), this is the serial loop's answer.
+template <int G>
+__device__ __forceinline__ void group_argmax(float& v, int& i, unsigned mask) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(mask, v, off);
+    const int oi = __shfl_xor_sync(mask, i, off);
+    if (ov > v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+__device__ __forceinline__ void warp_argmax(float& v, int& i) { group_argmax<32>(v, i, 0xffffffffu); }
+
+// The two hulls of SAT lane `lane` of bucket b; returns the lane's ordered
+// type pair, or −1 when the SAT skips it (empty, no movable hull, a
+// non-hull, or a type beyond the library).
+__device__ __forceinline__ int lane_pair(const float* geom, const int* lanes, const Dims& d, int b, int lane,
+                                         Hull& ga, Hull& gb) {
+  const int start = (d.bucket0 + b) * kBlock;
+  const int la = lanes[(size_t)b * d.sat_cap + lane];
+  const int lb = lanes[((size_t)d.nb + b) * d.sat_cap + lane];
+  if (la < 0) return -1;
+  ga = load_hull(geom, d.npad, start + la);
+  gb = lb >= 0 ? load_hull(geom, d.npad, start + lb) : zero_hull();
+  const bool valid = ((ga.movable > 0.f) || (gb.movable > 0.f)) && (ga.typ > 0.f) && (gb.typ > 0.f);
+  const int ta = (int)(ga.typ - 1.f), tb = (int)(gb.typ - 1.f);
+  if (!valid || ta >= d.h || tb >= d.h) return -1;
+  return ta * d.h + tb;
+}
+
+// m_ext = [M = RaᵀRb | dpa | dpb | 1]
+__device__ __forceinline__ void make_mext(const Hull& ga, const Hull& gb, float (&mext)[16], float (&dpa)[3]) {
+  const float* ra = ga.r;
+  const float* rb = gb.r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) mext[3 * i + j] = ra[i] * rb[j] + ra[3 + i] * rb[3 + j] + ra[6 + i] * rb[6 + j];
+  const V3 dp = sub(gb.p, ga.p);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    dpa[i] = ra[i] * dp.x + ra[3 + i] * dp.y + ra[6 + i] * dp.z;
+    mext[9 + i] = dpa[i];
+    mext[12 + i] = -(rb[i] * dp.x + rb[3 + i] * dp.y + rb[6 + i] * dp.z);
+  }
+  mext[15] = 1.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -166,7 +310,135 @@ hull_prefilter_kernel(const float* __restrict__ geom, const int* __restrict__ la
 }
 
 // ---------------------------------------------------------------------------
-// 2. hull-hull SAT, clip, edge-edge point and top-k per lane
+// 2. SAT separations: coefficient rows × lanes' m_ext, reduced per split
+// ---------------------------------------------------------------------------
+
+// Rows of one split staged in shared memory: the larger of a face split and
+// an edge split.
+__host__ __device__ inline int sat_split_rows(int vcap) {
+  const int face_rows = kFacesPerSplit * vcap;
+  const int edge_rows = kAxesPerSplit * (3 + 2 * vcap);
+  return face_rows > edge_rows ? face_rows : edge_rows;
+}
+
+__global__ void __launch_bounds__(kSatThreads)
+hull_sat_kernel(const float* __restrict__ geom, const float* __restrict__ c16_all, Scratch sc, Dims d) {
+  extern __shared__ __align__(16) char smem_raw[];
+  float4* rows = reinterpret_cast<float4*>(smem_raw);
+  __shared__ int present;   // bit p: a lane of ordered type pair p
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = blockIdx.x * kSatThreads + tid;
+  if (tid == 0) present = 0;
+  __syncthreads();
+  float mext[16], dpa[3];
+  int p = -1;
+  if (lane < d.sat_cap) {
+    Hull ga, gb;
+    p = lane_pair(geom, sc.lanes, d, b, lane, ga, gb);
+    if (p >= 0) {
+      make_mext(ga, gb, mext, dpa);
+      atomicOr(&present, 1 << p);
+    }
+  }
+  __syncthreads();
+  const int mask = present;
+  const int vcap = d.vcap, fp = d.fp, d2p = d.d2p;
+  const bool faces = split < d.ns_face;
+  const int first = faces ? split * kFacesPerSplit : (split - d.ns_face) * kAxesPerSplit;
+  const int count = faces ? min(kFacesPerSplit, 2 * fp - first) : min(kAxesPerSplit, d.d2 - first);
+  const int per = faces ? vcap : 3 + 2 * vcap;   // rows of one face / axis
+  const int lax = 2 * vcap * fp, eav = lax + 3 * d2p, ebv = eav + vcap * d2p;
+  float best = 0.f;
+  int best_idx = -1;
+  for (int q = 0; q < d.h * d.h; ++q) {
+    if (!((mask >> q) & 1)) continue;   // uniform over the block
+    const float4* c16 = reinterpret_cast<const float4*>(c16_all + (size_t)q * d.r16 * 16);
+    __syncthreads();   // the previous pair's rows are read
+    for (int i = tid; i < count * per * 4; i += kSatThreads) {
+      const int r = i >> 2;
+      const int k = r / per, j = r - k * per;
+      const int it = first + k;
+      int row;
+      if (faces) {
+        const int side = it >= fp ? 1 : 0;
+        row = side * vcap * fp + j * fp + (it - side * fp);
+      } else if (j < 3) {
+        row = lax + j * d2p + it;
+      } else if (j < 3 + vcap) {
+        row = eav + (j - 3) * d2p + it;
+      } else {
+        row = ebv + (j - 3 - vcap) * d2p + it;
+      }
+      rows[i] = __ldg(c16 + (size_t)row * 4 + (i & 3));
+    }
+    __syncthreads();
+    if (p != q) continue;
+    if (faces) {
+      // a face's separation: min over the other hull's vertices
+      // two faces an iteration: independent sum chains
+      for (int k = 0; k < count; k += 2) {
+        const bool two = k + 1 < count;
+        const float4* f0 = rows + (size_t)k * per * 4;
+        const float4* f1 = two ? f0 + (size_t)per * 4 : f0;
+        float s0 = dot16s(f0, mext), s1 = dot16s(f1, mext);
+#pragma unroll 4
+        for (int v = 1; v < vcap; ++v) {
+          s0 = fminf(s0, dot16s(f0 + v * 4, mext));
+          s1 = fminf(s1, dot16s(f1 + v * 4, mext));
+        }
+        if (best_idx < 0 || s0 > best) {
+          best = s0;
+          best_idx = first + k;
+        }
+        if (two && s1 > best) {
+          best = s1;
+          best_idx = first + k + 1;
+        }
+      }
+    } else {
+      for (int k = 0; k < count; ++k) {
+        const float4* ar = rows + (size_t)k * per * 4;
+        const float ax0 = dot16s(ar, mext);
+        const float ax1 = dot16s(ar + 4, mext);
+        const float ax2 = dot16s(ar + 8, mext);
+        const float alen = sqrtf(fmaxf(ax0 * ax0 + ax1 * ax1 + ax2 * ax2, 1e-18f));
+        float se = -kBig;
+        if (alen > 1e-6f) {
+          const float t_ax = -(ax0 * dpa[0] + ax1 * dpa[1] + ax2 * dpa[2]);
+          const float4* va = ar + 12;
+          const float4* vb = va + (size_t)vcap * 4;
+          float min_a = dot16s(va, mext), max_a = min_a;
+          float min_b = dot16s(vb, mext), max_b = min_b;
+#pragma unroll 4
+          for (int v = 1; v < vcap; ++v) {
+            const float sa = dot16s(va + v * 4, mext);
+            const float sb = dot16s(vb + v * 4, mext);
+            min_a = fminf(min_a, sa);
+            max_a = fmaxf(max_a, sa);
+            min_b = fminf(min_b, sb);
+            max_b = fmaxf(max_b, sb);
+          }
+          const float num = t_ax < 0.f ? min_b - max_a - t_ax : min_a - max_b + t_ax;
+          se = num / alen;
+        }
+        if (best_idx < 0 || se > best) {
+          best = se;
+          best_idx = first + k;
+        }
+      }
+    }
+  }
+  if (lane < d.sat_cap) {
+    const size_t o = ((size_t)split * d.nb + b) * d.sat_cap + lane;
+    sc.part_v[o] = best;
+    sc.part_i[o] = best_idx;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. axis choice, clip, edge-edge point and top-k per lane
 // ---------------------------------------------------------------------------
 
 // Emission record of the pair phase: em_f rows 0:3 point, 3:6 normal,
@@ -175,32 +447,34 @@ __device__ __forceinline__ void write_inactive(int* em_i, size_t e0, int kk, int
   for (int pick = 0; pick < kk; ++pick) em_i[e0 + (size_t)pick * sat_cap] = 0;
 }
 
-__global__ void __launch_bounds__(kSatThreads)
-hull_sat_kernel(const float* __restrict__ geom, const int* __restrict__ lanes, const float* __restrict__ c16_all,
-                const float* __restrict__ c32_all, const float* __restrict__ c88_all,
-                const float* __restrict__ c80_all, const float* __restrict__ cb_all,
-                const int* __restrict__ eidx_all, float* __restrict__ em_f, int* __restrict__ em_i, Dims d) {
+__global__ void __launch_bounds__(kManThreads)
+hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c16_all,
+                     const float* __restrict__ c32_all, const float* __restrict__ c88_all,
+                     const float* __restrict__ c80_all, const float* __restrict__ cb_all,
+                     const int* __restrict__ eidx_all, Scratch sc, Dims d) {
+  extern __shared__ __align__(16) char smem_raw[];
+  // kGroup threads per lane: every thread of the group follows the lane's
+  // control flow and computes its scalars (the clip), the split, incident
+  // face, support and edge loops are spread over the group and reduced
+  // with group_argmax
+  const int t = threadIdx.x % kGroup;
+  const int grp = threadIdx.x / kGroup;
+  const unsigned gmask = ((1u << kGroup) - 1u) << ((threadIdx.x & 31) & ~(kGroup - 1));
+  // supports of every vertex of A (then B) on the chosen edge axis
+  float* sup = reinterpret_cast<float*>(smem_raw) + (size_t)grp * 2 * d.vcap;
   const int b = blockIdx.y;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = blockIdx.x * (kManThreads / kGroup) + grp;
   if (lane >= d.sat_cap) return;
-  const int start = (d.bucket0 + b) * kBlock;
   const size_t n_em = (size_t)d.nb * d.kk * d.sat_cap;
   const size_t e0 = (size_t)b * d.kk * d.sat_cap + lane;
-  const int la = lanes[(size_t)b * d.sat_cap + lane];
-  const int lb = lanes[((size_t)d.nb + b) * d.sat_cap + lane];
-  if (la < 0) {
-    write_inactive(em_i, e0, d.kk, d.sat_cap);
+  int* em_i = sc.em_i;
+  float* em_f = sc.em_f;
+  Hull ga, gb;
+  const int p = lane_pair(geom, sc.lanes, d, b, lane, ga, gb);
+  if (p < 0) {
+    if (t == 0) write_inactive(em_i, e0, d.kk, d.sat_cap);
     return;
   }
-  const Hull ga = load_hull(geom, d.npad, start + la);
-  const Hull gb = lb >= 0 ? load_hull(geom, d.npad, start + lb) : zero_hull();
-  const bool valid = ((ga.movable > 0.f) || (gb.movable > 0.f)) && (ga.typ > 0.f) && (gb.typ > 0.f);
-  const int ta = (int)(ga.typ - 1.f), tb = (int)(gb.typ - 1.f);
-  if (!valid || ta >= d.h || tb >= d.h) {
-    write_inactive(em_i, e0, d.kk, d.sat_cap);
-    return;
-  }
-  const int p = ta * d.h + tb;
   const int fp = d.fp, vcap = d.vcap, d2p = d.d2p, e2p = d.e2p;
   const float* c16 = c16_all + (size_t)p * d.r16 * 16;
   const float* c32 = c32_all + (size_t)p * d.r32 * fp;
@@ -208,83 +482,43 @@ hull_sat_kernel(const float* __restrict__ geom, const int* __restrict__ lanes, c
   const float* c80 = c80_all + (size_t)p * 16 * e2p;
   const float* cb = cb_all + (size_t)p * d.rcb;
   const int* eidx = eidx_all + (size_t)p * 4 * e2p;
-  const int a_face = 0, b_face = vcap * fp, lax = 2 * vcap * fp;
-  const int eav = lax + 3 * d2p, ebv = eav + vcap * d2p;
+  const int lax = 2 * vcap * fp;
   const int inc_ra = 0, inc_rb = 9 * fp, poly_a = 18 * fp, poly_b = poly_a + 3 * kE;
   const int fcnt_a = poly_b + 3 * kE, fcnt_b = fcnt_a + 1, fn_a = fcnt_b + 1, fn_b = fn_a + 3;
   const int off_a = fn_b + 3, off_b = off_a + 1;
   const int fb_a = 0, fb_b = fp, eb_a = 2 * fp, eb_b = 2 * fp + e2p;
 
-  // ---- m_ext = [M = RaᵀRb | dpa | dpb | 1] ----
   const float* ra = ga.r;
   const float* rb = gb.r;
-  float mext[16];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) mext[3 * i + j] = ra[i] * rb[j] + ra[3 + i] * rb[3 + j] + ra[6 + i] * rb[6 + j];
-  const V3 dp = sub(gb.p, ga.p);
-  float dpa[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    dpa[i] = ra[i] * dp.x + ra[3 + i] * dp.y + ra[6 + i] * dp.z;
-    mext[9 + i] = dpa[i];
-    mext[12 + i] = -(rb[i] * dp.x + rb[3 + i] * dp.y + rb[6 + i] * dp.z);
-  }
-  mext[15] = 1.f;
+  float mext[16], dpa[3];
+  make_mext(ga, gb, mext, dpa);
   float m9[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) m9[k] = mext[k];
 
-  // ---- face separations: best over A's then B's faces ----
-  float face_sep = 0.f;
-  int face_idx = 0;
-  for (int side = 0; side < 2; ++side) {
-    const float* blk = c16 + (size_t)(side ? b_face : a_face) * 16;
-    for (int f = 0; f < fp; ++f) {
-      float s = dot16(blk + (size_t)f * 16, mext);
-#pragma unroll 4
-      for (int v = 1; v < vcap; ++v) s = fminf(s, dot16(blk + ((size_t)v * fp + f) * 16, mext));
-      const int idx = side * fp + f;
-      if (idx == 0 || s > face_sep) {
-        face_sep = s;
-        face_idx = idx;
+  // ---- the best face and edge axis: the splits' bests in index order
+  // (thread t reads splits t, t + kGroup, ...; the lowest split among
+  // equal values wins) ----
+  float face_sep = -CUDART_INF_F, edge_sep = -CUDART_INF_F;
+  int face_split = INT_MAX, edge_split = INT_MAX;
+  for (int s = t; s < d.ns_face + d.ns_edge; s += kGroup) {
+    const float v = sc.part_v[((size_t)s * d.nb + b) * d.sat_cap + lane];
+    if (s < d.ns_face) {
+      if (face_split == INT_MAX || v > face_sep) {
+        face_sep = v;
+        face_split = s;
       }
+    } else if (edge_split == INT_MAX || v > edge_sep) {
+      edge_sep = v;
+      edge_split = s;
     }
   }
-
-  // ---- edge axes: best over the real D² direction pairs ----
-  float edge_sep = 0.f;
-  int edge_idx = 0;
-  for (int a = 0; a < d.d2; ++a) {
-    const float ax0 = dot16(c16 + (size_t)(lax + a) * 16, mext);
-    const float ax1 = dot16(c16 + (size_t)(lax + d2p + a) * 16, mext);
-    const float ax2 = dot16(c16 + (size_t)(lax + 2 * d2p + a) * 16, mext);
-    const float alen = sqrtf(fmaxf(ax0 * ax0 + ax1 * ax1 + ax2 * ax2, 1e-18f));
-    float se = -kBig;
-    if (alen > 1e-6f) {
-      const float t_ax = -(ax0 * dpa[0] + ax1 * dpa[1] + ax2 * dpa[2]);
-      const float* ra_rows = c16 + (size_t)(eav + a) * 16;
-      const float* rb_rows = c16 + (size_t)(ebv + a) * 16;
-      float min_a = dot16(ra_rows, mext), max_a = min_a;
-      float min_b = dot16(rb_rows, mext), max_b = min_b;
-#pragma unroll 4
-      for (int v = 1; v < vcap; ++v) {
-        const float sa = dot16(ra_rows + (size_t)v * d2p * 16, mext);
-        const float sb = dot16(rb_rows + (size_t)v * d2p * 16, mext);
-        min_a = fminf(min_a, sa);
-        max_a = fmaxf(max_a, sa);
-        min_b = fminf(min_b, sb);
-        max_b = fmaxf(max_b, sb);
-      }
-      const float num = t_ax < 0.f ? min_b - max_a - t_ax : min_a - max_b + t_ax;
-      se = num / alen;
-    }
-    if (a == 0 || se > edge_sep) {
-      edge_sep = se;
-      edge_idx = a;
-    }
-  }
+  group_argmax<kGroup>(face_sep, face_split, gmask);
+  group_argmax<kGroup>(edge_sep, edge_split, gmask);
+  const int face_idx = sc.part_i[((size_t)face_split * d.nb + b) * d.sat_cap + lane];
+  // no edge axis (d2 = 0): separation 0 at axis 0, as the serial loop starts
+  if (d.ns_edge == 0) edge_sep = 0.f;
+  const int edge_idx = d.ns_edge ? sc.part_i[((size_t)edge_split * d.nb + b) * d.sat_cap + lane] : 0;
 
   const bool separated = fmaxf(face_sep, edge_sep) > 0.f;
   const bool edge_wins = !separated && (edge_sep > face_sep + 1e-4f + 0.05f * fabsf(face_sep));
@@ -294,16 +528,17 @@ hull_sat_kernel(const float* __restrict__ geom, const int* __restrict__ lanes, c
   // ---- incident face: most anti-parallel face of the other hull ----
   const int inc_base = ref_is_a ? inc_ra : inc_rb;
   const int inc_bias = ref_is_a ? fb_b : fb_a;
-  float inc_best = 0.f;
-  int fi = 0;
-  for (int o = 0; o < fp; ++o) {
+  float inc_best = -CUDART_INF_F;
+  int fi = INT_MAX;
+  for (int o = t; o < fp; o += kGroup) {
     const float al = dot9(c32 + (size_t)(inc_base + o) * fp + fr, (size_t)fp * fp, m9);
     const float val = -(al + __ldg(cb + inc_bias + o));
-    if (o == 0 || val > inc_best) {
+    if (fi == INT_MAX || val > inc_best) {
       inc_best = val;
       fi = o;
     }
   }
+  group_argmax<kGroup>(inc_best, fi, gmask);
 
   // ---- face polygons (owner frame) → world ----
   const int poly_r = ref_is_a ? poly_a : poly_b, poly_i = ref_is_a ? poly_b : poly_a;
@@ -384,28 +619,32 @@ hull_sat_kernel(const float* __restrict__ geom, const int* __restrict__ lanes, c
   const float sgn = t_ax < 0.f ? -1.f : 1.f;
   const V3 ax_u = scale(mk(ax0, ax1, ax2), sgn / fmaxf(alen, 1e-9f));
   const V3 n_edge = mat_vec(ra, ax_u);
-  // support of vertex u on the chosen axis (SAV / SBV rows), 0 for no edge
-  auto support = [&](int base, int u) -> float {
-    if (u < 0) return 0.f;
-    return dot9(c88 + (size_t)(base + u) * d2p + ae, (size_t)vcap * d2p, m9) * sgn;
-  };
-  float best_a = 0.f, best_b = 0.f;
-  int ea = 0, eb = 0;
-  for (int ed = 0; ed < e2p; ++ed) {
+  // supports of each vertex on the chosen axis (SAV / SBV rows)
+  for (int u = t; u < vcap; u += kGroup) {
+    sup[u] = dot9(c88 + (size_t)u * d2p + ae, (size_t)vcap * d2p, m9) * sgn;
+    sup[vcap + u] = dot9(c88 + (size_t)(9 * vcap + u) * d2p + ae, (size_t)vcap * d2p, m9) * sgn;
+  }
+  __syncwarp(gmask);
+  // support of vertex u of hull A (side 0) or B (side 1), 0 for no edge
+  auto support = [&](int side, int u) -> float { return u < 0 ? 0.f : sup[side * vcap + u]; };
+  float best_a = -CUDART_INF_F, best_b = -CUDART_INF_F;
+  int ea = INT_MAX, eb = INT_MAX;
+  for (int ed = t; ed < e2p; ed += kGroup) {
     const float sa = -(fmaxf(support(0, __ldg(eidx + ed)), support(0, __ldg(eidx + e2p + ed))) +
                        __ldg(cb + eb_a + ed));
-    const float sb = fminf(support(9 * vcap, __ldg(eidx + 2 * e2p + ed)),
-                           support(9 * vcap, __ldg(eidx + 3 * e2p + ed))) -
+    const float sb = fminf(support(1, __ldg(eidx + 2 * e2p + ed)), support(1, __ldg(eidx + 3 * e2p + ed))) -
                      __ldg(cb + eb_b + ed);
-    if (ed == 0 || sa > best_a) {
+    if (ea == INT_MAX || sa > best_a) {
       best_a = sa;
       ea = ed;
     }
-    if (ed == 0 || sb > best_b) {
+    if (eb == INT_MAX || sb > best_b) {
       best_b = sb;
       eb = ed;
     }
   }
+  group_argmax<kGroup>(best_a, ea, gmask);
+  group_argmax<kGroup>(best_b, eb, gmask);
   const V3 ea0 = add(mat_vec(ra, mk(__ldg(c80 + ea), __ldg(c80 + e2p + ea), __ldg(c80 + 2 * e2p + ea))), ga.p);
   const V3 ea1 =
       add(mat_vec(ra, mk(__ldg(c80 + 3 * e2p + ea), __ldg(c80 + 4 * e2p + ea), __ldg(c80 + 5 * e2p + ea))), ga.p);
@@ -456,263 +695,327 @@ hull_sat_kernel(const float* __restrict__ geom, const int* __restrict__ lanes, c
     const V3 pt = vsel(is_edge, edge_point, face_pt);
     const V3 nrm = vsel(is_edge, n_edge, n_face);
     const size_t e = e0 + (size_t)pick * d.sat_cap;
-    em_i[e] = act ? 1 : 0;
-    em_f[e] = pt.x;
-    em_f[n_em + e] = pt.y;
-    em_f[2 * n_em + e] = pt.z;
-    em_f[3 * n_em + e] = nrm.x;
-    em_f[4 * n_em + e] = nrm.y;
-    em_f[5 * n_em + e] = nrm.z;
-    em_f[6 * n_em + e] = act ? best : 0.f;
-    em_f[7 * n_em + e] = (float)bidx;
+    if (t == 0) {
+      em_i[e] = act ? 1 : 0;
+      em_f[e] = pt.x;
+      em_f[n_em + e] = pt.y;
+      em_f[2 * n_em + e] = pt.z;
+      em_f[3 * n_em + e] = nrm.x;
+      em_f[4 * n_em + e] = nrm.y;
+      em_f[5 * n_em + e] = nrm.z;
+      em_f[6 * n_em + e] = act ? best : 0.f;
+      em_f[7 * n_em + e] = (float)bidx;
+    }
 #pragma unroll
     for (int k = 0; k < kNs; ++k) score[k] = bidx == k ? -kBig : score[k];
   }
 }
 
 // ---------------------------------------------------------------------------
-// 3. ground vertices, compaction, table rows, meta, warm match
+// 4. ground: the kg lowest vertices of each rank below the plane
 // ---------------------------------------------------------------------------
 
-struct Smem {
-  int* slot;     // [e_tot] activity flag, then slot (or -1)
-  float* gnd;    // [8 · kg · 128] ground emissions: pt xyz, local vertex xyz, depth, vertex id
-  float* ck;     // [ccap]
-  float* ch;     // [ccap]
-  float* prev;   // [5 · ccap]: ck, KH, λ0 xyz of the previous table
-  int* warp_sums;// [32]
-};
-
-__host__ __device__ inline size_t emit_smem_bytes(int e_tot, int n_gnd, int ccap, bool warm) {
-  return 4 * ((size_t)e_tot + 8 * (size_t)n_gnd + 2 * (size_t)ccap + (warm ? 5 * (size_t)ccap : 0) + 32);
-}
-
-__device__ Smem carve(char* base, int e_tot, int n_gnd, int ccap, bool warm) {
-  Smem s;
-  s.slot = reinterpret_cast<int*>(base);
-  s.gnd = reinterpret_cast<float*>(s.slot + e_tot);
-  s.ck = s.gnd + 8 * (size_t)n_gnd;
-  s.ch = s.ck + ccap;
-  s.prev = s.ch + ccap;
-  s.warp_sums = reinterpret_cast<int*>(s.prev + (warm ? 5 * (size_t)ccap : 0));
-  return s;
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-hull_emit_kernel(const float* __restrict__ geom, const int* __restrict__ lanes, const float* __restrict__ em_f,
-                 const int* __restrict__ em_i, const int* __restrict__ dropped2, const float* __restrict__ gv,
-                 const float* __restrict__ vbias, const float* __restrict__ pcols, float* __restrict__ table,
-                 float* __restrict__ meta, float* __restrict__ warm, Dims d) {
-  extern __shared__ __align__(16) char smem_raw[];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+__global__ void __launch_bounds__(kWarps * 32)
+hull_ground_kernel(const float* __restrict__ geom, const float* __restrict__ gv, const float* __restrict__ vbias,
+                   Scratch sc, Dims d) {
+  // one warp per rank: thread t scores vertices t, t + 32, ... once; each
+  // pick is a warp_argmax over the vertices not taken yet
+  const int t = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= kBlock) return;
   const int start = (d.bucket0 + b) * kBlock;
-  const int n_pair_e = d.kk * d.sat_cap;
-  const int n_gnd = d.kg * kBlock;
-  const int e_tot = n_pair_e + n_gnd;
-  const bool has_warm = pcols != nullptr;
-  const size_t cp = (size_t)d.nb * d.ccap;
-  const size_t n_em = (size_t)d.nb * n_pair_e;
-  const size_t em0 = (size_t)b * n_pair_e;
-  Smem s = carve(smem_raw, e_tot, n_gnd, d.ccap, has_warm);
+  const size_t n_g = (size_t)d.nb * d.kg * kBlock;
   const int vs = (d.vcap + 7) / 8 * 8;
-
-  // ---- ground: the kg lowest vertices of each rank below the plane ----
-  for (int r = tid; r < kBlock; r += blockDim.x) {
-    const Hull gl = load_hull(geom, d.npad, start + r);
-    const bool tok = (gl.typ > 0.5f) && (gl.typ < (float)d.h + 0.5f);
-    int tq = (int)rintf(gl.typ) - 1;
-    tq = tq < 0 ? 0 : (tq > d.h - 1 ? d.h - 1 : tq);
-    const float* vrow = gv + (size_t)tq * vs * 3;
-    const float* vb = vbias + (size_t)tq * vs;
-    const bool mv = gl.movable > 0.f;
-    uint32_t taken[4] = {0u, 0u, 0u, 0u};
-    for (int pick = 0; pick < d.kg; ++pick) {
-      float best = 0.f;
-      int vidx = 0;
-      for (int v = 0; v < d.vcap; ++v) {
-        float g = -kBig;
-        if (!((taken[v >> 5] >> (v & 31)) & 1u)) {
-          const float lx = tok ? __ldg(vrow + 3 * v) : 0.f;
-          const float ly = tok ? __ldg(vrow + 3 * v + 1) : 0.f;
-          const float lz = tok ? __ldg(vrow + 3 * v + 2) : 0.f;
-          const float vbl = tok ? __ldg(vb + v) : 0.f;
-          float wy = lx * gl.r[3] + ly * gl.r[4] + lz * gl.r[5];
-          wy = wy + gl.p.y;
-          const float depth = d.gh - wy;
-          g = (mv && (depth > 0.f)) ? depth + vbl : -kBig;
-        }
-        if (v == 0 || g > best) {
+  const Hull gl = load_hull(geom, d.npad, start + r);
+  const bool tok = (gl.typ > 0.5f) && (gl.typ < (float)d.h + 0.5f);
+  int tq = (int)rintf(gl.typ) - 1;
+  tq = tq < 0 ? 0 : (tq > d.h - 1 ? d.h - 1 : tq);
+  const float* vrow = gv + (size_t)tq * vs * 3;
+  const float* vb = vbias + (size_t)tq * vs;
+  const bool mv = gl.movable > 0.f;
+  float score[4];   // vertices t + 32k (vcap ≤ 128)
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int v = t + 32 * k;
+    score[k] = -kBig;
+    if (v < d.vcap) {
+      const float lx = tok ? __ldg(vrow + 3 * v) : 0.f;
+      const float ly = tok ? __ldg(vrow + 3 * v + 1) : 0.f;
+      const float lz = tok ? __ldg(vrow + 3 * v + 2) : 0.f;
+      const float vbl = tok ? __ldg(vb + v) : 0.f;
+      float wy = lx * gl.r[3] + ly * gl.r[4] + lz * gl.r[5];
+      wy = wy + gl.p.y;
+      const float depth = d.gh - wy;
+      score[k] = (mv && (depth > 0.f)) ? depth + vbl : -kBig;
+    }
+  }
+  unsigned taken = 0u;   // bit k: vertex t + 32k picked
+  for (int pick = 0; pick < d.kg; ++pick) {
+    float best = -CUDART_INF_F;
+    int vidx = INT_MAX;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int v = t + 32 * k;
+      if (v < d.vcap) {
+        const float g = ((taken >> k) & 1u) ? -kBig : score[k];
+        if (vidx == INT_MAX || g > best) {
           best = g;
           vidx = v;
         }
       }
-      taken[vidx >> 5] |= 1u << (vidx & 31);
-      const bool act = best > 0.f;
-      const float lx = tok ? __ldg(vrow + 3 * vidx) : 0.f;
-      const float ly = tok ? __ldg(vrow + 3 * vidx + 1) : 0.f;
-      const float lz = tok ? __ldg(vrow + 3 * vidx + 2) : 0.f;
-      const int ge = pick * kBlock + r;
-      float* gr = s.gnd + (size_t)8 * ge;
-      gr[0] = gl.p.x + gl.r[0] * lx + gl.r[1] * ly + gl.r[2] * lz;
-      gr[1] = gl.p.y + gl.r[3] * lx + gl.r[4] * ly + gl.r[5] * lz;
-      gr[2] = gl.p.z + gl.r[6] * lx + gl.r[7] * ly + gl.r[8] * lz;
-      gr[3] = lx;
-      gr[4] = ly;
-      gr[5] = lz;
-      gr[6] = act ? best : 0.f;
-      gr[7] = (float)vidx;
-      s.slot[n_pair_e + ge] = act ? 1 : 0;
     }
+    warp_argmax(best, vidx);
+    if ((vidx & 31) == t) taken |= 1u << (vidx >> 5);
+    if (t != 0) continue;
+    const bool act = best > 0.f;
+    const float lx = tok ? __ldg(vrow + 3 * vidx) : 0.f;
+    const float ly = tok ? __ldg(vrow + 3 * vidx + 1) : 0.f;
+    const float lz = tok ? __ldg(vrow + 3 * vidx + 2) : 0.f;
+    const size_t ge = ((size_t)b * d.kg + pick) * kBlock + r;
+    float* gr = sc.gnd_f + ge;
+    gr[0] = gl.p.x + gl.r[0] * lx + gl.r[1] * ly + gl.r[2] * lz;
+    gr[n_g] = gl.p.y + gl.r[3] * lx + gl.r[4] * ly + gl.r[5] * lz;
+    gr[2 * n_g] = gl.p.z + gl.r[6] * lx + gl.r[7] * ly + gl.r[8] * lz;
+    gr[3 * n_g] = lx;
+    gr[4 * n_g] = ly;
+    gr[5 * n_g] = lz;
+    gr[6 * n_g] = act ? best : 0.f;
+    gr[7 * n_g] = (float)vidx;
+    sc.gnd_i[ge] = act ? 1 : 0;
   }
-  __syncthreads();
+}
 
-  // ---- stable compaction of the emissions into ccap slots ----
+// ---------------------------------------------------------------------------
+// 5. stable compaction of the emissions into ccap slots, meta counters
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kScanThreads)
+hull_scan_kernel(Scratch sc, float* __restrict__ meta, Dims d) {
+  __shared__ int warp_sums[32];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int n_pair_e = d.kk * d.sat_cap;
+  const int e_tot = n_pair_e + d.kg * kBlock;
+  const int* em_i = sc.em_i + (size_t)b * n_pair_e;
+  const int* gnd_i = sc.gnd_i + (size_t)b * d.kg * kBlock;
+  int* slot = sc.slot + (size_t)b * e_tot;
   int n_act = 0;
   for (int e0 = 0; e0 < e_tot; e0 += blockDim.x) {
     const int e = e0 + tid;
     int flag = 0;
-    if (e < n_pair_e) flag = em_i[em0 + e];
-    else if (e < e_tot) flag = s.slot[e];
+    if (e < n_pair_e) flag = em_i[e];
+    else if (e < e_tot) flag = gnd_i[e - n_pair_e];
     int total;
-    const int pos = n_act + block_exclusive_scan(flag, s.warp_sums, total);
-    if (e < e_tot) s.slot[e] = flag ? pos : -1;
+    const int pos = n_act + block_exclusive_scan(flag, warp_sums, total);
+    if (e < e_tot) slot[e] = flag ? pos : -1;
     n_act += total;
   }
-  __syncthreads();
-  const int kept = n_act < d.ccap ? n_act : d.ccap;
-
-  float* out = table + (size_t)b * d.ccap;
-  for (int e = tid; e < e_tot; e += blockDim.x) {
-    const int sl = s.slot[e];
-    if (sl < 0 || sl >= d.ccap) continue;
-    float v[32];
-    V3 pt, a_loc, b_loc, n_loc;
-    v[9] = 1.f;
-    if (e < n_pair_e) {
-      const size_t k = em0 + e;
-      pt = mk(em_f[k], em_f[n_em + k], em_f[2 * n_em + k]);
-      const V3 n = mk(em_f[3 * n_em + k], em_f[4 * n_em + k], em_f[5 * n_em + k]);
-      const int lane = e % d.sat_cap;
-      const int la = lanes[(size_t)b * d.sat_cap + lane];
-      const int lb = lanes[((size_t)d.nb + b) * d.sat_cap + lane];
-      const Hull ga = load_hull(geom, d.npad, start + la);
-      const Hull gb = load_hull(geom, d.npad, start + lb);
-      v[3] = n.x;
-      v[4] = n.y;
-      v[5] = n.z;
-      v[6] = em_f[6 * n_em + k];
-      v[7] = sqrtf(ga.fric * gb.fric);
-      v[8] = fmaxf(ga.rest, gb.rest);
-      const int ia = (int)ga.id, ib = (int)gb.id;
-      v[10] = (float)(ia > ib ? ia : ib);
-      v[11] = (float)(ia < ib ? ia : ib);
-      v[12] = 0.f;
-      v[13] = (float)(start + la);
-      v[14] = (float)(start + lb + 1);
-      v[15] = em_f[7 * n_em + k];
-      a_loc = t_apply(ga.r, sub(pt, ga.p));
-      b_loc = t_apply(gb.r, sub(pt, gb.p));
-      n_loc = t_apply(ga.r, n);
-    } else {
-      const int ge = e - n_pair_e;
-      const int r = ge % kBlock;
-      const Hull gl = load_hull(geom, d.npad, start + r);
-      const float* gr = s.gnd + (size_t)8 * ge;
-      pt = mk(gr[0], gr[1], gr[2]);
-      v[3] = 0.f;
-      v[4] = 1.f;
-      v[5] = 0.f;
-      v[6] = gr[6];
-      v[7] = gl.fric;
-      v[8] = gl.rest;
-      v[10] = gl.id;
-      v[11] = 0.f;
-      v[12] = 1.f;
-      v[13] = (float)(start + r);
-      v[14] = 0.f;
-      v[15] = gr[7];
-      a_loc = mk(gr[3], gr[4], gr[5]);
-      b_loc = pt;
-      n_loc = mk(gl.r[3], gl.r[4], gl.r[5]);
-    }
-    v[0] = pt.x;
-    v[1] = pt.y;
-    v[2] = pt.z;
-    v[16] = a_loc.x;
-    v[17] = a_loc.y;
-    v[18] = a_loc.z;
-    v[19] = b_loc.x;
-    v[20] = b_loc.y;
-    v[21] = b_loc.z;
-    v[22] = n_loc.x;
-    v[23] = n_loc.y;
-    v[24] = n_loc.z;
-#pragma unroll
-    for (int k = 25; k < 32; ++k) v[k] = 0.f;
-    for (int k = 0; k < d.rows; ++k) out[(size_t)k * cp + sl] = v[k];
-    s.ck[sl] = v[10] + 65536.0f * (2.0f * v[15] + v[12]) + 2.0f * (v[9] - 1.0f);
-    s.ch[sl] = v[11];
-  }
-  for (int j = kept + tid; j < d.ccap; j += blockDim.x)
-    for (int k = 0; k < d.rows; ++k) out[(size_t)k * cp + j] = 0.f;
-
-  // ---- meta: dropped, active, prefilter drops ----
+  if (tid == 0) sc.nact[b] = n_act;
+  // meta: dropped, active, prefilter drops
   for (int i = tid; i < 8 * kBlock; i += blockDim.x) {
     const int r = i / kBlock, c = i % kBlock;
     float val = 0.f;
     if (r == 0 && c == 0) val = (float)(n_act > d.ccap ? n_act - d.ccap : 0);
     if (r == 0 && c == 1) val = (float)n_act;
-    if (r == 0 && c == 2) val = (float)dropped2[b];
+    if (r == 0 && c == 2) val = (float)sc.dropped2[b];
     meta[(size_t)r * d.nb * kBlock + (size_t)b * kBlock + c] = val;
   }
-  if (!has_warm) return;
+}
 
-  // ---- warm start by key match within the bucket ----
-  for (int i = tid; i < d.ccap; i += blockDim.x) {
-    const float* pc = pcols + ((size_t)b * d.ccap + i) * 8;
-    s.prev[i] = pc[0];
-    s.prev[d.ccap + i] = pc[1];
-    s.prev[2 * d.ccap + i] = pc[4];
-    s.prev[3 * d.ccap + i] = pc[5];
-    s.prev[4 * d.ccap + i] = pc[6];
+// ---------------------------------------------------------------------------
+// 6. table rows with body-frame anchors, warm keys; empty slots zeroed
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kRowThreads)
+hull_rows_kernel(const float* __restrict__ geom, Scratch sc, float* __restrict__ table, Dims d) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int start = (d.bucket0 + b) * kBlock;
+  const int n_pair_e = d.kk * d.sat_cap;
+  const int e_tot = n_pair_e + d.kg * kBlock;
+  const size_t cp = (size_t)d.nb * d.ccap;
+  const size_t n_em = (size_t)d.nb * n_pair_e;
+  const size_t n_g = (size_t)d.nb * d.kg * kBlock;
+  const int n_act = sc.nact[b];
+  const int kept = n_act < d.ccap ? n_act : d.ccap;
+  float* out = table + (size_t)b * d.ccap;
+  if (i < d.ccap && i >= kept)
+    for (int k = 0; k < d.rows; ++k) out[(size_t)k * cp + i] = 0.f;
+  if (i >= e_tot) return;
+  const int sl = sc.slot[(size_t)b * e_tot + i];
+  if (sl < 0 || sl >= d.ccap) return;
+  float v[32];
+  V3 pt, a_loc, b_loc, n_loc;
+  v[9] = 1.f;
+  if (i < n_pair_e) {
+    const size_t k = (size_t)b * n_pair_e + i;
+    const float* em_f = sc.em_f;
+    pt = mk(em_f[k], em_f[n_em + k], em_f[2 * n_em + k]);
+    const V3 n = mk(em_f[3 * n_em + k], em_f[4 * n_em + k], em_f[5 * n_em + k]);
+    const int lane = i % d.sat_cap;
+    const int la = sc.lanes[(size_t)b * d.sat_cap + lane];
+    const int lb = sc.lanes[((size_t)d.nb + b) * d.sat_cap + lane];
+    const Hull ga = load_hull(geom, d.npad, start + la);
+    const Hull gb = load_hull(geom, d.npad, start + lb);
+    v[3] = n.x;
+    v[4] = n.y;
+    v[5] = n.z;
+    v[6] = em_f[6 * n_em + k];
+    v[7] = sqrtf(ga.fric * gb.fric);
+    v[8] = fmaxf(ga.rest, gb.rest);
+    const int ia = (int)ga.id, ib = (int)gb.id;
+    v[10] = (float)(ia > ib ? ia : ib);
+    v[11] = (float)(ia < ib ? ia : ib);
+    v[12] = 0.f;
+    v[13] = (float)(start + la);
+    v[14] = (float)(start + lb + 1);
+    v[15] = em_f[7 * n_em + k];
+    a_loc = t_apply(ga.r, sub(pt, ga.p));
+    b_loc = t_apply(gb.r, sub(pt, gb.p));
+    n_loc = t_apply(ga.r, n);
+  } else {
+    const int ge = i - n_pair_e;
+    const int r = ge % kBlock;
+    const Hull gl = load_hull(geom, d.npad, start + r);
+    const float* gr = sc.gnd_f + (size_t)b * d.kg * kBlock + ge;
+    pt = mk(gr[0], gr[n_g], gr[2 * n_g]);
+    v[3] = 0.f;
+    v[4] = 1.f;
+    v[5] = 0.f;
+    v[6] = gr[6 * n_g];
+    v[7] = gl.fric;
+    v[8] = gl.rest;
+    v[10] = gl.id;
+    v[11] = 0.f;
+    v[12] = 1.f;
+    v[13] = (float)(start + r);
+    v[14] = 0.f;
+    v[15] = gr[7 * n_g];
+    a_loc = mk(gr[3 * n_g], gr[4 * n_g], gr[5 * n_g]);
+    b_loc = pt;
+    n_loc = mk(gl.r[3], gl.r[4], gl.r[5]);
   }
+  v[0] = pt.x;
+  v[1] = pt.y;
+  v[2] = pt.z;
+  v[16] = a_loc.x;
+  v[17] = a_loc.y;
+  v[18] = a_loc.z;
+  v[19] = b_loc.x;
+  v[20] = b_loc.y;
+  v[21] = b_loc.z;
+  v[22] = n_loc.x;
+  v[23] = n_loc.y;
+  v[24] = n_loc.z;
+#pragma unroll
+  for (int k = 25; k < 32; ++k) v[k] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 32; ++k)
+    if (k < d.rows) out[(size_t)k * cp + sl] = v[k];
+  sc.keys[(size_t)b * d.ccap + sl] = v[10] + 65536.0f * (2.0f * v[15] + v[12]) + 2.0f * (v[9] - 1.0f);
+  sc.keys[cp + (size_t)b * d.ccap + sl] = v[11];
+}
+
+// ---------------------------------------------------------------------------
+// 7. warm start by key match within the bucket
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kWarmThreads)
+hull_warm_kernel(const float* __restrict__ pcols, Scratch sc, float* __restrict__ warm, Dims d) {
+  extern __shared__ __align__(16) char smem_raw[];
+  float* prev_ck = reinterpret_cast<float*>(smem_raw);   // [ccap]
+  float* prev_kh = prev_ck + d.ccap;                      // [ccap]
+  // 1 + the last previous slot that can match: a current key is ≥ 0, so a
+  // previous one ≤ −0.5 (an inactive slot's −1) never matches
+  __shared__ int limit;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, wid = tid >> 5;
+  const size_t cp = (size_t)d.nb * d.ccap;
+  const float* pc = pcols + (size_t)b * d.ccap * 8;
+  if (tid == 0) limit = 0;
   __syncthreads();
-  float* wout = warm + (size_t)b * d.ccap;
-  for (int j = tid; j < d.ccap; j += blockDim.x) {
-    float l0 = 0.f, l1 = 0.f, l2 = 0.f;
+  int last = 0;
+  for (int i = tid; i < d.ccap; i += blockDim.x) {
+    prev_ck[i] = pc[(size_t)i * 8];
+    prev_kh[i] = pc[(size_t)i * 8 + 1];
+    if (prev_ck[i] > -0.5f) last = i + 1;
+  }
+  atomicMax(&limit, last);
+  __syncthreads();
+  const int n_prev = limit;
+  const int n_act = sc.nact[b];
+  const int kept = n_act < d.ccap ? n_act : d.ccap;
+  constexpr int per_warp = kWarmSlots / (kWarmThreads / 32);
+  const int j0 = blockIdx.x * kWarmSlots + wid * per_warp;
+  // the warp's slots' keys, one a thread, then each slot's match in turn
+  float my_ck = 0.f, my_ch = 0.f;
+  if (lane < per_warp && j0 + lane < kept) {
+    my_ck = sc.keys[(size_t)b * d.ccap + j0 + lane];
+    my_ch = sc.keys[cp + (size_t)b * d.ccap + j0 + lane];
+  }
+  int my_src = -1;   // thread s: slot j0 + s's previous slot
+  for (int s = 0; s < per_warp; ++s) {
+    const float ck = __shfl_sync(0xffffffffu, my_ck, s);
+    const float ch = __shfl_sync(0xffffffffu, my_ch, s);
+    int src = -1;
     // an empty slot keys to (−2, 0), which matches no previous key
-    if (j < kept) {
-      const float ck = s.ck[j], ch = s.ch[j];
-      for (int i = 0; i < d.ccap; ++i) {
-        if (fabsf(s.prev[i] - ck) < 0.5f && fabsf(s.prev[d.ccap + i] - ch) < 0.5f) {
-          l0 = s.prev[2 * d.ccap + i];
-          l1 = s.prev[3 * d.ccap + i];
-          l2 = s.prev[4 * d.ccap + i];
-          break;
+    if (j0 + s < kept) {
+      for (int i0 = 0; i0 < n_prev && src < 0; i0 += 128) {
+        unsigned ballot[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + 32 * u + lane;
+          const bool hit = i < n_prev && fabsf(prev_ck[i] - ck) < 0.5f && fabsf(prev_kh[i] - ch) < 0.5f;
+          ballot[u] = __ballot_sync(0xffffffffu, hit);
         }
+        // the lowest matching index: the serial scan's first match
+#pragma unroll
+        for (int u = 3; u >= 0; --u)
+          if (ballot[u]) src = i0 + 32 * u + __ffs(ballot[u]) - 1;
       }
     }
-    wout[j] = l0;
-    wout[cp + j] = l1;
-    wout[2 * cp + j] = l2;
-#pragma unroll
-    for (int k = 3; k < 8; ++k) wout[(size_t)k * cp + j] = 0.f;
+    if (lane == s) my_src = src;
+  }
+  // rows 0:3 the matched λ, 3:8 zero: thread l writes row l % 8 of slot
+  // j0 + l / 8 (and of the slot 4 further on)
+  for (int k = lane; k < 8 * per_warp; k += 32) {
+    const int s = k >> 3, row = k & 7;
+    const int src = __shfl_sync(0xffffffffu, my_src, s);
+    const int j = j0 + s;
+    if (j < d.ccap)
+      warm[(size_t)row * cp + (size_t)b * d.ccap + j] = (row < 3 && src >= 0) ? pc[(size_t)src * 8 + 4 + row] : 0.f;
   }
 }
 
 }  // namespace
 
+// Words (4 bytes) of int32 scratch the table call needs.
+extern "C" int ht_scratch_words(int nb, int sat_cap, int kk, int kg, int ccap, int fp, int d2) {
+  Dims d;
+  d.nb = nb;
+  d.sat_cap = sat_cap;
+  d.kk = kk;
+  d.kg = kg;
+  d.ccap = ccap;
+  d.ns_face = (2 * fp + kFacesPerSplit - 1) / kFacesPerSplit;
+  d.ns_edge = (d2 + kAxesPerSplit - 1) / kAxesPerSplit;
+  const size_t w = carve_scratch(nullptr, d).words;
+  return w > 0x7fffffff ? -1 : (int)w;
+}
+
 extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, const int* lb, const float* pcols,
                                             const float* c16, const float* c32, const float* c88,
                                             const float* c80, const float* cb, const int* eidx, const float* gv,
                                             const float* vbias, float* table, float* meta, float* warm,
-                                            int* lanes, int* dropped2, float* em_f, int* em_i, int nb,
+                                            int* scratch, int scratch_words, int nb,
                                             int bucket0, int cap, int cap2, int ccap, int kk, int kg, int npad, int rows, int h, int fp,
                                             int vcap, int d2, int d2p, int e2p, int r16, int r32, int rcb,
                                             float gh, void* stream) {
-  if (kk > kNs || kg > 8 || kg > vcap || vcap > 128 || rows > 32 || (cap2 && cap2 > cap) || h < 1 ||
-      ((uintptr_t)c16 & 15) || bucket0 < 0 || (size_t)(bucket0 + nb + 2) * kBlock > (size_t)npad)
+  if (kk > kNs || kg > 8 || kg > vcap || vcap > 128 || rows > 32 || (cap2 && cap2 > cap) || h < 1 || h * h > 31 ||
+      ((uintptr_t)c16 & 15) || bucket0 < 0 || (size_t)(bucket0 + nb + 2) * kBlock > (size_t)npad ||
+      ccap % kWarmSlots)
     return (int)cudaErrorInvalidValue;
   Dims d;
   d.nb = nb;
@@ -734,16 +1037,41 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
   d.r16 = r16;
   d.r32 = r32;
   d.rcb = rcb;
+  d.ns_face = (2 * fp + kFacesPerSplit - 1) / kFacesPerSplit;
+  d.ns_edge = (d2 + kAxesPerSplit - 1) / kAxesPerSplit;
   d.gh = gh;
+  const Scratch sc = carve_scratch(scratch, d);
+  if (sc.words > (size_t)scratch_words) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  hull_prefilter_kernel<<<nb, kThreads, 0, st>>>(geom, la, lb, lanes, dropped2, d);
-  const dim3 sat_grid((d.sat_cap + kSatThreads - 1) / kSatThreads, nb);
-  hull_sat_kernel<<<sat_grid, kSatThreads, 0, st>>>(geom, lanes, c16, c32, c88, c80, cb, eidx, em_f, em_i, d);
-  const int e_tot = kk * d.sat_cap + kg * kBlock;
-  const size_t smem = emit_smem_bytes(e_tot, kg * kBlock, ccap, pcols != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(hull_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err;
+
+  hull_prefilter_kernel<<<nb, kThreads, 0, st>>>(geom, la, lb, sc.lanes, sc.dropped2, d);
+
+  const size_t sat_smem = (size_t)sat_split_rows(vcap) * 64;
+  err = cudaFuncSetAttribute(hull_sat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sat_smem);
   if (err != cudaSuccess) return (int)err;
-  hull_emit_kernel<<<nb, kThreads, smem, st>>>(geom, lanes, em_f, em_i, dropped2, gv, vbias, pcols, table, meta,
-                                                warm, d);
+  const dim3 sat_grid((d.sat_cap + kSatThreads - 1) / kSatThreads, nb, d.ns_face + d.ns_edge);
+  hull_sat_kernel<<<sat_grid, kSatThreads, sat_smem, st>>>(geom, c16, sc, d);
+
+  constexpr int lanes_per_block = kManThreads / kGroup;
+  const dim3 lane_grid((d.sat_cap + lanes_per_block - 1) / lanes_per_block, nb);
+  const size_t sup_smem = (size_t)lanes_per_block * 2 * vcap * 4;
+  hull_manifold_kernel<<<lane_grid, kManThreads, sup_smem, st>>>(geom, c16, c32, c88, c80, cb, eidx, sc, d);
+
+  if (kg > 0)
+    hull_ground_kernel<<<dim3(kBlock / kWarps, nb), kWarps * 32, 0, st>>>(geom, gv, vbias, sc, d);
+
+  hull_scan_kernel<<<nb, kScanThreads, 0, st>>>(sc, meta, d);
+
+  const int e_tot = kk * d.sat_cap + kg * kBlock;
+  const int row_items = e_tot > ccap ? e_tot : ccap;
+  hull_rows_kernel<<<dim3((row_items + kRowThreads - 1) / kRowThreads, nb), kRowThreads, 0, st>>>(geom, sc, table,
+                                                                                                 d);
+  if (pcols != nullptr) {
+    const size_t warm_smem = (size_t)2 * ccap * 4;
+    err = cudaFuncSetAttribute(hull_warm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)warm_smem);
+    if (err != cudaSuccess) return (int)err;
+    hull_warm_kernel<<<dim3(ccap / kWarmSlots, nb), kWarmThreads, warm_smem, st>>>(pcols, sc, warm, d);
+  }
   return (int)cudaGetLastError();
 }

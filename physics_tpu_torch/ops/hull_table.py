@@ -23,10 +23,12 @@ Replaces the TPU kernel `bucket_hull_contact_table`
 (physics_tpu/ops/hull_table.py:1092, call :1218, body `_make_hull_kernel`
 :373-1084). That kernel selected every per-lane quantity with one-hot
 matmuls, moved data through hi/lo bf16 splits and made one masked pass
-per ordered type pair; here those are indexed reads and each lane
-indexes its own pair's coefficient tables. The 16-term dots are summed
-left to right, elementwise, in the plain version and the kernel alike
-(nvcc -fmad=false), so the two agree bit for bit; against the TPU
+per ordered type pair; here those are indexed reads, and the kernel's
+SAT makes one pass per ordered type pair present among a block's lanes,
+its coefficient rows staged in shared memory (csrc/hull_table.cu). The
+16-term dots are summed left to right, elementwise, in the plain version
+and the kernel alike (nvcc -fmad=false), so the two agree bit for bit;
+against the TPU
 kernel, which contracts with matmuls and carries payloads through the
 bf16 split, the f32 rows differ by about 2⁻¹⁷ of each value.
 
@@ -689,6 +691,23 @@ def bucket_hull_contact_table_plain(geom, la, lb, pcols, tc: HullTableCoef,
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
+_SCRATCH: dict = {}
+
+
+def _scratch(dev: torch.device, words: int) -> Tensor:
+    """The kernel's int32 scratch (lanes, SAT splits, emissions, slots,
+    warm keys), kept per device and grown to the largest call: the calls
+    of one device queue on its current stream, so a call's kernels finish
+    with the buffer before the next call's start."""
+    if words < 0:
+        raise ValueError("hull table: scratch beyond 2³¹ words")
+    buf = _SCRATCH.get(dev)
+    if buf is None or buf.numel() < words:
+        buf = torch.empty((words,), dtype=torch.int32, device=dev)
+        _SCRATCH[dev] = buf
+    return buf
+
+
 def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
                    cap2, ground_height, anchors, bucket0):
     from physics_tpu_torch import _build
@@ -723,20 +742,18 @@ def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
     if dm.e != 4:
         raise ValueError(f"hull table kernel: faces of at most 4 vertices "
                          f"are built (got {dm.e})")
-    sat_cap = cap2 if cap2 else cap
-    f32, i32 = torch.float32, torch.int32
+    f32 = torch.float32
     table = torch.empty((rows_n, cp), dtype=f32, device=dev)
     meta = torch.empty((8, nb * BLOCK), dtype=f32, device=dev)
     warm = (torch.empty((8, cp), dtype=f32, device=dev)
             if pcols is not None else None)
-    lanes = torch.empty((2, nb, sat_cap), dtype=i32, device=dev)
-    dropped2 = torch.empty((nb,), dtype=i32, device=dev)
-    n_em = nb * kk * sat_cap
-    em_f = torch.empty((8, n_em), dtype=f32, device=dev)
-    em_i = torch.empty((n_em,), dtype=i32, device=dev)
+    lib = _build.library()
+    words = lib.ht_scratch_words(nb, cap2 if cap2 else cap, kk, kg, ccap,
+                                 dm.fp, dm.d2)
+    scratch = _scratch(dev, words)
     ptr = ctypes.c_void_p
     with torch.cuda.device(dev):
-        err = _build.library().ht_bucket_hull_contact_table(
+        err = lib.ht_bucket_hull_contact_table(
             ptr(geom.data_ptr()), ptr(la.data_ptr()), ptr(lb.data_ptr()),
             ptr(pcols.data_ptr() if pcols is not None else 0),
             ptr(c.c16.data_ptr()), ptr(c.c32.data_ptr()),
@@ -745,8 +762,7 @@ def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
             ptr(c.v3c.data_ptr()), ptr(tc.vbias.data_ptr()),
             ptr(table.data_ptr()), ptr(meta.data_ptr()),
             ptr(warm.data_ptr() if warm is not None else 0),
-            ptr(lanes.data_ptr()), ptr(dropped2.data_ptr()),
-            ptr(em_f.data_ptr()), ptr(em_i.data_ptr()),
+            ptr(scratch.data_ptr()), scratch.numel(),
             nb, bucket0, cap, cap2, ccap, kk, kg, npad, rows_n, tc.ntypes,
             dm.fp, dm.vcap, dm.d2, dm.d2p, dm.e2p,
             c.c16.shape[1], c.c32.shape[1], c.cb.shape[1],

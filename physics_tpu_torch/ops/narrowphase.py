@@ -1,8 +1,10 @@
 """Narrow phase (physics_tpu/ops/narrowphase.py): the flat contact buffer
 (`Contacts`, `concat_contacts`), the boxes-only ground corners
 (`_ground_contacts_boxes`), the banded pair manifolds' slot-major
-contacts (`_pair_contacts_boxes_pallas`), their boxes-only dispatch, and
-the hull fast-layout predicate (`hulls_fast_path`).
+contacts (`_pair_contacts_boxes_pallas`), their boxes-only dispatch, the
+generic banded branch's whole contact list in one kernel launch
+(`banded_contacts`, csrc/narrowphase_banded.cu), and the hull fast-layout
+predicate (`hulls_fast_path`).
 
 The JAX package picks the ground path by backend: on the TPU the
 slot-major `_ground_contacts_boxes` ([k·N], slot s of every body, then
@@ -14,6 +16,7 @@ generic convex narrow phases themselves are ROADMAP item 1.13.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -29,8 +32,12 @@ from physics_tpu_torch.ops.broadphase import PairCandidates
 from physics_tpu_torch.ops.contact_table import _BOX_SIGNS
 from physics_tpu_torch.ops.narrowphase_banded import (
     NP_ID_EXACT_MAX,
+    _static_bases,
+    body_table_width,
+    np_shape,
     pair_manifolds_banded,
 )
+from physics_tpu_torch.parallel.collectives import Shard, chunk, chunk_contacts
 from physics_tpu_torch.state import SHAPE_BOX, SimState
 
 Tensor = torch.Tensor
@@ -141,7 +148,6 @@ def _ground_contacts_boxes(state: SimState, cfg: SimConfig) -> Contacts:
 
 def _pair_contacts_boxes_pallas(state: SimState, cand: PairCandidates,
                                 cfg: SimConfig, geom: Tensor,
-                                plain: bool = False,
                                 chunked: bool = False) -> Contacts:
     """The banded pair-manifold kernel's rows (ops/narrowphase_banded.py)
     as slot-major [kk·P] contacts. `geom` is the rank-space geometry table
@@ -150,7 +156,7 @@ def _pair_contacts_boxes_pallas(state: SimState, cand: PairCandidates,
     else 0; the endpoint ids ride the kernel's rows."""
     n = state.num_bodies
     p0 = cand.body_a.shape[0]
-    rows, _, kk = pair_manifolds_banded(state, cand, cfg, geom, plain=plain,
+    rows, _, kk = pair_manifolds_banded(state, cand, cfg, geom,
                                         chunked=chunked)
     if n < NP_ID_EXACT_MAX:
         zero = torch.zeros_like(cand.body_a)
@@ -192,26 +198,175 @@ def _pair_contacts_boxes_pallas(state: SimState, cand: PairCandidates,
     )
 
 
-def ground_contacts(state: SimState, cfg: SimConfig) -> Contacts:
-    """Ground contacts of a boxes-only scene (the TPU route of the JAX
-    dispatch); other shapes are ROADMAP item 1.13."""
-    if not cfg.boxes_only:
+def _check_ported(cfg: SimConfig, ground: bool, pairs: bool) -> None:
+    if ground and not cfg.boxes_only:
         raise NotImplementedError(
             "ground contacts of hulls and spheres (convex_data) are ROADMAP "
             "item 1.13")
-    return _ground_contacts_boxes(state, cfg)
-
-
-def pair_contacts(state: SimState, cand: PairCandidates, cfg: SimConfig,
-                  geom: Tensor, plain: bool = False,
-                  chunked: bool = False) -> Contacts:
-    """Pair contacts of the bucketed candidates (`chunked`: one rank's
-    slice of them) through the banded pair-manifold kernel; the other
-    narrow phases are ROADMAP item 1.13."""
-    if not banded_pairs(cfg):
+    if pairs and not banded_pairs(cfg):
         raise NotImplementedError(
             "only the banded box narrow phase (boxes_only, "
             "narrowphase_pallas, bucketed sweep) is ported; the generic "
             "narrow phases are ROADMAP item 1.13")
-    return _pair_contacts_boxes_pallas(state, cand, cfg, geom, plain=plain,
+
+
+def ground_contacts(state: SimState, cfg: SimConfig) -> Contacts:
+    """Ground contacts of a boxes-only scene (the TPU route of the JAX
+    dispatch); other shapes are ROADMAP item 1.13."""
+    _check_ported(cfg, ground=True, pairs=False)
+    return _ground_contacts_boxes(state, cfg)
+
+
+def pair_contacts(state: SimState, cand: PairCandidates, cfg: SimConfig,
+                  geom: Tensor, chunked: bool = False) -> Contacts:
+    """Pair contacts of the bucketed candidates (`chunked`: one rank's
+    slice of them) from the banded pair manifolds' plain rows; the other
+    narrow phases are ROADMAP item 1.13."""
+    _check_ported(cfg, ground=False, pairs=True)
+    return _pair_contacts_boxes_pallas(state, cand, cfg, geom,
                                        chunked=chunked)
+
+
+def banded_contacts_plain(state: SimState, cfg: SimConfig, rank: Tensor,
+                          cand: PairCandidates | None, geom: Tensor,
+                          shard: Shard | None = None):
+    """Plain version of `banded_contacts`: the ground corners, their rank
+    rows and (under `shard`) this rank's slice of them, then the pair
+    contacts of this rank's candidate lanes (the manifold rows in chunked
+    mode under `shard`) with theirs, concatenated."""
+    n = state.num_bodies
+    groups = []
+    if cfg.ground_plane:
+        gc = ground_contacts(state, cfg)
+        kg = gc.body_a.shape[0] // n
+        lo = rank.repeat(kg)
+        rb = torch.full((kg * n,), -1, dtype=torch.int32, device=rank.device)
+        if shard is not None:
+            gc = chunk_contacts(gc, shard)
+            lo, rb = chunk(lo, shard), chunk(rb, shard)
+        groups.append((gc, lo, rb))
+    n_ground = groups[0][0].body_a.shape[0] if groups else 0
+    if cand is not None:
+        cand_l = cand if shard is None else PairCandidates(*[
+            x if x.dim() == 0 else chunk(x, shard) for x in cand])
+        pc = pair_contacts(state, cand_l, cfg, geom, chunked=shard is not None)
+        kk = pc.body_a.shape[0] // max(cand_l.body_a.shape[0], 1)
+        groups.append((pc, cand_l.rank_a.repeat(kk), cand_l.rank_b.repeat(kk)))
+    return (concat_contacts(*[g[0] for g in groups]),
+            torch.cat([g[1] for g in groups]),
+            torch.cat([g[2] for g in groups]), n_ground)
+
+
+# np_banded_contacts flags
+_FLAG_CHUNKED = 1          # window bases from each tile's lanes (shard)
+_FLAG_IDS_FROM_ROWS = 2    # endpoint ids from the body table's rows
+_FLAG_KEYS = 4             # pair keys fit int32
+
+
+def _launch_kernel(state: SimState, cfg: SimConfig, rank: Tensor,
+                   cand: PairCandidates | None, geom: Tensor,
+                   shard: Shard | None):
+    from physics_tpu_torch import _build
+
+    dev = geom.device
+    n = state.num_bodies
+    i32, f32 = torch.int32, torch.float32
+    r, size = (shard.rank, shard.size) if shard is not None else (0, 1)
+    g0 = g_count = kg = 0
+    if cfg.ground_plane:
+        kg = min(cfg.max_contacts_per_pair, len(_BOX_SIGNS))
+        g_count = -(-kg * n // size)
+        g0 = r * g_count
+    p_total = j0 = p_count = tile = kk = 0
+    flags = 0
+    bases = None
+    wtot = cfg.pallas_window
+    npad = geom.shape[1]
+    if cand is not None:
+        p_total = cand.body_a.shape[0]
+        p_count = -(-p_total // size)
+        j0 = r * p_count
+        kk, tile, _ = np_shape(n, p_count, cfg)
+        if tuple(geom.shape) != (48, body_table_width(n, cfg)):
+            raise ValueError(f"banded contacts: pass the rank-space geometry "
+                             f"table [48, {body_table_width(n, cfg)}]")
+        if shard is not None:
+            flags |= _FLAG_CHUNKED
+            if tile % 128:
+                raise ValueError(f"banded contacts: chunked mode needs a "
+                                 f"tile of 128·k lanes (got {tile})")
+        elif p_count:
+            bases = _static_bases(n, p_count, cfg, dev)
+        if n < NP_ID_EXACT_MAX:
+            flags |= _FLAG_IDS_FROM_ROWS
+        if n * n * _CAP < 2**31 - 1:
+            flags |= _FLAG_KEYS
+    sh = state.shapes
+    ops = [("pos", state.pos.contiguous(), f32, (n, 3)),
+           ("quat", state.quat.contiguous(), f32, (n, 4)),
+           ("params", sh.params.contiguous(), f32, (n, 3)),
+           ("inv_mass", state.inv_mass.contiguous(), f32, (n,)),
+           ("stype", sh.stype.contiguous(), i32, (n,)),
+           ("friction", sh.friction.contiguous(), f32, (n,)),
+           ("restitution", sh.restitution.contiguous(), f32, (n,)),
+           ("rank", rank, i32, (n,)),
+           ("geom", geom, f32, (48, npad))]
+    if cand is not None:
+        ops += [("mask", cand.mask, torch.bool, (p_total,))] + [
+            (name, getattr(cand, name), i32, (p_total,))
+            for name in ("rank_a", "rank_b", "body_a", "body_b")]
+    _build.check_operands("banded contacts", dev, *ops)
+    t = {name: x for name, x, _, _ in ops}
+    c = g_count + kk * p_count
+    fout = torch.empty((9, c), dtype=f32, device=dev)
+    iout = torch.empty((5, c), dtype=i32, device=dev)
+    active = torch.empty((c,), dtype=torch.bool, device=dev)
+
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
+    with torch.cuda.device(dev):
+        err = _build.library().np_banded_contacts(
+            *[ptr(t[k]) for k in ("pos", "quat", "params", "inv_mass",
+                                  "stype", "friction", "restitution",
+                                  "rank", "geom")],
+            ptr(bases),
+            *[ptr(t.get(k)) for k in ("mask", "rank_a", "rank_b", "body_a",
+                                      "body_b")],
+            ptr(fout), ptr(iout), ptr(active), n, kg, g0, g_count,
+            ctypes.c_float(cfg.ground_height), p_total, j0, p_count, tile,
+            npad, wtot, kk, flags,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, "np_banded_contacts")
+    banded_contacts.launches += 1
+    contacts = Contacts(
+        body_a=iout[0], body_b=iout[1], point=fout[0:3], normal=fout[3:6],
+        depth=fout[6], active=active, friction=fout[7],
+        restitution=fout[8], key=iout[2])
+    return contacts, iout[3], iout[4], g_count
+
+
+def banded_contacts(state: SimState, cfg: SimConfig, rank: Tensor,
+                    cand: PairCandidates | None, geom: Tensor,
+                    plain: bool = False, shard: Shard | None = None):
+    """The generic banded branch's box contact list: the ground corners
+    (slot-major [k·N], if cfg.ground_plane) then the pair contacts of the
+    bucketed candidates (slot-major [kk·P], if `cand`), each with its
+    endpoint ranks. `rank` [N] int32 is each body's sweep rank, `geom` the
+    rank-space geometry table at body_table_width. With `shard`, this
+    rank's slice of the ground slots and of the candidate lanes (the
+    manifolds in chunked mode), as `chunk` would cut them. Returns
+    (Contacts, lo [C] (rank of body_a), rank_b [C] (−1: the ground), the
+    count of ground slots, which come first).
+
+    A CPU tensor (or `plain=True`) runs the plain composition; a CUDA
+    tensor launches csrc/narrowphase_banded.cu, which writes every field
+    in place of the composition's element-wise glue."""
+    _check_ported(cfg, cfg.ground_plane, cand is not None)
+    if plain or geom.device.type == "cpu":
+        return banded_contacts_plain(state, cfg, rank, cand, geom, shard)
+    if geom.device.type != "cuda":
+        raise ValueError(f"banded contacts: unsupported device {geom.device}")
+    return _launch_kernel(state, cfg, rank, cand, geom, shard)
+
+
+banded_contacts.launches = 0

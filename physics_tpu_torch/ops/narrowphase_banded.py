@@ -1,5 +1,10 @@
-"""Banded box-box pair manifolds: CUDA kernel and its plain PyTorch version
-(physics_tpu/ops/narrowphase_pallas.py `pair_manifolds_banded`).
+"""Banded box-box pair manifolds: the plain PyTorch version of the TPU
+kernel's rows (physics_tpu/ops/narrowphase_pallas.py
+`pair_manifolds_banded`), its operands and its static tile bases. The
+CUDA kernel (csrc/narrowphase_banded.cu, wrapped by ops/narrowphase.py
+`banded_contacts`) computes the same manifolds but writes the contact
+list itself; these rows stay the plain composition's middle step and the
+row contract the CPU parity tests hold against the JAX kernel.
 
 The bucketed sweep's candidate lanes are cut into tiles of `tile` lanes;
 tile t reads the bodies of ranks [base_t, base_t + pallas_window) of the
@@ -8,12 +13,12 @@ rank-space body table. Bases are static: tile t covers whole buckets of
 further, so a span wider than the window is a configuration error, raised
 here before anything runs, never a silent drop. In chunked mode (one
 rank's slice of the candidate lanes, in the row-sharded step) the slice
-need not start at a bucket, so each tile's base is computed on the
-device instead: its lowest live rank, rounded down to 128. A lane whose
+need not start at a bucket, so each tile's base is computed from its
+lanes instead: its lowest live rank, rounded down to 128. A lane whose
 endpoint falls outside its window reads as empty (−1) in either mode.
 
-For each lane the kernel computes the 15-axis box-box manifold and writes
-its kk deepest valid points. Output rows [5·kk + 7, Pp]: for each pick
+For each lane the 15-axis box-box manifold gives its kk deepest valid
+points. Rows [5·kk + 7, Pp]: for each pick
 s < kk, rows 5s:5s+5 = point xyz, depth (0 when inactive), source
 manifold slot; then normal xyz (B → A), friction √(μa·μb), restitution
 max, and the two body ids. The TPU kernel's zero rows up to a multiple
@@ -25,12 +30,12 @@ narrowphase_pallas.py:128, body `_make_np_kernel` :59-125), which
 gathered each lane's bodies with one-hot matmuls through hi/lo bf16
 splits (about 2⁻¹⁷ of each value); here they are exact loads, so f32 rows
 differ from the TPU kernel's by that split's rounding, and the integer
-rows (slots, ids) agree.
+rows (slots, ids) agree. The zero rows of an empty lane: points, depths
+and slots 0, normal −0, friction and restitution 0, ids 0.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Tuple
 
@@ -50,7 +55,7 @@ from physics_tpu_torch.state import SimState
 
 Tensor = torch.Tensor
 
-# endpoint body ids ride the kernel's rows exactly below this count (the
+# endpoint body ids ride the manifold rows exactly below this count (the
 # TPU kernel's hi/lo bf16 split carried them exactly up to 2¹⁶)
 NP_ID_EXACT_MAX = 1 << 16
 _BIG_NEG = -1e30
@@ -172,52 +177,18 @@ def pair_manifolds_banded_plain(geom: Tensor, bases: Tensor, la: Tensor,
     return torch.stack(rows)
 
 
-def _launch_kernel(geom, bases, la, lb, *, tile, kk):
-    from physics_tpu_torch import _build
-
-    dev = geom.device
-    pp = la.shape[0]
-    npad = geom.shape[1]
-    _build.check_operands("banded narrow phase", dev,
-                          ("geom", geom, torch.float32, (48, npad)),
-                          ("bases", bases, torch.int32, (pp // tile,)),
-                          ("la", la, torch.int32, (pp,)),
-                          ("lb", lb, torch.int32, (pp,)))
-    out = torch.empty((5 * kk + 7, pp), dtype=torch.float32, device=dev)
-    ptr = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        err = _build.library().np_pair_manifolds(
-            ptr(geom.data_ptr()), ptr(bases.data_ptr()), ptr(la.data_ptr()),
-            ptr(lb.data_ptr()), ptr(out.data_ptr()), pp, tile, npad, kk,
-            ptr(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(err, "np_pair_manifolds")
-    pair_manifolds_banded.launches += 1
-    return out
-
-
 def pair_manifolds_banded(state: SimState, cand: PairCandidates,
                           cfg: SimConfig, geom: Tensor,
-                          plain: bool = False,
                           chunked: bool = False) -> Tuple[Tensor, int, int]:
-    """The manifold rows of every candidate lane. Returns (rows [R, Pp],
-    Pp, kk), the lane axis padded to the tile. `chunked=True`: cand is
-    one rank's slice of the bucketed lanes (window bases from the lanes;
-    see pair_operands).
+    """The manifold rows of every candidate lane, plain version on any
+    device (the kernel writes contacts, not rows: ops/narrowphase.py
+    banded_contacts). Returns (rows [R, Pp], Pp, kk), the lane axis
+    padded to the tile. `chunked=True`: cand is one rank's slice of the
+    bucketed lanes (window bases from the lanes; see pair_operands).
 
     `geom` is the rank-space geometry table [48, NPAD] of the step's sweep
     order (unified_geom at body_table_width): its narrow-phase block
-    (rows 24:48) is the body table. A CPU tensor (or `plain=True`) runs
-    the plain version; a CUDA tensor launches csrc/narrowphase_banded.cu."""
+    (rows 24:48) is the body table."""
     bases, la, lb, tile, kk = pair_operands(state, cand, cfg, geom, chunked)
-    if plain or geom.device.type == "cpu":
-        rows = pair_manifolds_banded_plain(geom, bases, la, lb, tile=tile,
-                                           kk=kk)
-    elif geom.device.type == "cuda":
-        rows = _launch_kernel(geom, bases, la, lb, tile=tile, kk=kk)
-    else:
-        raise ValueError(
-            f"banded narrow phase: unsupported device {geom.device}")
+    rows = pair_manifolds_banded_plain(geom, bases, la, lb, tile=tile, kk=kk)
     return rows, la.shape[0], kk
-
-
-pair_manifolds_banded.launches = 0

@@ -60,18 +60,12 @@ from physics_tpu_torch.ops.hull_table import (
 )
 from physics_tpu_torch.ops.narrowphase import (
     Contacts,
+    banded_contacts,
     banded_pairs,
     concat_contacts,
-    ground_contacts,
     hulls_fast_path,
-    pair_contacts,
 )
-from physics_tpu_torch.parallel.collectives import (
-    Shard,
-    all_gather_last,
-    chunk,
-    chunk_contacts,
-)
+from physics_tpu_torch.parallel.collectives import Shard, all_gather_last
 from physics_tpu_torch.solver.banded_solve import (
     padded_contact_count,
     solve_impulses_banded,
@@ -297,17 +291,11 @@ def _sharded_capacity(n: int, c_total: int, cfg: SimConfig,
     return cp
 
 
-def banded_contact_list(state: SimState, cfg: SimConfig,
-                        plain: bool = False, shard: Shard | None = None):
-    """The contact list of the generic banded branch for boxes: ground
-    corners (slot-major [k·N], the TPU route) and banded pair manifolds
-    (slot-major [kk·P]), each contact with its endpoint ranks. Returns
-    (contacts | None, (lo, rank_b), order | None, geom, candidates |
-    None, capacity): `geom` is the rank-space geometry table at the
-    solve's width, whose narrow-phase block the pair kernel reads and
-    whose solve block the solve reads. With `shard` each rank computes
-    its slice of the ground slots and of the candidate lanes (the pair
-    kernel in chunked mode), and the whole list is all-gathered."""
+def banded_inputs(state: SimState, cfg: SimConfig, plain: bool = False):
+    """What the generic banded branch's contact list is made from: (sweep
+    order | None, each body's sweep rank [N] int32, candidates | None,
+    the rank-space geometry table at the solve's width, the contact
+    capacity). Without pairs the ranks are the body indices."""
     n = state.num_bodies
     dev = state.device
     pairs = cfg.pair_collisions and n > 1
@@ -318,47 +306,62 @@ def banded_contact_list(state: SimState, cfg: SimConfig,
         order = sweep_order(state, aabbs)
         rank = torch.empty_like(rank)
         rank[order.long()] = torch.arange(n, dtype=torch.int32, device=dev)
-    groups = []        # (contacts, lo, rank_b, slot blocks) of each group
-    if cfg.ground_plane:
-        gc = ground_contacts(state, cfg)
-        kg = gc.body_a.shape[0] // n
-        lo_g = rank.repeat(kg)
-        rb_g = torch.full((kg * n,), -1, dtype=torch.int32, device=dev)
-        if shard is not None:
-            gc = chunk_contacts(gc, shard)
-            lo_g, rb_g = chunk(lo_g, shard), chunk(rb_g, shard)
-        groups.append((gc, lo_g, rb_g, 1))
     cp = contact_capacity(state, cfg)
     geom = unified_geom(state, cfg, order if order is not None else rank,
                         npad=solve_shape(n, cp, cfg)[2])
     if pairs:
         cand = pair_candidates(state, cfg, aabbs=aabbs, order=order,
                                plain=plain)
-        cand_l = cand
-        if shard is not None:
-            cand_l = PairCandidates(
-                chunk(cand.body_a, shard), chunk(cand.body_b, shard),
-                chunk(cand.mask, shard), cand.overflow,
-                chunk(cand.rank_a, shard), chunk(cand.rank_b, shard))
-        pc = pair_contacts(state, cand_l, cfg, geom, plain=plain,
-                           chunked=shard is not None)
-        kk = pc.body_a.shape[0] // cand_l.body_a.shape[0]
-        groups.append((pc, cand_l.rank_a.repeat(kk),
-                       cand_l.rank_b.repeat(kk), kk))
-    if not groups:
+    return order, rank, cand, geom, cp
+
+
+def banded_contact_list(state: SimState, cfg: SimConfig,
+                        plain: bool = False, shard: Shard | None = None):
+    """The contact list of the generic banded branch for boxes: ground
+    corners (slot-major [k·N], the TPU route) and banded pair manifolds
+    (slot-major [kk·P]), each contact with its endpoint ranks, from one
+    launch (ops/narrowphase.banded_contacts). Returns (contacts | None,
+    (lo, rank_b), order | None, geom, candidates | None, capacity):
+    `geom` is the rank-space geometry table at the solve's width, whose
+    narrow-phase block the pair manifolds read and whose solve block the
+    solve reads. With `shard` each rank computes its slice of the ground
+    slots and of the candidate lanes (the manifolds in chunked mode), and
+    each group is all-gathered back into the one-process order."""
+    n = state.num_bodies
+    order, rank, cand, geom, cp = banded_inputs(state, cfg, plain)
+    pairs = cand is not None
+    if not (cfg.ground_plane or pairs):
         return None, None, order, geom, cand, cp
-    if shard is not None:
-        # each group gathered on its own, back into the one-process order
-        # (the JAX package gathers each rank's concatenation: the same
-        # contacts, in another order among contacts of equal rank)
-        groups = [(*_gather_contacts(c, lo, rb, shard, k), k)
-                  for c, lo, rb, k in groups]
+    contacts, lo, rb, n_ground = banded_contacts(state, cfg, rank, cand,
+                                                 geom, plain=plain,
+                                                 shard=shard)
+    if shard is None:
+        return contacts, (lo, rb), order, geom, cand, cp
+    # each group gathered on its own, back into the one-process order (the
+    # JAX package gathers each rank's concatenation: the same contacts, in
+    # another order among contacts of equal rank)
+    groups = []
+    if n_ground:
+        groups.append(_gather_contacts(_slice_contacts(contacts, 0, n_ground),
+                                       lo[:n_ground], rb[:n_ground], shard))
+    if pairs:
+        kk = (lo.shape[0] - n_ground) // max(
+            -(-cand.body_a.shape[0] // shard.size), 1)
+        groups.append(_gather_contacts(
+            _slice_contacts(contacts, n_ground, lo.shape[0]), lo[n_ground:],
+            rb[n_ground:], shard, kk))
     contacts = concat_contacts(*[g[0] for g in groups])
     lo = torch.cat([g[1] for g in groups])
     rb = torch.cat([g[2] for g in groups])
-    if shard is not None:
-        cp = _sharded_capacity(n, contacts.body_a.shape[0], cfg, shard)
+    cp = _sharded_capacity(n, contacts.body_a.shape[0], cfg, shard)
     return contacts, (lo, rb), order, geom, cand, cp
+
+
+def _slice_contacts(contacts: Contacts, a: int, b: int) -> Contacts:
+    """Contacts a..b of the buffer (views)."""
+    return Contacts(*[
+        getattr(contacts, f)[:, a:b] if f in ("point", "normal")
+        else getattr(contacts, f)[a:b] for f in Contacts._fields])
 
 
 def _resolve_contacts_banded(state: SimState, cfg: SimConfig,

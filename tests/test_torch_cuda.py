@@ -1,12 +1,15 @@
 """The port's kernels against their plain PyTorch versions on an NVIDIA
 card, and one rebuild and one refresh step of the kernel path against the
 plain path, on a contact-rich two-bucket pile and on hull rains (the
-hull contact table: two buckets of bevelled cubes, and one bucket of the
-3-type library with all 9 ordered type pairs); on the same pile, the
-two-kernel path's pair manifolds, solve constants and unfused sweeps, two
-of its steps, and a step of the unfused table solve; the row-sharded
-step's single-sweep kernel (2.7) in each of its switch combinations, the
-table kernels' bucket-range mode and the pair manifolds' chunked mode.
+hull contact table: two buckets of bevelled cubes, one bucket of the
+3-type library with all 9 ordered type pairs in one SAT block, and one
+bucket of axis-aligned duplicated hulls whose face and edge separations
+tie; its warm match with duplicated previous keys); on the same pile, the
+two-kernel path's contact list (ground corners and pair manifolds in one
+launch, whole and one rank's slice), solve constants and unfused sweeps,
+two of its steps, and a step of the unfused table solve; the row-sharded
+step's single-sweep kernel (2.7) in each of its switch combinations and
+the table kernels' bucket-range mode.
 Every test skips without a card. On a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -17,8 +20,8 @@ nor this file needs.)
 Tolerances: the sweep masks, the contact table's integer rows, its meta
 counters and warm rows are compared exactly (the table kernel computes the
 plain version's f32 operations in the same order, built with
--fmad=false); its f32 rows to 1e-5 of the scene extent, as the pair
-manifolds' (whose slot and id rows are exact). The solve constants have
+-fmad=false); its f32 rows to 1e-5 of the scene extent, as the contact
+list's f32 fields (whose ids, keys, activity and rank rows are exact). The solve constants have
 no sums across contacts: 1e-6 of each row's largest magnitude on the
 active contacts. The solves sum impulse deltas with atomics (kernel) or
 index_add (plain) in an order that changes from run to run: 1e-4 of each
@@ -38,7 +41,7 @@ from physics_tpu_torch.ops.broadphase import (
     pair_candidates,
     sweep_order,
 )
-from physics_tpu_torch.ops.narrowphase_banded import pair_manifolds_banded
+from physics_tpu_torch.ops.narrowphase import banded_contacts
 from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
 from physics_tpu_torch.solver.banded_solve import (
     banded_operands,
@@ -49,7 +52,11 @@ from physics_tpu_torch.solver.banded_solve import (
     prep_consts,
     table_solve_operands,
 )
-from physics_tpu_torch.solver.contacts import banded_contact_list
+from physics_tpu_torch.parallel.collectives import Shard
+from physics_tpu_torch.solver.contacts import (
+    banded_contact_list,
+    banded_inputs,
+)
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
 
 pytestmark = pytest.mark.cuda
@@ -224,6 +231,92 @@ def test_rain_step_kernel_path_matches_plain(rain):
     _steps_match(*rain)
 
 
+def test_hull_table_sat_block_holds_several_type_pairs(dev):
+    """The 3-type library's first SAT block (128 lanes) holds lanes of
+    several ordered type pairs, each pass masked to its own lanes."""
+    n = 128
+    cfg = scenes.rain_config(n)
+    s = prepare_contacts(scenes.mesh_rain_mixed(n, n_types=3,
+                                                real_assets=False,
+                                                device=dev), cfg)
+    for _ in range(2):
+        s, _ = step_with_metrics(s, cfg, plain=True)
+    aabbs = body_aabbs(s)
+    order = sweep_order(s, aabbs)
+    cand = pair_candidates(s, cfg, aabbs, order, plain=True)
+    geom = tct.unified_geom(s, cfg, order, hulls=True)
+    la, lb, _, kw = tct.table_operands(s, cand, cfg, None, geom, "lanes")
+    ga, gb = tct.lane_geometry(geom, la), tct.lane_geometry(geom, lb)
+    la, lb, _ = tct.obb_prefilter(ga, gb, la, lb, kw["cap2"], True)
+    ga, gb = tct.lane_geometry(geom, la), tct.lane_geometry(geom, lb)
+    live = (la >= 0)[0, :128]
+    pairs = ((ga[19] - 1) * 3 + gb[19] - 1)[0, :128][live]
+    assert torch.unique(pairs).numel() >= 3
+    _hull_tables_match(s, cfg)
+
+
+def _hull_tables_match(s, cfg, prev=None):
+    aabbs = body_aabbs(s)
+    order = sweep_order(s, aabbs)
+    cand = pair_candidates(s, cfg, aabbs, order, plain=True)
+    geom = tct.unified_geom(s, cfg, order, hulls=True)
+    prev = prev if prev is not None else (s.contact_key, s.contact_lam)
+    out = [tht.bucket_hull_contact_table(s, cand, cfg, prev=prev, geom=geom,
+                                         plain=plain) for plain in (False, True)]
+    (tk, mk, wk), (tp, mp, wp) = out
+    for r in EXACT_ROWS:
+        assert torch.equal(tk[r], tp[r]), r
+    assert torch.equal(mk, mp) and torch.equal(wk, wp)
+    extent = float(geom[0:3, :s.num_bodies].abs().max())
+    assert float((tk - tp).abs().max()) <= 1e-5 * extent
+    return tk, wk
+
+
+def test_hull_table_kernel_tied_separations(dev):
+    """Duplicated hulls in pairs at mirrored poses (axis-aligned, or turned
+    by 90° or 180° about y, overlapping along x), resting on the ground:
+    their face separations tie between A's and B's faces and their edge
+    axes tie among parallel edges, so every choice rests on the first-index
+    rule; the kernel's split reductions must make the plain version's."""
+    n = 128
+    cfg = scenes.rain_config(n)
+    s = scenes.mesh_rain(n, real_assets=False, device=dev)
+    verts = s.hulls.verts[0][:int(s.hulls.vert_count[0])]
+    h = float(verts.abs().max())
+    i = torch.arange(n, device=dev)
+    pair, side = i // 2, i % 2
+    pos = torch.stack([(4 * h) * (pair % 8) + side * (2 * h - 0.02),
+                       torch.full_like(i, 1, dtype=torch.float32) * (h - 0.01),
+                       (4 * h) * (pair // 8)], dim=1).float()
+    turn = (pair % 3).float() * (torch.pi / 4) * side   # 0°, 90°, 180° about y
+    quat = torch.stack([torch.cos(turn), torch.zeros_like(turn),
+                        torch.sin(turn), torch.zeros_like(turn)], dim=1)
+    s = s.replace(pos=pos.contiguous(), quat=quat.contiguous(),
+                  vel=torch.zeros_like(s.vel), omega=torch.zeros_like(s.omega))
+    s = prepare_contacts(s, cfg)
+    s, _ = step_with_metrics(s, cfg, plain=True)
+    tk, _ = _hull_tables_match(s, cfg)
+    assert int((tk[tct.CT_ACT] * (1 - tk[tct.CT_KSGN])).sum()) > 50
+
+
+def test_hull_table_warm_match_first_of_duplicate_keys(rain):
+    """Previous keys with duplicates in one bucket: the first previous
+    slot (index order) with the key gives the warm λ, as in the plain
+    version's first match."""
+    s, cfg = rain
+    keys, lam = s.contact_key.clone(), s.contact_lam.clone()
+    ccap = tct.table_shape(s.num_bodies, cfg)[1]
+    live = torch.nonzero(keys[0, :ccap] != 0).flatten()
+    assert live.numel() >= 8
+    lam[:, :ccap] = 1.0
+    for a, b in zip(live[:4].tolist(), live[-4:].tolist()):
+        keys[:, b] = keys[:, a]      # b > a: a later duplicate of a's key
+        lam[:, b] = 2.0
+    _, wk = _hull_tables_match(s, cfg, prev=(keys, lam))
+    assert not bool((wk[0:3, :ccap] == 2.0).any())
+    assert bool((wk[0:3, :ccap] == 1.0).any())
+
+
 @pytest.fixture(scope="module")
 def np_pile(pile):
     """The pile prepared for the two-kernel path and stepped once along
@@ -234,21 +327,38 @@ def np_pile(pile):
     return s, cfg
 
 
-def test_pair_manifolds_kernel(np_pile):
-    s, cfg = np_pile
-    _, _, _, geom, cand, _ = banded_contact_list(s, cfg, plain=True)
-    before = pair_manifolds_banded.launches
-    rk, pp, kk = pair_manifolds_banded(s, cand, cfg, geom)
-    assert pair_manifolds_banded.launches == before + 1
-    rp, _, _ = pair_manifolds_banded(s, cand, cfg, geom, plain=True)
-    exact = [5 * p + 4 for p in range(kk)] + [5 * kk + 5, 5 * kk + 6]
-    for r in exact:
-        assert torch.equal(rk[r], rp[r]), r
-    for p in range(kk):
-        assert torch.equal(rk[5 * p + 3] > 0, rp[5 * p + 3] > 0), p
+def _banded_contacts_match(s, cfg, shard=None):
+    _, rank, cand, geom, _ = banded_inputs(s, cfg, plain=True)
+    before = banded_contacts.launches
+    ck, lok, rbk, ngk = banded_contacts(s, cfg, rank, cand, geom, shard=shard)
+    assert banded_contacts.launches == before + 1
+    cp, lop, rbp, ngp = banded_contacts(s, cfg, rank, cand, geom, plain=True,
+                                        shard=shard)
+    assert ngk == ngp
+    for f in ("body_a", "body_b", "key", "active"):
+        assert torch.equal(getattr(ck, f), getattr(cp, f)), f
+    assert torch.equal(lok, lop) and torch.equal(rbk, rbp)
     extent = float(geom[24:27, :N].abs().max())
-    assert float((rk - rp).abs().max()) <= 1e-5 * extent
-    assert int((rk[3] > 0).sum()) > 200
+    for f in ("point", "normal", "depth", "friction", "restitution"):
+        err = float((getattr(ck, f) - getattr(cp, f)).abs().max())
+        assert err <= 1e-5 * extent, (f, err)
+    return ck, ngk
+
+
+def test_banded_contacts_kernel(np_pile):
+    """Kernel 2.8 (ground corners and pair manifolds, one launch) against
+    the plain composition on the whole list."""
+    ck, ng = _banded_contacts_match(*np_pile)
+    assert int(ck.active[:ng].sum()) > 50
+    assert int(ck.active[ng:].sum()) > 200
+
+
+@pytest.mark.parametrize("rank", [0, 4])
+def test_banded_contacts_kernel_sharded(np_pile, rank):
+    """One rank of 5: its ground slot range (the last one ends in zero
+    padding) and its slice of the candidate lanes in chunked mode
+    (device-side tile-min window bases)."""
+    _banded_contacts_match(*np_pile, shard=Shard(None, rank, 5))
 
 
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
@@ -359,19 +469,3 @@ def test_table_kernels_bucket_range(pile, rain):
         assert torch.equal(part[0], full[0][:, ccap:2 * ccap])
         assert torch.equal(part[1], full[1][:, 128:256])
         assert torch.equal(part[2], full[2][:, ccap:2 * ccap])
-
-
-def test_pair_manifolds_kernel_chunked(np_pile):
-    """Kernel 2.8 in chunked mode (device-side tile-min bases) on the
-    second half of the candidate lanes."""
-    s, cfg = np_pile
-    _, _, _, geom, cand, _ = banded_contact_list(s, cfg, plain=True)
-    half = len(cand.mask) // 2
-    cand = type(cand)(*[x[half:] if x.dim() else x for x in cand])
-    rk, _, kk = pair_manifolds_banded(s, cand, cfg, geom, chunked=True)
-    rp, _, _ = pair_manifolds_banded(s, cand, cfg, geom, plain=True,
-                                     chunked=True)
-    for r in [5 * p + 4 for p in range(kk)] + [5 * kk + 5, 5 * kk + 6]:
-        assert torch.equal(rk[r], rp[r]), r
-    extent = float(geom[24:27, :N].abs().max())
-    assert float((rk - rp).abs().max()) <= 1e-5 * extent

@@ -1,19 +1,23 @@
-"""Step rate of the port's 4,096-box pile on one NVIDIA card, for two
-checkouts of the repository compared in one run.
+"""Step rate of the port's paths on one NVIDIA card, for two checkouts of
+the repository compared in one run.
 
-    python3 tools/step_rate.py --compare OLD_DIR NEW_DIR --rounds 2
+    python3 tools/step_rate.py --compare OLD_DIR NEW_DIR --rounds 2 \
+        --paths pile rain two_kernel_pile
 
-runs the pile of each checkout in its own process, in the order old,
-new, new, old for each round, and prints one JSON line per process and a
-summary. Each process builds its checkout's kernels (its own git-ignored
-`physics_tpu_torch/_build/`), then for each of `--reps` fresh piles
-(`box_pile(4096, x_aspect=16)`, `pile_config(4096)` with contact_iters=8)
-times steps 40..240 on the host clock, ending in a device synchronize,
-as chip_smoke.py phase 4 does. With `--profile`, each process then runs
-8 steps under torch.profiler and times `--reps` more piles, to show
-whether a finished profiler session changes the rate. With
-`--cprofile`, each process also prints the host functions that take the
-most of 40 steps under cProfile.
+runs each checkout in its own process, in the order old, new, new, old
+for each round, and prints one JSON line per process and a summary per
+path. Each process builds its checkout's kernels (its own git-ignored
+`physics_tpu_torch/_build/`), then for each path and each of `--reps`
+fresh scenes times steps 40..240 on the host clock, ending in a device
+synchronize, as chip_smoke.py phases 4, 5 and 7 do: `pile` is
+`box_pile(4096, x_aspect=16)` under `pile_config(4096)` with
+contact_iters=8 (the table path), `two_kernel_pile` the same with
+contact_table=False, `rain` `mesh_rain(1024)` under `rain_config(1024)`.
+With `--profile`, each process then runs 8 steps of the first path under
+torch.profiler and times `--reps` more of its scenes, to show whether a
+finished profiler session changes the rate. With `--cprofile`, each
+process also prints the host functions that take the most of 40 steps of
+the first path under cProfile.
 
     python3 tools/step_rate.py --build-times
 
@@ -42,64 +46,82 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def worker(root: str, reps: int, profile: bool, cprofile: bool) -> dict:
+PATHS = ("pile", "rain", "two_kernel_pile")
+
+
+def worker(root: str, paths, reps: int, profile: bool,
+           cprofile: bool) -> dict:
     sys.path.insert(0, root)
     import torch
 
     from physics_tpu_torch import scenes
     from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+    from physics_tpu_torch.solver.contacts import anchored_path
 
     dev = torch.device("cuda", 0)
-    n, steps, window0 = 4096, 240, 40
-    cfg = scenes.pile_config(n).replace(contact_iters=8)
+    steps, window0 = 240, 40
+    pile_cfg = scenes.pile_config(4096).replace(contact_iters=8)
+    setups = {
+        "pile": (lambda: scenes.box_pile(4096, x_aspect=16.0, device=dev),
+                 pile_cfg),
+        "two_kernel_pile": (lambda: scenes.box_pile(4096, x_aspect=16.0,
+                                                    device=dev),
+                            pile_cfg.replace(contact_table=False)),
+        "rain": (lambda: scenes.mesh_rain(1024, real_assets=False,
+                                          device=dev),
+                 scenes.rain_config(1024)),
+    }
+    issue = {}
 
-    issue = {"rebuild": [], "refresh": []}
-
-    def pile_ms() -> float:
-        st = prepare_contacts(scenes.box_pile(n, x_aspect=16.0, device=dev),
-                              cfg)
+    def path_ms(path: str) -> float:
+        make, cfg = setups[path]
+        st = prepare_contacts(make(), cfg)
+        k = cfg.contact_rebuild if anchored_path(st, cfg) else 1
         torch.cuda.synchronize()
         for i in range(steps):
             if i == window0:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            kind = ("refresh" if st.step_count_host % cfg.contact_rebuild
-                    else "rebuild")
+            kind = "refresh" if st.step_count_host % k else "rebuild"
             ts = time.perf_counter()
             st, _ = step_with_metrics(st, cfg)
             if i >= window0:
-                issue[kind].append(1e3 * (time.perf_counter() - ts))
+                issue.setdefault(path, {}).setdefault(kind, []).append(
+                    1e3 * (time.perf_counter() - ts))
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / (steps - window0)
 
     t0 = time.perf_counter()
-    pile_ms()                       # builds the kernels; not reported
+    for path in paths:
+        path_ms(path)               # builds the kernels; not reported
     first_s = time.perf_counter() - t0
-    for ms in issue.values():
-        ms.clear()
-    out = {"root": root, "first_pile_s": first_s,
-           "ms_per_step": [pile_ms() for _ in range(reps)]}
+    issue.clear()
+    out = {"root": root, "first_scenes_s": first_s,
+           "ms_per_step": {p: [path_ms(p) for _ in range(reps)]
+                           for p in paths}}
     # host time to issue one step (no synchronize inside), median per
     # branch over the timed windows
-    out["issue_ms_median"] = {k: sorted(v)[len(v) // 2]
-                              for k, v in issue.items()}
+    out["issue_ms_median"] = {p: {k: sorted(v)[len(v) // 2]
+                                  for k, v in kinds.items()}
+                              for p, kinds in issue.items()}
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof
 
-        st = prepare_contacts(scenes.box_pile(n, x_aspect=16.0, device=dev),
-                              cfg)
+        make, cfg = setups[paths[0]]
+        st = prepare_contacts(make(), cfg)
         with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
             for _ in range(8):
                 st, _ = step_with_metrics(st, cfg)
             torch.cuda.synchronize()
-        out["ms_per_step_after_profile"] = [pile_ms() for _ in range(reps)]
+        out["ms_per_step_after_profile"] = [path_ms(paths[0])
+                                            for _ in range(reps)]
     if cprofile:
         import cProfile
         import io
         import pstats
 
-        st = prepare_contacts(scenes.box_pile(n, x_aspect=16.0, device=dev),
-                              cfg)
+        make, cfg = setups[paths[0]]
+        st = prepare_contacts(make(), cfg)
         pr = cProfile.Profile()
         pr.enable()
         for _ in range(40):
@@ -112,15 +134,17 @@ def worker(root: str, reps: int, profile: bool, cprofile: bool) -> dict:
     return out
 
 
-def compare(old: str, new: str, rounds: int, reps: int, profile: bool,
-            cprofile: bool):
+def compare(old: str, new: str, paths, rounds: int, reps: int,
+            profile: bool, cprofile: bool):
     gpu = card()
     print(gpu, flush=True)
     runs = {old: [], new: []}
     for _ in range(rounds):
         for root in (old, new, new, old):
-            cmd = [sys.executable, __file__, "--worker", root,
-                   "--reps", str(reps)] + (["--profile"] if profile else [])
+            cmd = [sys.executable, __file__, "--worker", root, "--paths",
+                   *paths, "--reps", str(reps)]
+            if profile:
+                cmd.append("--profile")
             if cprofile:
                 cmd.append("--cprofile")
             res = subprocess.run(cmd, capture_output=True, text=True,
@@ -135,12 +159,14 @@ def compare(old: str, new: str, rounds: int, reps: int, profile: bool,
             runs[root].append(rec)
     summary = {}
     for root, recs in runs.items():
-        ms = sorted(x for r in recs for x in r["ms_per_step"])
-        summary[root] = {"median_ms_per_step": ms[len(ms) // 2],
-                         "min": ms[0], "max": ms[-1], "n": len(ms)}
-        for kind in ("rebuild", "refresh"):
-            med = sorted(r["issue_ms_median"][kind] for r in recs)
-            summary[root][f"{kind}_issue_ms"] = med
+        summary[root] = {}
+        for path in paths:
+            ms = sorted(x for r in recs for x in r["ms_per_step"][path])
+            per_process = [sorted(r["ms_per_step"][path])[reps // 2]
+                           for r in recs]
+            summary[root][path] = {"median_ms_per_step": ms[len(ms) // 2],
+                                   "min": ms[0], "max": ms[-1], "n": len(ms),
+                                   "process_medians": per_process}
         if profile:
             ap = sorted(x for r in recs
                         for x in r["ms_per_step_after_profile"])
@@ -176,6 +202,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", nargs=2, metavar=("OLD", "NEW"))
     ap.add_argument("--worker")
+    ap.add_argument("--paths", nargs="+", choices=PATHS, default=["pile"])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--profile", action="store_true")
@@ -183,11 +210,11 @@ def main() -> int:
     ap.add_argument("--build-times", action="store_true")
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker, args.reps, args.profile,
-                                args.cprofile)))
+        print(json.dumps(worker(args.worker, args.paths, args.reps,
+                                args.profile, args.cprofile)))
     elif args.compare:
-        compare(*args.compare, args.rounds, args.reps, args.profile,
-                args.cprofile)
+        compare(*args.compare, args.paths, args.rounds, args.reps,
+                args.profile, args.cprofile)
     elif args.build_times:
         build_times()
     else:
