@@ -1,7 +1,8 @@
 """GPU smoke run of physics_tpu_torch on one NVIDIA card: the 4,096-body
-box pile (on the contact-table path and on the two-kernel path) and the
-1,024-hull rain stepping through the port's hand-written kernels, on one
-process and row-sharded over 4 ranks.
+box pile (on the contact-table path and on the two-kernel path), the
+1,024-hull rain and 4,096 packed environments of 8 boxes stepping through
+the port's hand-written kernels, on one process and row-sharded over 4
+ranks.
 
     python3 chip_smoke.py            # needs CUDA; exits non-zero without
 
@@ -36,7 +37,27 @@ Phases (any failure raises, so the run exits non-zero):
               against the plain path); and one warm step of
               the unfused table solve (fuse_prep=False), with and without
               fuse_integrate, against the plain path;
-  8. sharded  the single-sweep kernel (2.7) against its plain version on
+  8. packed   scenes.packed_envs(4096, 8) under packed_env_config (the
+              env_blocks table, identity order, K = 32 with the per-bucket
+              displacement gate), settled 60 steps: the contact table
+              against its plain version in its three candidate-free
+              modes at the path's shapes (the packed rebuild; a refresh
+              with every bucket fired, with 1 bucket in 16 fired, with
+              none fired), each timed by CUDA events and by its kernel's
+              device time; then 240 fresh steps with the checks and
+              measurements of phase 4 and overflow counters 0 at the end;
+  9. gated    the settled 4k pile under contact_rebuild_vel_factor 2: a
+              gated refresh table (its own gate, then a mixed one) and a
+              refresh step against the plain path; then at
+              contact_rebuild 1 with bp_inkernel: the table of the
+              in-kernel broad phase on the sweep order (window-edge
+              counts in meta column 3) and a step against the plain path;
+ 10. faces    the hull table against its plain version on rains of
+              octahedra (faces of 3 vertices), hexagonal prisms (6) and
+              12-gon prisms (12), and the octahedra under
+              rain_config's motion guard (vel_factor 2): guard rebuilds
+              counted over 12 steps, a guard step against the plain path;
+ 11. sharded  the single-sweep kernel (2.7) against its plain version on
               one rank's quarter of each sharded path's solve (the 4k
               table pile's timed), in each of its four switch
               combinations; the contact-list kernel (2.8) on each rank's
@@ -51,7 +72,7 @@ Phases (any failure raises, so the run exits non-zero):
               step_with_metrics with the rank's shard: overflow counters,
               every rank's state bitwise equal to rank 0's, and the step
               against the one-process kernel path from the same state;
-  9. profile  device time by kernel over 8 more steps of each path
+ 12. profile  device time by kernel over 8 more steps of each path
               (torch.profiler), after every timed window.
 The line before the last is a JSON object of per-kernel results (each
 kernel's least possible time on the card, `bound_ms`, is computed from
@@ -72,6 +93,7 @@ import torch
 
 from physics_tpu_torch import _build, scenes
 from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+from physics_tpu_torch.io.primitives import octahedron_verts, prism_verts
 from physics_tpu_torch.ops import hull_table as ht
 from physics_tpu_torch.ops.broadphase import (
     PairCandidates,
@@ -92,6 +114,7 @@ from physics_tpu_torch.ops.contact_table import (
     CT_RB1,
     CT_REST,
     bucket_contact_table,
+    inkernel_candidates,
     lane_geometry,
     obb_prefilter,
     table_operands,
@@ -115,10 +138,12 @@ from physics_tpu_torch.solver.banded_solve import (
 )
 from physics_tpu_torch.solver.contacts import (
     _rebuild,
+    _rebuild_now,
     _sharded_capacity,
     anchored_path,
     banded_contact_list,
     banded_inputs,
+    refresh_gate,
 )
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
 
@@ -137,6 +162,7 @@ SOLVE_RTOL = 1e-4
 STEP_ATOL = 1e-4
 N_PILE = 4096
 N_RAIN = 1024
+N_ENVS, ENV_K = 4096, 8
 RANKS = 4
 STEP_COUNTERS = ("contact_count", "pair_overflow", "contact_overflow",
                  "band_overflow")
@@ -154,6 +180,8 @@ OPS_EMIT = 60                # one active contact: anchors, keys, warm key
 OPS_SOLVE_CONTACT = 250      # one contact in one Jacobi sweep (3 rows)
 OPS_SOLVE_PREP = 400         # one contact's constants in sweep 0
 OPS_INTEGRATE = 60           # one body's pos/quat integration
+OPS_WINDOW_AABB = 30         # a window rank's |R|·half-extent AABB
+OPS_RAW_PAIR = 12            # one raw pair's overlap, liveness and env tests
 # device-kernel names of csrc/*.cu and ops/sweep_kernel.py
 PORT_KERNELS = ("masks_kernel", "contact_table_kernel", "hull_prefilter_kernel",
                 "hull_sat_kernel", "hull_manifold_kernel", "hull_ground_kernel",
@@ -637,10 +665,11 @@ def check_np_kernels(state, cfg):
     return out
 
 
-def drive(label, make, cfg, steps, want, gpu):
+def drive(label, make, cfg, steps, want, gpu, zero_overflow=False):
     """prepare_contacts + `steps` fresh steps with the launch counters set
     to 0 just before and read just after (`want` names the counts that
-    are not 0); the checks and the step rate, then two steps of the
+    are not 0); the checks (with `zero_overflow`, pair and contact
+    overflow 0 at the end) and the step rate, then two steps of the
     kernel path against the plain path. Returns (launch counts, the last
     state)."""
     zero_counts()
@@ -678,6 +707,8 @@ def drive(label, make, cfg, steps, want, gpu):
         f"{int(m['contact_count'])}")
     if int(m["band_overflow"]) != 0:
         raise AssertionError(f"{label}: band_overflow {int(m['band_overflow'])}")
+    if zero_overflow and (int(m["pair_overflow"]) or int(m["contact_overflow"])):
+        raise AssertionError(f"{label}: overflow counters not 0 at the end")
     log(f"{label}: {1e3 * secs / timed:.4f} ms/step, "
         f"{n * timed / secs:.1f} body-steps/s over steps {window0}..{steps} "
         f"on {gpu}")
@@ -704,21 +735,164 @@ def drive(label, make, cfg, steps, want, gpu):
         if what == "cold":
             src = st.replace(contact_key=st.contact_key.new_zeros((0,)),
                              contact_lam=st.contact_lam.new_zeros((3, 0)))
-        sk, mk = step_with_metrics(src, cfg)
-        sp, mp = step_with_metrics(src, cfg, plain=True)
-        state_close(sk, sp, f"{label} {what} step (step {st.step_count_host})")
-        for key in ("contact_count", "pair_overflow", "contact_overflow"):
-            if int(mk[key]) != int(mp[key]):
-                raise AssertionError(f"{label} {what} step: {key} differs")
-        log(f"{label} {what} step {st.step_count_host}: kernel path matches "
-            f"plain path (atol {STEP_ATOL})")
+        sk = steps_match(f"{label} {what} step {st.step_count_host}", src,
+                         cfg)
         if what != "cold":
             st = sk
     return launches, st
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the row-sharded step
+# phases 8-10: the contact table's candidate-free modes, the hull faces
+# ---------------------------------------------------------------------------
+
+def kernel_device_us(fn, names, reps: int = 5) -> float:
+    """Mean device µs a call of fn spends in the kernels whose names
+    contain one of `names` (torch.profiler over `reps` calls; run with
+    the profiles, after every timed window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and any(k in e.key for k in names)) / reps
+
+
+def mode_bound(st, cfg, geom, prev, outs, gate):
+    """The least time of a candidate-free table call on these inputs: the
+    fired buckets' window geometry (narrow-phase rows of their ranks and
+    the bp_k after), the previous keys and impulses, the persisted blocks
+    of the passed-through buckets read; the outputs written. Operations:
+    per fired bucket its window AABBs and raw pair tests, the prefilter
+    on its stage-1 lanes, the manifold on its SAT lanes, its ground
+    corners; the emission of each active contact."""
+    n = st.num_bodies
+    _, _, _, kw = table_operands(st, None, cfg, None, geom, "bound")
+    bp_k, cap, env_k = kw["bp"]
+    nb, ccap = kw["nb"], kw["ccap"]
+    fired = (torch.ones(nb, dtype=torch.bool, device=geom.device)
+             if gate is None else gate.bool())
+    la, lb, _, _ = inkernel_candidates(geom, nb, 0, bp_k, cap, env_k)
+    stage1 = int((la[fired] >= 0).sum())
+    sat = stage1
+    if kw["cap2"]:
+        ga, gb = lane_geometry(geom, la), lane_geometry(geom, lb)
+        la2, _, _ = obb_prefilter(ga, gb, la, lb, kw["cap2"], False)
+        sat = int((la2[fired] >= 0).sum())
+    cols = torch.zeros(geom.shape[1], dtype=torch.bool, device=geom.device)
+    for b in torch.nonzero(fired).flatten().tolist():
+        cols[b * BLOCK:b * BLOCK + BLOCK + bp_k] = True
+    cols[n:] = False
+    f = int(fired.sum())
+    table, _, _ = outs
+    passed = (table.shape[0] * 4 * ccap * (nb - f)) if gate is not None else 0
+    act = int((table[CT_ACT] > 0).sum())
+    return bound(24 * 4 * int(cols.sum()) + passed + nbytes(*prev, *outs),
+                 f * (OPS_WINDOW_AABB * (BLOCK + bp_k) + OPS_RAW_PAIR
+                      * BLOCK * bp_k + OPS_GROUND_BODY * BLOCK)
+                 + (OPS_OBB_PREFILTER * stage1 if kw["cap2"] else 0)
+                 + OPS_BOX_MANIFOLD * sat + OPS_EMIT * act)
+
+
+def check_table_modes(label, st, cfg, order, cases):
+    """2.2 without candidates (the in-kernel broad phase on `order`, None
+    for the identity) against its plain version, each case a gate [NB]
+    over the persisted table or None (ungated). Returns {case: (max err,
+    kernel ms, plain ms, bound, fired buckets, the kernel call)}."""
+    n = st.num_bodies
+    geom = unified_geom(st, cfg, order)
+    prev = (st.contact_key, st.contact_lam)
+    out = {}
+    for case, gate in cases.items():
+        g = None if gate is None else (gate, st.contact_table)
+
+        def fn(plain, g=g):
+            return bucket_contact_table(st, None, cfg, prev=prev, geom=geom,
+                                        plain=plain, gate=g)
+        outs, err, kms, pms, act = check_table(
+            f"2.2 {label} {case}", lambda fn=fn: fn(False),
+            lambda fn=fn: fn(True), n, geom)
+        bnd = mode_bound(st, cfg, geom, prev, outs, gate)
+        meta = outs[1][0].reshape(-1, BLOCK)
+        fired = meta.shape[0] if gate is None else int(gate.sum())
+        log(f"2.2 {label} {case} ({fired} of {meta.shape[0]} buckets "
+            f"fired): keys/activity/ranks/meta/warm identical, f32 rows max "
+            f"|Δ| {err}; {act} contacts, dropped {int(meta[:, 0].sum())}, "
+            f"lane drops {int(meta[:, 2].sum())}, window-edge ranks "
+            f"{int(meta[:, 3].sum())}; kernel {kms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
+        out[case] = (err, kms, pms, bnd, fired, lambda fn=fn: fn(False))
+    return out
+
+
+def steps_match(label, st, cfg):
+    """One step of the kernel path against the plain path from `st`."""
+    sk, mk = step_with_metrics(st, cfg)
+    sp, mp = step_with_metrics(st, cfg, plain=True)
+    state_close(sk, sp, label)
+    for key in ("contact_count", "pair_overflow", "contact_overflow"):
+        if int(mk[key]) != int(mp[key]):
+            raise AssertionError(f"{label}: {key} differs")
+    log(f"{label}: kernel path matches plain path (atol {STEP_ATOL}); "
+        f"contacts {int(mk['contact_count'])}")
+    return sk
+
+
+def squeezed_rain(verts, n, dev):
+    """hull_rain(verts, n) pressed together so hulls touch from the start,
+    prepared for rain_config(n) and stepped twice along the plain path."""
+    arrays = to_numpy(scenes.hull_rain(verts, n, device="cpu"))
+    arrays["pos"] *= np.float32([0.55, 0.45, 0.55])
+    arrays["pos"][:, 1] += 0.3
+    cfg = scenes.rain_config(n)
+    st = prepare_contacts(state_from_arrays(arrays, dev), cfg)
+    for _ in range(2):
+        st, _ = step_with_metrics(st, cfg, plain=True)
+    return st, cfg
+
+
+def check_hull_faces(dev):
+    """Phase 10: 2.4 on libraries of faces of 3, 6 and 12 vertices, and
+    the motion guard's rebuilds. Returns the max err."""
+    err = 0.0
+    hulls = {}
+    for label, verts in (("octahedra, E=3", octahedron_verts()),
+                         ("hexagonal prisms, E=6", prism_verts(6)),
+                         ("12-gon prisms, E=12", prism_verts(12))):
+        st, cfg = squeezed_rain(verts, 128, dev)
+        e = ht.hull_dims(st.hulls).e
+        (tk, _, _), _, _, e_err, _, _, _ = check_hull_table(st, cfg, label)
+        pairs = int((tk[CT_ACT] * (1 - tk[CT_KSGN])).sum())
+        if e != int(label.split("=")[1]) or pairs == 0:
+            raise AssertionError(f"{label}: E {e}, {pairs} pair contacts")
+        err = max(err, e_err)
+        hulls[label] = st
+    st = hulls["octahedra, E=3"]
+    gcfg = scenes.rain_config(128).replace(contact_rebuild_vel_factor=2.0)
+    fires, checked = 0, False
+    for _ in range(12):
+        guard = st.step_count_host % 4 != 0 and _rebuild_now(st, gcfg, True)
+        fires += guard
+        if guard and not checked:
+            steps_match(f"hull guard step {st.step_count_host} (octahedra)",
+                        st, gcfg)
+            checked = True
+        st, _ = step_with_metrics(st, gcfg)
+    log(f"hull motion guard (octahedra, vel_factor 2): {fires} guard "
+        f"rebuilds in 12 steps besides the scheduled ones")
+    if not checked:
+        raise AssertionError("hull motion guard never fired")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the row-sharded step
 # ---------------------------------------------------------------------------
 
 SWEEP_CASES = {      # (vel_on, pos_on, warm, deg_pass) of one sharded sweep
@@ -1096,17 +1270,64 @@ def main() -> int:
         ucfg = cfg.replace(fuse_prep=False, fuse_integrate=fuse)
         su, _ = step_with_metrics(prepare_contacts(pile_st, ucfg), ucfg,
                                   plain=True)
-        sk, mk = step_with_metrics(su, ucfg)
-        sp, mp = step_with_metrics(su, ucfg, plain=True)
-        state_close(sk, sp, f"unfused table step (fuse_integrate {fuse})")
-        for key in ("contact_count", "pair_overflow", "contact_overflow"):
-            if int(mk[key]) != int(mp[key]):
-                raise AssertionError(f"unfused table step: {key} differs")
-        log(f"unfused table step (fuse_integrate {fuse}): kernel path "
-            f"matches plain path (atol {STEP_ATOL}); contacts "
-            f"{int(mk['contact_count'])}")
+        steps_match(f"unfused table step (fuse_integrate {fuse})", su, ucfg)
 
-    # ---- phase 8: the row-sharded step (no profile: it runs in the ranks)
+    # ---- phase 8: 4,096 packed envs of 8 boxes ----
+    pcfg = scenes.packed_env_config(N_ENVS, ENV_K)
+
+    def packed():
+        return scenes.packed_envs(N_ENVS, ENV_K, device=dev)
+
+    st = prepare_contacts(packed(), pcfg)
+    for _ in range(args.settle):
+        st, m = step_with_metrics(st, pcfg)
+    torch.cuda.synchronize()
+    nbp = table_shape(st.num_bodies, pcfg)[0]
+    log(f"packed envs settled {args.settle} steps: contacts "
+        f"{int(m['contact_count'])}; the refresh gate would fire "
+        f"{int(refresh_gate(st, pcfg, None).sum())} of {nbp} buckets")
+    every = torch.arange(nbp, device=dev)
+    modes = check_table_modes("packed", st, pcfg, None, {
+        "rebuild": None,
+        "refresh, all fired": every >= 0,
+        "refresh, 1 in 16 fired": every % 16 == 0,
+        "refresh, none fired": every < 0})
+    packed_launches, packed_st = drive("packed envs", packed, pcfg,
+                                       args.steps, {
+        "bucket_contact_table": args.steps,
+        "banded_sweeps_fused": args.steps}, gpu, zero_overflow=True)
+
+    # ---- phase 9: the gated pile and the sweep's in-kernel broad phase --
+    gcfg = cfg.replace(contact_rebuild_vel_factor=2.0)
+    st = pile_st
+    while st.step_count_host % gcfg.contact_rebuild == 0:
+        st, _ = step_with_metrics(st, gcfg)
+    gate = refresh_gate(st, gcfg, st.contact_order)
+    nbg = gate.shape[0]
+    gated = check_table_modes("gated pile", st, gcfg, st.contact_order, {
+        "own gate": gate,
+        "mixed gate": torch.arange(nbg, device=dev) % 2 == 0})
+    steps_match(f"gated pile refresh step {st.step_count_host}", st, gcfg)
+    bcfg = cfg.replace(contact_rebuild=1, bp_inkernel=True)
+    st = steps_match("sweep bp_k step (cold)", prepare_contacts(pile_st, bcfg),
+                     bcfg)
+    sweep_bp = check_table_modes("sweep bp_k", st, bcfg,
+                                 sweep_order(st, body_aabbs(st)),
+                                 {"rebuild": None})
+    steps_match("sweep bp_k step (warm)", st, bcfg)
+    modes.update({f"gated pile, {k}": v for k, v in gated.items()})
+    modes["sweep bp_k, rebuild"] = sweep_bp["rebuild"]
+    results["bucket_contact_table"] = (max(
+        [results["bucket_contact_table"][0]] + [v[0] for v in modes.values()]),
+        ) + results["bucket_contact_table"][1:]
+
+    # ---- phase 10: hull libraries of faces of 3, 6 and 12 vertices ----
+    err = check_hull_faces(dev)
+    results["bucket_hull_contact_table"] = (max(
+        err, results["bucket_hull_contact_table"][0]),) + \
+        results["bucket_hull_contact_table"][1:]
+
+    # ---- phase 11: the row-sharded step (no profile: it runs in the ranks)
     # 2.7 at the shapes each sharded path gives it (the pile's row is the
     # one timed), 2.8 in chunked mode on each rank's quarter of the lanes
     sweep = check_sweep_once("pile", N_PILE,
@@ -1135,9 +1356,18 @@ def main() -> int:
     # ---- profiles, after every timed window: a finished profiler
     # session can leave the launch path slower ----
     for label, st, c in (("pile", pile_st, cfg), ("rain", rain_st, rcfg),
-                         ("two-kernel pile", np_st, ncfg)):
-        log(f"{label}:")
+                         ("two-kernel pile", np_st, ncfg),
+                         ("packed envs", packed_st, pcfg)):
+        log(f"{label} ({gpu}):")
         profile_steps(st, c, 8)
+    mode_lines = {}
+    for case, (err, kms, pms, (bms, by), fired, call) in modes.items():
+        us = kernel_device_us(call, ("contact_table_kernel",))
+        log(f"2.2 {case}: {us:.1f} us of device a launch ({fired} buckets "
+            f"fired; {gpu})")
+        mode_lines[case] = {"max_abs_err": err, "ms": kms, "plain_ms": pms,
+                            "bound_ms": bms, "bound_by": by,
+                            "device_us": us, "fired_buckets": fired}
 
     sources = {
         "sweep_window_masks": ("triton", "physics_tpu_torch/ops/sweep_kernel.py",
@@ -1163,6 +1393,7 @@ def main() -> int:
         err, kms, pms, (bms, by) = results[name]
         by_path = {"pile": pile_launches[name], "rain": rain_launches[name],
                    "two_kernel_pile": np_launches[name],
+                   "packed_envs": packed_launches[name],
                    **{path: counts[name]
                       for path, counts in sharded_launches.items()}}
         kernels.append({"name": name, "route": route, "source": src,
@@ -1173,6 +1404,8 @@ def main() -> int:
                         "bound_ms": bms, "bound_by": by,
                         # no single PyTorch call computes any of these
                         "library_ms": None})
+        if name == "bucket_contact_table":
+            kernels[-1]["modes"] = mode_lines
     log(f"rain solve: {json.dumps(rain_solve)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,10 +42,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name → argument types (restype is int, a cudaError_t)
 SIGNATURES = {
     "ct_bucket_contact_table": [
-        _P, _P, _P, _P,            # geom, la, lb, prev cols (or NULL)
+        _P, _P, _P, _P,            # geom, la, lb (or NULL), prev cols (or NULL)
+        _P, _P,                    # gate, persisted table (or NULL)
         _P, _P, _P,                # table, meta, warm (or NULL)
         _I, _I, _I, _I, _I, _I, _I,  # nb, bucket0, cap, cap2, ccap, kk, kg
-        _I, _I,                    # npad, rows
+        _I, _I, _I, _I,            # npad, rows, bp_k, env_k
         _F,                        # ground height
         _P,                        # stream
     ],
@@ -57,7 +58,7 @@ SIGNATURES = {
         _P, _I,                    # int32 scratch and its words
         _I, _I, _I, _I, _I, _I, _I,  # nb, bucket0, cap, cap2, ccap, kk, kg
         _I, _I, _I,                # npad, rows, hull types
-        _I, _I, _I, _I, _I,        # fp, vcap, d2, d2p, e2p
+        _I, _I, _I, _I, _I, _I,    # fp, vcap, e, d2, d2p, e2p
         _I, _I, _I,                # rows of c16, c32, cb per type pair
         _F,                        # ground height
         _P,                        # stream
@@ -111,6 +112,10 @@ SIGNATURES = {
         _P,                        # stream
     ],
 }
+
+# what ct_bucket_contact_table returns when a bucket's working set exceeds
+# the shared memory a block can have (not a cudaError_t)
+SMEM_TOO_LARGE = 1001
 
 # bs_banded_solve / bs_banded_sweeps / bs_prep_consts flags
 FLAG_USE_SPLIT = 1

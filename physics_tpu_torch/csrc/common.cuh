@@ -73,10 +73,13 @@ __device__ __forceinline__ float face_sat_sep(V3 t, const float* ra, const float
 }
 
 // One Sutherland–Hodgman half-plane clip (boxbox_batched._clip): keep
-// cu·u + cv·v <= d of the m-point polygon held in CAP slots.
+// cu·u + cv·v <= d of the m-point polygon held in CAP slots, of which the
+// first cap_rt are the polygon's (a hull library's 2E clip slots held in a
+// larger compile-time capacity): the output keeps cap_rt slots, the rest
+// stay 0, so the result is the cap_rt-slot clip's.
 template <int CAP>
 __device__ __forceinline__ void clip(float (&pu)[CAP], float (&pv)[CAP], float (&ps)[CAP], int& m, float cu,
-                                     float cv, float d) {
+                                     float cv, float d, int cap_rt = CAP) {
   float g[CAP], gn[CAP], un[CAP], vn[CAP], sn[CAP];
 #pragma unroll
   for (int i = 0; i < CAP; ++i) g[i] = cu * pu[i] + cv * pv[i] - d;
@@ -114,8 +117,8 @@ __device__ __forceinline__ void clip(float (&pu)[CAP], float (&pv)[CAP], float (
     float au = 0.f, av = 0.f, as = 0.f;
 #pragma unroll
     for (int i = 0; i < CAP; ++i) {
-      const bool mc = pos_cur[i] == j;
-      const bool mi = pos_int[i] == j;
+      const bool mc = pos_cur[i] == j && j < cap_rt;
+      const bool mi = pos_int[i] == j && j < cap_rt;
       au = au + (mc ? pu[i] : 0.f) + (mi ? iu[i] : 0.f);
       av = av + (mc ? pv[i] : 0.f) + (mi ? iv[i] : 0.f);
       as = as + (mc ? ps[i] : 0.f) + (mi ? is[i] : 0.f);
@@ -130,7 +133,7 @@ __device__ __forceinline__ void clip(float (&pu)[CAP], float (&pv)[CAP], float (
     pv[j] = ov[j];
     ps[j] = os[j];
   }
-  m = total < CAP ? total : CAP;
+  m = total < cap_rt ? total : cap_rt;
 }
 
 // (best, idx) over N values; ties keep the lowest index.

@@ -56,9 +56,11 @@
 namespace {
 
 constexpr int kBlock = 128;        // ranks per bucket
-constexpr int kE = 4;              // vertices per face polygon (clip slots 2E)
-constexpr int kSl = 2 * kE;        // clip slots
-constexpr int kNs = kSl + 1;       // contact slots incl. the edge-edge one
+// The manifold kernel holds a face polygon's E vertices and its 2E clip
+// slots in registers, so it is built for a few capacities of E (the
+// library's largest face, at run time d.e) and launched with the smallest
+// that holds it; slot ids and keys follow the run-time E.
+constexpr int kMaxFaceVerts = 16;  // the largest capacity built
 constexpr int kThreads = 256;      // prefilter
 constexpr int kSatThreads = 128;   // SAT lanes a block
 constexpr int kFacesPerSplit = 8;
@@ -75,6 +77,7 @@ constexpr int kGeomRow0 = 24;      // narrow-phase block of the unified table
 
 struct Dims {
   int nb, cap, cap2, sat_cap, ccap, kk, kg, npad, rows, h;
+  int e;        // vertices of the library's largest face (clip slots 2e, slots 2e + 1)
   int bucket0;  // the range's first bucket: bucket b of a launch starts at rank (bucket0 + b)·128
   int fp, vcap, d2, d2p, e2p;
   int r16, r32, rcb;   // rows of c16 / c32 / cb per type pair
@@ -447,6 +450,7 @@ __device__ __forceinline__ void write_inactive(int* em_i, size_t e0, int kk, int
   for (int pick = 0; pick < kk; ++pick) em_i[e0 + (size_t)pick * sat_cap] = 0;
 }
 
+template <int E>
 __global__ void __launch_bounds__(kManThreads)
 hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c16_all,
                      const float* __restrict__ c32_all, const float* __restrict__ c88_all,
@@ -475,7 +479,10 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
     if (t == 0) write_inactive(em_i, e0, d.kk, d.sat_cap);
     return;
   }
+  constexpr int kSl = 2 * E;   // clip slots held
+  constexpr int kNs = kSl + 1;
   const int fp = d.fp, vcap = d.vcap, d2p = d.d2p, e2p = d.e2p;
+  const int ne = d.e, n_sl = 2 * d.e;   // the library's: the edge slot is n_sl
   const float* c16 = c16_all + (size_t)p * d.r16 * 16;
   const float* c32 = c32_all + (size_t)p * d.r32 * fp;
   const float* c88 = c88_all + (size_t)p * 18 * vcap * d2p;
@@ -483,8 +490,8 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
   const float* cb = cb_all + (size_t)p * d.rcb;
   const int* eidx = eidx_all + (size_t)p * 4 * e2p;
   const int lax = 2 * vcap * fp;
-  const int inc_ra = 0, inc_rb = 9 * fp, poly_a = 18 * fp, poly_b = poly_a + 3 * kE;
-  const int fcnt_a = poly_b + 3 * kE, fcnt_b = fcnt_a + 1, fn_a = fcnt_b + 1, fn_b = fn_a + 3;
+  const int inc_ra = 0, inc_rb = 9 * fp, poly_a = 18 * fp, poly_b = poly_a + 3 * ne;
+  const int fcnt_a = poly_b + 3 * ne, fcnt_b = fcnt_a + 1, fn_a = fcnt_b + 1, fn_b = fn_a + 3;
   const int off_a = fn_b + 3, off_b = off_a + 1;
   const int fb_a = 0, fb_b = fp, eb_a = 2 * fp, eb_b = 2 * fp + e2p;
 
@@ -552,16 +559,18 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
   }
   const V3 p_ref = vsel(ref_is_a, ga.p, gb.p);
   const V3 p_inc = vsel(ref_is_a, gb.p, ga.p);
-  V3 ref_w[kE], inc_w[kE];
+  V3 ref_w[E], inc_w[E];
 #pragma unroll
-  for (int k = 0; k < kE; ++k) {
+  for (int k = 0; k < E; ++k) {
+    ref_w[k] = inc_w[k] = mk(0.f, 0.f, 0.f);
+    if (k >= ne) continue;
     const float* pr = c32 + (size_t)(poly_r + k) * fp + fr;
     const float* pi = c32 + (size_t)(poly_i + k) * fp + fi;
-    const float x = __ldg(pr), y = __ldg(pr + (size_t)kE * fp), z = __ldg(pr + (size_t)2 * kE * fp);
+    const float x = __ldg(pr), y = __ldg(pr + (size_t)ne * fp), z = __ldg(pr + (size_t)2 * ne * fp);
     ref_w[k] = mk(r_ref[0] * x + r_ref[1] * y + r_ref[2] * z + p_ref.x,
                   r_ref[3] * x + r_ref[4] * y + r_ref[5] * z + p_ref.y,
                   r_ref[6] * x + r_ref[7] * y + r_ref[8] * z + p_ref.z);
-    const float xi = __ldg(pi), yi = __ldg(pi + (size_t)kE * fp), zi = __ldg(pi + (size_t)2 * kE * fp);
+    const float xi = __ldg(pi), yi = __ldg(pi + (size_t)ne * fp), zi = __ldg(pi + (size_t)2 * ne * fp);
     inc_w[k] = mk(r_inc[0] * xi + r_inc[1] * yi + r_inc[2] * zi + p_inc.x,
                   r_inc[3] * xi + r_inc[4] * yi + r_inc[5] * zi + p_inc.y,
                   r_inc[6] * xi + r_inc[7] * yi + r_inc[8] * zi + p_inc.z);
@@ -577,27 +586,27 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
   const V3 t1 = scale(edge0, 1.0f / fmaxf(sqrtf(fmaxf(dot(edge0, edge0), 0.f)), 1e-9f));
   const V3 t2 = cross(n_ref, t1);
   const V3 p0 = ref_w[0];
-  float ru[kE], rv[kE];
+  float ru[E], rv[E];
 #pragma unroll
-  for (int k = 0; k < kE; ++k) {
+  for (int k = 0; k < E; ++k) {
     const V3 rel = sub(ref_w[k], p0);
     ru[k] = dot(rel, t1);
     rv[k] = dot(rel, t2);
   }
   float pu[kSl], pv[kSl], ps[kSl];
 #pragma unroll
-  for (int k = 0; k < kE; ++k) {
+  for (int k = 0; k < E; ++k) {
     const V3 rel = sub(inc_w[k], p0);
-    pu[k] = dot(rel, t1);
-    pv[k] = dot(rel, t2);
-    ps[k] = dot(inc_w[k], n_ref) - off_ref;
-    pu[kE + k] = pv[kE + k] = ps[kE + k] = 0.f;
+    pu[k] = k < ne ? dot(rel, t1) : 0.f;
+    pv[k] = k < ne ? dot(rel, t2) : 0.f;
+    ps[k] = k < ne ? dot(inc_w[k], n_ref) - off_ref : 0.f;
+    pu[E + k] = pv[E + k] = ps[E + k] = 0.f;
   }
   int m = inc_cnt;
-#pragma unroll
-  for (int k = 0; k < kE; ++k) {
+  // clip against reference edge k (of ref_cnt; the rest are no-ops)
+  auto clip_edge = [&](int k) {
     float ru_n = ru[0], rv_n = rv[0];
-    if (k + 1 < kE) {
+    if (k + 1 < ne) {
       const bool wrapped = (k + 1) == ref_cnt;
       ru_n = wrapped ? ru[0] : ru[k + 1];
       rv_n = wrapped ? rv[0] : rv[k + 1];
@@ -605,7 +614,15 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
     const float e_u = ru_n - ru[k];
     const float e_v = rv_n - rv[k];
     const float on = k < ref_cnt ? 1.f : 0.f;
-    clip(pu, pv, ps, m, e_v * on, -e_u * on, (e_v * ru[k] - e_u * rv[k]) * on + (1.f - on) * kBig);
+    clip(pu, pv, ps, m, e_v * on, -e_u * on, (e_v * ru[k] - e_u * rv[k]) * on + (1.f - on) * kBig, n_sl);
+  };
+  if constexpr (E <= 4) {
+#pragma unroll
+    for (int k = 0; k < E; ++k)
+      if (k < ne) clip_edge(k);
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < ne; ++k) clip_edge(k);
   }
   const V3 n_face = ref_is_a ? neg(n_ref) : n_ref;
 
@@ -671,10 +688,14 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
 
   // ---- slot scores + top-k ----
   const bool face_ok = !separated && !edge_wins;
+  // slots 0 … n_sl − 1 the clip's, n_sl the edge-edge one, the rest unused
   float score[kNs];
 #pragma unroll
   for (int s = 0; s < kSl; ++s) score[s] = ((s < m) && (-ps[s] > 0.f) && face_ok) ? -ps[s] : -kBig;
-  score[kSl] = (edge_wins && (edge_depth > 0.f)) ? edge_depth : -kBig;
+  score[kSl] = -kBig;
+  const float edge_score = (edge_wins && (edge_depth > 0.f)) ? edge_depth : -kBig;
+#pragma unroll
+  for (int s = 0; s < kNs; ++s) score[s] = s == n_sl ? edge_score : score[s];
   float pu_r[kNs], pv_r[kNs], ps_r[kNs];
 #pragma unroll
   for (int s = 0; s < kSl; ++s) {
@@ -688,7 +709,7 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
     int bidx;
     argmax(score, best, bidx);
     const bool act = best > 0.f;
-    const bool is_edge = bidx == kSl;
+    const bool is_edge = bidx == n_sl;
     const float u = select(bidx, pu_r), v = select(bidx, pv_r), s = select(bidx, ps_r);
     const V3 face_pt = mk(p0.x + u * t1.x + v * t2.x + s * n_ref.x, p0.y + u * t1.y + v * t2.y + s * n_ref.y,
                           p0.z + u * t1.z + v * t2.z + s * n_ref.z);
@@ -1011,9 +1032,9 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
                                             const float* vbias, float* table, float* meta, float* warm,
                                             int* scratch, int scratch_words, int nb,
                                             int bucket0, int cap, int cap2, int ccap, int kk, int kg, int npad, int rows, int h, int fp,
-                                            int vcap, int d2, int d2p, int e2p, int r16, int r32, int rcb,
+                                            int vcap, int e, int d2, int d2p, int e2p, int r16, int r32, int rcb,
                                             float gh, void* stream) {
-  if (kk > kNs || kg > 8 || kg > vcap || vcap > 128 || rows > 32 || (cap2 && cap2 > cap) || h < 1 || h * h > 31 ||
+  if (e < 1 || e > kMaxFaceVerts || kk > 2 * e + 1 || kg > 8 || kg > vcap || vcap > 128 || rows > 32 || (cap2 && cap2 > cap) || h < 1 || h * h > 31 ||
       ((uintptr_t)c16 & 15) || bucket0 < 0 || (size_t)(bucket0 + nb + 2) * kBlock > (size_t)npad ||
       ccap % kWarmSlots)
     return (int)cudaErrorInvalidValue;
@@ -1031,6 +1052,7 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
   d.h = h;
   d.fp = fp;
   d.vcap = vcap;
+  d.e = e;
   d.d2 = d2;
   d.d2p = d2p;
   d.e2p = e2p;
@@ -1056,7 +1078,8 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
   constexpr int lanes_per_block = kManThreads / kGroup;
   const dim3 lane_grid((d.sat_cap + lanes_per_block - 1) / lanes_per_block, nb);
   const size_t sup_smem = (size_t)lanes_per_block * 2 * vcap * 4;
-  hull_manifold_kernel<<<lane_grid, kManThreads, sup_smem, st>>>(geom, c16, c32, c88, c80, cb, eidx, sc, d);
+  auto manifold = e <= 4 ? hull_manifold_kernel<4> : e <= 8 ? hull_manifold_kernel<8> : hull_manifold_kernel<16>;
+  manifold<<<lane_grid, kManThreads, sup_smem, st>>>(geom, c16, c32, c88, c80, cb, eidx, sc, d);
 
   if (kg > 0)
     hull_ground_kernel<<<dim3(kBlock / kWarps, nb), kWarps * 32, 0, st>>>(geom, gv, vbias, sc, d);

@@ -80,8 +80,9 @@ def prepare_contacts(state: SimState, cfg: SimConfig) -> SimState:
     anchored path, the persisted table, rank order, overflow counters and
     reference poses) that the contact paths carry across steps: [2, c]
     component-form keys on the table paths, [c] packed keys on the
-    generic path. The JAX package's z_bf16 guard is not needed: the port
-    moves z in f32."""
+    generic path. contact_order starts as the identity (the packed envs'
+    order for good). The JAX package's z_bf16 guard is not needed: the
+    port moves z in f32."""
     c = contact_capacity(state, cfg)
     dev = state.device
     n = state.num_bodies
@@ -90,10 +91,10 @@ def prepare_contacts(state: SimState, cfg: SimConfig) -> SimState:
     if cfg.contact_rebuild > 1 and not anchored_path(state, cfg):
         warnings.warn(
             "cfg.contact_rebuild > 1 has no effect here (needs an "
-            "unsharded contact-table path — box or hull — with fuse_prep on "
-            "the bucketed sweep broad phase; see "
-            "solver.contacts.anchored_path) — rebuilding contacts every "
-            "step", stacklevel=2)
+            "unsharded contact-table path — box or hull — with fuse_prep, "
+            "fed by the bucketed sweep without bp_inkernel or by packed "
+            "envs; see solver.contacts.anchored_path) — rebuilding "
+            "contacts every step", stacklevel=2)
     elif cfg.contact_rebuild > 1:
         extra = dict(
             contact_table=torch.zeros((CT2_ROWS, c), dtype=torch.float32,

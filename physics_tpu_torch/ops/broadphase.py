@@ -82,11 +82,12 @@ def _sweep_masks(state: SimState, aabbs: Tensor, k: int,
 
 
 def band_window(cfg: SimConfig) -> int:
-    """Rank-band half-width the sweep guarantees: candidates connect ranks
-    (r, r+d), 1 ≤ d ≤ sweep_window."""
+    """Rank-band half-width the broad phase guarantees: candidates connect
+    ranks (r, r+d), 1 ≤ d ≤ band_window. The sweep: sweep_window (min-x
+    sorted ranks); env_blocks: K − 1 (the within-env upper triangle of
+    packed envs under the identity order, |a − b| < K)."""
     if cfg.broadphase == "env_blocks":
-        raise NotImplementedError(
-            "the env_blocks broad phase is ROADMAP item 1.10")
+        return max(cfg.env_block_size - 1, 1)
     return cfg.sweep_window
 
 
@@ -158,13 +159,14 @@ def pair_candidates(state: SimState, cfg: SimConfig,
                     aabbs: Tensor | None = None,
                     order: Tensor | None = None,
                     plain: bool = False) -> PairCandidates:
-    """Bucketed sweep candidates (the only broad phase the table path
-    uses). `aabbs`/`order` may be passed when the caller already has
-    them."""
+    """Bucketed sweep candidates (the broad phase the table paths take
+    outside the in-kernel one). `aabbs`/`order` may be passed when the
+    caller already has them."""
     if cfg.broadphase != "sweep" or not cfg.pair_buckets:
         raise NotImplementedError(
-            "only the bucketed sweep broad phase is ported; allpairs, "
-            "the flat sweep and env_blocks are ROADMAP items 1.13 / 1.10")
+            "only the bucketed sweep candidates are ported (env_blocks runs "
+            "in the contact-table kernel); allpairs, the flat sweep and "
+            "env_block_candidates are ROADMAP item 1.13")
     if aabbs is None:
         aabbs = body_aabbs(state)
     return sweep_candidates_bucketed(state, aabbs, cfg, order, plain)

@@ -1,15 +1,23 @@
 """Fused bucket-aligned contact table: CUDA kernel and its plain PyTorch
 version (physics_tpu/ops/contact_table.py).
 
-One bucket = 128 consecutive sweep ranks. For each bucket the table
-holds `ccap` contact slots: the box-box manifolds of the bucket's
-candidate pairs (at most `kk` deepest points per pair), then the ground
-corners of the bucket's own ranks (at most `kg` per body), compacted in
-that emission order. Contact b's endpoints lie within ranks
-[b·128, b·128 + 128 + sweep_window), so the banded solve can use static
+One bucket = 128 consecutive ranks. For each bucket the table holds
+`ccap` contact slots: the box-box manifolds of the bucket's candidate
+pairs (at most `kk` deepest points per pair), then the ground corners of
+the bucket's own ranks (at most `kg` per body), compacted in that
+emission order. Contact b's endpoints lie within ranks
+[b·128, b·128 + 128 + band_window), so the banded solve can use static
 bucket bases. The row layout (CT_* constants) and the component-form
 feature keys are the JAX package's, because the warm start across steps
 and the anchored refresh depend on them.
+
+The candidates come from the bucketed sweep (`cand`), or, with
+`cand=None`, from the in-kernel broad phase: the pairs (r, r + d),
+1 ≤ d ≤ bp_k, of the bucket's ranks whose window AABBs overlap,
+compacted d-major; in packed-env mode (broadphase="env_blocks") only the
+pairs inside one env of env_block_size bodies. `gate=` passes the
+persisted block of every bucket whose gate is 0 through unchanged (the
+displacement-gated refresh).
 
 Replaces the TPU kernel `bucket_contact_table` (physics_tpu/ops/
 contact_table.py:844, body `_make_ct_kernel` :166-747). That kernel
@@ -89,7 +97,7 @@ def geom_pad(n: int, cfg: SimConfig) -> Tuple[int, int]:
     return wtot, npad
 
 
-def unified_geom(state: SimState, cfg: SimConfig, order: Tensor,
+def unified_geom(state: SimState, cfg: SimConfig, order: Tensor | None,
                  hulls: bool = False, npad: int | None = None) -> Tensor:
     """The rank-space geometry table [48, NPAD] shared by the contact
     table and the solve (NPAD from geom_pad unless `npad` is given: the
@@ -106,7 +114,8 @@ def unified_geom(state: SimState, cfg: SimConfig, order: Tensor,
     carries is_hull·(1 + hull type) so each candidate lane reads its
     ordered type pair, and rows 44:47 hold the world OBB centre
     pos + R·(local-AABB centre), then 0.
-    Column r is the body of sweep rank r; columns ≥ N are zero."""
+    Column r is the body of rank r (`order[r]`; body r when `order` is
+    None, the packed envs' identity order); columns ≥ N are zero."""
     n = state.num_bodies
     if npad is None:
         _, npad = geom_pad(n, cfg)
@@ -150,7 +159,8 @@ def unified_geom(state: SimState, cfg: SimConfig, order: Tensor,
            torch.arange(n, dtype=torch.float32, device=state.device),
            is_shape]
         + tail)                                            # [48, N]
-    rows = rows[:, order.long()]
+    if order is not None:
+        rows = rows[:, order.long()]
     geom = torch.zeros((48, npad), dtype=torch.float32, device=state.device)
     geom[:, :n] = rows
     return geom
@@ -242,6 +252,56 @@ def _bucket_starts(nb: int, bucket0: int, device) -> Tensor:
                                    dtype=torch.int64))[:, None] * BLOCK
 
 
+def inkernel_candidates(geom: Tensor, nb: int, bucket0: int, bp_k: int,
+                        cap: int, env_k: int = 0):
+    """The in-kernel broad phase of the NB buckets from bucket0 on: the
+    raw pairs (a, a + d) of window-local ranks a in [0, 128) and
+    d in [1, bp_k] whose window AABBs (|R|·half extents about pos, from
+    the narrow-phase block) overlap on all three axes, both bodies live
+    (row 43) and one movable (row 41); with env_k only pairs inside one
+    env, (a mod env_k) + d < env_k. They are compacted d-major, then by
+    a — the TPU kernel's row-major prefix over its [bp_k, lanes] raw set
+    — into `cap` lanes. Returns (la, lb [NB, cap] int32, −1 empty;
+    dropped [NB], raw survivors beyond cap; winovf [NB], ranks whose
+    x-interval still overlaps rank a + bp_k, pairs the window may miss;
+    0 with env_k, whose band is exact)."""
+    dev = geom.device
+    start = _bucket_starts(nb, bucket0, dev)
+    win = geom[24:48][:, start + torch.arange(BLOCK + bp_k, device=dev)]
+    ext = [torch.abs(win[3 + 3 * c]) * win[12]
+           + torch.abs(win[4 + 3 * c]) * win[13]
+           + torch.abs(win[5 + 3 * c]) * win[14] for c in range(3)]
+    mins = [win[c] - ext[c] for c in range(3)]
+    maxs = [win[c] + ext[c] for c in range(3)]
+    a = torch.arange(BLOCK, device=dev)
+    d = torch.arange(1, bp_k + 1, device=dev)[:, None]
+    b = a[None, :] + d                                    # [bp_k, 128]
+
+    def at_a(x):
+        return x[:, None, :BLOCK]                         # [NB, 1, 128]
+
+    def at_b(x):
+        return x[:, b]                                    # [NB, bp_k, 128]
+
+    x_ov = at_b(mins[0]) <= at_a(maxs[0])
+    keep = x_ov
+    for c in range(3):
+        keep = keep & (torch.maximum(at_a(mins[c]), at_b(mins[c]))
+                       <= torch.minimum(at_a(maxs[c]), at_b(maxs[c])))
+    live = (at_a(win[19]) > 0.0) & (at_b(win[19]) > 0.0)
+    keep = keep & live & ((at_a(win[17]) > 0.0) | (at_b(win[17]) > 0.0))
+    if env_k:
+        keep = keep & ((a[None, :] % env_k) + d < env_k)
+        winovf = torch.zeros((nb,), dtype=torch.int64, device=dev)
+    else:
+        winovf = (x_ov & live)[:, bp_k - 1].sum(dim=1)
+    la = a[None, :].expand(bp_k, BLOCK).reshape(1, -1).to(torch.int32)
+    lb = b.reshape(1, -1).to(torch.int32)
+    la, lb, dropped = _compact_lanes(keep.reshape(nb, -1), la.expand(nb, -1),
+                                     lb.expand(nb, -1), cap)
+    return la, lb, dropped, winovf
+
+
 def lane_geometry(geom: Tensor, loc: Tensor, bucket0: int = 0) -> Tensor:
     """The narrow-phase block (rows 24:48) of window-local ranks loc
     [NB, L] of the buckets from bucket0 on (bucket b's window starts at
@@ -277,19 +337,30 @@ def _t_apply(g, w):
             g[5] * w[0] + g[8] * w[1] + g[11] * w[2])
 
 
-def bucket_contact_table_plain(geom: Tensor, la: Tensor, lb: Tensor,
-                               pcols: Tensor | None, *, ccap: int, kk: int,
-                               kg: int, cap2: int, ground_height: float,
-                               anchors: bool, bucket0: int = 0):
+def bucket_contact_table_plain(geom: Tensor, la: Tensor | None,
+                               lb: Tensor | None, pcols: Tensor | None, *,
+                               ccap: int, kk: int, kg: int, cap2: int,
+                               ground_height: float, anchors: bool,
+                               bucket0: int = 0, nb: int = 0, bp=None,
+                               gate=None):
     """Plain version of the contact-table kernel, all buckets at once.
 
     geom [48, NPAD] unified table; la/lb [NB, cap] int32 window-local
-    candidate ranks (−1 = empty lane) of the NB buckets from bucket0 on;
-    pcols [NB·ccap, 8] previous-step key columns or None. Returns (table
-    [rows, NB·ccap], meta [8, NB·128], warm [8, NB·ccap] or None)."""
+    candidate ranks (−1 = empty lane) of the NB buckets from bucket0 on,
+    or None with `bp = (bp_k, cap, env_k)`: the in-kernel broad phase of
+    `nb` buckets (inkernel_candidates). pcols [NB·ccap, 8] previous-step
+    key columns or None. `gate = (gate [NB] int32, persisted table [rows,
+    NB·ccap])`: buckets whose gate is 0 take their persisted block and
+    zero meta. Returns (table [rows, NB·ccap], meta [8, NB·128], warm
+    [8, NB·ccap] or None)."""
     dev = geom.device
-    nb, cap = la.shape
     rows_n = CT2_ROWS if anchors else CT_ROWS
+    winovf = None
+    dropped_bp = 0
+    if bp is not None:
+        la, lb, dropped_bp, winovf = inkernel_candidates(geom, nb, bucket0,
+                                                         *bp)
+    nb, cap = la.shape
     win = geom[24:48]
     start = _bucket_starts(nb, bucket0, dev)
     f32 = torch.float32
@@ -301,6 +372,8 @@ def bucket_contact_table_plain(geom: Tensor, la: Tensor, lb: Tensor,
         la, lb, dropped2 = obb_prefilter(ga, gb, la, lb, cap2, hulls=False)
         ga, gb = lane_geometry(geom, la, bucket0), lane_geometry(
             geom, lb, bucket0)
+    # drops at either compaction (raw → cap, cap → cap2) add up
+    dropped2 = dropped2 + dropped_bp
 
     man = box_box_manifold_batched(
         (ga[0], ga[1], ga[2]), tuple(ga[3 + k] for k in range(9)),
@@ -383,18 +456,22 @@ def bucket_contact_table_plain(geom: Tensor, la: Tensor, lb: Tensor,
                  act, anc)
             gsc = [torch.where(bidx == s, big_g, gsc[s]) for s in range(8)]
 
-    return compact_emissions(rows, ccap, dropped2, pcols)
+    return compact_emissions(rows, ccap, dropped2, pcols, winovf, gate)
 
 
 def compact_emissions(rows, ccap: int, dropped2: Tensor,
-                      pcols: Tensor | None):
+                      pcols: Tensor | None, winovf: Tensor | None = None,
+                      gate=None):
     """The shared tail of both table kernels' plain versions. `rows[r]`
     lists the emissions' row-r values as [NB, L] tensors in emission
     order; the active ones take consecutive slots of their bucket (slots
-    ≥ ccap are dropped and counted), then the meta counters and, with
-    `pcols`, each slot's warm λ₀ from the previous contact of its bucket
-    with the same feature key. Returns (table [rows, NB·ccap], meta
-    [8, NB·128], warm [8, NB·ccap] | None)."""
+    ≥ ccap are dropped and counted), then the meta counters (column 3
+    `winovf`, or 0). `gate = (gate [NB], persisted table)` puts back the
+    persisted block, with zero meta, of each bucket whose gate is 0.
+    With `pcols`, each slot of the result takes its warm λ₀ from the
+    previous contact of its bucket with the same feature key (a
+    passed-through bucket matches its own keys). Returns (table [rows,
+    NB·ccap], meta [8, NB·128], warm [8, NB·ccap] | None)."""
     pay = torch.stack([torch.cat(r, dim=1) for r in rows])  # [rows, NB, E]
     rows_n, nb = pay.shape[0], pay.shape[1]
     dev, f32 = pay.device, pay.dtype
@@ -412,6 +489,12 @@ def compact_emissions(rows, ccap: int, dropped2: Tensor,
     meta[0, :, 0] = torch.clamp(n_act - ccap, min=0).to(f32)
     meta[0, :, 1] = n_act.to(f32)
     meta[0, :, 2] = dropped2.to(f32)
+    if winovf is not None:
+        meta[0, :, 3] = winovf.to(f32)
+    if gate is not None:
+        fired = (gate[0] > 0)[None, :, None]
+        out = torch.where(fired, out, gate[1].reshape(rows_n, nb, ccap))
+        meta = torch.where(fired, meta, torch.zeros_like(meta))
 
     warm = None
     if pcols is not None:
@@ -441,78 +524,102 @@ def compact_emissions(rows, ccap: int, dropped2: Tensor,
 # ---------------------------------------------------------------------------
 
 def _launch_kernel(geom, la, lb, pcols, *, ccap, kk, kg, cap2,
-                   ground_height, anchors, bucket0):
+                   ground_height, anchors, bucket0, nb, bp, gate):
     from physics_tpu_torch import _build
 
     dev = geom.device
-    nb, cap = la.shape
     npad = geom.shape[1]
     rows_n = CT2_ROWS if anchors else CT_ROWS
     cp = nb * ccap
-    for name, t, dt in (("geom", geom, torch.float32),
-                        ("la", la, torch.int32), ("lb", lb, torch.int32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"contact table: {name} must be a contiguous "
-                             f"{dt} tensor on {dev}")
-    if geom.shape[0] != 48 or lb.shape != la.shape:
-        raise ValueError("contact table: geom [48, NPAD], la/lb [NB, cap]")
+    bp_k, cap, env_k = bp if bp is not None else (0, la.shape[1], 0)
+    i32, f32 = torch.int32, torch.float32
+    named = [("geom", geom, f32, (48, npad))]
+    if bp is None:
+        named += [("la", la, i32, (nb, cap)), ("lb", lb, i32, (nb, cap))]
+    if pcols is not None:
+        named.append(("prev cols", pcols, f32, (cp, 8)))
+    if gate is not None:
+        named += [("gate", gate[0], i32, (nb,)),
+                  ("persisted table", gate[1], f32, (rows_n, cp))]
+    _build.check_operands("contact table", dev, *named)
     # the last bucket of the range reads ranks up to its start + 2·128
     if npad < (bucket0 + nb) * BLOCK + 2 * BLOCK:
         raise ValueError(f"contact table: NPAD {npad} too small for "
                          f"{bucket0 + nb} buckets")
-    if pcols is not None and (pcols.shape != (cp, 8) or pcols.device != dev
-                              or pcols.dtype != torch.float32
-                              or not pcols.is_contiguous()):
-        raise ValueError(f"contact table: prev cols must be [{cp}, 8] f32")
-    table = torch.empty((rows_n, cp), dtype=torch.float32, device=dev)
-    meta = torch.empty((8, nb * BLOCK), dtype=torch.float32, device=dev)
-    warm = (torch.empty((8, cp), dtype=torch.float32, device=dev)
+    table = torch.empty((rows_n, cp), dtype=f32, device=dev)
+    meta = torch.empty((8, nb * BLOCK), dtype=f32, device=dev)
+    warm = (torch.empty((8, cp), dtype=f32, device=dev)
             if pcols is not None else None)
-    ptr = ctypes.c_void_p
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
     with torch.cuda.device(dev):
         err = _build.library().ct_bucket_contact_table(
-            ptr(geom.data_ptr()), ptr(la.data_ptr()), ptr(lb.data_ptr()),
-            ptr(pcols.data_ptr() if pcols is not None else 0),
-            ptr(table.data_ptr()), ptr(meta.data_ptr()),
-            ptr(warm.data_ptr() if warm is not None else 0),
-            nb, bucket0, cap, cap2, ccap, kk, kg, npad, rows_n,
+            ptr(geom), ptr(la), ptr(lb), ptr(pcols),
+            ptr(gate[0] if gate is not None else None),
+            ptr(gate[1] if gate is not None else None),
+            ptr(table), ptr(meta), ptr(warm),
+            nb, bucket0, cap, cap2, ccap, kk, kg, npad, rows_n, bp_k, env_k,
             ctypes.c_float(ground_height),
-            ptr(torch.cuda.current_stream(dev).cuda_stream))
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err == _build.SMEM_TOO_LARGE:
+        raise ValueError(
+            f"contact table: a bucket of cap {cap}, cap2 {cap2}, kk {kk}, kg "
+            f"{kg} and ccap {ccap} needs more shared memory than a block can "
+            f"have on this card (232,448 bytes on the H100)")
     _build.check(err, "ct_bucket_contact_table")
     bucket_contact_table.launches += 1
     return table, meta, warm
 
 
-def table_operands(state: SimState, cand: PairCandidates, cfg: SimConfig,
-                   prev: Tuple[Tensor, Tensor] | None, geom: Tensor | None,
-                   what: str, buckets: Tuple[int, int] | None = None):
+def table_operands(state: SimState, cand: PairCandidates | None,
+                   cfg: SimConfig, prev: Tuple[Tensor, Tensor] | None,
+                   geom: Tensor | None, what: str,
+                   buckets: Tuple[int, int] | None = None):
     """The checks and operands both table kernels share: la/lb [NB, cap]
     int32 window-local candidate ranks (−1 = empty lane), the previous
     step's key columns (or None), and the keywords ccap, cap2 (0 when the
-    prefilter cap does not cut), ground_height, anchors and bucket0.
-    `buckets = (bucket0, NB)` takes the candidates and previous keys of
-    those NB buckets only (None: all buckets)."""
+    prefilter cap does not cut), ground_height, anchors, bucket0, nb and
+    bp. `buckets = (bucket0, NB)` takes the candidates and previous keys
+    of those NB buckets only (None: all buckets).
+
+    cand=None is the in-kernel broad phase: la = lb = None and bp =
+    (bp_k, cap, env_k) with bp_k = min(band_window, 128, N − 1) and cap =
+    min(the bucket cap, 128·bp_k) (env_k = env_block_size in packed-env
+    mode, else 0); bp is None with candidates."""
     n = state.num_bodies
     if n > (1 << 16):
         raise ValueError(
             f"{what}: the stored feature keys pack body ids in 16 bits "
             f"(table_keys), so scenes above 65,536 bodies would alias warm "
             f"starts")
-    if cfg.bp_inkernel or cand is None:
-        raise NotImplementedError(
-            "the in-kernel broad phase (bp_inkernel) is ROADMAP item 1.10")
     block, cap, nb_cand = bucket_shape(n, cfg)
-    if block != BLOCK:
+    nb, ccap, _ = table_shape(n, cfg)
+    bp = None
+    if cfg.broadphase == "env_blocks":
+        env_k = cfg.env_block_size
+        if cand is not None or not cfg.bp_inkernel:
+            raise ValueError(f"{what}: env_blocks needs cfg.bp_inkernel "
+                             f"(the same-env pairs are formed in the kernel)")
+        if not (env_k > 1 and BLOCK % env_k == 0 and n % env_k == 0):
+            raise ValueError(f"{what}: env_block_size {env_k} must divide "
+                             f"{BLOCK} and num_bodies {n}")
+    if cand is None:
+        bp_k = min(band_window(cfg), BLOCK, n - 1)
+        cap = min(cap, _round_up(BLOCK * bp_k, 128))
+        bp = (bp_k, cap, cfg.env_block_size
+              if cfg.broadphase == "env_blocks" else 0)
+    elif block != BLOCK:
         raise ValueError(f"{what} requires bucket_block == {BLOCK} "
                          f"(got {block})")
-    nb, ccap, _ = table_shape(n, cfg)
-    if nb != nb_cand:
+    elif nb != nb_cand:
         raise ValueError(f"{what}: {nb} table buckets, {nb_cand} candidate "
                          f"buckets")
     bucket0, nb_l = buckets if buckets is not None else (0, nb)
     if not (0 <= bucket0 and nb_l >= 1 and bucket0 + nb_l <= nb):
         raise ValueError(f"{what}: bucket range {buckets} of {nb} buckets")
-    if cand.mask.shape[0] != nb_l * cap:
+    if cand is not None and cand.mask.shape[0] != nb_l * cap:
         raise ValueError(f"{what}: {cand.mask.shape[0]} candidate lanes "
                          f"for {nb_l} buckets of {cap}")
     _, npad = geom_pad(n, cfg)
@@ -528,26 +635,30 @@ def table_operands(state: SimState, cand: PairCandidates, cfg: SimConfig,
         cap2 = min(cap2, cap)
         if cap2 == cap:
             cap2 = 0
-    base = _bucket_starts(nb_l, bucket0, geom.device).to(torch.int32)
-    mask = cand.mask.reshape(nb_l, cap)
-    la = torch.where(mask, cand.rank_a.reshape(nb_l, cap) - base,
-                     -1).contiguous()
-    lb = torch.where(mask, cand.rank_b.reshape(nb_l, cap) - base,
-                     -1).contiguous()
+    la = lb = None
+    if cand is not None:
+        base = _bucket_starts(nb_l, bucket0, geom.device).to(torch.int32)
+        mask = cand.mask.reshape(nb_l, cap)
+        la = torch.where(mask, cand.rank_a.reshape(nb_l, cap) - base,
+                         -1).contiguous()
+        lb = torch.where(mask, cand.rank_b.reshape(nb_l, cap) - base,
+                         -1).contiguous()
     pcols = prev_key_cols(*prev) if prev is not None else None
     kw = dict(ccap=ccap, cap2=cap2, ground_height=float(cfg.ground_height),
-              anchors=cfg.contact_rebuild > 1, bucket0=bucket0)
+              anchors=cfg.contact_rebuild > 1, bucket0=bucket0, nb=nb_l,
+              bp=bp)
     return la, lb, pcols, kw
 
 
 def bucket_contact_table(
     state: SimState,
-    cand: PairCandidates,
+    cand: PairCandidates | None,
     cfg: SimConfig,
     prev: Tuple[Tensor, Tensor] | None = None,
     geom: Tensor | None = None,
     plain: bool = False,
     buckets: Tuple[int, int] | None = None,
+    gate: Tuple[Tensor, Tensor] | None = None,
 ) -> Tuple[Tensor, Tensor, Tensor | None]:
     """The contact table of one rebuild. Returns (table [CT_ROWS or
     CT2_ROWS, NB·ccap], meta [8, NB·128], warm [8, NB·ccap] | None).
@@ -556,13 +667,20 @@ def bucket_contact_table(
     table); `cand` and `prev` are then those buckets' slices, and the
     outputs are the range's [*, NB·ccap] and [8, NB·128] blocks.
 
+    `cand=None` takes the in-kernel broad phase (cfg.bp_inkernel, the
+    packed envs of broadphase="env_blocks", and the gated refresh; see
+    inkernel_candidates) on `geom`'s rank order. `gate = (gate [NB] bool
+    or int, persisted table [rows, NB·ccap])`: a bucket whose gate is 0
+    keeps its persisted block and reports zero meta.
+
     meta[0, b·128 + 0] = contacts bucket b dropped beyond ccap,
-    + 1 = its active contacts, + 2 = prefilter survivors dropped beyond
-    bucket_cap2, + 3 = 0 (in-kernel broad phase only, not ported).
-    `prev = (keys [2, cp] int32, λ [3, cp])` of the previous step gives
-    each fresh contact its warm λ₀ (warm rows 0:3) by matching keys
-    within the same bucket. `geom` is the rebuild's unified geometry
-    table (unified_geom).
+    + 1 = its active contacts, + 2 = candidates dropped beyond the lanes
+    (bucket_cap2, and the in-kernel broad phase's cap), + 3 = its ranks
+    whose x-interval still overlaps at the in-kernel window's edge (0
+    with candidates or packed envs). `prev = (keys [2, cp] int32, λ [3,
+    cp])` of the previous step gives each slot its warm λ₀ (warm rows
+    0:3) by matching keys within the same bucket. `geom` is the unified
+    geometry table (unified_geom).
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA
     tensor launches csrc/contact_table.cu."""
@@ -570,6 +688,8 @@ def bucket_contact_table(
                                        "contact table", buckets)
     kw["kk"] = min(cfg.max_contacts_per_pair, _CAP)
     kw["kg"] = min(cfg.max_contacts_per_pair, 8) if cfg.ground_plane else 0
+    kw["gate"] = None if gate is None else (
+        gate[0].to(torch.int32).contiguous(), gate[1])
     if plain or geom.device.type == "cpu":
         return bucket_contact_table_plain(geom, la, lb, pcols, **kw)
     if geom.device.type != "cuda":

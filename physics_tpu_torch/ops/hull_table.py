@@ -66,6 +66,9 @@ Tensor = torch.Tensor
 # the table path takes hull libraries of at most this many types (the
 # JAX kernel makes one SAT pass per ordered type pair)
 MAX_TABLE_HULL_TYPES = 3
+# the largest face (vertices) the kernel is built for: csrc/hull_table.cu
+# kMaxFaceVerts (the plain version takes any, up to the key range)
+MAX_KERNEL_FACE_VERTS = 16
 BIG = 1e30
 _KS_LIMIT = 128   # slot / vertex ids must stay < 128 (f32-exact warm keys)
 
@@ -739,9 +742,12 @@ def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
                          f"{bucket0 + nb} buckets")
     if pcols is not None and pcols.shape != (cp, 8):
         raise ValueError(f"hull table: prev cols must be [{cp}, 8]")
-    if dm.e != 4:
-        raise ValueError(f"hull table kernel: faces of at most 4 vertices "
-                         f"are built (got {dm.e})")
+    if dm.e > MAX_KERNEL_FACE_VERTS:
+        raise ValueError(
+            f"hull table kernel: it holds a face's vertices and its 2E clip "
+            f"slots in registers and is built for faces of at most "
+            f"{MAX_KERNEL_FACE_VERTS} vertices; this library's largest face "
+            f"has {dm.e}")
     f32 = torch.float32
     table = torch.empty((rows_n, cp), dtype=f32, device=dev)
     meta = torch.empty((8, nb * BLOCK), dtype=f32, device=dev)
@@ -764,7 +770,7 @@ def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
             ptr(warm.data_ptr() if warm is not None else 0),
             ptr(scratch.data_ptr()), scratch.numel(),
             nb, bucket0, cap, cap2, ccap, kk, kg, npad, rows_n, tc.ntypes,
-            dm.fp, dm.vcap, dm.d2, dm.d2p, dm.e2p,
+            dm.fp, dm.vcap, dm.e, dm.d2, dm.d2p, dm.e2p,
             c.c16.shape[1], c.c32.shape[1], c.cb.shape[1],
             ctypes.c_float(ground_height),
             ptr(torch.cuda.current_stream(dev).cuda_stream))
@@ -781,8 +787,12 @@ def _prepare(state: SimState, cand: PairCandidates, cfg: SimConfig,
         raise ValueError(
             f"hull table: at most {MAX_TABLE_HULL_TYPES} hull types (larger "
             f"libraries take the generic narrow phase, ROADMAP item 1.13)")
+    if cand is None:
+        raise ValueError("hull table: needs the bucketed sweep's candidates "
+                         "(the in-kernel broad phase is the box table's)")
     la, lb, pcols, kw = table_operands(state, cand, cfg, prev, geom,
                                        "hull table", buckets)
+    del kw["nb"], kw["bp"]
     tc = hull_table_coef(state)
     dm = tc.dims
     if 2 * dm.e + 1 > _KS_LIMIT or dm.vcap > _KS_LIMIT:

@@ -1,8 +1,10 @@
-"""The box pile and the hull rains with their production configs
-(physics_tpu/scenes.py `box_pile`, `pile_config`, `mesh_rain`,
-`mesh_rain_mixed`, `rain_config`). The same numpy draws in the same order
-give the same scenes as the JAX package. Every scene is built on the card
-unless the caller passes device="cpu" (state.resolve_device)."""
+"""The box pile, the hull rains and the packed environments with their
+production configs (physics_tpu/scenes.py `box_pile`, `pile_config`,
+`mesh_rain`, `mesh_rain_mixed`, `rain_config`, `random_env`; the packed
+4096×8 configuration and scene of bench.py `bench_batched_envs`). The
+same numpy draws in the same order give the same scenes as the JAX
+package. Every scene is built on the card unless the caller passes
+device="cpu" (state.resolve_device)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import numpy as np
 import torch
 
 from physics_tpu_torch.config import SimConfig
+from physics_tpu_torch.envs import offset_envs, pack_envs
 from physics_tpu_torch.io.meshes import box_inertia, sphere_inertia
 from physics_tpu_torch.io.primitives import beveled_cube_mesh
 from physics_tpu_torch.scene import SceneBuilder
@@ -95,7 +98,7 @@ def _check_procedural(real_assets: bool | None) -> None:
             "the real cube asset (res/cube.obj through io/assets.py, "
             "io/objloader.py and plane_cut_hull) is not in the repository; "
             "the port's rain uses the procedural bevelled cube, as the JAX "
-            "package does without the files (ROADMAP item 1.12)")
+            "package does without the files (ROADMAP item 1.16)")
 
 
 def _rain_grid(b: SceneBuilder, n_bodies: int, size: float, rng,
@@ -180,6 +183,19 @@ def mesh_rain_mixed(n_bodies: int = 128, seed: int = 0, size: float = 0.5,
     return b.build(device)
 
 
+def hull_rain(verts, n_bodies: int = 128, seed: int = 0, size: float = 0.5,
+              device: torch.device | str = "cuda") -> SimState:
+    """mesh_rain's column of one convex hull given by its body-frame
+    vertices (any face sizes; io/primitives prism_verts, octahedron_verts),
+    with the box inertia of half extent `size`."""
+    rng = np.random.default_rng(seed)
+    inertia = box_inertia((size,) * 3, 1.0)
+    b = SceneBuilder()
+    hull = b.add_hull(np.asarray(verts, np.float32))
+    _rain_grid(b, n_bodies, size, rng, lambda count: (hull, inertia))
+    return b.build(device)
+
+
 def rain_config(n_bodies: int, dt: float = 1.0 / 60.0) -> SimConfig:
     """The production rain pipeline: bucketed sweep (window 32, 12N
     candidates), the fused hull contact table (OBB prefilter to 512 lanes
@@ -213,4 +229,56 @@ def rain_config(n_bodies: int, dt: float = 1.0 / 60.0) -> SimConfig:
         contact_iters=8,
         z_bf16=True,
         dt=dt,
+    )
+
+
+def random_env(seed: int, n_bodies: int = 8,
+               device: torch.device | str = "cuda") -> SimState:
+    """One randomized small scene of 0.4-half-extent boxes (the unit of
+    the batched-environments configuration)."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    for _ in range(n_bodies):
+        i = b.add_body(
+            pos=rng.uniform([-3, 1, -3], [3, 6, 3]),
+            euler=rng.uniform(-1, 1, 3),
+            inertia=box_inertia((0.4,) * 3, 1.0),
+        )
+        b.set_box(i, (0.4,) * 3, friction=0.5)
+    return b.build(device)
+
+
+def packed_envs(n_envs: int = 4096, n_bodies: int = 8,
+                device: torch.device | str = "cuda") -> SimState:
+    """The packed-environments scene of bench.py `bench_batched_envs`:
+    random_env(0, n_bodies) in each of n_envs envs, env e shifted by the
+    e-th offset of default_rng(1).uniform(-1, 1, (n_envs, 1, 3)), packed
+    into one scene of n_envs·n_bodies bodies (envs.pack_envs; call
+    engine.prepare_contacts on it)."""
+    base = random_env(0, n_bodies, device)
+    rng = np.random.default_rng(1)
+    offsets = rng.uniform(-1, 1, (n_envs, 1, 3)).astype(np.float32)
+    return pack_envs(offset_envs(base, torch.from_numpy(offsets).to(
+        base.device)))
+
+
+def packed_env_config(n_envs: int = 4096, n_bodies: int = 8,
+                      dt: float = 1.0 / 60.0) -> SimConfig:
+    """The packed-environments pipeline of bench.py `bench_batched_envs`:
+    env_blocks with the in-kernel broad phase (identity order, same-env
+    pairs, no sort), the fused contact table and solve, 48 contacts an
+    env, and the anchored rebuild every 32nd step with the per-bucket
+    displacement gate (vel_factor 2) and a 4-sweep refresh. `z_bf16` is
+    set as in the JAX config and ignored by the port."""
+    return SimConfig(
+        compat=False, ground_plane=True, pair_collisions=True,
+        contact_iters=8, dt=dt, boxes_only=True,
+        broadphase="env_blocks", env_block_size=n_bodies,
+        contact_solver="pallas_banded",
+        max_contacts=48 * n_envs,
+        contact_table=True, bp_inkernel=True, bucket_block=128,
+        z_bf16=True,
+        fuse_prep=True, fuse_integrate=True,
+        contact_rebuild=32, contact_refresh_iters=4,
+        contact_rebuild_vel_factor=2.0,
     )

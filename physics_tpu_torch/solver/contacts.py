@@ -5,19 +5,28 @@
 `_resolve_contacts_table`).
 
 Three paths are ported. The two bucket-aligned contact-table paths:
-boxes (box contact table) and hulls (hull contact table), each with the
-fused-prep solve or, with fuse_prep off, the unfused one. And the
+boxes (box contact table: candidates from the bucketed sweep, from the
+table kernel's own broad phase with bp_inkernel, or, for packed
+environments, broadphase="env_blocks", from its same-env pairs under the
+identity order, with no sort) and hulls (hull contact table), each with
+the fused-prep solve or, with fuse_prep off, the unfused one. And the
 generic banded branch for boxes (the two-kernel pile): box ground
 corners and the banded pair manifolds give a flat contact list, which
 the banded solve sorts by rank, compacts, warm-starts by feature key and
 solves (prep_consts, banded_sweeps); the split-impulse pseudo velocities
 move the poses right after. With cfg.contact_rebuild = K > 1
 (anchored path), every K-th step REBUILDS: sweep sort, bucketed
-candidates, geometry table, contact-table kernel, full solve schedule. The other steps REFRESH: the persisted table and
-rank order are kept, the solve's sweep 0 re-derives every contact from
-its body-frame anchors, and the schedule is contact_refresh_iters sweeps.
-The branch depends only on the step count, so the host picks it from
-its mirror of step_count — no device sync.
+candidates, geometry table, contact-table kernel, full solve schedule.
+The other steps REFRESH: the persisted table and rank order are kept,
+the solve's sweep 0 re-derives every contact from its body-frame
+anchors, and the schedule is contact_refresh_iters sweeps. With
+contact_rebuild_vel_factor > 0 a box table's refresh is GATED: the
+buckets whose bodies moved more than vel_factor·slop since their last
+build recompute their contacts (the table kernel's gate mode), the rest
+pass their persisted block through. The branch depends only on the step
+count, so the host picks it from its mirror of step_count — no device
+sync — except on a hull table path with vel_factor > 0, whose global
+motion guard reads one device scalar a step (see _hull_motion_guard).
 
 With `shard` (parallel.collectives.Shard, the row-sharded step) every rank
 holds the whole state and the contact work is split by rank: on the
@@ -79,13 +88,19 @@ Tensor = torch.Tensor
 
 def table_path(state: SimState, cfg: SimConfig) -> bool:
     """True when the step routes through the bucket-aligned box contact
-    table (the bucketed sweep feeding it; env_blocks is ROADMAP item
-    1.10)."""
-    return bool(
-        cfg.contact_solver == "pallas_banded" and cfg.contact_table
-        and cfg.boxes_only and cfg.pair_collisions
-        and state.num_bodies > 1
-        and cfg.broadphase == "sweep" and cfg.pair_buckets)
+    table: fed by the bucketed sweep, or by packed envs (env_blocks with
+    the in-kernel broad phase, K | 128 and K | N)."""
+    if not (cfg.contact_solver == "pallas_banded" and cfg.contact_table
+            and cfg.boxes_only and cfg.pair_collisions
+            and state.num_bodies > 1):
+        return False
+    if cfg.broadphase == "sweep":
+        return bool(cfg.pair_buckets)
+    if cfg.broadphase == "env_blocks":
+        k = cfg.env_block_size
+        return bool(cfg.bp_inkernel and k > 1 and 128 % k == 0
+                    and state.num_bodies % k == 0)
+    return False
 
 
 def hull_table_path(state: SimState, cfg: SimConfig) -> bool:
@@ -104,14 +119,18 @@ def hull_table_path(state: SimState, cfg: SimConfig) -> bool:
 
 def anchored_path(state: SimState, cfg: SimConfig) -> bool:
     """True when contact_rebuild > 1 engages the persistent anchored
-    contacts: a table path with fuse_prep, candidates built outside the
-    table kernel. Anchors are a contact point and normal in body frames,
-    whatever the shapes, so the hull table shares the box table's
+    contacts: a table path with fuse_prep — the hull table, the box table
+    on the bucketed sweep without bp_inkernel, or the box table of packed
+    envs (env_blocks). Anchors are a contact point and normal in body
+    frames, whatever the shapes, so the hull table shares the box table's
     anchored refresh."""
     if not (cfg.contact_rebuild > 1 and cfg.fuse_prep):
         return False
-    return hull_table_path(state, cfg) or (
-        table_path(state, cfg) and not cfg.bp_inkernel)
+    if hull_table_path(state, cfg):
+        return True
+    if not table_path(state, cfg):
+        return False
+    return cfg.broadphase == "env_blocks" or not cfg.bp_inkernel
 
 
 def fused_integration(state: SimState, cfg: SimConfig,
@@ -165,20 +184,9 @@ def contact_capacity(state: SimState, cfg: SimConfig) -> int:
 def _check_ported(state: SimState, cfg: SimConfig) -> None:
     if cfg.compat:
         raise NotImplementedError("compat mode is ROADMAP item 1.11")
-    if cfg.broadphase == "env_blocks" or cfg.bp_inkernel:
-        raise NotImplementedError(
-            "env_blocks and the in-kernel broad phase are ROADMAP item 1.10")
-    hulls = hull_table_path(state, cfg)
-    if not (table_path(state, cfg) or hulls or banded_boxes_path(state, cfg)):
+    if not (table_path(state, cfg) or hull_table_path(state, cfg)
+            or banded_boxes_path(state, cfg)):
         raise _unported_generic()
-    if cfg.contact_rebuild > 1 and cfg.contact_rebuild_vel_factor > 0:
-        if hulls:
-            raise NotImplementedError(
-                "the hull path's global motion guard "
-                "(contact_rebuild_vel_factor > 0) is ROADMAP item 1.12")
-        raise NotImplementedError(
-            "the per-bucket displacement gate (contact_rebuild_vel_factor "
-            "> 0) is ROADMAP item 1.10")
 
 
 def resolve_contacts(state: SimState, cfg: SimConfig,
@@ -391,12 +399,13 @@ def _resolve_contacts_banded(state: SimState, cfg: SimConfig,
     return state, {**metrics, **solve_metrics}
 
 
-def _sharded_table(table_fn, st: SimState, cand: PairCandidates,
+def _sharded_table(table_fn, st: SimState, cand: PairCandidates | None,
                    cfg: SimConfig, prev, geom: Tensor, plain: bool,
                    shard: Shard):
     """The contact table built by bucket range: rank r builds buckets
-    [r·B, (r+1)·B), B = nb / ranks, from its slices of the candidates and
-    previous keys, and the ranks all-gather table, meta and warm rows."""
+    [r·B, (r+1)·B), B = nb / ranks, from its slices of the candidates
+    (None: the in-kernel broad phase) and previous keys, and the ranks
+    all-gather table, meta and warm rows."""
     n = st.num_bodies
     nb, ccap, _ = table_shape(n, cfg)
     if nb % shard.size:
@@ -406,14 +415,16 @@ def _sharded_table(table_fn, st: SimState, cand: PairCandidates,
             f"{BLOCK}·{shard.size} bodies")
     nb_l = nb // shard.size
     b0 = shard.rank * nb_l
-    _, cap, _ = bucket_shape(n, cfg)
 
     def loc(x, per, dim=0):
         return x.narrow(dim, b0 * per, nb_l * per)
 
-    cand_l = PairCandidates(loc(cand.body_a, cap), loc(cand.body_b, cap),
-                            loc(cand.mask, cap), cand.overflow,
-                            loc(cand.rank_a, cap), loc(cand.rank_b, cap))
+    cand_l = None
+    if cand is not None:
+        _, cap, _ = bucket_shape(n, cfg)
+        cand_l = PairCandidates(loc(cand.body_a, cap), loc(cand.body_b, cap),
+                                loc(cand.mask, cap), cand.overflow,
+                                loc(cand.rank_a, cap), loc(cand.rank_b, cap))
     prev_l = None
     if prev is not None:
         prev_l = (loc(prev[0], ccap, 1), loc(prev[1], ccap, 1))
@@ -423,11 +434,30 @@ def _sharded_table(table_fn, st: SimState, cand: PairCandidates,
             all_gather_last(warm, shard) if warm is not None else None)
 
 
+def _overflow(meta: Tensor, cand: PairCandidates | None) -> Tensor:
+    """[pair_overflow, contact_overflow] of a table: candidates the broad
+    phase may have missed (the sweep's count, or the table kernel's
+    window-edge ranks, meta column 3) plus those dropped beyond the
+    lanes (column 2); contacts dropped beyond ccap (column 0)."""
+    m = meta[0].reshape(-1, BLOCK)
+    win = (cand.overflow if cand is not None
+           else torch.sum(m[:, 3]).to(torch.int32))
+    return torch.stack([win + torch.sum(m[:, 2]).to(torch.int32),
+                        torch.sum(m[:, 0]).to(torch.int32)]).to(torch.int32)
+
+
 def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool,
              shard: Shard | None = None):
-    aabbs = body_aabbs(st)
-    order = sweep_order(st, aabbs)
-    cand = pair_candidates(st, cfg, aabbs=aabbs, order=order, plain=plain)
+    """Broad phase, geometry table and contact table of one rebuild.
+    Returns (table, rank order or None for the packed envs' identity,
+    geom, warm rows, overflow counters)."""
+    order = cand = None
+    if cfg.broadphase != "env_blocks":
+        aabbs = body_aabbs(st)
+        order = sweep_order(st, aabbs)
+        if not cfg.bp_inkernel:
+            cand = pair_candidates(st, cfg, aabbs=aabbs, order=order,
+                                   plain=plain)
     hulls = hull_table_path(st, cfg)
     geom = unified_geom(st, cfg, order, hulls=hulls)
     prev = (st.contact_key, st.contact_lam) if use_warm else None
@@ -438,12 +468,80 @@ def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool,
     else:
         table, meta, warm = table_fn(st, cand, cfg, prev=prev, geom=geom,
                                      plain=plain)
-    m = meta[0].reshape(-1, BLOCK)
-    ovf = torch.stack([
-        cand.overflow + torch.sum(m[:, 2]).to(torch.int32),
-        torch.sum(m[:, 0]).to(torch.int32),
-    ]).to(torch.int32)
-    return table, order, geom, warm, ovf
+    return table, order, geom, warm, _overflow(meta, cand)
+
+
+def refresh_gate(st: SimState, cfg: SimConfig,
+                 order: Tensor | None) -> Tensor:
+    """The per-bucket displacement gate of a refresh step [NB] bool: each
+    body's motion since its bucket's last build (contact_ref), max|Δpos|
+    + 2·|Δq|·|half extents| (|Δq| sign-folded, a small-angle bound on the
+    drift of its surface), taken per bucket of ranks and folded with the
+    next bucket's (forward windows reach into it), against
+    vel_factor·slop."""
+    n = st.num_bodies
+    nb = table_shape(n, cfg)[0]
+    ref = st.contact_ref
+    dp = torch.amax(torch.abs(st.pos - ref[:, 0:3]), dim=1)
+    dq2 = torch.minimum(torch.sum((st.quat - ref[:, 3:7]) ** 2, dim=1),
+                        torch.sum((st.quat + ref[:, 3:7]) ** 2, dim=1))
+    r_body = torch.sqrt(torch.sum(st.shapes.params ** 2, dim=1))
+    disp = dp + 2.0 * torch.sqrt(dq2) * r_body
+    if order is not None:
+        disp = disp[order.long()]
+    dmb = torch.amax(torch.nn.functional.pad(
+        disp, (0, nb * BLOCK - n)).reshape(nb, BLOCK), dim=1)
+    dmb = torch.maximum(dmb, torch.cat([dmb[1:], torch.zeros_like(dmb[:1])]))
+    return dmb > torch.tensor(
+        cfg.contact_rebuild_vel_factor * cfg.penetration_slop,
+        dtype=torch.float32, device=dmb.device)
+
+
+def _gated_refresh(st: SimState, cfg: SimConfig, order: Tensor | None,
+                   geom: Tensor, plain: bool):
+    """The table of a gated refresh step: the buckets refresh_gate fires
+    recompute their contacts from the current poses through the in-kernel
+    broad phase on the persisted order, the others pass their persisted
+    block through, and every slot warm-matches (a passed-through bucket
+    carries its λ). Returns (table, warm rows, worst-of overflow counters
+    — the persisted rebuild's and this step's — and contact_ref reset for
+    the bodies of fired buckets)."""
+    n = st.num_bodies
+    gate = refresh_gate(st, cfg, order)
+    table, meta, warm = bucket_contact_table(
+        st, None, cfg, prev=(st.contact_key, st.contact_lam), geom=geom,
+        plain=plain, gate=(gate, st.contact_table))
+    ovf = torch.maximum(st.contact_meta, _overflow(meta, None))
+    if order is None:
+        fired = gate.repeat_interleave(BLOCK)[:n]
+    else:
+        rank_of = torch.empty((n,), dtype=torch.int64, device=st.device)
+        rank_of[order.long()] = torch.arange(n, device=st.device)
+        fired = gate[rank_of // BLOCK]
+    ref = torch.where(fired[:, None], torch.cat([st.pos, st.quat], dim=1),
+                      st.contact_ref)
+    return table, warm, ovf, ref
+
+
+def _rebuild_now(state: SimState, cfg: SimConfig, hulls: bool) -> bool:
+    """Whether an anchored step rebuilds: every contact_rebuild-th step
+    (from the host's mirror of step_count), and on a hull table path with
+    vel_factor > 0 also when the global motion guard fires — the fastest
+    body covers max|v|·dt·K before the next scheduled rebuild, more than
+    vel_factor·slop. The guard is a device value: this reads one scalar
+    back on such a step (no shipped config has it: rain_config zeroes
+    vel_factor; a captured graph per branch would remove the read)."""
+    if state.step_count_host % cfg.contact_rebuild == 0:
+        return True
+    if not (hulls and cfg.contact_rebuild_vel_factor > 0):
+        return False
+    f32, dev = torch.float32, state.device
+    vmax = torch.amax(torch.abs(state.vel))
+    return bool(vmax * torch.tensor(cfg.dt * cfg.contact_rebuild, dtype=f32,
+                                    device=dev)
+                > torch.tensor(cfg.contact_rebuild_vel_factor
+                               * cfg.penetration_slop, dtype=f32,
+                               device=dev))
 
 
 def _solve_table(state, table, cfg, order, warm, geom, plain, shard=None):
@@ -473,20 +571,27 @@ def _resolve_contacts_table(state: SimState, cfg: SimConfig,
             raise ValueError(
                 "cfg.contact_rebuild > 1 needs the persisted-table "
                 "buffers — call engine.prepare_contacts(state, cfg)")
+        # packed envs: the identity order, never sorted; the persisted
+        # contact_order stays the prepared arange
+        env = cfg.broadphase == "env_blocks"
+        hulls = hull_table_path(state, cfg)
         solve_cfg = cfg
-        if state.step_count_host % cfg.contact_rebuild == 0:
+        if _rebuild_now(state, cfg, hulls):
             table, order, geom, warm, ovf = _rebuild(state, cfg, True,
                                                      plain)
             ref = torch.cat([state.pos, state.quat], dim=1)
         else:
-            order = state.contact_order
-            table = state.contact_table
-            geom = unified_geom(state, cfg, order,
-                                hulls=hull_table_path(state, cfg))
-            warm = torch.cat([state.contact_lam, torch.zeros(
-                (5, cp), dtype=torch.float32, device=state.device)])
-            ovf = state.contact_meta
-            ref = state.contact_ref
+            order = None if env else state.contact_order
+            geom = unified_geom(state, cfg, order, hulls=hulls)
+            if not hulls and cfg.contact_rebuild_vel_factor > 0:
+                table, warm, ovf, ref = _gated_refresh(state, cfg, order,
+                                                       geom, plain)
+            else:
+                table = state.contact_table
+                warm = torch.cat([state.contact_lam, torch.zeros(
+                    (5, cp), dtype=torch.float32, device=state.device)])
+                ovf = state.contact_meta
+                ref = state.contact_ref
             r_it = cfg.contact_refresh_iters
             if 0 < r_it < cfg.contact_iters:
                 solve_cfg = cfg.replace(
@@ -497,7 +602,8 @@ def _resolve_contacts_table(state: SimState, cfg: SimConfig,
         state = state.replace(
             vel=vel, omega=omega, pos=pos, quat=q,
             contact_key=keys, contact_lam=lam3, contact_table=table,
-            contact_order=order, contact_meta=ovf, contact_ref=ref)
+            contact_order=state.contact_order if env else order,
+            contact_meta=ovf, contact_ref=ref)
         return state, {"pair_overflow": ovf[0], "contact_overflow": ovf[1],
                        **solve_metrics}
 

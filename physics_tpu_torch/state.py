@@ -251,7 +251,8 @@ def state_from_arrays(arrays: Dict[str, np.ndarray],
             top[key] = t
     for head, cls in _NESTED.items():
         top[head] = cls(**nested[head])
-    top["step_count_host"] = int(np.asarray(arrays["step_count"]))
+    # a batched state's counter is [E] (envs.py): env 0's
+    top["step_count_host"] = int(np.asarray(arrays["step_count"]).flat[0])
     return SimState(**top)
 
 

@@ -211,22 +211,26 @@ def test_unported_branches_raise():
     _, cfg_t = configs(192)
     s = prepare_contacts(state_from_arrays(jax_arrays(dense_pile()), "cpu"),
                          cfg_t)
-    for bad, item in ((dict(contact_rebuild_vel_factor=2.0), "1.10"),
-                      (dict(contact_solver="jacobi"), "1.13"),
+    for bad, item in ((dict(contact_solver="jacobi"), "1.13"),
                       (dict(compat=True), "1.11"),
-                      (dict(broadphase="allpairs"), "1.13")):
+                      (dict(broadphase="allpairs"), "1.13"),
+                      (dict(broadphase="env_blocks", env_block_size=8),
+                       "1.13")):
         with pytest.raises(NotImplementedError, match=item):
             step_with_metrics(s, cfg_t.replace(**bad))
-    # the hull path: the global motion guard, the real cube asset, and
-    # scenes that mix boxes and hulls
-    rain_cfg = tscenes.rain_config(32)
+    # ported now: the per-bucket displacement gate and the hull path's
+    # global motion guard (contact_rebuild_vel_factor > 0)
+    for _ in range(2):
+        s, _ = step_with_metrics(s, cfg_t.replace(
+            contact_rebuild_vel_factor=2.0))
+    rain_cfg = tscenes.rain_config(32).replace(contact_rebuild_vel_factor=2.0)
     rain = prepare_contacts(
         tscenes.mesh_rain(32, real_assets=False, device="cpu"), rain_cfg)
-    with pytest.raises(NotImplementedError, match="1.12"):
-        step_with_metrics(rain, rain_cfg.replace(
-            contact_rebuild_vel_factor=2.0))
+    for _ in range(2):
+        rain, _ = step_with_metrics(rain, rain_cfg)
+    # the real cube asset and scenes that mix boxes and hulls
     for fn in (tscenes.mesh_rain, tscenes.mesh_rain_mixed):
-        with pytest.raises(NotImplementedError, match="1.12"):
+        with pytest.raises(NotImplementedError, match="1.16"):
             fn(8, real_assets=True, device="cpu")
     b = SceneBuilder()
     b.set_box(b.add_body(), (0.5,) * 3)

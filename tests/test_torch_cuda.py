@@ -9,7 +9,14 @@ two-kernel path's contact list (ground corners and pair manifolds in one
 launch, whole and one rank's slice), solve constants and unfused sweeps,
 two of its steps, and a step of the unfused table solve; the row-sharded
 step's single-sweep kernel (2.7) in each of its switch combinations and
-the table kernels' bucket-range mode.
+the table kernels' bucket-range mode. The box table's other modes: the
+in-kernel broad phase on the sweep order, the per-bucket gate (fired and
+passed-through buckets in one launch) and packed envs at the packed
+configuration's bucket shapes (896 lanes, 8 picks, 768 slots: the
+largest shared-memory working set), with a rebuild and a gated refresh
+step of the packed path, the gated pile and the hull rain's motion guard;
+and the hull table on libraries whose largest face has 3, 5, 6, 8 or 12
+vertices.
 Every test skips without a card. On a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -34,6 +41,7 @@ import torch
 
 from physics_tpu_torch import scenes
 from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+from physics_tpu_torch.io.primitives import octahedron_verts, prism_verts
 from physics_tpu_torch.ops import contact_table as tct
 from physics_tpu_torch.ops import hull_table as tht
 from physics_tpu_torch.ops.broadphase import (
@@ -469,3 +477,119 @@ def test_table_kernels_bucket_range(pile, rain):
         assert torch.equal(part[0], full[0][:, ccap:2 * ccap])
         assert torch.equal(part[1], full[1][:, 128:256])
         assert torch.equal(part[2], full[2][:, ccap:2 * ccap])
+
+
+def _tables_match(fn, geom, n):
+    """The table kernel against its plain version: fn(plain) → (table,
+    meta, warm). Returns the kernel's outputs."""
+    before = tct.bucket_contact_table.launches
+    tk, mk, wk = fn(False)
+    assert tct.bucket_contact_table.launches == before + 1
+    tp, mp, wp = fn(True)
+    for r in EXACT_ROWS:
+        assert torch.equal(tk[r], tp[r]), r
+    assert torch.equal(mk, mp)
+    assert torch.equal(wk, wp)
+    extent = float(geom[0:3, :n].abs().max())
+    assert float((tk - tp).abs().max()) <= 1e-5 * extent
+    return tk, mk, wk
+
+
+@pytest.mark.parametrize("window", [8, 48])
+def test_contact_table_kernel_inkernel_broadphase(pile, window):
+    """cand=None: the kernel's own broad phase on the sweep order, its
+    raw pairs compacted d-major into cap lanes, then the cap2 prefilter;
+    at window 8 ranks overlap past the window edge (meta column 3)."""
+    s, cfg = pile
+    cfg = cfg.replace(sweep_window=window)
+    order = sweep_order(s, body_aabbs(s))
+    geom = tct.unified_geom(s, cfg, order)
+    tk, mk, _ = _tables_match(lambda plain: tct.bucket_contact_table(
+        s, None, cfg, prev=(s.contact_key, s.contact_lam), geom=geom,
+        plain=plain), geom, N)
+    assert int(tk[tct.CT_ACT].sum()) > 500
+    if window == 8:
+        assert float(mk[0].reshape(-1, 128)[:, 3].sum()) > 0
+
+
+@pytest.mark.parametrize("gate", [(1, 0), (0, 1)])
+def test_contact_table_kernel_gate(pile, gate):
+    """A fired and a passed-through bucket in one launch: the latter keeps
+    its persisted block and zero meta, and warm-matches its own keys."""
+    s, cfg = pile
+    order = sweep_order(s, body_aabbs(s))
+    geom = tct.unified_geom(s, cfg, order)
+    persisted, _, _ = tct.bucket_contact_table(s, None, cfg, geom=geom,
+                                               plain=True)
+    persisted = persisted.clone()
+    persisted[0:3] += 0.25          # a stale block differs from a fresh one
+    g = torch.tensor(gate, device=s.device)
+    prev = (tct.table_keys(persisted), torch.rand(
+        (3, persisted.shape[1]), generator=torch.Generator().manual_seed(6)
+    ).to(s.device))
+    tk, mk, wk = _tables_match(lambda plain: tct.bucket_contact_table(
+        s, None, cfg, prev=prev, geom=geom, plain=plain,
+        gate=(g, persisted)), geom, N)
+    ccap = tct.table_shape(N, cfg)[1]
+    b = gate.index(0)
+    cols = slice(b * ccap, (b + 1) * ccap)
+    assert torch.equal(tk[:, cols], persisted[:, cols])
+    assert not bool(mk[:, b * 128:(b + 1) * 128].any())
+    act = persisted[tct.CT_ACT, cols] > 0
+    assert torch.equal(wk[0:3, cols][:, act], prev[1][:, cols][:, act])
+
+
+@pytest.fixture(scope="module")
+def packed(dev):
+    """32 packed envs of 8 boxes (two buckets) under the packed
+    configuration, so each bucket has its full shapes; stepped twice
+    along the plain path, so the warm keys are live."""
+    cfg = scenes.packed_env_config(32, 8)
+    s = prepare_contacts(scenes.packed_envs(32, 8, device=dev), cfg)
+    for _ in range(2):
+        s, _ = step_with_metrics(s, cfg, plain=True)
+    return s, cfg
+
+
+@pytest.mark.parametrize("gate", [None, (0, 1)])
+def test_contact_table_kernel_packed_envs(packed, gate):
+    s, cfg = packed
+    geom = tct.unified_geom(s, cfg, None)
+    g = None if gate is None else (torch.tensor(gate, device=s.device),
+                                   s.contact_table)
+    tk, mk, _ = _tables_match(lambda plain: tct.bucket_contact_table(
+        s, None, cfg, prev=(s.contact_key, s.contact_lam), geom=geom,
+        plain=plain, gate=g), geom, s.num_bodies)
+    assert int(tk[tct.CT_ACT].sum()) > 50
+    assert float(mk[0].reshape(-1, 128)[:, 3].sum()) == 0
+
+
+def test_packed_step_kernel_path_matches_plain(packed):
+    """A rebuild step (step 32) and a gated refresh step."""
+    s, cfg = packed
+    _steps_match(s.replace(step_count_host=32), cfg)
+
+
+def test_gated_pile_step_kernel_path_matches_plain(pile):
+    s, cfg = pile
+    _steps_match(s, cfg.replace(contact_rebuild_vel_factor=2.0))
+
+
+@pytest.mark.parametrize("sides", [3, 5, 6, 8, 12])
+def test_hull_table_kernel_face_sizes(dev, sides):
+    """Libraries whose largest face has 3 (the octahedron) or `sides`
+    (a prism) vertices, bodies squeezed into contact; on the octahedra
+    the motion guard's steps too."""
+    verts = octahedron_verts() if sides == 3 else prism_verts(sides)
+    arrays = to_numpy(scenes.hull_rain(verts, 128, device="cpu"))
+    arrays["pos"] *= np.float32([0.55, 0.45, 0.55])
+    arrays["pos"][:, 1] += 0.3
+    cfg = scenes.rain_config(128)
+    s = prepare_contacts(state_from_arrays(arrays, dev), cfg)
+    assert tht.hull_dims(s.hulls).e == sides
+    for _ in range(2):
+        s, _ = step_with_metrics(s, cfg, plain=True)
+    tk, _ = _hull_tables_match(s, cfg)
+    assert int((tk[tct.CT_ACT] * (1 - tk[tct.CT_KSGN])).sum()) > 20
+    if sides == 3:
+        _steps_match(s, cfg.replace(contact_rebuild_vel_factor=2.0))
