@@ -5,15 +5,18 @@ the port's hand-written kernels, on one process and row-sharded over 4
 ranks.
 
     python3 chip_smoke.py            # needs CUDA; exits non-zero without
+    python3 chip_smoke.py --solve-levers   # + the solves' design levers
 
 Phases (any failure raises, so the run exits non-zero):
   1. card     name and power limit (nvidia-smi);
   2. build    compile csrc/*.cu with nvcc, one process per source, all at
               once, and print ptxas's per-kernel report (the Triton kernel
-              compiles at its first launch);
+              compiles at its first launch) and the persistent solve's
+              grid at the table paths' widths;
   3. kernels  each pile kernel against its plain PyTorch version, on the
               card, at the pile's shapes (a pile settled by 60 steps),
-              with median times from CUDA events;
+              with median times from CUDA events and the live contacts of
+              the solve;
   4. pile     prepare_contacts + 240 steps of pile_config(4096) with
               contact_iters=8 through step_with_metrics: launch counts,
               finite state, overflow counters, one rebuild and one refresh
@@ -44,8 +47,10 @@ Phases (any failure raises, so the run exits non-zero):
               modes at the path's shapes (the packed rebuild; a refresh
               with every bucket fired, with 1 bucket in 16 fired, with
               none fired), each timed by CUDA events and by its kernel's
-              device time; then 240 fresh steps with the checks and
-              measurements of phase 4 and overflow counters 0 at the end;
+              device time, and the solve (2.3) on the rebuild's table
+              and the persisted one; then 240 fresh steps with the checks
+              and measurements of phase 4 and overflow counters 0 at the
+              end;
   9. gated    the settled 4k pile under contact_rebuild_vel_factor 2: a
               gated refresh table (its own gate, then a mixed one) and a
               refresh step against the plain path; then at
@@ -53,8 +58,10 @@ Phases (any failure raises, so the run exits non-zero):
               in-kernel broad phase on the sweep order (window-edge
               counts in meta column 3) and a step against the plain path;
  10. faces    the hull table against its plain version on rains of
-              octahedra (faces of 3 vertices), hexagonal prisms (6) and
-              12-gon prisms (12), and the octahedra under
+              octahedra (faces of 3 vertices), hexagonal prisms (6),
+              12-gon, 20-gon and 63-gon prisms (12, 20, 63: the last two
+              above what the manifold holds in registers), and the
+              octahedra under
               rain_config's motion guard (vel_factor 2): guard rebuilds
               counted over 12 steps, a guard step against the plain path;
  11. sharded  the single-sweep kernel (2.7) against its plain version on
@@ -73,7 +80,13 @@ Phases (any failure raises, so the run exits non-zero):
               every rank's state bitwise equal to rank 0's, and the step
               against the one-process kernel path from the same state;
  12. profile  device time by kernel over 8 more steps of each path
-              (torch.profiler), after every timed window.
+              (torch.profiler), after every timed window; then the device
+              µs a launch of each mode of 2.2 and of each solve checked in
+              phases 3, 5, 7, 8 and 11 (2.3, 2.5, 2.7), beside its
+              CUDA-event time, its bound and its live contacts; with
+              --solve-levers, each 2.3 and 2.5 call's device µs under
+              each variant of LEVERS (banded_solve.cu rebuilt from a
+              patched copy), in turns: design, the variants, design.
 The line before the last is a JSON object of per-kernel results (each
 kernel's least possible time on the card, `bound_ms`, is computed from
 this run's inputs); the last line is {"ok": true, "device": {...}}.
@@ -82,6 +95,7 @@ this run's inputs); the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import subprocess
@@ -133,7 +147,9 @@ from physics_tpu_torch.solver.banded_solve import (
     banded_sweeps_fused,
     banded_sweeps_plain,
     banded_z0,
+    fused_consts_plain,
     prep_consts,
+    solve_plan,
     table_solve_operands,
 )
 from physics_tpu_torch.solver.contacts import (
@@ -180,18 +196,21 @@ OPS_EMIT = 60                # one active contact: anchors, keys, warm key
 OPS_SOLVE_CONTACT = 250      # one contact in one Jacobi sweep (3 rows)
 OPS_SOLVE_PREP = 400         # one contact's constants in sweep 0
 OPS_INTEGRATE = 60           # one body's pos/quat integration
+R_RELAX, R_LAM0 = 21, 42     # solve constant rows (csrc/banded_solve.cu R_*)
 OPS_WINDOW_AABB = 30         # a window rank's |R|·half-extent AABB
 OPS_RAW_PAIR = 12            # one raw pair's overlap, liveness and env tests
 # device-kernel names of csrc/*.cu and ops/sweep_kernel.py
 PORT_KERNELS = ("masks_kernel", "contact_table_kernel", "hull_prefilter_kernel",
                 "hull_sat_kernel", "hull_manifold_kernel", "hull_ground_kernel",
                 "hull_scan_kernel", "hull_rows_kernel", "hull_warm_kernel",
-                "init_kernel", "prep_kernel", "sweep_kernel",
-                "integrate_kernel", "prep_consts_kernel",
+                "solve_kernel", "banded_sweep_kernel", "prep_consts_kernel",
                 "ground_corners_kernel", "pair_contacts_kernel")
 PORT_GROUPS = {"2.4 hull table": ("hull_",),
                "2.8 banded contacts": ("ground_corners_kernel",
                                        "pair_contacts_kernel")}
+# a solve checked in phases 3-11, measured by device time in phase 12:
+# its kernel, label, wrapper call, CUDA-event ms, bound and live contacts
+Solve = collections.namedtuple("Solve", "name label call ms bound live")
 
 
 def log(msg: str) -> None:
@@ -271,17 +290,37 @@ def sat_lanes(state, geom, cand, cfg, hulls: bool):
     return int(cand.mask.sum()), ga[:, keep], gb[:, keep]
 
 
-def solve_bound(table, warm, geom, z, lam, pq, sweeps: int, n: int):
-    act = int((table[CT_ACT] > 0).sum())
-    ops = act * (OPS_SOLVE_PREP + OPS_SOLVE_CONTACT * sweeps) \
-        + n * OPS_INTEGRATE
-    return bound(nbytes(table, warm, geom, z, lam, pq), ops)
+def live_count(consts, warm: bool) -> int:
+    """How many contacts of solve constants `consts` (R_* rows) the later
+    sweeps of 2.3 and 2.5 visit: those with a relaxation or, after sweep
+    0's warm start, an impulse (csrc/banded_solve.cu solve_kernel)."""
+    live = consts[R_RELAX] != 0
+    if warm:
+        for k in range(3):
+            live = live | (consts[R_LAM0 + k] != 0)
+    return int(live.sum())
+
+
+def solve_bound(table, geom, z, lam, pq, *, sweeps: int, n: int, act: int,
+                live: int, anchored: bool):
+    """2.3's least time: the activity row of every slot; the table rows
+    (point, normal, depth, friction, restitution, ranks; the anchors too
+    on anchored paths) and the 3 warm rows of the `act` active slots; the
+    24 solve rows of the geometry of the n bodies; z, λ and pos/quat out.
+    Sweep 0 does the constants and one sweep's work for every active
+    contact, each later sweep for the `live` ones, then n integrations."""
+    cp = table.shape[1]
+    trows = 25 if anchored else 16
+    ops = act * (OPS_SOLVE_PREP + OPS_SOLVE_CONTACT) \
+        + live * OPS_SOLVE_CONTACT * (sweeps - 1) + n * OPS_INTEGRATE
+    return bound(4 * cp + 4 * (trows + 3) * act + 4 * 24 * n
+                 + nbytes(z, lam, pq), ops)
 
 
 def check_solve(state, cfg, table, warm, geom, label):
     """2.3 on a fresh table (rebuild schedule) and on the state's
     persisted table (refresh schedule). Returns (max err, {schedule:
-    (kernel ms, plain ms, bound)})."""
+    (kernel ms, plain ms, bound)}, [Solve])."""
     n = state.num_bodies
     cp = table.shape[1]
     geom_r = unified_geom(state, cfg, state.contact_order,
@@ -293,6 +332,8 @@ def check_solve(state, cfg, table, warm, geom, label):
                          cfg.contact_refresh_iters)}
     err_s = 0.0
     out = {}
+    solves = []
+    anchored = cfg.contact_rebuild > 1
     for sched, (tab, wrm, g, it) in cases.items():
         def run(plain, tab=tab, wrm=wrm, g=g, it=it):
             return banded_sweeps_fused(
@@ -308,12 +349,22 @@ def check_solve(state, cfg, table, warm, geom, label):
         err_s = max(err_s, e)
         kms, pms = median_ms(lambda: run(False), 20), median_ms(
             lambda: run(True), 3)
-        bnd = solve_bound(tab, wrm, g, zk, lk4, pk, it + 1, n)
+        cs = fused_consts_plain(
+            tab, wrm, g, use_split=True, anchored=anchored,
+            baum_over_dt=cfg.baumgarte / cfg.dt, slop=cfg.penetration_slop,
+            relaxation=cfg.contact_relaxation)[0]
+        live = live_count(cs, True)
+        act = int((tab[CT_ACT] > 0).sum())
+        bnd = solve_bound(tab, g, zk, lk4, pk, sweeps=it + 1, n=n, act=act,
+                          live=live, anchored=anchored)
         out[sched] = (kms, pms, bnd)
+        solves.append(Solve("banded_sweeps_fused", f"{label} {sched}",
+                            lambda run=run: run(False), kms, bnd, live))
         log(f"2.3 banded solve ({label} {sched}, {it + 1} sweeps): "
             f"max |Δ| {e}; kernel {kms:.4f} ms, plain {pms:.4f} ms, "
-            f"bound {bnd[0]:.5f} ms ({bnd[1]})")
-    return err_s, out
+            f"bound {bnd[0]:.5f} ms ({bnd[1]}); {live} live of {act} "
+            f"active of {tab.shape[1]} slots")
+    return err_s, out, solves
 
 
 def check_table(name, fn_kernel, fn_plain, n, geom):
@@ -348,7 +399,8 @@ def table_bytes(state, geom, cand, prev, outs, *extra) -> int:
 
 def check_pile_kernels(state, cfg):
     """Phase 3: each pile kernel against its plain version at the pile's
-    shapes. Returns {name: (max_abs_err, ms, plain_ms, bound)}."""
+    shapes. Returns ({name: (max_abs_err, ms, plain_ms, bound)},
+    [Solve])."""
     n = state.num_bodies
     out = {}
     aabbs = body_aabbs(state)
@@ -390,9 +442,9 @@ def check_pile_kernels(state, cfg):
         f" kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.5f} ms "
         f"({bnd[1]}; {live} candidate lanes, {sat} SAT lanes)")
     out["bucket_contact_table"] = (err, kms, pms, bnd)
-    err_s, times = check_solve(state, cfg, tk, wk, geom, "pile")
+    err_s, times, solves = check_solve(state, cfg, tk, wk, geom, "pile")
     out["banded_sweeps_fused"] = (err_s,) + times["rebuild"]
-    return out
+    return out, solves
 
 
 def hull_table_ops(geom, cand, cfg, state, act):
@@ -608,7 +660,8 @@ def check_banded_contacts(label, state, cfg, shard=None):
 def check_np_kernels(state, cfg):
     """Phase 7: the two-kernel path's kernels (2.8, 2.6, 2.5) against
     their plain versions at the path's shapes, 2.5 fed 2.6's plain
-    output. Returns {name: (max_abs_err, ms, plain_ms, bound)}."""
+    output. Returns ({name: (max_abs_err, ms, plain_ms, bound)},
+    [Solve])."""
     n = state.num_bodies
     out = {}
     out["pair_manifolds_banded"] = check_banded_contacts(
@@ -649,20 +702,24 @@ def check_np_kernels(state, cfg):
     (zk, lk, _), (zp, lp, _) = sw_run(False), sw_run(True)
     err = max(row_check("sweeps z", zk[:, :n], zp[:, :n], SOLVE_RTOL),
               row_check("sweeps lam", lk, lp, SOLVE_RTOL))
-    # the rows that hold data: z0's (v, ω), the constants the sweeps read
-    # (λ₀ rows 42:45 only when warm), z's velocities, pseudo-velocities
-    # and degrees, and λ
+    # the rows that hold data: z0's (v, ω), the lane operands, the
+    # constants the sweeps read of the n_live slots with an endpoint (λ₀
+    # rows 42:45 only when warm), z's velocities, pseudo-velocities and
+    # degrees, and λ; sweep 0 for the n_live, later sweeps for the live
     read = R_PREP if ops.use_split else R_PREP - 3
-    bnd = bound(nbytes(z0[0:6, :n], ops.bases, ops.la, ops.lb, cpl[:read],
-                       zk[0:6, :n], zk[8:15, :n], lk),
-                OPS_SOLVE_CONTACT * sweeps * n_live)
+    live = live_count(cpl, ops.use_split)
+    bnd = bound(nbytes(z0[0:6, :n], ops.bases, ops.la, ops.lb, zk[0:6, :n],
+                       zk[8:15, :n], lk) + 4 * read * n_live,
+                OPS_SOLVE_CONTACT * (n_live + (sweeps - 1) * live))
     kms, pms = median_ms(lambda: sw_run(False), 20), median_ms(
         lambda: sw_run(True), 3)
     log(f"2.5 banded sweeps ({sweeps} sweeps, tile {ops.tile}): max |Δ| "
         f"{err}; kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
-        f"{bnd[0]:.5f} ms ({bnd[1]})")
+        f"{bnd[0]:.5f} ms ({bnd[1]}); {live} live of {cp} slots; grid "
+        f"{solve_plan(False, cp, geom.device)}")
     out["banded_sweeps"] = (err, kms, pms, bnd)
-    return out
+    return out, [Solve("banded_sweeps", "two-kernel pile",
+                       lambda: sw_run(False), kms, bnd, live)]
 
 
 def drive(label, make, cfg, steps, want, gpu, zero_overflow=False):
@@ -764,6 +821,114 @@ def kernel_device_us(fn, names, reps: int = 5) -> float:
                and any(k in e.key for k in names)) / reps
 
 
+# The persistent solve's design levers: each a variant of
+# csrc/banded_solve.cu made by replacing text in a copy of it (timing
+# only; no_atomics gives wrong results): no_hold reads every live
+# contact's constants from global memory in every sweep, scalar gathers
+# and scatters z one float at a time, in_order gives each block a range
+# of slots in slot order, grid_all launches every resident block and
+# grid_slots one a 256 slots (not at least one an SM), no_atomics adds
+# nothing to z in the later sweeps.
+_SCATTER4 = """\
+  if (vel) atomicAdd(reinterpret_cast<float4*>(row), make_float4(dv.x, dv.y, dv.z, dw.x));
+  if (vel && pseudo) {
+    atomicAdd(reinterpret_cast<float4*>(row + 4), make_float4(dw.y, dw.z, pdv.x, pdv.y));
+  } else if (vel) {
+    atomicAdd(reinterpret_cast<float2*>(row + 4), make_float2(dw.y, dw.z));
+  } else if (pseudo) {
+    atomicAdd(reinterpret_cast<float2*>(row + 6), make_float2(pdv.x, pdv.y));
+  }
+  if (pseudo) atomicAdd(reinterpret_cast<float4*>(row + 8), make_float4(pdv.z, pdw.x, pdw.y, pdw.z));
+"""
+_SCATTER1 = """\
+  const float v[6] = {dv.x, dv.y, dv.z, dw.x, dw.y, dw.z};
+  const float pv[6] = {pdv.x, pdv.y, pdv.z, pdw.x, pdw.y, pdw.z};
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    if (vel) atomicAdd(row + k, v[k]);
+    if (pseudo) atomicAdd(row + 6 + k, pv[k]);
+  }
+"""
+_WANT = "const int want = by_slots > sms[dev] ? by_slots : sms[dev];"
+LEVERS = {
+    "no_hold": [("const int cap = budget[dev] / (kRec * 4);",
+                 "const int cap = 0;")],
+    "scalar": [("return __ldcg(reinterpret_cast<const float4*>(zt + "
+                "(size_t)rank * kZRows) + q);",
+                "const float* r = zt + (size_t)rank * kZRows + 4 * q;\n"
+                "  return make_float4(__ldcg(r), __ldcg(r + 1), "
+                "__ldcg(r + 2), __ldcg(r + 3));"),
+               (_SCATTER4, _SCATTER1)],
+    "in_order": [("(int)((size_t)(g * l.cpb + k) * l.deal % n_chunks)",
+                  "g * l.cpb + k")],
+    "grid_all": [(_WANT, "const int want = gmax;")],
+    "grid_slots": [(_WANT, "const int want = by_slots;")],
+    "no_atomics": [("    scatter(zw, rank, dv, dw, true, pdv, pdw, pseudo, "
+                    "0.f);\n", "")],
+}
+
+
+def lever_libraries() -> dict:
+    """{lever: the port's entry points with the persistent solve's from
+    its variant}, the variants built into the build directory, one nvcc
+    each, all at once."""
+    import ctypes
+    from types import SimpleNamespace
+
+    src = (_build.CSRC / "banded_solve.cu").read_text()
+    out = _build.BUILD_DIR / "levers"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, subs in LEVERS.items():
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise AssertionError(f"lever {name}: {old!r} is not in "
+                                     f"banded_solve.cu once")
+            text = text.replace(old, new)
+        cu = out / f"{name}.cu"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(out / f"{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on lever {name}:\n{text}")
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        ns = SimpleNamespace(**vars(_build.library()))
+        for entry in ("bs_banded_solve", "bs_banded_sweeps", "bs_solve_plan"):
+            fn = getattr(lib, entry)
+            fn.argtypes = _build.SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            setattr(ns, entry, fn)
+        libs[name] = ns
+    return libs
+
+
+def solve_levers(solves, gpu) -> None:
+    """Device µs a call of each 2.3 and 2.5 solve under each lever, in
+    turns: the port's build, every variant, the port's build again."""
+    port = _build.library
+    libs = lever_libraries()
+    try:
+        for s in solves:
+            if s.name == "banded_sweep_once":
+                continue
+            us = {}
+            for name in ["design", *libs, "design"]:
+                _build.library = (lambda ns=libs[name]: ns) \
+                    if name in libs else port
+                us.setdefault(name, []).append(
+                    kernel_device_us(s.call, ("solve_kernel",)))
+            log(f"levers {s.name} ({s.label}), device us a call: "
+                f"{json.dumps(us)} ({gpu})")
+    finally:
+        _build.library = port
+
+
 def mode_bound(st, cfg, geom, prev, outs, gate):
     """The least time of a candidate-free table call on these inputs: the
     fired buckets' window geometry (narrow-phase rows of their ranks and
@@ -858,13 +1023,15 @@ def squeezed_rain(verts, n, dev):
 
 
 def check_hull_faces(dev):
-    """Phase 10: 2.4 on libraries of faces of 3, 6 and 12 vertices, and
-    the motion guard's rebuilds. Returns the max err."""
+    """Phase 10: 2.4 on libraries of faces of 3, 6, 12, 20 and 63
+    vertices, and the motion guard's rebuilds. Returns the max err."""
     err = 0.0
     hulls = {}
     for label, verts in (("octahedra, E=3", octahedron_verts()),
                          ("hexagonal prisms, E=6", prism_verts(6)),
-                         ("12-gon prisms, E=12", prism_verts(12))):
+                         ("12-gon prisms, E=12", prism_verts(12)),
+                         ("20-gon prisms, E=20", prism_verts(20)),
+                         ("63-gon prisms, E=63", prism_verts(63))):
         st, cfg = squeezed_rain(verts, 128, dev)
         e = ht.hull_dims(st.hulls).e
         (tk, _, _), _, _, e_err, _, _, _ = check_hull_table(st, cfg, label)
@@ -944,7 +1111,8 @@ def check_sweep_once(label, n, z0, bases, la, lb, consts, tile,
     solve's tiles, each switch combination; the later sweeps on the
     snapshot after sweep 0 and one velocity sweep. Returns (max err, ms,
     plain ms, bound) of the velocity + position sweep, the one the
-    schedule runs most (times None unless `timed`)."""
+    schedule runs most (times None unless `timed`), and its Solve (None
+    unless `timed`)."""
     z1, lam1, _ = banded_sweeps_plain(z0, bases, la, lb, consts, tile=tile,
                                       vel_iters=1, pos_iters=0,
                                       warm_sweep=True, posq=None,
@@ -961,6 +1129,7 @@ def check_sweep_once(label, n, z0, bases, la, lb, consts, tile,
         f"{bases.shape[0]} tiles, {t_loc} a rank; rank 0: {n_live} live "
         f"reaching {cols} bodies")
     out = {}
+    solve = None
     for case, (vel_on, pos_on, warm_on, deg) in SWEEP_CASES.items():
         z, lam = (z0, torch.zeros((4, c_loc), device=z0.device)) if deg \
             else (z1, lam1[:, :c_loc].contiguous())
@@ -986,12 +1155,16 @@ def check_sweep_once(label, n, z0, bases, la, lb, consts, tile,
                     OPS_SOLVE_CONTACT * n_live)
         kms = median_ms(lambda: run(False), 50)
         pms = median_ms(lambda: run(True), 5)
+        if case == "velocity + position":
+            solve = Solve("banded_sweep_once", f"{label} rank 0 of "
+                          f"{RANKS}, {case}", lambda run=run: run(False),
+                          kms, bnd, n_live)
         log(f"2.7 banded sweep once ({label}), {case}: max |Δ| {err}; "
             f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
             f"{bnd[0]:.5f} ms ({bnd[1]})")
         out[case] = (err, kms, pms, bnd)
     err = max(v[0] for v in out.values())
-    return (err,) + out["velocity + position"][1:]
+    return (err,) + out["velocity + position"][1:], solve
 
 
 def check_bucket_ranges(state, cfg, hulls: bool, label: str) -> None:
@@ -1177,6 +1350,8 @@ def main() -> int:
     ap.add_argument("--settle", type=int, default=60)
     ap.add_argument("--steps", type=int, default=240)
     ap.add_argument("--sharded-steps", type=int, default=48)
+    ap.add_argument("--solve-levers", action="store_true",
+                    help="also time each solve under each design lever")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1190,6 +1365,15 @@ def main() -> int:
         f"(nvcc {nvcc_s:.1f} s, one process per source)")
     if report:
         log(report.strip())       # ptxas: registers, stack, spills
+    for what, n_b, c in (
+            ("4k table pile", N_PILE,
+             scenes.pile_config(N_PILE).replace(contact_iters=8)),
+            ("1,024-hull rain", N_RAIN, scenes.rain_config(N_RAIN)),
+            ("packed envs", N_ENVS * ENV_K,
+             scenes.packed_env_config(N_ENVS, ENV_K))):
+        cp = table_shape(n_b, c)[2]
+        log(f"persistent solve 2.3 at the {what}'s {cp} slots: "
+            f"{solve_plan(True, cp, dev)}")
     rebuilds = -(-args.steps // 4)
 
     # ---- phases 3 and 4: the 4k box pile ----
@@ -1205,7 +1389,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"pile settled {args.settle} steps: contacts "
         f"{int(m['contact_count'])}")
-    results = check_pile_kernels(st, cfg)
+    results, solves = check_pile_kernels(st, cfg)
     pile_launches, pile_st = drive("pile", pile, cfg, args.steps, {
         "sweep_window_masks": rebuilds, "bucket_contact_table": rebuilds,
         "bucket_hull_contact_table": 0, "banded_sweeps_fused": args.steps},
@@ -1227,7 +1411,8 @@ def main() -> int:
     (tk, _, wk), geom, _, err, kms, pms, bnd = check_hull_table(
         st, rcfg, "rain 1024")
     results["bucket_hull_contact_table"] = (err, kms, pms, bnd)
-    _, rain_solve = check_solve(st, rcfg, tk, wk, geom, "rain")
+    _, rain_solve, rain_solves = check_solve(st, rcfg, tk, wk, geom, "rain")
+    solves += rain_solves
     rain_launches, rain_st = drive("rain", rain, rcfg, args.steps, {
         "sweep_window_masks": rebuilds, "bucket_contact_table": 0,
         "bucket_hull_contact_table": rebuilds,
@@ -1260,7 +1445,9 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"two-kernel pile settled {args.settle} steps: contacts "
         f"{int(m['contact_count'])}, band_overflow {int(m['band_overflow'])}")
-    results.update(check_np_kernels(st, ncfg))
+    np_results, np_solves = check_np_kernels(st, ncfg)
+    results.update(np_results)
+    solves += np_solves
     np_launches, np_st = drive("two-kernel pile", pile, ncfg, args.steps, {
         "sweep_window_masks": args.steps,
         "pair_manifolds_banded": args.steps, "prep_consts": args.steps,
@@ -1292,6 +1479,10 @@ def main() -> int:
         "refresh, all fired": every >= 0,
         "refresh, 1 in 16 fired": every % 16 == 0,
         "refresh, none fired": every < 0})
+    tk, _, wk = modes["rebuild"][5]()
+    _, packed_solve, packed_solves = check_solve(
+        st, pcfg, tk, wk, unified_geom(st, pcfg, None), "packed")
+    solves += packed_solves
     packed_launches, packed_st = drive("packed envs", packed, pcfg,
                                        args.steps, {
         "bucket_contact_table": args.steps,
@@ -1330,15 +1521,16 @@ def main() -> int:
     # ---- phase 11: the row-sharded step (no profile: it runs in the ranks)
     # 2.7 at the shapes each sharded path gives it (the pile's row is the
     # one timed), 2.8 in chunked mode on each rank's quarter of the lanes
-    sweep = check_sweep_once("pile", N_PILE,
-                             *table_sweep_operands(pile_st, cfg))
+    sweep, sweep_solve = check_sweep_once(
+        "pile", N_PILE, *table_sweep_operands(pile_st, cfg))
+    solves.append(sweep_solve)
     np_ops = np_sharded_operands(np_st, ncfg)
     err = max(sweep[0],
               check_sweep_once("rain", N_RAIN,
                                *table_sweep_operands(rain_st, rcfg),
-                               timed=False)[0],
+                               timed=False)[0][0],
               check_sweep_once("two-kernel pile", N_PILE, *np_ops,
-                               timed=False)[0])
+                               timed=False)[0][0])
     results["banded_sweep_once"] = (err,) + sweep[1:]
     err = max(check_banded_contacts(
         f"2.8 banded contacts (rank {r} of {RANKS}: ground slots, chunked "
@@ -1368,6 +1560,19 @@ def main() -> int:
         mode_lines[case] = {"max_abs_err": err, "ms": kms, "plain_ms": pms,
                             "bound_ms": bms, "bound_by": by,
                             "device_us": us, "fired_buckets": fired}
+    # a solve call's device time: all of its kernel's work, barriers
+    # included (one launch a call for 2.3 and 2.5, one for 2.7)
+    solve_us = {}
+    for name, label, call, kms, (bms, by), live in solves:
+        names = ("banded_sweep_kernel",) if name == "banded_sweep_once" \
+            else ("solve_kernel",)
+        us = kernel_device_us(call, names)
+        solve_us.setdefault(name, {})[label] = us
+        log(f"{name} ({label}): {us:.1f} us of device a launch, "
+            f"{kms:.4f} ms by CUDA events, bound {bms:.5f} ms ({by}), "
+            f"{live} live contacts ({gpu})")
+    if args.solve_levers:
+        solve_levers(solves, gpu)
 
     sources = {
         "sweep_window_masks": ("triton", "physics_tpu_torch/ops/sweep_kernel.py",
@@ -1406,7 +1611,10 @@ def main() -> int:
                         "library_ms": None})
         if name == "bucket_contact_table":
             kernels[-1]["modes"] = mode_lines
+        if name in solve_us:
+            kernels[-1]["device_us"] = solve_us[name]
     log(f"rain solve: {json.dumps(rain_solve)}")
+    log(f"packed solve: {json.dumps(packed_solve)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,7 +68,9 @@ SIGNATURES = {
     "bs_banded_solve": [
         _P, _P, _P,                # table, warm8, geom
         _P, _P, _P,                # z out, lam out, posq out (or NULL)
-        _P, _P,                    # scratch: consts [48, cp], z snapshot
+        _P, _P, _P, _P,            # scratch: consts [48, cp], z tables,
+                                   # global state [9, cp], live list
+        _I,                        # live list length
         _I, _I, _I, _I,            # cp, npad, trows, n sweeps
         _I, _I,                    # vel iters, pos iters
         _F, _F, _F,                # baumgarte/dt, slop, relaxation
@@ -86,12 +88,15 @@ SIGNATURES = {
         _P, _P, _P, _P, _P,        # z0, bases, la, lb, consts
         _P,                        # posq (or NULL)
         _P, _P, _P,                # z out, lam out, posq out (or NULL)
-        _P,                        # scratch: z snapshot
+        _P, _P, _P,                # scratch: z tables, global state, list
+        _I,                        # live list length
         _I, _I, _I, _I,            # cp, npad, tile, n sweeps
         _I, _I,                    # vel iters, pos iters
         _F, _I,                    # dt, flags
         _P,                        # stream
     ],
+    # the persistent solve's grid and its kernel's resources
+    "bs_solve_plan": [_I, _I, _P],   # fused, cp, int32 [7] out
     "bs_banded_sweep_once": [
         _P, _P, _P, _P, _P, _P,    # z snapshot, bases, la, lb, consts, lam
         _P, _P,                    # dz out, lam out

@@ -18,36 +18,61 @@
 //
 // The solve is projected Jacobi with split impulses on a packed velocity
 // table z [16, NPAD] (rows 0:3 v, 3:6 ω, 8:11 pseudo v, 11:14 pseudo ω,
-// 14 contact degree). Launch sequence of 2.3, all on the caller's stream:
-//   init      z and its snapshot ← (v, ω) of the geometry table, rest 0;
-//   sweep 0   one thread per contact: endpoints from the table, the anchored
-//             re-derivation of point/normal/depth, the [48, Cp] constants,
-//             then the degree scatter and the warm-start impulses;
-//   sweep s   copy z → snapshot, then one thread per contact reads the
-//             snapshot and atomically adds its deltas into z — Jacobi: every
-//             contact of a sweep sees the same snapshot;
-//   integrate one thread per rank: pos/quat from the final z.
-// 2.5 is the same sequence over constants that 2.6 computed beforehand (one
-// thread per contact, both endpoints gathered by rank): z and its snapshot
-// start as a copy of z0, sweep 0 is the degree / warm-start pre-pass alone,
-// and endpoint ranks come from the tile's window base plus la/lb (−1: no
-// endpoint, as the TPU kernel's band check left it). On the TPU the whole
-// loop was one kernel whose grid ran in order, so tile t could integrate its
-// ranks right after its last scatter; blocks on the GPU run in no order, so
-// integration is its own launch.
+// 14 contact degree). Sweep 0 builds each contact's constants (2.3: from
+// the contact table and the geometry, with the anchored re-derivation of
+// point/normal/depth; 2.5: 2.6 computed them beforehand), scatters the
+// endpoint degrees and applies the warm-start impulses; each later sweep
+// reads a snapshot of z and adds every live contact's impulse deltas,
+// relaxed by 1/degree and Coulomb-clamped (Jacobi: every contact of a sweep
+// sees the same snapshot); the epilogue integrates pos/quat from the final
+// z. On the TPU the whole loop was one kernel whose grid ran in order.
 //
-// What bounds it on the H100: per sweep 24.6k contacts × (45 constant loads,
-// 28 z gathers, ~250 flops, 24 atomics) — about 6 MB of traffic, L2-resident,
-// so each sweep is a few microseconds of work and the launch sequence
-// (2 + 2·sweeps launches and copies) is latency-bound. The z table
-// (16 × 4352 × 4 B ≈ 272 KB) exceeds one block's 227 KB of shared memory, so
-// it lives in global memory/L2 and blocks communicate through atomics. A
-// persistent kernel or a CUDA graph is later work. Atomic f32 sums land in a
-// different order every run, so results match the plain version to a
-// tolerance, not bitwise; 2.6 has no sums across contacts and matches bit for
-// bit.
+// 2.3 and 2.5 are one persistent cooperative launch each (solve_kernel):
+//   - the grid is at least a block an SM and at most what the card holds
+//     resident (occupancy × SMs), launched with cudaLaunchKernelEx and
+//     cudaLaunchAttributeCooperative, which guarantees co-residency; the
+//     sweeps are separated by cooperative_groups::this_grid().sync(). A
+//     cooperative kernel node can be captured in a CUDA graph (CUDA 12), so
+//     a call is one capturable device operation, whatever its sweep count;
+//   - z lives body-major in two tables A and B [NPAD, 16] (64 B a body, its
+//     12 velocity floats first: the gather of an endpoint is three 16-byte
+//     loads through L2, its scatter three float4 atomicAdds, sm_90's vector
+//     atomics). Sweep 0 adds into both; sweep s ≥ 1 reads one and adds into
+//     the other, which lacks the previous sweep's deltas: each contact adds
+//     the sum of its previous and current impulse, so the other table
+//     becomes the next snapshot without a copy, and one barrier a sweep
+//     suffices;
+//   - sweep 0 runs over every slot of the block's share, a range of 32-slot
+//     chunks in the order of a multiplicative permutation (a table's live
+//     slots bunch at the front of each bucket; permuted chunks load the
+//     blocks evenly), and compacts the live contacts (R_RELAX ≠ 0:
+//     relaxation·actf_t, the refreshed activity on anchored paths) with a
+//     block scan into the block's list; later sweeps walk that list alone.
+//     A slot that is not live has no effect after sweep 0 (zero
+//     relaxation, masses and warm-start impulse), so its λ is written once
+//     there;
+//   - each live contact's 42 sweep constants, its λ, previous impulse and
+//     relaxation over the degrees (final after sweep 0, so divided once)
+//     stay in the block's shared memory (55 floats: an odd stride, so a
+//     warp reads without bank conflicts) for the first `scap` contacts of
+//     the block; the rest are read from global memory by slot (2.3 writes
+//     them to its constants scratch, 2.5 reads 2.6's output) with their
+//     state in a global scratch. Any live count is solved.
+// What bounds it on the H100: the sweeps are a chain of small dependent
+// steps (about 18,200 live contacts of the 4k pile: a 48-byte gather per
+// endpoint, ~250 flops, 12 atomic floats per endpoint), so a later sweep
+// costs its slowest block's work, about half of it atomics, plus a grid
+// barrier of ~1 µs, not bytes; sweep 0 of the packed envs (196,608 slots)
+// reads the contact table once. Atomic f32 sums land in a different order
+// every run, so results match the plain version to a tolerance, not
+// bitwise; 2.6 has no sums across contacts and matches bit for bit. 2.7
+// keeps its one-sweep launch (banded_sweep_kernel).
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -61,6 +86,14 @@ constexpr int R_IKN = 15, R_IKT1 = 16, R_IKT2 = 17, R_VTGT = 18, R_BIAS = 19;
 constexpr int R_FRIC = 20, R_RELAX = 21, R_IMA = 22, R_IMB = 23, R_IWA = 24, R_IWB = 33;
 constexpr int R_LAM0 = 42, R_DEPTH = 45, R_RANKA = 46, R_RANKB = 47;
 constexpr int kPrepRows = R_DEPTH;  // rows the constants math fills: 2.6's output
+
+// the persistent solve: a live contact's record in shared memory, rows
+// 0:42 its sweep constants (R_* layout), then its λ, the impulse and Δλ_b
+// of its previous sweep, its relaxation over the degrees, its slot and its
+// endpoint ranks (55 floats: an odd stride)
+constexpr int kSweepRows = R_LAM0;
+constexpr int S_LAM = 42, S_PREV = 46, S_RELAX = 50, S_SLOT = 51, S_RANKA = 52, S_RANKB = 53;
+constexpr int kRec = 55;
 
 constexpr int FLAG_USE_SPLIT = 1, FLAG_ANCHORED = 2, FLAG_INTEGRATE = 4, FLAG_RENORM = 8;
 
@@ -78,6 +111,23 @@ struct Params {
   int cp, npad;
   float baum_over_dt, slop, relaxation, dt;
   int flags;
+};
+
+// What the persistent solve adds: 2.5's inputs, the scratch and the plan.
+struct Live {
+  const float* z0;    // 2.5: the velocity table at the start [16, NPAD]
+  const int* bases;   // 2.5: window starts [Cp / tile] ...
+  const int* la;      // ... and window-local endpoint ranks (−1: none)
+  const int* lb;
+  float* zt;          // [2, NPAD, 16] tables A and B
+  float* st;          // [9, Cp] the state, by slot, of the live contacts
+                      // held in global memory: λ, previous impulse and
+                      // Δλ_b, relaxation over the degrees (S_LAM:S_SLOT)
+  int* list;          // each block's live slots, at 32·cpb·block
+  int tile, n_sweeps, vel_iters, pos_iters;
+  int cpb;            // 32-slot chunks a block (at most)
+  int deal;           // chunk x of the deal is chunk x·deal mod chunks
+  int scap;           // live contacts a block holds in shared memory
 };
 
 // rot9 of the anchored refresh (contacts_pallas.py:447-455)
@@ -111,8 +161,9 @@ __device__ __forceinline__ float cget(const Params& p, int row, int j) { return 
 // One Jacobi sweep for contact j with endpoint ranks rank_a/rank_b (−1: none)
 // (contacts_pallas._sweep_tile_math), reading the snapshot and adding the
 // deltas into z. vel_on/pos_on/warm_f/degf are the sweep's 0/1 switches.
+// 2.7's launch; the persistent solve has its own forms (sweep0, sweep_live).
 __device__ void sweep_contact(const Params& p, int j, int rank_a, int rank_b, float vel_on, float pos_on,
-                              float warm_f, float degf, bool last) {
+                              float warm_f, float degf) {
   float za[kZRows], zb[kZRows];
 #pragma unroll
   for (int k = 0; k < kZRows; ++k) {
@@ -172,7 +223,7 @@ __device__ void sweep_contact(const Params& p, int j, int rank_a, int rank_b, fl
   p.lam[j] = lam_n_new;
   p.lam[cp + j] = lam_t1_new;
   p.lam[2 * cp + j] = lam_t2_new;
-  p.lam[3 * cp + j] = (last && (p.flags & FLAG_ANCHORED)) ? cget(p, R_DEPTH, j) : lam_b_new;
+  p.lam[3 * cp + j] = lam_b_new;
 
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
@@ -201,18 +252,6 @@ __device__ void sweep_contact(const Params& p, int j, int rank_a, int rank_b, fl
     atomicAdd(zc + 12 * np, pdw.y);
     atomicAdd(zc + 13 * np, pdw.z);
     if (degf != 0.f) atomicAdd(zc + 14 * np, degf);
-  }
-}
-
-__global__ void init_kernel(Params p) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= p.npad) return;
-  const size_t np = (size_t)p.npad;
-#pragma unroll
-  for (int r = 0; r < kZRows; ++r) {
-    const float v = r < 6 ? p.geom[(size_t)(13 + r) * np + c] : 0.f;
-    p.z[r * np + c] = v;
-    p.zread[r * np + c] = v;
   }
 }
 
@@ -267,11 +306,10 @@ __device__ __forceinline__ void prep_consts_math(const Params& p, const float* g
   for (int k = 0; k < 3; ++k) c[R_LAM0 + k] = lam0[k] * actf;
 }
 
-// Sweep 0: constants (contacts_pallas._prep_consts_math, with the anchored
-// refresh of :440-481), then the degree / warm-start pass.
-__global__ void __launch_bounds__(kThreads) prep_kernel(Params p, bool last) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p.cp) return;
+// 2.3's constants of contact j (contacts_pallas._prep_consts_math, with the
+// anchored refresh of :440-481) into c [48] and its endpoint ranks (−1:
+// none), for an active slot (table activity > 0).
+__device__ __forceinline__ void fused_prep(const Params& p, int j, float* c, int& rank_a, int& rank_b) {
   const size_t cp = (size_t)p.cp;
   // endpoints are read by rank: the table's band keeps them within
   // [b·128, b·128 + wtot) of their bucket b, as the TPU window required
@@ -283,8 +321,8 @@ __global__ void __launch_bounds__(kThreads) prep_kernel(Params p, bool last) {
   const int ra = (int)tb[13];
   const int rb1 = (int)tb[14];
   const bool has_b = act && (rb1 > 0);
-  const int rank_a = act ? ra : -1;
-  const int rank_b = has_b ? rb1 - 1 : -1;
+  rank_a = act ? ra : -1;
+  rank_b = has_b ? rb1 - 1 : -1;
   float ga[24], gb[24];
   load_solve(p.geom, p.npad, rank_a, ga);
   load_solve(p.geom, p.npad, rank_b, gb);
@@ -314,25 +352,11 @@ __global__ void __launch_bounds__(kThreads) prep_kernel(Params p, bool last) {
     actf_t = actf;
   }
   const float has_bf = (float)(has_b && (actf_t > 0.f));
-
-  float c[kRConst];
   const float lam0[3] = {p.warm8[j], p.warm8[cp + j], p.warm8[2 * cp + j]};
   prep_consts_math(p, ga, gb, p_t, n_t, d_t, tb[7], tb[8], actf_t, lam0, has_bf, c);
   c[R_DEPTH] = (p.flags & FLAG_ANCHORED) ? d_t * actf_t : 0.f;
   c[R_RANKA] = (float)rank_a;
   c[R_RANKB] = (float)rank_b;
-#pragma unroll
-  for (int k = 0; k < kRConst; ++k) p.consts[(size_t)k * cp + j] = c[k];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) p.lam[(size_t)k * cp + j] = 0.f;
-
-  sweep_contact(p, j, rank_a, rank_b, 0.f, 0.f, 1.0f, 1.0f, last);
-}
-
-__global__ void __launch_bounds__(kThreads) sweep_kernel(Params p, float vel_on, float pos_on, bool last) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p.cp) return;
-  sweep_contact(p, j, (int)cget(p, R_RANKA, j), (int)cget(p, R_RANKB, j), vel_on, pos_on, 0.f, 0.f, last);
 }
 
 // exp-map of a rotation vector (identity at 0), as the TPU epilogue's expq
@@ -360,15 +384,11 @@ __device__ __forceinline__ void qnorm(float* a) {
   for (int k = 0; k < 4; ++k) a[k] = a[k] * inv;
 }
 
-// Position integration from the final z (contacts_pallas.py:563-619):
-// pos += (v + pv)·dt, q ← exp(ω dt) ∘ normalize(exp(pω dt) ∘ q).
-__global__ void integrate_kernel(Params p) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= p.npad) return;
+// Position integration of rank c from its final z row `own`
+// (contacts_pallas.py:563-619): pos += (v + pv)·dt,
+// q ← exp(ω dt) ∘ normalize(exp(pω dt) ∘ q).
+__device__ __forceinline__ void integrate_rank(const Params& p, const float* own, int c) {
   const size_t np = (size_t)p.npad;
-  float own[kZRows];
-#pragma unroll
-  for (int r = 0; r < kZRows; ++r) own[r] = p.z[r * np + c];
   const float dt = p.dt;
   const float q0[4] = {p.quat0[c], p.quat0[np + c], p.quat0[2 * np + c], p.quat0[3 * np + c]};
   float e1[4], q1[4], e2[4], q2[4];
@@ -420,26 +440,448 @@ __global__ void __launch_bounds__(kThreads) banded_sweep_kernel(Params p, const 
                                                                 float warm_f, float degf) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= p.cp) return;
-  sweep_contact(p, j, win_rank(bases, la, tile, j), win_rank(bases, lb, tile, j), vel_on, pos_on, warm_f, degf,
-                false);
+  sweep_contact(p, j, win_rank(bases, la, tile, j), win_rank(bases, lb, tile, j), vel_on, pos_on, warm_f, degf);
+}
+
+// ---------------------------------------------------------------------------
+// the persistent solve of 2.3 (kFused) and 2.5
+// ---------------------------------------------------------------------------
+
+// A body's row of the tables (16 floats) holds z's rows in the order
+// v, ω, pseudo v, pseudo ω (12 floats a contact adds to: three 16-byte
+// vectors), the degree, then z's rows 6, 7 and 15; zslot(r) is z row r's
+// place.
+__device__ __forceinline__ constexpr int zslot(int r) {
+  return r < 6 ? r : r < 8 ? r + 7 : r < 14 ? r - 2 : r == 14 ? 12 : 15;
+}
+
+// Quarter q (floats 4q:4q+4) of body `rank`'s row of a table, through L2:
+// other blocks' atomics changed it since this SM last read it.
+__device__ __forceinline__ float4 ld4(const float* zt, int rank, int q) {
+  return __ldcg(reinterpret_cast<const float4*>(zt + (size_t)rank * kZRows) + q);
+}
+
+// Adds to body `rank`'s row of a table: (dv, dw) when `vel`, (pdv, pdw)
+// when `pseudo`, and deg to its degree.
+__device__ __forceinline__ void scatter(float* zt, int rank, V3 dv, V3 dw, bool vel, V3 pdv, V3 pdw, bool pseudo,
+                                        float deg) {
+  float* row = zt + (size_t)rank * kZRows;
+  if (vel) atomicAdd(reinterpret_cast<float4*>(row), make_float4(dv.x, dv.y, dv.z, dw.x));
+  if (vel && pseudo) {
+    atomicAdd(reinterpret_cast<float4*>(row + 4), make_float4(dw.y, dw.z, pdv.x, pdv.y));
+  } else if (vel) {
+    atomicAdd(reinterpret_cast<float2*>(row + 4), make_float2(dw.y, dw.z));
+  } else if (pseudo) {
+    atomicAdd(reinterpret_cast<float2*>(row + 6), make_float2(pdv.x, pdv.y));
+  }
+  if (pseudo) atomicAdd(reinterpret_cast<float4*>(row + 8), make_float4(pdv.z, pdw.x, pdw.y, pdw.z));
+  if (deg != 0.f) atomicAdd(row + zslot(14), deg);
+}
+
+// Sweep 0 of one contact with constants c: the degree scatter and, with
+// warm start, λ: 0 → λ₀ (vel_on = pos_on = 0, so nothing here reads z),
+// added into both tables. λ after the sweep → lam.
+__device__ __forceinline__ void sweep0(const Params& p, const float* c, int rank_a, int rank_b, float* zt_a,
+                                       float* zt_b, float* lam) {
+  const bool warm = p.flags & FLAG_USE_SPLIT;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) lam[k] = warm ? c[R_LAM0 + k] : 0.f;
+  lam[3] = 0.f;
+  const V3 nrm = mk(c[R_N], c[R_N + 1], c[R_N + 2]);
+  const V3 t1 = mk(c[R_T1], c[R_T1 + 1], c[R_T1 + 2]);
+  const V3 t2 = mk(c[R_T2], c[R_T2 + 1], c[R_T2 + 2]);
+  const V3 imp = add(add(scale(nrm, lam[0]), scale(t1, lam[1])), scale(t2, lam[2]));
+  const V3 z3 = mk(0.f, 0.f, 0.f);
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const int rank = side == 0 ? rank_a : rank_b;
+    if (rank < 0) continue;
+    const float sign = side == 0 ? 1.0f : -1.0f;
+    const float inv_m = c[side == 0 ? R_IMA : R_IMB];
+    const float* iw = c + (side == 0 ? R_IWA : R_IWB);
+    const V3 r = side == 0 ? mk(c[R_RA], c[R_RA + 1], c[R_RA + 2]) : mk(c[R_RB], c[R_RB + 1], c[R_RB + 2]);
+    const V3 dv = scale(imp, sign * inv_m);
+    const V3 dw = scale(mat_vec(iw, cross(r, imp)), sign);
+    scatter(zt_a, rank, dv, dw, warm, z3, z3, false, 1.0f);
+    scatter(zt_b, rank, dv, dw, warm, z3, z3, false, 1.0f);
+  }
+}
+
+// A later sweep of one live contact (contacts_pallas._sweep_tile_math
+// without the warm and degree terms, which are 0 after sweep 0): its sweep
+// constants are cr[k·cs] (shared memory: cs = 1; global: cs = Cp), its λ,
+// previous impulse (x, y, z, Δλ_b) and relaxation sr[k·ss]. Reads the
+// snapshot zr and adds its previous and current deltas into zw, which
+// lacks the previous. The degrees are final after sweep 0, so the first
+// later sweep divides the relaxation by them once and keeps the quotient.
+__device__ __forceinline__ void sweep_live(const float* cr, size_t cs, float* sr, size_t ss, int rank_a,
+                                           int rank_b, const float* zr, float* zw, float vel_on, float pos_on,
+                                           bool pseudo, bool first) {
+  // the endpoints' rows: v, ω, pseudo v, pseudo ω; the degree (the
+  // fourth quarter) only in the first later sweep
+  float za[kZRows], zb[kZRows];
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const bool need = q < 3 || first;
+    const float4 a = (need && rank_a >= 0) ? ld4(zr, rank_a, q) : zero4;
+    const float4 b = (need && rank_b >= 0) ? ld4(zr, rank_b, q) : zero4;
+    za[4 * q] = a.x, za[4 * q + 1] = a.y, za[4 * q + 2] = a.z, za[4 * q + 3] = a.w;
+    zb[4 * q] = b.x, zb[4 * q + 1] = b.y, zb[4 * q + 2] = b.z, zb[4 * q + 3] = b.w;
+  }
+  auto at = [&](int row) { return cr[(size_t)row * cs]; };
+  const V3 r_a = mk(at(R_RA), at(R_RA + 1), at(R_RA + 2));
+  const V3 r_b = mk(at(R_RB), at(R_RB + 1), at(R_RB + 2));
+  const V3 nrm = mk(at(R_N), at(R_N + 1), at(R_N + 2));
+  const V3 t1 = mk(at(R_T1), at(R_T1 + 1), at(R_T1 + 2));
+  const V3 t2 = mk(at(R_T2), at(R_T2 + 1), at(R_T2 + 2));
+  const float inv_k_n = at(R_IKN), inv_k_t1 = at(R_IKT1), inv_k_t2 = at(R_IKT2);
+  const float v_target = at(R_VTGT), bias = at(R_BIAS), friction = at(R_FRIC);
+  float relax;
+  if (first) {
+    relax = at(R_RELAX) / fmaxf(fmaxf(za[12], zb[12]), 1.0f);
+    sr[8 * ss] = relax;
+  } else {
+    relax = sr[8 * ss];
+  }
+  const float lam_n = sr[0], lam_t1 = sr[ss], lam_t2 = sr[2 * ss], lam_b = sr[3 * ss];
+
+  const V3 va = add(mk(za[0], za[1], za[2]), cross(mk(za[3], za[4], za[5]), r_a));
+  const V3 vb = add(mk(zb[0], zb[1], zb[2]), cross(mk(zb[3], zb[4], zb[5]), r_b));
+  const V3 v = sub(va, vb);
+  const float v_n = dot(nrm, v);
+  const float d_lam = (v_target - v_n) * inv_k_n * relax * vel_on;
+  const float lam_n_new = fmaxf(lam_n + d_lam, 0.f);
+  const float lim = friction * lam_n_new;
+  const float v_t1 = dot(t1, v);
+  const float lam_t1_new = fminf(fmaxf(lam_t1 - v_t1 * inv_k_t1 * relax * vel_on, -lim), lim);
+  const float v_t2 = dot(t2, v);
+  const float lam_t2_new = fminf(fmaxf(lam_t2 - v_t2 * inv_k_t2 * relax * vel_on, -lim), lim);
+  const V3 pva = add(mk(za[6], za[7], za[8]), cross(mk(za[9], za[10], za[11]), r_a));
+  const V3 pvb = add(mk(zb[6], zb[7], zb[8]), cross(mk(zb[9], zb[10], zb[11]), r_b));
+  const float pv_n = dot(nrm, sub(pva, pvb));
+  const float d_lam_b = (bias - pv_n) * inv_k_n * relax * pos_on;
+  const float lam_b_new = fmaxf(lam_b + d_lam_b, 0.f);
+
+  const V3 imp = add(add(scale(nrm, lam_n_new - lam_n), scale(t1, lam_t1_new - lam_t1)),
+                     scale(t2, lam_t2_new - lam_t2));
+  const float dlb = lam_b_new - lam_b;
+  const V3 tot = add(imp, mk(sr[4 * ss], sr[5 * ss], sr[6 * ss]));
+  const V3 ptot = scale(nrm, dlb + sr[7 * ss]);
+  sr[0] = lam_n_new;
+  sr[ss] = lam_t1_new;
+  sr[2 * ss] = lam_t2_new;
+  sr[3 * ss] = lam_b_new;
+  sr[4 * ss] = imp.x;
+  sr[5 * ss] = imp.y;
+  sr[6 * ss] = imp.z;
+  sr[7 * ss] = dlb;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const int rank = side == 0 ? rank_a : rank_b;
+    if (rank < 0) continue;
+    const float sign = side == 0 ? 1.0f : -1.0f;
+    const float inv_m = at(side == 0 ? R_IMA : R_IMB);
+    const int iw0 = side == 0 ? R_IWA : R_IWB;
+    float iw[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) iw[k] = at(iw0 + k);
+    const V3 r = side == 0 ? r_a : r_b;
+    const V3 dv = scale(tot, sign * inv_m);
+    const V3 dw = scale(mat_vec(iw, cross(r, tot)), sign);
+    const V3 pdv = scale(ptot, sign * inv_m);
+    const V3 pdw = scale(mat_vec(iw, cross(r, ptot)), sign);
+    scatter(zw, rank, dv, dw, true, pdv, pdw, pseudo, 0.f);
+  }
+}
+
+// The whole solve in one cooperative launch: the tables, sweep 0 with the
+// live lists, the later sweeps over the lists, z out and the integration,
+// separated by grid barriers.
+template <bool kFused>
+__global__ void __launch_bounds__(kThreads, 2) solve_kernel(Params p, Live l) {
+  extern __shared__ __align__(16) float rec[];   // the held contacts' records
+  __shared__ int warp_sums[32];
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int nthreads = gridDim.x * blockDim.x;
+  const size_t np = (size_t)p.npad, cp = (size_t)p.cp;
+  const bool anchored = p.flags & FLAG_ANCHORED;
+  const bool warm = p.flags & FLAG_USE_SPLIT;
+  float* zt_a = l.zt;
+  float* zt_b = l.zt + np * kZRows;
+
+  // ---- A = B = z at the start: (v, ω) of the geometry table (2.3) or z0 ----
+  for (int c = blockIdx.x * blockDim.x + tid; c < p.npad; c += nthreads) {
+    float v[kZRows];
+#pragma unroll
+    for (int r = 0; r < kZRows; ++r)
+      v[zslot(r)] = kFused ? (r < 6 ? p.geom[(size_t)(13 + r) * np + c] : 0.f) : l.z0[(size_t)r * np + c];
+    float4* ra = reinterpret_cast<float4*>(zt_a + (size_t)c * kZRows);
+    float4* rb = reinterpret_cast<float4*>(zt_b + (size_t)c * kZRows);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 x = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      ra[q] = x;
+      rb[q] = x;
+    }
+  }
+  grid.sync();
+
+  // ---- sweep 0 over every slot of the block's range; the live listed ----
+  // the block's slots: 32-slot chunks g·cpb … g·cpb + cpb − 1 of the deal
+  // x → x·deal mod chunks, a permutation that scatters each bucket's
+  // chunks over the blocks (a contact table's live slots bunch at the
+  // front of each bucket, so ranges in slot order would load the blocks
+  // unevenly), a chunk a warp in each round
+  const int g = blockIdx.x;
+  const int n_chunks = (p.cp + 31) / 32;
+  const int my_chunks = max(0, min(l.cpb, n_chunks - g * l.cpb));
+  const int j0 = g * 32 * l.cpb;   // the block's region of the live list
+  const int warps = blockDim.x / 32;
+  int n_live = 0;
+  for (int k0 = 0; k0 < my_chunks; k0 += warps) {
+    const int k = k0 + tid / 32;
+    const int chunk = (int)((size_t)(g * l.cpb + k) * l.deal % n_chunks);
+    const int j = k < my_chunks ? chunk * 32 + (tid & 31) : p.cp;
+    float c[kRConst];
+    float lam[4] = {0.f, 0.f, 0.f, 0.f};
+    int rank_a = -1, rank_b = -1;
+    bool live = false;
+    if (j < p.cp) {
+      // a slot that is inactive in the table (2.3), or has no endpoint and
+      // no relaxation (2.5), changes nothing: its λ is λ₀ (zero in 2.3)
+      bool touch;
+      if (kFused) {
+        touch = p.table[9 * cp + j] > 0.f;
+        if (touch) fused_prep(p, j, c, rank_a, rank_b);
+      } else {
+        rank_a = win_rank(l.bases, l.la, l.tile, j);
+        rank_b = win_rank(l.bases, l.lb, l.tile, j);
+        touch = rank_a >= 0 || rank_b >= 0 || p.consts[R_RELAX * cp + j] != 0.f;
+        if (touch) {
+#pragma unroll
+          for (int k = 0; k < kPrepRows; ++k) c[k] = p.consts[k * cp + j];
+        } else if (warm) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) lam[k] = p.consts[(R_LAM0 + k) * cp + j];
+        }
+      }
+      if (touch) {
+        sweep0(p, c, rank_a, rank_b, zt_a, zt_b, lam);
+        // later sweeps change nothing without relaxation and impulse
+        live = c[R_RELAX] != 0.f || lam[0] != 0.f || lam[1] != 0.f || lam[2] != 0.f;
+      }
+      // λ after sweep 0, final unless live; row 3 on anchored paths is the
+      // refreshed depth·activity
+      p.lam[j] = lam[0];
+      p.lam[cp + j] = lam[1];
+      p.lam[2 * cp + j] = lam[2];
+      p.lam[3 * cp + j] = (anchored && touch) ? c[R_DEPTH] : lam[3];
+    }
+    int total;
+    const int off = block_exclusive_scan(live ? 1 : 0, warp_sums, total);
+    if (live) {
+      const int e = n_live + off;
+      l.list[j0 + e] = j;
+      if (e < l.scap) {
+        float* r = rec + (size_t)e * kRec;
+#pragma unroll
+        for (int k = 0; k < kSweepRows; ++k) r[k] = c[k];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          r[S_LAM + k] = lam[k];
+          r[S_PREV + k] = 0.f;
+        }
+        r[S_SLOT] = __int_as_float(j);
+        r[S_RANKA] = __int_as_float(rank_a);
+        r[S_RANKB] = __int_as_float(rank_b);
+      } else {
+        if (kFused) {
+#pragma unroll
+          for (int k = 0; k < kSweepRows; ++k) p.consts[k * cp + j] = c[k];
+          p.consts[R_RANKA * cp + j] = (float)rank_a;
+          p.consts[R_RANKB * cp + j] = (float)rank_b;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          l.st[k * cp + j] = lam[k];
+          l.st[(4 + k) * cp + j] = 0.f;
+        }
+      }
+    }
+    n_live += total;
+  }
+  grid.sync();
+
+  // ---- sweeps 1 … S−1 over the live list: read zr, add into zw ----
+  const float* zr = zt_a;
+  float* zw = zt_b;
+  const bool pseudo = l.pos_iters > 0;
+  for (int s = 1; s < l.n_sweeps; ++s) {
+    const int i = s - 1;
+    const float vel_on = i < l.vel_iters ? 1.0f : 0.0f;
+    const float pos_on = i < l.pos_iters ? 1.0f : 0.0f;
+    const bool last = s == l.n_sweeps - 1;
+    for (int e = tid; e < n_live; e += blockDim.x) {
+      int j, rank_a, rank_b;
+      const float* cr;
+      float* sr;
+      size_t cs, ss;
+      if (e < l.scap) {
+        float* r = rec + (size_t)e * kRec;
+        j = __float_as_int(r[S_SLOT]);
+        rank_a = __float_as_int(r[S_RANKA]);
+        rank_b = __float_as_int(r[S_RANKB]);
+        cr = r;
+        sr = r + S_LAM;
+        cs = ss = 1;
+      } else {
+        j = l.list[j0 + e];
+        if (kFused) {
+          rank_a = (int)p.consts[R_RANKA * cp + j];
+          rank_b = (int)p.consts[R_RANKB * cp + j];
+        } else {
+          rank_a = win_rank(l.bases, l.la, l.tile, j);
+          rank_b = win_rank(l.bases, l.lb, l.tile, j);
+        }
+        cr = p.consts + j;
+        sr = l.st + j;
+        cs = ss = cp;
+      }
+      sweep_live(cr, cs, sr, ss, rank_a, rank_b, zr, zw, vel_on, pos_on, pseudo, s == 1);
+      if (last) {
+        p.lam[j] = sr[0];
+        p.lam[cp + j] = sr[ss];
+        p.lam[2 * cp + j] = sr[2 * ss];
+        if (!anchored) p.lam[3 * cp + j] = sr[3 * ss];
+      }
+    }
+    grid.sync();
+    float* t = const_cast<float*>(zr);
+    zr = zw;
+    zw = t;
+  }
+
+  // ---- z out [16, NPAD] and the integration, from the final table ----
+  for (int c = blockIdx.x * blockDim.x + tid; c < p.npad; c += nthreads) {
+    float row[kZRows], own[kZRows];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 x = ld4(zr, c, q);
+      row[4 * q] = x.x, row[4 * q + 1] = x.y, row[4 * q + 2] = x.z, row[4 * q + 3] = x.w;
+    }
+#pragma unroll
+    for (int r = 0; r < kZRows; ++r) {
+      own[r] = row[zslot(r)];
+      p.z[(size_t)r * np + c] = own[r];
+    }
+    if (p.flags & FLAG_INTEGRATE) integrate_rank(p, own, c);
+  }
+}
+
+// The persistent grid: blocks of kThreads, at least one an SM and as many
+// as the card holds resident with two blocks an SM's shared memory each
+// (a block a kThreads slots in between), each block `cpb` 32-slot chunks
+// at most and shared memory for `scap` live contacts.
+struct Plan {
+  int grid, cpb, scap, per_sm, deal;
+  size_t smem;
+};
+
+constexpr int kMaxDevices = 64;
+
+template <bool kFused>
+cudaError_t solve_plan(int cp, Plan& pl) {
+  // per device, once: the attribute and occupancy queries are not stream
+  // work, and a call that a CUDA graph captures makes none after the first
+  static int sms[kMaxDevices], budget[kMaxDevices], per_sm[kMaxDevices];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (per_sm[dev] == 0) {
+    int smem_sm = 0, optin = 0;
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    // two blocks an SM, each with the 1 KB the card reserves a block and
+    // its static shared memory
+    int b = smem_sm / 2 - 1024 - 256;
+    b = b < optin ? b : optin;
+    err = cudaFuncSetAttribute(solve_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize, b);
+    int occ = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, solve_kernel<kFused>, kThreads, (size_t)b);
+    if (err != cudaSuccess) return err;
+    if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
+    budget[dev] = b;
+    per_sm[dev] = occ;
+  }
+  const int gmax = sms[dev] * per_sm[dev];
+  const int by_slots = (cp + kThreads - 1) / kThreads;
+  const int want = by_slots > sms[dev] ? by_slots : sms[dev];
+  pl.per_sm = per_sm[dev];
+  pl.grid = want < gmax ? (want > 0 ? want : 1) : gmax;
+  const int n_chunks = (cp + 31) / 32;
+  pl.cpb = (n_chunks + pl.grid - 1) / pl.grid;
+  const int cap = budget[dev] / (kRec * 4);
+  pl.scap = 32 * pl.cpb < cap ? 32 * pl.cpb : cap;
+  pl.smem = (size_t)pl.scap * kRec * 4;
+  // the deal: a multiplier near the golden ratio of the chunk count,
+  // coprime to it (a bijection of the chunks)
+  int deal = (int)(0.6180339887 * n_chunks) | 1;
+  auto gcd = [](int a, int b) {
+    while (b) {
+      const int t = a % b;
+      a = b;
+      b = t;
+    }
+    return a;
+  };
+  while (deal > 1 && gcd(deal, n_chunks) != 1) deal += 2;
+  pl.deal = n_chunks > 1 ? deal % n_chunks : 0;
+  return cudaSuccess;
+}
+
+template <bool kFused>
+cudaError_t launch_solve(const Params& p, Live l, int list_len, cudaStream_t stream) {
+  Plan pl;
+  cudaError_t err = solve_plan<kFused>(p.cp, pl);
+  if (err != cudaSuccess) return err;
+  if ((size_t)pl.grid * 32 * pl.cpb > (size_t)list_len) return cudaErrorInvalidValue;
+  l.cpb = pl.cpb;
+  l.scap = pl.scap;
+  l.deal = pl.deal;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, solve_kernel<kFused>, p, l);
 }
 
 }  // namespace
 
 extern "C" int bs_banded_solve(const float* table, const float* warm8, const float* geom, float* z_out,
-                               float* lam_out, float* pq_out, float* consts, float* zread, int cp, int npad,
-                               int trows, int n_sweeps, int vel_iters, int pos_iters, float baum_over_dt,
-                               float slop, float relaxation, float dt, int flags, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+                               float* lam_out, float* pq_out, float* consts, float* zt, float* st, int* list,
+                               int list_len, int cp, int npad, int trows, int n_sweeps, int vel_iters, int pos_iters,
+                               float baum_over_dt, float slop, float relaxation, float dt, int flags,
+                               void* stream_ptr) {
   const bool anchored = flags & FLAG_ANCHORED;
-  if (n_sweeps < 1 || trows < (anchored ? 25 : 16) || ((flags & FLAG_INTEGRATE) && pq_out == nullptr))
+  if (cp < 1 || n_sweeps < 1 || trows < (anchored ? 25 : 16) || ((flags & FLAG_INTEGRATE) && pq_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  Params p;
+  Params p = {};
   p.table = table;
   p.warm8 = warm8;
   p.geom = geom;
   p.z = z_out;
-  p.zread = zread;
   p.lam = lam_out;
   p.consts = consts;
   p.pq = pq_out;
@@ -452,20 +894,15 @@ extern "C" int bs_banded_solve(const float* table, const float* warm8, const flo
   p.relaxation = relaxation;
   p.dt = dt;
   p.flags = flags;
-  const int cgrid = (p.cp + kThreads - 1) / kThreads;
-  const int rgrid = (npad + kThreads - 1) / kThreads;
-  init_kernel<<<rgrid, kThreads, 0, stream>>>(p);
-  prep_kernel<<<cgrid, kThreads, 0, stream>>>(p, n_sweeps == 1);
-  for (int s = 1; s < n_sweeps; ++s) {
-    cudaError_t err = cudaMemcpyAsync(zread, z_out, sizeof(float) * kZRows * (size_t)npad,
-                                      cudaMemcpyDeviceToDevice, stream);
-    if (err != cudaSuccess) return (int)err;
-    const int i = s - 1;
-    sweep_kernel<<<cgrid, kThreads, 0, stream>>>(p, i < vel_iters ? 1.0f : 0.0f, i < pos_iters ? 1.0f : 0.0f,
-                                                 s == n_sweeps - 1);
-  }
-  if (flags & FLAG_INTEGRATE) integrate_kernel<<<rgrid, kThreads, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  Live l = {};
+  l.zt = zt;
+  l.st = st;
+  l.list = list;
+  l.n_sweeps = n_sweeps;
+  l.vel_iters = vel_iters;
+  l.pos_iters = pos_iters;
+  const cudaError_t err = launch_solve<true>(p, l, list_len, (cudaStream_t)stream_ptr);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int bs_prep_consts(const float* geom, const int* bases, const int* la, const int* lb, const float* cin,
@@ -487,19 +924,18 @@ extern "C" int bs_prep_consts(const float* geom, const int* bases, const int* la
 }
 
 extern "C" int bs_banded_sweeps(const float* z0, const int* bases, const int* la, const int* lb, const float* consts,
-                                const float* posq, float* z_out, float* lam_out, float* pq_out, float* zread, int cp,
-                                int npad, int tile, int n_sweeps, int vel_iters, int pos_iters, float dt, int flags,
-                                void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+                                const float* posq, float* z_out, float* lam_out, float* pq_out, float* zt, float* st,
+                                int* list, int list_len, int cp, int npad, int tile, int n_sweeps, int vel_iters,
+                                int pos_iters,
+                                float dt, int flags, void* stream_ptr) {
   const bool integrate = flags & FLAG_INTEGRATE;
   if (cp < 1 || tile < 1 || cp % tile || n_sweeps < 1 || (flags & FLAG_ANCHORED) ||
       (integrate && (pq_out == nullptr || posq == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   p.z = z_out;
-  p.zread = zread;
   p.lam = lam_out;
-  p.consts = const_cast<float*>(consts);  // read only: no sweep writes consts
+  p.consts = const_cast<float*>(consts);  // read only: 2.5 writes no constants
   p.pq = pq_out;
   p.pos0 = posq;
   p.quat0 = posq + 3 * (size_t)npad;
@@ -507,23 +943,41 @@ extern "C" int bs_banded_sweeps(const float* z0, const int* bases, const int* la
   p.npad = npad;
   p.dt = dt;
   p.flags = flags;
-  const size_t zbytes = sizeof(float) * kZRows * (size_t)npad;
-  cudaError_t err = cudaMemcpyAsync(z_out, z0, zbytes, cudaMemcpyDeviceToDevice, stream);
-  if (err == cudaSuccess) err = cudaMemcpyAsync(zread, z0, zbytes, cudaMemcpyDeviceToDevice, stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(lam_out, 0, sizeof(float) * 4 * (size_t)cp, stream);
+  Live l = {};
+  l.z0 = z0;
+  l.bases = bases;
+  l.la = la;
+  l.lb = lb;
+  l.zt = zt;
+  l.st = st;
+  l.list = list;
+  l.tile = tile;
+  l.n_sweeps = n_sweeps;
+  l.vel_iters = vel_iters;
+  l.pos_iters = pos_iters;
+  const cudaError_t err = launch_solve<false>(p, l, list_len, (cudaStream_t)stream_ptr);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The persistent solve's plan for a table of cp slots (fused: 2.3, else
+// 2.5) and its kernel's resources: out = {grid, slots a block (at most),
+// live contacts a block holds in shared memory, its bytes, blocks an SM,
+// registers a thread, local (spill) bytes a thread}.
+extern "C" int bs_solve_plan(int fused, int cp, int* out) {
+  Plan pl;
+  cudaFuncAttributes fa;
+  cudaError_t err = fused ? solve_plan<true>(cp, pl) : solve_plan<false>(cp, pl);
+  if (err == cudaSuccess) err = fused ? cudaFuncGetAttributes(&fa, solve_kernel<true>)
+                                      : cudaFuncGetAttributes(&fa, solve_kernel<false>);
   if (err != cudaSuccess) return (int)err;
-  const int cgrid = (cp + kThreads - 1) / kThreads;
-  // sweep 0: the degree scatter and, with warm start, λ: 0 → λ₀
-  banded_sweep_kernel<<<cgrid, kThreads, 0, stream>>>(p, bases, la, lb, tile, 0.f, 0.f, 1.0f, 1.0f);
-  for (int s = 1; s < n_sweeps; ++s) {
-    err = cudaMemcpyAsync(zread, z_out, zbytes, cudaMemcpyDeviceToDevice, stream);
-    if (err != cudaSuccess) return (int)err;
-    const int i = s - 1;
-    banded_sweep_kernel<<<cgrid, kThreads, 0, stream>>>(p, bases, la, lb, tile, i < vel_iters ? 1.0f : 0.0f,
-                                                        i < pos_iters ? 1.0f : 0.0f, 0.f, 0.f);
-  }
-  if (integrate) integrate_kernel<<<(npad + kThreads - 1) / kThreads, kThreads, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  out[0] = pl.grid;
+  out[1] = 32 * pl.cpb;
+  out[2] = pl.scap;
+  out[3] = (int)pl.smem;
+  out[4] = pl.per_sm;
+  out[5] = fa.numRegs;
+  out[6] = (int)fa.localSizeBytes;
+  return 0;
 }
 
 // 2.7 (banded_sweep_once, contacts_pallas.py:956; body _make_sweep1_kernel

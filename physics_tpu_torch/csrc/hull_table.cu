@@ -59,8 +59,13 @@ constexpr int kBlock = 128;        // ranks per bucket
 // The manifold kernel holds a face polygon's E vertices and its 2E clip
 // slots in registers, so it is built for a few capacities of E (the
 // library's largest face, at run time d.e) and launched with the smallest
-// that holds it; slot ids and keys follow the run-time E.
-constexpr int kMaxFaceVerts = 16;  // the largest capacity built
+// that holds it; slot ids and keys follow the run-time E. Above
+// kRegFaceVerts the polygons, the clip and the slot scores live in local
+// memory (the thread's stack, cached in L1) and the clip is a serial loop
+// over the live slots (clip_serial), with the same operations in the same
+// order, up to the reference's limit 2E + 1 ≤ 128.
+constexpr int kRegFaceVerts = 16;  // the largest capacity held in registers
+constexpr int kMaxFaceVerts = 64;  // the largest capacity built
 constexpr int kThreads = 256;      // prefilter
 constexpr int kSatThreads = 128;   // SAT lanes a block
 constexpr int kFacesPerSplit = 8;
@@ -444,6 +449,48 @@ hull_sat_kernel(const float* __restrict__ geom, const float* __restrict__ c16_al
 // 3. axis choice, clip, edge-edge point and top-k per lane
 // ---------------------------------------------------------------------------
 
+// clip (common.cuh) as a loop over the m live slots, for capacities too
+// large to unroll: each output slot is 0 + its one input (the one-hot sum
+// of the unrolled clip), slots from cap_rt on stay as they are (0).
+template <int CAP>
+__device__ __noinline__ void clip_serial(float (&pu)[CAP], float (&pv)[CAP], float (&ps)[CAP], int& m, float cu,
+                                         float cv, float d, int cap_rt) {
+  float ou[CAP], ov[CAP], os[CAP];
+#pragma unroll 1
+  for (int j = 0; j < cap_rt; ++j) ou[j] = ov[j] = os[j] = 0.f;
+  const int mm = m;
+  int start = 0;
+#pragma unroll 1
+  for (int i = 0; i < mm; ++i) {
+    const int nx = (i + 1) == mm ? 0 : i + 1;
+    const float g = cu * pu[i] + cv * pv[i] - d;
+    const float gn = cu * pu[nx] + cv * pv[nx] - d;
+    const bool inside = g <= 0.f;
+    const bool crossing = (g <= 0.f) != (gn <= 0.f);
+    if (inside && start < cap_rt) {
+      ou[start] = 0.f + pu[i];
+      ov[start] = 0.f + pv[i];
+      os[start] = 0.f + ps[i];
+    }
+    const int at = start + (int)inside;
+    if (crossing && at < cap_rt) {
+      const float denom = g - gn;
+      const float t = fabsf(denom) > 1e-12f ? g / denom : 0.f;
+      ou[at] = 0.f + (pu[i] + t * (pu[nx] - pu[i]));
+      ov[at] = 0.f + (pv[i] + t * (pv[nx] - pv[i]));
+      os[at] = 0.f + (ps[i] + t * (ps[nx] - ps[i]));
+    }
+    start += (int)inside + (int)crossing;
+  }
+#pragma unroll 1
+  for (int j = 0; j < cap_rt; ++j) {
+    pu[j] = ou[j];
+    pv[j] = ov[j];
+    ps[j] = os[j];
+  }
+  m = start < cap_rt ? start : cap_rt;
+}
+
 // Emission record of the pair phase: em_f rows 0:3 point, 3:6 normal,
 // 6 depth, 7 slot id; em_i the activity flag. Index (b·kk + pick)·sat_cap + lane.
 __device__ __forceinline__ void write_inactive(int* em_i, size_t e0, int kk, int sat_cap) {
@@ -560,10 +607,9 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
   const V3 p_ref = vsel(ref_is_a, ga.p, gb.p);
   const V3 p_inc = vsel(ref_is_a, gb.p, ga.p);
   V3 ref_w[E], inc_w[E];
-#pragma unroll
-  for (int k = 0; k < E; ++k) {
+  auto to_world = [&](int k) {
     ref_w[k] = inc_w[k] = mk(0.f, 0.f, 0.f);
-    if (k >= ne) continue;
+    if (k >= ne) return;
     const float* pr = c32 + (size_t)(poly_r + k) * fp + fr;
     const float* pi = c32 + (size_t)(poly_i + k) * fp + fi;
     const float x = __ldg(pr), y = __ldg(pr + (size_t)ne * fp), z = __ldg(pr + (size_t)2 * ne * fp);
@@ -574,6 +620,13 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
     inc_w[k] = mk(r_inc[0] * xi + r_inc[1] * yi + r_inc[2] * zi + p_inc.x,
                   r_inc[3] * xi + r_inc[4] * yi + r_inc[5] * zi + p_inc.y,
                   r_inc[6] * xi + r_inc[7] * yi + r_inc[8] * zi + p_inc.z);
+  };
+  if constexpr (E <= kRegFaceVerts) {
+#pragma unroll
+    for (int k = 0; k < E; ++k) to_world(k);
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < E; ++k) to_world(k);
   }
   const int fn = ref_is_a ? fn_a : fn_b;
   const V3 nloc = mk(__ldg(c32 + (size_t)fn * fp + fr), __ldg(c32 + (size_t)(fn + 1) * fp + fr),
@@ -587,20 +640,23 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
   const V3 t2 = cross(n_ref, t1);
   const V3 p0 = ref_w[0];
   float ru[E], rv[E];
-#pragma unroll
-  for (int k = 0; k < E; ++k) {
-    const V3 rel = sub(ref_w[k], p0);
-    ru[k] = dot(rel, t1);
-    rv[k] = dot(rel, t2);
-  }
   float pu[kSl], pv[kSl], ps[kSl];
-#pragma unroll
-  for (int k = 0; k < E; ++k) {
+  auto to_frame = [&](int k) {
+    const V3 rel_r = sub(ref_w[k], p0);
+    ru[k] = dot(rel_r, t1);
+    rv[k] = dot(rel_r, t2);
     const V3 rel = sub(inc_w[k], p0);
     pu[k] = k < ne ? dot(rel, t1) : 0.f;
     pv[k] = k < ne ? dot(rel, t2) : 0.f;
     ps[k] = k < ne ? dot(inc_w[k], n_ref) - off_ref : 0.f;
     pu[E + k] = pv[E + k] = ps[E + k] = 0.f;
+  };
+  if constexpr (E <= kRegFaceVerts) {
+#pragma unroll
+    for (int k = 0; k < E; ++k) to_frame(k);
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < E; ++k) to_frame(k);
   }
   int m = inc_cnt;
   // clip against reference edge k (of ref_cnt; the rest are no-ops)
@@ -614,7 +670,11 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
     const float e_u = ru_n - ru[k];
     const float e_v = rv_n - rv[k];
     const float on = k < ref_cnt ? 1.f : 0.f;
-    clip(pu, pv, ps, m, e_v * on, -e_u * on, (e_v * ru[k] - e_u * rv[k]) * on + (1.f - on) * kBig, n_sl);
+    const float dk = (e_v * ru[k] - e_u * rv[k]) * on + (1.f - on) * kBig;
+    if constexpr (E <= kRegFaceVerts)
+      clip(pu, pv, ps, m, e_v * on, -e_u * on, dk, n_sl);
+    else
+      clip_serial(pu, pv, ps, m, e_v * on, -e_u * on, dk, n_sl);
   };
   if constexpr (E <= 4) {
 #pragma unroll
@@ -690,27 +750,49 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
   const bool face_ok = !separated && !edge_wins;
   // slots 0 … n_sl − 1 the clip's, n_sl the edge-edge one, the rest unused
   float score[kNs];
-#pragma unroll
-  for (int s = 0; s < kSl; ++s) score[s] = ((s < m) && (-ps[s] > 0.f) && face_ok) ? -ps[s] : -kBig;
-  score[kSl] = -kBig;
   const float edge_score = (edge_wins && (edge_depth > 0.f)) ? edge_depth : -kBig;
+  // registers: the clip's slots and the edge slot as arrays of kNs
+  constexpr int kR = E <= kRegFaceVerts ? kNs : 1;
+  float pu_r[kR], pv_r[kR], ps_r[kR];
+  if constexpr (E <= kRegFaceVerts) {
 #pragma unroll
-  for (int s = 0; s < kNs; ++s) score[s] = s == n_sl ? edge_score : score[s];
-  float pu_r[kNs], pv_r[kNs], ps_r[kNs];
+    for (int s = 0; s < kSl; ++s) score[s] = ((s < m) && (-ps[s] > 0.f) && face_ok) ? -ps[s] : -kBig;
+    score[kSl] = -kBig;
 #pragma unroll
-  for (int s = 0; s < kSl; ++s) {
-    pu_r[s] = pu[s];
-    pv_r[s] = pv[s];
-    ps_r[s] = ps[s];
+    for (int s = 0; s < kNs; ++s) score[s] = s == n_sl ? edge_score : score[s];
+#pragma unroll
+    for (int s = 0; s < kSl; ++s) {
+      pu_r[s] = pu[s];
+      pv_r[s] = pv[s];
+      ps_r[s] = ps[s];
+    }
+    pu_r[kSl] = pv_r[kSl] = ps_r[kSl] = 0.f;
+  } else {
+    // slots above n_sl score −kBig and never win the first-index argmax
+#pragma unroll 1
+    for (int s = 0; s <= n_sl; ++s)
+      score[s] = s == n_sl ? edge_score : (((s < m) && (-ps[s] > 0.f) && face_ok) ? -ps[s] : -kBig);
   }
-  pu_r[kSl] = pv_r[kSl] = ps_r[kSl] = 0.f;
   for (int pick = 0; pick < d.kk; ++pick) {
-    float best;
+    float best, u, v, s;
     int bidx;
-    argmax(score, best, bidx);
+    if constexpr (E <= kRegFaceVerts) {
+      argmax(score, best, bidx);
+      u = select(bidx, pu_r), v = select(bidx, pv_r), s = select(bidx, ps_r);
+    } else {
+      best = score[0];
+      bidx = 0;
+#pragma unroll 1
+      for (int k = 1; k <= n_sl; ++k) {
+        if (score[k] > best) {
+          best = score[k];
+          bidx = k;
+        }
+      }
+      u = bidx < kSl ? pu[bidx] : 0.f, v = bidx < kSl ? pv[bidx] : 0.f, s = bidx < kSl ? ps[bidx] : 0.f;
+    }
     const bool act = best > 0.f;
     const bool is_edge = bidx == n_sl;
-    const float u = select(bidx, pu_r), v = select(bidx, pv_r), s = select(bidx, ps_r);
     const V3 face_pt = mk(p0.x + u * t1.x + v * t2.x + s * n_ref.x, p0.y + u * t1.y + v * t2.y + s * n_ref.y,
                           p0.z + u * t1.z + v * t2.z + s * n_ref.z);
     const V3 pt = vsel(is_edge, edge_point, face_pt);
@@ -727,8 +809,12 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
       em_f[6 * n_em + e] = act ? best : 0.f;
       em_f[7 * n_em + e] = (float)bidx;
     }
+    if constexpr (E <= kRegFaceVerts) {
 #pragma unroll
-    for (int k = 0; k < kNs; ++k) score[k] = bidx == k ? -kBig : score[k];
+      for (int k = 0; k < kNs; ++k) score[k] = bidx == k ? -kBig : score[k];
+    } else {
+      score[bidx] = -kBig;
+    }
   }
 }
 
@@ -1034,7 +1120,7 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
                                             int bucket0, int cap, int cap2, int ccap, int kk, int kg, int npad, int rows, int h, int fp,
                                             int vcap, int e, int d2, int d2p, int e2p, int r16, int r32, int rcb,
                                             float gh, void* stream) {
-  if (e < 1 || e > kMaxFaceVerts || kk > 2 * e + 1 || kg > 8 || kg > vcap || vcap > 128 || rows > 32 || (cap2 && cap2 > cap) || h < 1 || h * h > 31 ||
+  if (e < 1 || e > kMaxFaceVerts || 2 * e + 1 > 128 || kk > 2 * e + 1 || kg > 8 || kg > vcap || vcap > 128 || rows > 32 || (cap2 && cap2 > cap) || h < 1 || h * h > 31 ||
       ((uintptr_t)c16 & 15) || bucket0 < 0 || (size_t)(bucket0 + nb + 2) * kBlock > (size_t)npad ||
       ccap % kWarmSlots)
     return (int)cudaErrorInvalidValue;
@@ -1078,7 +1164,11 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
   constexpr int lanes_per_block = kManThreads / kGroup;
   const dim3 lane_grid((d.sat_cap + lanes_per_block - 1) / lanes_per_block, nb);
   const size_t sup_smem = (size_t)lanes_per_block * 2 * vcap * 4;
-  auto manifold = e <= 4 ? hull_manifold_kernel<4> : e <= 8 ? hull_manifold_kernel<8> : hull_manifold_kernel<16>;
+  auto manifold = e <= 4    ? hull_manifold_kernel<4>
+                  : e <= 8  ? hull_manifold_kernel<8>
+                  : e <= 16 ? hull_manifold_kernel<16>
+                  : e <= 32 ? hull_manifold_kernel<32>
+                            : hull_manifold_kernel<kMaxFaceVerts>;
   manifold<<<lane_grid, kManThreads, sup_smem, st>>>(geom, c16, c32, c88, c80, cb, eidx, sc, d);
 
   if (kg > 0)

@@ -100,24 +100,18 @@ def _clip(pu, pv, ps, m, cu, cv, d):
     pos_cur = torch.where(inside, start, torch.full_like(start, cap))
     pos_int = torch.where(crossing, start + inside_i,
                           torch.full_like(start, cap))
-    zero = torch.zeros_like(pu[0])
-    ou, ov, os_ = [], [], []
-    for j in range(cap):
-        au, av, as2 = zero, zero, zero
-        for i in range(cap):
-            mc = pos_cur[i] == j
-            mi = pos_int[i] == j
-            au = au + torch.where(mc, pu[i], zero) + torch.where(
-                mi, iu[i], zero)
-            av = av + torch.where(mc, pv[i], zero) + torch.where(
-                mi, iv[i], zero)
-            as2 = as2 + torch.where(mc, ps[i], zero) + torch.where(
-                mi, is_[i], zero)
-        ou.append(au)
-        ov.append(av)
-        os_.append(as2)
+    # output slot j takes the one input placed there (slot i's point where
+    # it is inside, its edge's intersection where that crosses) as 0 + x,
+    # the value of the one-hot sum over the inputs; places from cap on are
+    # dropped (row cap collects them)
+    out = torch.zeros((3, cap + 1) + tuple(pu.shape[1:]), dtype=pu.dtype,
+                      device=pu.device)
+    for pos, src in ((pos_cur, (pu, pv, ps)), (pos_int, (iu, iv, is_))):
+        idx = torch.clamp(pos, max=cap).to(torch.int64)
+        out.scatter_(1, idx[None].expand(3, *idx.shape), torch.stack(src))
+    ou, ov, os_ = out[:, :cap] + 0.0
     new_m = torch.clamp(torch.sum(emit, dim=0), max=cap).to(torch.int32)
-    return torch.stack(ou), torch.stack(ov), torch.stack(os_), new_m
+    return ou, ov, os_, new_m
 
 
 def box_box_manifold_batched(pa, ra9, ha, pb, rb9, hb) -> Manifold:

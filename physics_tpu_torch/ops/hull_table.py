@@ -66,9 +66,6 @@ Tensor = torch.Tensor
 # the table path takes hull libraries of at most this many types (the
 # JAX kernel makes one SAT pass per ordered type pair)
 MAX_TABLE_HULL_TYPES = 3
-# the largest face (vertices) the kernel is built for: csrc/hull_table.cu
-# kMaxFaceVerts (the plain version takes any, up to the key range)
-MAX_KERNEL_FACE_VERTS = 16
 BIG = 1e30
 _KS_LIMIT = 128   # slot / vertex ids must stay < 128 (f32-exact warm keys)
 
@@ -742,12 +739,6 @@ def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
                          f"{bucket0 + nb} buckets")
     if pcols is not None and pcols.shape != (cp, 8):
         raise ValueError(f"hull table: prev cols must be [{cp}, 8]")
-    if dm.e > MAX_KERNEL_FACE_VERTS:
-        raise ValueError(
-            f"hull table kernel: it holds a face's vertices and its 2E clip "
-            f"slots in registers and is built for faces of at most "
-            f"{MAX_KERNEL_FACE_VERTS} vertices; this library's largest face "
-            f"has {dm.e}")
     f32 = torch.float32
     table = torch.empty((rows_n, cp), dtype=f32, device=dev)
     meta = torch.empty((8, nb * BLOCK), dtype=f32, device=dev)
@@ -795,6 +786,8 @@ def _prepare(state: SimState, cand: PairCandidates, cfg: SimConfig,
     del kw["nb"], kw["bp"]
     tc = hull_table_coef(state)
     dm = tc.dims
+    # the reference's limits, which both versions share (csrc/hull_table.cu
+    # is built for faces of up to 64 vertices)
     if 2 * dm.e + 1 > _KS_LIMIT or dm.vcap > _KS_LIMIT:
         raise ValueError("hull table: slot/vertex ids exceed the key range")
     kw["kk"] = min(cfg.max_contacts_per_pair, 2 * dm.e + 1)

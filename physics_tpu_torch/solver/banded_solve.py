@@ -10,7 +10,10 @@ z [16, NPAD] in sweep-rank order (rows 0:3 v, 3:6 ω, 8:11 pseudo v, 11:14
 pseudo ω, 14 contact degree). Sweep 0 scatters the endpoint degrees and
 applies the warm-start impulses; sweeps 1..S each read a snapshot of z
 and add every contact's impulse deltas, relaxed by 1/degree and
-Coulomb-clamped; the epilogue integrates pos/quat from the final z.
+Coulomb-clamped; the epilogue integrates pos/quat from the final z. On
+the card the fused and the unfused solve are each one persistent launch
+whose later sweeps visit only the contacts with a relaxation or an
+impulse (the others add exact zeros).
 The fused solve (kernel 2.3) builds each contact's constants in its
 sweep 0 from the contact table and the geometry (re-deriving point,
 normal and depth from the body-frame anchors on anchored paths); the
@@ -267,12 +270,10 @@ def _integrate_plain(z, pos0, quat0, dt, renorm):
                         *q2, torch.zeros_like(pos0[0])])
 
 
-def banded_sweeps_fused_plain(table, warm8, geom, *, vel_iters, pos_iters,
-                              use_split, anchored, integrate,
-                              baum_over_dt, slop, relaxation):
-    """Plain version of the fused solve kernel, all contacts at once.
-    Returns (z [16, NPAD], lam4 [4, Cp], posq [8, NPAD] | None); lam4 row
-    3 is the refreshed depth·activity on anchored paths, λ_b otherwise."""
+def fused_consts_plain(table, warm8, geom, *, use_split, anchored,
+                       baum_over_dt, slop, relaxation):
+    """The fused solve's sweep-0 constants: (the 45 constant rows, the
+    endpoint ranks a and b, the refreshed depth and activity)."""
     f32 = torch.float32
     tb = table
     actf = tb[CT_ACT]
@@ -311,7 +312,19 @@ def banded_sweeps_fused_plain(table, warm8, geom, *, vel_iters, pos_iters,
         (has_b & (actf_t > 0.0)).to(f32),
         baum_over_dt=baum_over_dt, slop=slop, relaxation=relaxation,
         use_split=use_split)
+    return cs, rank_a, rank_b, d_t, actf_t
 
+
+def banded_sweeps_fused_plain(table, warm8, geom, *, vel_iters, pos_iters,
+                              use_split, anchored, integrate,
+                              baum_over_dt, slop, relaxation):
+    """Plain version of the fused solve kernel, all contacts at once.
+    Returns (z [16, NPAD], lam4 [4, Cp], posq [8, NPAD] | None); lam4 row
+    3 is the refreshed depth·activity on anchored paths, λ_b otherwise."""
+    cs, rank_a, rank_b, d_t, actf_t = fused_consts_plain(
+        table, warm8, geom, use_split=use_split, anchored=anchored,
+        baum_over_dt=baum_over_dt, slop=slop, relaxation=relaxation)
+    f32 = torch.float32
     z = torch.zeros((Z_ROWS, geom.shape[1]), dtype=f32, device=geom.device)
     z[0:6] = geom[13:19]
     lam = _sweep_loop(z, cs, rank_a, rank_b,
@@ -355,6 +368,31 @@ def banded_sweeps_fused(table: Tensor, warm8: Tensor, geom: Tensor,
 banded_sweeps_fused.launches = 0
 
 
+def _solve_scratch(cp: int, npad: int, dev):
+    """Scratch of the persistent solve (csrc/banded_solve.cu
+    solve_kernel): the two body-major z tables [2, NPAD, 16], the λ,
+    previous impulse and relaxation [9, Cp] of the live contacts a block
+    cannot hold in shared memory, and the blocks' live lists (each block's
+    share of the slots rounded up to 32: room for 1,024 blocks)."""
+    return (torch.empty((2, npad, Z_ROWS), dtype=torch.float32, device=dev),
+            torch.empty((9, cp), dtype=torch.float32, device=dev),
+            torch.empty((cp + 32 * 1024,), dtype=torch.int32, device=dev))
+
+
+def solve_plan(fused: bool, cp: int, dev) -> Dict[str, int]:
+    """The persistent solve's launch for a table of cp slots on CUDA
+    device `dev` (fused: 2.3, else 2.5) and its kernel's resources."""
+    from physics_tpu_torch import _build
+
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(dev):
+        err = _build.library().bs_solve_plan(
+            int(fused), cp, ctypes.cast(out, ctypes.c_void_p))
+    _build.check(err, "bs_solve_plan")
+    return dict(zip(("grid", "slots_a_block", "held_a_block", "smem_bytes",
+                     "blocks_an_sm", "registers", "local_bytes"), out))
+
+
 def _launch_kernel(table, warm8, geom, *, vel_iters, pos_iters, use_split,
                    anchored, integrate, baum_over_dt, slop, relaxation):
     from physics_tpu_torch import _build
@@ -376,7 +414,7 @@ def _launch_kernel(table, warm8, geom, *, vel_iters, pos_iters, use_split,
     pq = (torch.empty((8, npad), dtype=f32, device=dev)
           if integrate is not None else None)
     consts = torch.empty((R_CONST, cp), dtype=f32, device=dev)
-    zread = torch.empty((Z_ROWS, npad), dtype=f32, device=dev)
+    zt, st, lst = _solve_scratch(cp, npad, dev)
     flags = ((_build.FLAG_USE_SPLIT if use_split else 0)
              | (_build.FLAG_ANCHORED if anchored else 0))
     dt = 0.0
@@ -390,9 +428,10 @@ def _launch_kernel(table, warm8, geom, *, vel_iters, pos_iters, use_split,
             ptr(table.data_ptr()), ptr(warm8.data_ptr()),
             ptr(geom.data_ptr()), ptr(z.data_ptr()), ptr(lam4.data_ptr()),
             ptr(pq.data_ptr() if pq is not None else 0),
-            ptr(consts.data_ptr()), ptr(zread.data_ptr()),
-            cp, npad, trows, n_sweeps, vel_iters, pos_iters,
-            ctypes.c_float(baum_over_dt), ctypes.c_float(slop),
+            ptr(consts.data_ptr()), ptr(zt.data_ptr()), ptr(st.data_ptr()),
+            ptr(lst.data_ptr()), lst.numel(), cp, npad, trows, n_sweeps,
+            vel_iters, pos_iters, ctypes.c_float(baum_over_dt),
+            ctypes.c_float(slop),
             ctypes.c_float(relaxation), ctypes.c_float(dt), flags,
             ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "bs_banded_solve")
@@ -538,10 +577,10 @@ def banded_sweeps(z0: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
                       if posq is not None else []))
     f32 = torch.float32
     z = torch.empty((Z_ROWS, npad), dtype=f32, device=dev)
-    zread = torch.empty((Z_ROWS, npad), dtype=f32, device=dev)
     lam4 = torch.empty((4, cp), dtype=f32, device=dev)
     pq = (torch.empty((8, npad), dtype=f32, device=dev)
           if integrate is not None else None)
+    zt, st, lst = _solve_scratch(cp, npad, dev)
     flags = _build.FLAG_USE_SPLIT if warm_sweep else 0
     dt = 0.0
     if integrate is not None:
@@ -556,9 +595,9 @@ def banded_sweeps(z0: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
             ptr(posq.data_ptr() if posq is not None else 0),
             ptr(z.data_ptr()), ptr(lam4.data_ptr()),
             ptr(pq.data_ptr() if pq is not None else 0),
-            ptr(zread.data_ptr()), cp, npad, tile,
-            max(vel_iters, pos_iters) + 1, vel_iters, pos_iters,
-            ctypes.c_float(dt), flags,
+            ptr(zt.data_ptr()), ptr(st.data_ptr()), ptr(lst.data_ptr()),
+            lst.numel(), cp, npad, tile, max(vel_iters, pos_iters) + 1,
+            vel_iters, pos_iters, ctypes.c_float(dt), flags,
             ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "bs_banded_sweeps")
     banded_sweeps.launches += 1

@@ -15,8 +15,13 @@ passed-through buckets in one launch) and packed envs at the packed
 configuration's bucket shapes (896 lanes, 8 picks, 768 slots: the
 largest shared-memory working set), with a rebuild and a gated refresh
 step of the packed path, the gated pile and the hull rain's motion guard;
-and the hull table on libraries whose largest face has 3, 5, 6, 8 or 12
-vertices.
+and the hull table on libraries whose largest face has 3, 5, 6, 8, 12,
+20 or 63 vertices (the last two above what the manifold kernel holds in
+registers). The persistent solves (2.3 and 2.5, one cooperative launch
+a call) also on the rain's and the packed envs' tables and on synthetic
+tables: no live contact, every slot live with more live contacts a block
+than its shared memory holds, one sweep, NPAD not a multiple of the
+block; and one 2.3 call captured in a CUDA graph and replayed.
 Every test skips without a card. On a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -58,6 +63,7 @@ from physics_tpu_torch.solver.banded_solve import (
     banded_sweeps_fused,
     banded_z0,
     prep_consts,
+    solve_plan,
     table_solve_operands,
 )
 from physics_tpu_torch.parallel.collectives import Shard
@@ -169,6 +175,159 @@ def test_banded_solve_kernel(pile, iters):
     _rows_close("z", zk[:, :N], zp[:, :N], SOLVE_RTOL)
     _rows_close("lam", lk, lp, SOLVE_RTOL)
     _rows_close("posq", pk[:, :N], pp[:, :N], SOLVE_RTOL)
+
+
+def _solves_match(table, warm, geom, cfg, iters, pos_iters=None,
+                  integrate=True):
+    """2.3 against its plain version; one launch a call."""
+    pos_iters = iters if pos_iters is None else pos_iters
+    out = {}
+    for plain in (False, True):
+        before = banded_sweeps_fused.launches
+        out[plain] = banded_sweeps_fused(
+            table, warm, geom, cfg, vel_iters=iters, pos_iters=pos_iters,
+            use_split=pos_iters > 0,
+            integrate=(cfg.dt, True) if integrate else None, plain=plain)
+        assert banded_sweeps_fused.launches == before + (not plain)
+    (zk, lk, pk), (zp, lp, pp) = out[False], out[True]
+    n = geom.shape[1]
+    _rows_close("z", zk[:, :n], zp[:, :n], SOLVE_RTOL)
+    _rows_close("lam", lk, lp, SOLVE_RTOL)
+    if integrate:
+        _rows_close("posq", pk, pp, SOLVE_RTOL)
+    return zk, lk
+
+
+@pytest.mark.parametrize("shape", ["rain", "packed"])
+def test_banded_solve_kernel_shapes(dev, shape):
+    """2.3 on the anchored refresh of the rain's and the packed envs'
+    persisted tables (a bucket of 256 bevelled cubes; 32 packed envs, two
+    buckets of 768 slots), warm, both schedules."""
+    if shape == "rain":
+        s = scenes.mesh_rain(256, real_assets=False, device=dev)
+        cfg = scenes.rain_config(256)
+    else:
+        s = scenes.packed_envs(32, 8, device=dev)
+        cfg = scenes.packed_env_config(32, 8)
+    s = prepare_contacts(s, cfg)
+    for _ in range(3):
+        s, _ = step_with_metrics(s, cfg, plain=True)
+    geom = tct.unified_geom(s, cfg, s.contact_order, hulls=cfg.hull_table)
+    cp = s.contact_table.shape[1]
+    warm = torch.cat([s.contact_lam, torch.zeros((5, cp), device=dev)])
+    assert int(s.contact_table[tct.CT_ACT].sum()) > 50
+    for iters in (8, 4):
+        _solves_match(s.contact_table, warm, geom, cfg, iters)
+
+
+def _synthetic(dev, n, tile, ntiles, live_every=1, seed=0):
+    """A random solve over n bodies (NPAD = n) and tile·ntiles contact
+    slots, every `live_every`-th slot active: the fused solve's table
+    [16, Cp] (not anchored) and geometry [48, n], and the unfused
+    solve's window operands (bases, la, lb) and constants of the same
+    contacts."""
+    rng = np.random.default_rng(seed)
+    cp = tile * ntiles
+    geom = np.zeros((48, n), np.float32)
+    geom[0:3] = rng.uniform(-20, 20, (3, n))
+    for k in range(3):
+        geom[3 + 4 * k] = rng.uniform(0.5, 2.0, n)   # world inverse inertia
+    geom[12] = rng.uniform(0.5, 2.0, n)             # inverse mass
+    geom[13:19] = rng.normal(0, 0.3, (6, n))        # v, ω
+    geom[19] = 1.0                                  # quat (w, x, y, z)
+    win = 256
+    bases = np.minimum(np.arange(ntiles) * 128, n - win).astype(np.int32)
+    la = rng.integers(0, win, cp).astype(np.int32)
+    lb = rng.integers(-1, win, cp).astype(np.int32)
+    lb = np.where(lb == la, -1, lb)
+    act = (np.arange(cp) % live_every) == 0
+    la, lb = np.where(act, la, -1), np.where(act, lb, -1)
+    base = np.repeat(bases, tile)
+    nrm = rng.normal(0, 1, (3, cp))
+    nrm /= np.linalg.norm(nrm, axis=0)
+    table = np.zeros((16, cp), np.float32)
+    table[0:3] = geom[0:3, np.maximum(base + la, 0)] + rng.normal(
+        0, 0.3, (3, cp))
+    table[3:6] = nrm
+    table[6] = rng.uniform(0.0, 0.05, cp)
+    table[7] = 0.5
+    table[9] = act
+    table[13] = np.where(act, base + la, 0)
+    table[14] = np.where(lb >= 0, base + lb + 1, 0)
+    warm = np.zeros((8, cp), np.float32)
+    warm[0] = rng.uniform(0.0, 0.2, cp) * act
+    warm[1:3] = rng.uniform(-0.02, 0.02, (2, cp)) * act
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    cin = np.concatenate([table[0:10], warm[0:3], (lb >= 0)[None]]).astype(
+        np.float32)
+    return t(table), t(warm), t(geom), t(bases), t(la), t(lb), t(cin)
+
+
+@pytest.mark.parametrize("case", ["no_live", "all_live", "one_sweep",
+                                  "odd_npad"])
+def test_persistent_solves_edge_cases(dev, case):
+    """2.3 and 2.5 on synthetic solves. all_live: 196,608 slots, every
+    one live, more live contacts a block than the block's shared memory
+    holds (the rest are read from global memory); no_live: every slot
+    inactive; one_sweep: no velocity or position sweep; odd_npad: 1,000
+    bodies, not a multiple of the block."""
+    cfg = scenes.pile_config(1000).replace(contact_rebuild=1)
+    n, tile, ntiles, every = {"no_live": (1000, 128, 8, 10 ** 9),
+                              "all_live": (33024, 768, 256, 1),
+                              "one_sweep": (4352, 1024, 24, 3),
+                              "odd_npad": (1000, 128, 8, 2)}[case]
+    table, warm, geom, bases, la, lb, cin = _synthetic(dev, n, tile, ntiles,
+                                                       every)
+    if case == "no_live":
+        table[tct.CT_ACT] = 0.0
+    iters = 0 if case == "one_sweep" else 8
+    if case == "all_live":
+        plan = solve_plan(True, table.shape[1], dev)
+        assert plan["held_a_block"] < plan["slots_a_block"]
+    zk, lk = _solves_match(table, warm, geom, cfg, iters)
+    if case == "no_live":
+        assert not lk.any() and torch.equal(zk[0:6], geom[13:19])
+    consts = prep_consts(geom, bases, la, lb, cin, cfg, tile=tile,
+                         use_split=True, plain=True)
+    z0 = banded_z0(geom)
+    posq = torch.cat([geom[0:3], geom[19:23], torch.zeros_like(geom[0:1])])
+    out = {}
+    for plain in (False, True):
+        out[plain] = banded_sweeps(z0, bases, la, lb, consts, tile=tile,
+                                   vel_iters=iters, pos_iters=iters,
+                                   warm_sweep=True, posq=posq,
+                                   integrate=(cfg.dt, True), plain=plain)
+    (zk, lk, pk), (zp, lp, pp) = out[False], out[True]
+    _rows_close("z", zk, zp, SOLVE_RTOL)
+    _rows_close("lam", lk, lp, SOLVE_RTOL)
+    _rows_close("posq", pk, pp, SOLVE_RTOL)
+
+
+def test_banded_solve_kernel_graph_replay(pile):
+    """One 2.3 call captured in a CUDA graph and replayed, against the
+    eager call."""
+    s, cfg = pile
+    geom, (table, _, warm) = _table(
+        s, cfg, (s.contact_key, s.contact_lam), plain=True)
+
+    def call():
+        return banded_sweeps_fused(table, warm, geom, cfg, vel_iters=8,
+                                   pos_iters=8, use_split=True,
+                                   integrate=(cfg.dt, True))
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("z", "lam", "posq"), captured, eager):
+        _rows_close(name, a, b, SOLVE_RTOL)
 
 
 def _steps_match(s, cfg):
@@ -575,7 +734,7 @@ def test_gated_pile_step_kernel_path_matches_plain(pile):
     _steps_match(s, cfg.replace(contact_rebuild_vel_factor=2.0))
 
 
-@pytest.mark.parametrize("sides", [3, 5, 6, 8, 12])
+@pytest.mark.parametrize("sides", [3, 5, 6, 8, 12, 20, 63])
 def test_hull_table_kernel_face_sizes(dev, sides):
     """Libraries whose largest face has 3 (the octahedron) or `sides`
     (a prism) vertices, bodies squeezed into contact; on the octahedra

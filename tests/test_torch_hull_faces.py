@@ -1,14 +1,17 @@
 """The hull contact table on libraries whose largest face is not a
 quadrilateral: physics_tpu_torch's plain version (the CPU side of kernel
-csrc/hull_table.cu, built for faces of up to 16 vertices) against the
+csrc/hull_table.cu, built for faces of up to 64 vertices) against the
 JAX package's Pallas kernel in interpret mode, on one bucket of 48
-hexagonal bipyramids (12 triangles, E = 3) and of 48 truncated octahedra
-(8 hexagons and 6 squares, E = 6), squeezed into contact and stepped
-twice by the port so the warm keys are live; and the port's hull_rain
-scene against the same rain built by the JAX package's SceneBuilder.
-(The JAX kernel reduces vertices 8 at a time, so its libraries keep a
-vertex capacity that is a multiple of 8: 8 and 24 here. The GPU tests
-hold the kernel to the plain version on octahedra and prisms too.)
+hexagonal bipyramids (12 triangles, E = 3), of 48 truncated octahedra
+(8 hexagons and 6 squares, E = 6) and of 48 prisms over a 20-gon (E =
+20, above the 16 vertices the kernel holds in registers), squeezed into
+contact and stepped twice by the port so the warm keys are live; the
+port's hull_rain scene against the same rain built by the JAX package's
+SceneBuilder; and the plain clip's scatter against the one-hot sum it
+replaced, bit for bit. (The JAX kernel reduces vertices 8 at a time, so
+its libraries keep a vertex capacity that is a multiple of 8: 8, 24 and
+40 here. The GPU tests hold the kernel to the plain version on
+octahedra and prisms of up to 63 sides too.)
 
 Tolerances as tests/test_torch_hull_table.py: geometry and previous
 impulses rounded to 16 significant bits; keys, activity, ranks, slot
@@ -30,6 +33,8 @@ from physics_tpu.ops import hull_table as jht
 from physics_tpu.scene import SceneBuilder
 from physics_tpu_torch import scenes as tscenes
 from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+from physics_tpu_torch.io.primitives import prism_verts
+from physics_tpu_torch.ops import boxbox_batched as tbb
 from physics_tpu_torch.ops import contact_table as tct
 from physics_tpu_torch.ops import hull_table as tht
 from physics_tpu_torch.ops.broadphase import PairCandidates
@@ -61,7 +66,7 @@ def _truncated_octahedron(size=0.5):
     return np.asarray(sorted(pts), np.float32) * (size / 2)
 
 
-VERTS = {3: _bipyramid(), 6: _truncated_octahedron()}
+VERTS = {3: _bipyramid(), 6: _truncated_octahedron(), 20: prism_verts(20)}
 
 
 def jax_hull_rain(verts, n, seed=0, size=0.5):
@@ -89,7 +94,7 @@ def jax_hull_rain(verts, n, seed=0, size=0.5):
     return b.build()
 
 
-@pytest.mark.parametrize("e", [3, 6])
+@pytest.mark.parametrize("e", [3, 6, 20])
 def test_hull_rain_scene_matches(e):
     ja = jax_arrays(jax_hull_rain(VERTS[e], N))
     ta = to_numpy(tscenes.hull_rain(VERTS[e], N, device="cpu"))
@@ -99,7 +104,7 @@ def test_hull_rain_scene_matches(e):
     assert ta["hulls.face_verts"].shape[2] == e
 
 
-@pytest.mark.parametrize("e", [3, 6])
+@pytest.mark.parametrize("e", [3, 6, 20])
 def test_hull_table_face_size(e):
     js = jax_hull_rain(VERTS[e], N)
     arrays = jax_arrays(js)
@@ -137,3 +142,71 @@ def test_hull_table_face_size(e):
     np.testing.assert_array_equal(tw, jw)
     extent = float(np.abs(geom[0:3, :N]).max())
     np.testing.assert_allclose(tt, jt, rtol=0, atol=4 * 2.0 ** -17 * extent)
+
+
+def _clip_one_hot(pu, pv, ps, m, cu, cv, d):
+    """The plain clip as the port first wrote it: every output slot the
+    sum over the inputs of the one placed there (the reference's one-hot
+    form)."""
+    cap = pu.shape[0]
+    slots = torch.arange(cap, dtype=torch.int32).reshape(cap, 1)
+    g = cu * pu + cv * pv - d[None]
+    live = slots < m[None]
+    wrap = (slots + 1) == m[None]
+
+    def nxt(x):
+        return torch.where(wrap, x[0][None], torch.roll(x, -1, dims=0))
+
+    g_nxt = nxt(g)
+    inside = (g <= 0.0) & live
+    crossing = ((g <= 0.0) != (g_nxt <= 0.0)) & live
+    denom = g - g_nxt
+    t = torch.where(torch.abs(denom) > 1e-12, g / denom, torch.zeros_like(g))
+    src = [(pu, pu + t * (nxt(pu) - pu)), (pv, pv + t * (nxt(pv) - pv)),
+           (ps, ps + t * (nxt(ps) - ps))]
+    inside_i = inside.to(torch.int32)
+    emit = inside_i + crossing.to(torch.int32)
+    start = torch.cumsum(emit, dim=0) - emit
+    pos_cur = torch.where(inside, start, torch.full_like(start, cap))
+    pos_int = torch.where(crossing, start + inside_i,
+                          torch.full_like(start, cap))
+    zero = torch.zeros_like(pu[0])
+    out = []
+    for cur, inter in src:
+        rows = []
+        for j in range(cap):
+            a = zero
+            for i in range(cap):
+                a = a + torch.where(pos_cur[i] == j, cur[i], zero) + \
+                    torch.where(pos_int[i] == j, inter[i], zero)
+            rows.append(a)
+        out.append(torch.stack(rows))
+    new_m = torch.clamp(torch.sum(emit, dim=0), max=cap).to(torch.int32)
+    return (*out, new_m)
+
+
+@pytest.mark.parametrize("e", [4, 20])
+def test_clip_scatter_is_the_one_hot_sum(e):
+    """Random polygons of up to E vertices in 2E slots (signed zeros,
+    points on the line, full and empty clips), through E successive
+    clips: every slot's bits and the counts equal."""
+    rng = np.random.default_rng(e)
+    p = 64
+    cap = 2 * e
+    pts = rng.normal(0, 1, (3, cap, p)).astype(np.float32)
+    pts[:, e:] = 0.0
+    pts[0, 0, :8] = -0.0
+    pts[:, 1, 8:16] = 0.0
+    pu, pv, ps = (torch.from_numpy(x) for x in pts)
+    m = torch.from_numpy(rng.integers(0, e + 1, p).astype(np.int32))
+    a, b = (pu, pv, ps, m), (pu, pv, ps, m)
+    for k in range(e):
+        ang = 2 * np.pi * k / e
+        cu, cv = float(np.cos(ang)), float(np.sin(ang))
+        d = torch.from_numpy(rng.uniform(-0.5, 1.5, p).astype(np.float32))
+        d[:4] = 0.0
+        a = tbb._clip(*a, cu, cv, d)
+        b = _clip_one_hot(*b, cu, cv, d)
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32)), k
+    assert int(a[3].max()) > 2
