@@ -81,8 +81,10 @@ Phases (any failure raises, so the run exits non-zero):
               against the one-process kernel path from the same state;
  12. profile  device time by kernel over 8 more steps of each path
               (torch.profiler), after every timed window; then the device
-              µs a launch of each mode of 2.2 and of each solve checked in
-              phases 3, 5, 7, 8 and 11 (2.3, 2.5, 2.7), beside its
+              µs a launch of each mode of 2.2 (the pile's candidates, the
+              packed, gated and sweep modes; split by __global__) and of
+              each solve checked in phases 3, 5, 7, 8 and 11 (2.3, 2.5,
+              2.7), beside its
               CUDA-event time, its bound and its live contacts; with
               --solve-levers, each 2.3 and 2.5 call's device µs under
               each variant of LEVERS (banded_solve.cu rebuilt from a
@@ -98,6 +100,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -200,12 +203,17 @@ R_RELAX, R_LAM0 = 21, 42     # solve constant rows (csrc/banded_solve.cu R_*)
 OPS_WINDOW_AABB = 30         # a window rank's |R|·half-extent AABB
 OPS_RAW_PAIR = 12            # one raw pair's overlap, liveness and env tests
 # device-kernel names of csrc/*.cu and ops/sweep_kernel.py
-PORT_KERNELS = ("masks_kernel", "contact_table_kernel", "hull_prefilter_kernel",
+# (2.2's are box_table_*, 2.4's hull_*; their shared warm match is
+# warm_match_kernel<box_table_warm> or <hull_table_warm>)
+PORT_KERNELS = ("masks_kernel", "box_table_", "hull_prefilter_kernel",
                 "hull_sat_kernel", "hull_manifold_kernel", "hull_ground_kernel",
-                "hull_scan_kernel", "hull_rows_kernel", "hull_warm_kernel",
+                "hull_scan_kernel", "hull_rows_kernel", "warm_match_kernel",
                 "solve_kernel", "banded_sweep_kernel", "prep_consts_kernel",
                 "ground_corners_kernel", "pair_contacts_kernel")
-PORT_GROUPS = {"2.4 hull table": ("hull_",),
+BOX_TABLE = ("box_table_",)
+KERNEL_NAME = r"\w+_kernel"      # a kernel's name in a profiler key
+PORT_GROUPS = {"2.2 contact table": BOX_TABLE,
+               "2.4 hull table": ("hull_",),
                "2.8 banded contacts": ("ground_corners_kernel",
                                        "pair_contacts_kernel")}
 # a solve checked in phases 3-11, measured by device time in phase 12:
@@ -400,7 +408,7 @@ def table_bytes(state, geom, cand, prev, outs, *extra) -> int:
 def check_pile_kernels(state, cfg):
     """Phase 3: each pile kernel against its plain version at the pile's
     shapes. Returns ({name: (max_abs_err, ms, plain_ms, bound)},
-    [Solve])."""
+    [Solve], 2.2's candidates mode as check_table_modes gives a mode)."""
     n = state.num_bodies
     out = {}
     aabbs = body_aabbs(state)
@@ -442,9 +450,13 @@ def check_pile_kernels(state, cfg):
         f" kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.5f} ms "
         f"({bnd[1]}; {live} candidate lanes, {sat} SAT lanes)")
     out["bucket_contact_table"] = (err, kms, pms, bnd)
+    # 2.2's candidates mode, as phase 12 times each mode
+    mode = (err, kms, pms, bnd, int(meta.shape[0]),
+            lambda: bucket_contact_table(state, cand, cfg, prev=prev,
+                                         geom=geom))
     err_s, times, solves = check_solve(state, cfg, tk, wk, geom, "pile")
     out["banded_sweeps_fused"] = (err_s,) + times["rebuild"]
-    return out, solves
+    return out, solves, mode
 
 
 def hull_table_ops(geom, cand, cfg, state, act):
@@ -803,10 +815,10 @@ def drive(label, make, cfg, steps, want, gpu, zero_overflow=False):
 # phases 8-10: the contact table's candidate-free modes, the hull faces
 # ---------------------------------------------------------------------------
 
-def kernel_device_us(fn, names, reps: int = 5) -> float:
-    """Mean device µs a call of fn spends in the kernels whose names
-    contain one of `names` (torch.profiler over `reps` calls; run with
-    the profiles, after every timed window)."""
+def kernel_device_split(fn, names, reps: int = 5) -> dict:
+    """{kernel: mean device µs a call of fn spends in it} over the kernels
+    whose names contain one of `names` (torch.profiler over `reps` calls;
+    run with the profiles, after every timed window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -816,9 +828,19 @@ def kernel_device_us(fn, names, reps: int = 5) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and any(k in e.key for k in names)) / reps
+    by = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and any(k in e.key
+                                                    for k in names):
+            by[re.search(KERNEL_NAME, e.key).group(0)] += \
+                e.self_device_time_total / reps
+    return dict(by)
+
+
+def kernel_device_us(fn, names, reps: int = 5) -> float:
+    """Mean device µs a call of fn spends in the kernels whose names
+    contain one of `names`."""
+    return sum(kernel_device_split(fn, names, reps).values())
 
 
 # The persistent solve's design levers: each a variant of
@@ -936,7 +958,8 @@ def mode_bound(st, cfg, geom, prev, outs, gate):
     of the passed-through buckets read; the outputs written. Operations:
     per fired bucket its window AABBs and raw pair tests, the prefilter
     on its stage-1 lanes, the manifold on its SAT lanes, its ground
-    corners; the emission of each active contact."""
+    corners; the emission of each active contact. Also returns the SAT
+    lanes of the fired buckets."""
     n = st.num_bodies
     _, _, _, kw = table_operands(st, None, cfg, None, geom, "bound")
     bp_k, cap, env_k = kw["bp"]
@@ -962,7 +985,7 @@ def mode_bound(st, cfg, geom, prev, outs, gate):
                  f * (OPS_WINDOW_AABB * (BLOCK + bp_k) + OPS_RAW_PAIR
                       * BLOCK * bp_k + OPS_GROUND_BODY * BLOCK)
                  + (OPS_OBB_PREFILTER * stage1 if kw["cap2"] else 0)
-                 + OPS_BOX_MANIFOLD * sat + OPS_EMIT * act)
+                 + OPS_BOX_MANIFOLD * sat + OPS_EMIT * act), sat
 
 
 def check_table_modes(label, st, cfg, order, cases):
@@ -983,15 +1006,15 @@ def check_table_modes(label, st, cfg, order, cases):
         outs, err, kms, pms, act = check_table(
             f"2.2 {label} {case}", lambda fn=fn: fn(False),
             lambda fn=fn: fn(True), n, geom)
-        bnd = mode_bound(st, cfg, geom, prev, outs, gate)
+        bnd, sat = mode_bound(st, cfg, geom, prev, outs, gate)
         meta = outs[1][0].reshape(-1, BLOCK)
         fired = meta.shape[0] if gate is None else int(gate.sum())
         log(f"2.2 {label} {case} ({fired} of {meta.shape[0]} buckets "
             f"fired): keys/activity/ranks/meta/warm identical, f32 rows max "
-            f"|Δ| {err}; {act} contacts, dropped {int(meta[:, 0].sum())}, "
-            f"lane drops {int(meta[:, 2].sum())}, window-edge ranks "
-            f"{int(meta[:, 3].sum())}; kernel {kms:.4f} ms, plain "
-            f"{pms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
+            f"|Δ| {err}; {act} contacts, {sat} SAT lanes, dropped "
+            f"{int(meta[:, 0].sum())}, lane drops {int(meta[:, 2].sum())}, "
+            f"window-edge ranks {int(meta[:, 3].sum())}; kernel {kms:.4f} "
+            f"ms, plain {pms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
         out[case] = (err, kms, pms, bnd, fired, lambda fn=fn: fn(False))
     return out
 
@@ -1389,7 +1412,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"pile settled {args.settle} steps: contacts "
         f"{int(m['contact_count'])}")
-    results, solves = check_pile_kernels(st, cfg)
+    results, solves, pile_mode = check_pile_kernels(st, cfg)
     pile_launches, pile_st = drive("pile", pile, cfg, args.steps, {
         "sweep_window_masks": rebuilds, "bucket_contact_table": rebuilds,
         "bucket_hull_contact_table": 0, "banded_sweeps_fused": args.steps},
@@ -1506,6 +1529,7 @@ def main() -> int:
                                  sweep_order(st, body_aabbs(st)),
                                  {"rebuild": None})
     steps_match("sweep bp_k step (warm)", st, bcfg)
+    modes = {"pile, candidates": pile_mode, **modes}
     modes.update({f"gated pile, {k}": v for k, v in gated.items()})
     modes["sweep bp_k, rebuild"] = sweep_bp["rebuild"]
     results["bucket_contact_table"] = (max(
@@ -1554,9 +1578,11 @@ def main() -> int:
         profile_steps(st, c, 8)
     mode_lines = {}
     for case, (err, kms, pms, (bms, by), fired, call) in modes.items():
-        us = kernel_device_us(call, ("contact_table_kernel",))
-        log(f"2.2 {case}: {us:.1f} us of device a launch ({fired} buckets "
-            f"fired; {gpu})")
+        split = kernel_device_split(call, BOX_TABLE)
+        us = sum(split.values())
+        parts = ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        log(f"2.2 {case}: {us:.1f} us of device a launch ({parts}; {fired} "
+            f"buckets fired; {gpu})")
         mode_lines[case] = {"max_abs_err": err, "ms": kms, "plain_ms": pms,
                             "bound_ms": bms, "bound_by": by,
                             "device_us": us, "fired_buckets": fired}

@@ -45,11 +45,14 @@ SIGNATURES = {
         _P, _P, _P, _P,            # geom, la, lb (or NULL), prev cols (or NULL)
         _P, _P,                    # gate, persisted table (or NULL)
         _P, _P, _P,                # table, meta, warm (or NULL)
+        _P, _I,                    # int32 scratch and its words
         _I, _I, _I, _I, _I, _I, _I,  # nb, bucket0, cap, cap2, ccap, kk, kg
         _I, _I, _I, _I,            # npad, rows, bp_k, env_k
         _F,                        # ground height
         _P,                        # stream
     ],
+    # the box table's scratch words: nb, cap, cap2, kk, kg, ccap
+    "ct_scratch_words": [_I, _I, _I, _I, _I, _I],
     "ht_bucket_hull_contact_table": [
         _P, _P, _P, _P,            # geom, la, lb, prev cols (or NULL)
         _P, _P, _P, _P, _P,        # c16, c32, c88, c80, cb
@@ -117,10 +120,6 @@ SIGNATURES = {
         _P,                        # stream
     ],
 }
-
-# what ct_bucket_contact_table returns when a bucket's working set exceeds
-# the shared memory a block can have (not a cudaError_t)
-SMEM_TOO_LARGE = 1001
 
 # bs_banded_solve / bs_banded_sweeps / bs_prep_consts flags
 FLAG_USE_SPLIT = 1

@@ -188,3 +188,113 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums, int& 
   __syncthreads();
   return off + x - v;
 }
+
+// ---------------------------------------------------------------------------
+// The warm match of both contact tables (contact_table.cu, hull_table.cu)
+// ---------------------------------------------------------------------------
+
+constexpr int kWarmThreads = 256;
+constexpr int kWarmSlots = 64;  // slots a block (8 a warp)
+
+// Called by every thread of a block: one bucket's previous keys, pc = its
+// prev_key_cols rows ([ccap, 8]: ck, KH, 0, activity, λ xyz, 0), as (ck, KH)
+// pairs in prev [ccap], and in *n_prev 1 + the last one keyed >= 0 (an
+// inactive previous slot is −1, which no key matches): the warm match reads
+// only those.
+__device__ __forceinline__ void compact_prev_keys(const float* __restrict__ pc, float2* __restrict__ prev,
+                                                  int* __restrict__ n_prev, int ccap) {
+  __shared__ int limit;
+  if (threadIdx.x == 0) limit = 0;
+  __syncthreads();
+  int last = 0;
+  for (int i = threadIdx.x; i < ccap; i += blockDim.x) {
+    const float2 k = *reinterpret_cast<const float2*>(pc + (size_t)i * 8);
+    prev[i] = k;
+    if (k.x > -0.5f) last = i + 1;
+  }
+  atomicMax(&limit, last);
+  __syncthreads();
+  if (threadIdx.x == 0) *n_prev = limit;
+}
+
+// Each slot's warm-start impulse: the λ of the first previous slot of its
+// bucket within 0.5 on both keys, rows 0:3 of warm [8, NB·ccap], rows 3:8
+// zero. prev / n_prev are compact_prev_keys' (bucket b's at b·ccap / b),
+// keys [2, NB·ccap] the slots' (ck, KH); the first min(nact[b], ccap) slots
+// of bucket b are live. A live slot's key is >= 0 and an empty one's −2, so
+// an empty slot matches nothing: a warp takes its 8 slots in turn, each
+// scanning the n_prev previous slots by ballots over 4 × 32 at a time (no
+// branch a comparison); the lowest set bit is the serial scan's first
+// match. `Table` names each table's instance.
+template <class Table>
+__global__ void __launch_bounds__(kWarmThreads)
+warm_match_kernel(const float* __restrict__ pcols, const float2* __restrict__ prev, const int* __restrict__ n_prevs,
+                  const float* __restrict__ keys, const int* __restrict__ nact, float* __restrict__ warm, int nb,
+                  int ccap) {
+  extern __shared__ __align__(16) char smem_raw[];
+  float* prev_ck = reinterpret_cast<float*>(smem_raw);  // [ccap]
+  float* prev_kh = prev_ck + ccap;                       // [ccap]
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, wid = tid >> 5;
+  const size_t cp = (size_t)nb * ccap;
+  const float* pc = pcols + (size_t)b * ccap * 8;
+  const int n_prev = n_prevs[b];
+  // up to a multiple of 128 (at most ccap): the rest keyed −1, no match
+  const int n_pad = (n_prev + 127) / 128 * 128;
+  for (int i = tid; i < n_pad; i += blockDim.x) {
+    const float2 k = i < n_prev ? prev[(size_t)b * ccap + i] : make_float2(-1.f, -1.f);
+    prev_ck[i] = k.x;
+    prev_kh[i] = k.y;
+  }
+  __syncthreads();
+  const int kept = nact[b] < ccap ? nact[b] : ccap;
+  constexpr int per_warp = kWarmSlots / (kWarmThreads / 32);
+  const int j0 = blockIdx.x * kWarmSlots + wid * per_warp;
+  // the warp's slots' keys, one a thread, then each slot's match in turn
+  float my_ck = -2.f, my_ch = 0.f;
+  if (lane < per_warp && j0 + lane < kept) {
+    my_ck = keys[(size_t)b * ccap + j0 + lane];
+    my_ch = keys[cp + (size_t)b * ccap + j0 + lane];
+  }
+  int my_src = -1;  // thread s: slot j0 + s's previous slot
+  for (int s = 0; s < per_warp; ++s) {
+    const float ck = __shfl_sync(0xffffffffu, my_ck, s);
+    const float ch = __shfl_sync(0xffffffffu, my_ch, s);
+    int src = -1;
+    for (int i0 = 0; ck >= 0.f && i0 < n_prev && src < 0; i0 += 128) {
+      unsigned ballot[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + 32 * u + lane;
+        const bool hit = (fabsf(prev_ck[i] - ck) < 0.5f) & (fabsf(prev_kh[i] - ch) < 0.5f);
+        ballot[u] = __ballot_sync(0xffffffffu, hit);
+      }
+#pragma unroll
+      for (int u = 3; u >= 0; --u)
+        if (ballot[u]) src = i0 + 32 * u + __ffs(ballot[u]) - 1;
+    }
+    if (lane == s) my_src = src;
+  }
+  // thread l writes row l % 8 of slot j0 + l / 8 (and of the slot 4 further on)
+  for (int k = lane; k < 8 * per_warp; k += 32) {
+    const int s = k >> 3, row = k & 7;
+    const int src = __shfl_sync(0xffffffffu, my_src, s);
+    const int j = j0 + s;
+    if (j < ccap) warm[(size_t)row * cp + (size_t)b * ccap + j] = (row < 3 && src >= 0) ? pc[(size_t)src * 8 + 4 + row] : 0.f;
+  }
+}
+
+// Launches warm_match_kernel<Table> over the NB buckets' slots (ccap a
+// multiple of 128).
+template <class Table>
+inline cudaError_t launch_warm_match(const float* pcols, const float2* prev, const int* n_prev, const float* keys,
+                                     const int* nact, float* warm, int nb, int ccap, cudaStream_t st) {
+  const size_t smem = (size_t)2 * ccap * 4;
+  const cudaError_t err =
+      cudaFuncSetAttribute(warm_match_kernel<Table>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  warm_match_kernel<Table><<<dim3(ccap / kWarmSlots, nb), kWarmThreads, smem, st>>>(pcols, prev, n_prev, keys, nact,
+                                                                                    warm, nb, ccap);
+  return cudaSuccess;
+}

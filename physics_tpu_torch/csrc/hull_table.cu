@@ -33,9 +33,10 @@
 //   6. rows (one thread per emission): the table rows with body-frame
 //      anchors and each slot's warm key; the slots beyond the bucket's count
 //      zeroed;
-//   7. warm (a warp per 8 slots): each slot's first previous slot of the
-//      bucket with the same key, ballots over 4 × 32 previous slots at a
-//      time, up to the last previous slot that can match.
+//   7. warm (common.cuh warm_match_kernel, shared with the box table; a
+//      warp per 8 slots): each slot's first previous slot of the bucket with
+//      the same key, ballots over 4 × 32 previous slots at a time, up to the
+//      last previous slot that can match.
 // What bounds it on the H100: the SAT's ~5,700 16-term dots a lane, about
 // 0.7 G f32 operations at the 1,024-hull rain; shared among the lanes of a
 // type pair, the coefficient rows are read from shared memory as warp-wide
@@ -54,6 +55,8 @@
 #include "common.cuh"
 
 namespace {
+
+struct hull_table_warm;  // names 2.4's instance of the shared warm match
 
 constexpr int kBlock = 128;        // ranks per bucket
 // The manifold kernel holds a face polygon's E vertices and its 2E clip
@@ -75,8 +78,6 @@ constexpr int kGroup = 8;          // manifold: threads a lane
 constexpr int kManThreads = 128;   // manifold blocks: 16 lanes
 constexpr int kScanThreads = 1024;
 constexpr int kRowThreads = 128;
-constexpr int kWarmThreads = 256;
-constexpr int kWarmSlots = 64;     // slots a warm-match block (8 a warp)
 constexpr float kBig = 1e30f;
 constexpr int kGeomRow0 = 24;      // narrow-phase block of the unified table
 
@@ -103,6 +104,8 @@ struct Scratch {
   int* slot;      // [nb, e_tot] table slot of each emission (−1 inactive)
   int* nact;      // [nb] active emissions
   float* keys;    // [2, nb·ccap] warm key (ck, KH) of each slot
+  float2* prev;   // [nb·ccap] previous keys (ck, KH), compact_prev_keys
+  int* n_prev;    // [nb] previous slots the warm match scans
   size_t words;
 };
 
@@ -114,11 +117,12 @@ __host__ __device__ inline Scratch carve_scratch(int* base, const Dims& d) {
   const size_t n_em = (size_t)d.nb * d.kk * d.sat_cap;
   const size_t n_g = (size_t)d.nb * d.kg * kBlock;
   const size_t e_tot = (size_t)d.kk * d.sat_cap + (size_t)d.kg * kBlock;
-  const size_t sizes[11] = {2 * lanes, (size_t)d.nb, ns * lanes, ns * lanes, 8 * n_em, n_em,
-                            8 * n_g, n_g, (size_t)d.nb * e_tot, (size_t)d.nb, 2 * (size_t)d.nb * d.ccap};
-  int* p[11];
+  const size_t sizes[13] = {2 * lanes, (size_t)d.nb, ns * lanes, ns * lanes, 8 * n_em, n_em,
+                            8 * n_g, n_g, (size_t)d.nb * e_tot, (size_t)d.nb, 2 * (size_t)d.nb * d.ccap,
+                            2 * (size_t)d.nb * d.ccap, (size_t)d.nb};
+  int* p[13];
   size_t off = 0;
-  for (int k = 0; k < 11; ++k) {
+  for (int k = 0; k < 13; ++k) {
     p[k] = base ? base + off : nullptr;
     off += round4(sizes[k]);
   }
@@ -134,6 +138,8 @@ __host__ __device__ inline Scratch carve_scratch(int* base, const Dims& d) {
   s.slot = p[8];
   s.nact = p[9];
   s.keys = reinterpret_cast<float*>(p[10]);
+  s.prev = reinterpret_cast<float2*>(p[11]);
+  s.n_prev = p[12];
   s.words = off;
   return s;
 }
@@ -894,14 +900,17 @@ hull_ground_kernel(const float* __restrict__ geom, const float* __restrict__ gv,
 }
 
 // ---------------------------------------------------------------------------
-// 5. stable compaction of the emissions into ccap slots, meta counters
+// 5. stable compaction of the emissions into ccap slots, meta counters; the
+//    previous keys for the warm match
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kScanThreads)
-hull_scan_kernel(Scratch sc, float* __restrict__ meta, Dims d) {
+hull_scan_kernel(const float* __restrict__ pcols, Scratch sc, float* __restrict__ meta, Dims d) {
   __shared__ int warp_sums[32];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  if (pcols != nullptr)
+    compact_prev_keys(pcols + (size_t)b * d.ccap * 8, sc.prev + (size_t)b * d.ccap, sc.n_prev + b, d.ccap);
   const int n_pair_e = d.kk * d.sat_cap;
   const int e_tot = n_pair_e + d.kg * kBlock;
   const int* em_i = sc.em_i + (size_t)b * n_pair_e;
@@ -1024,78 +1033,6 @@ hull_rows_kernel(const float* __restrict__ geom, Scratch sc, float* __restrict__
   sc.keys[cp + (size_t)b * d.ccap + sl] = v[11];
 }
 
-// ---------------------------------------------------------------------------
-// 7. warm start by key match within the bucket
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kWarmThreads)
-hull_warm_kernel(const float* __restrict__ pcols, Scratch sc, float* __restrict__ warm, Dims d) {
-  extern __shared__ __align__(16) char smem_raw[];
-  float* prev_ck = reinterpret_cast<float*>(smem_raw);   // [ccap]
-  float* prev_kh = prev_ck + d.ccap;                      // [ccap]
-  // 1 + the last previous slot that can match: a current key is ≥ 0, so a
-  // previous one ≤ −0.5 (an inactive slot's −1) never matches
-  __shared__ int limit;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, wid = tid >> 5;
-  const size_t cp = (size_t)d.nb * d.ccap;
-  const float* pc = pcols + (size_t)b * d.ccap * 8;
-  if (tid == 0) limit = 0;
-  __syncthreads();
-  int last = 0;
-  for (int i = tid; i < d.ccap; i += blockDim.x) {
-    prev_ck[i] = pc[(size_t)i * 8];
-    prev_kh[i] = pc[(size_t)i * 8 + 1];
-    if (prev_ck[i] > -0.5f) last = i + 1;
-  }
-  atomicMax(&limit, last);
-  __syncthreads();
-  const int n_prev = limit;
-  const int n_act = sc.nact[b];
-  const int kept = n_act < d.ccap ? n_act : d.ccap;
-  constexpr int per_warp = kWarmSlots / (kWarmThreads / 32);
-  const int j0 = blockIdx.x * kWarmSlots + wid * per_warp;
-  // the warp's slots' keys, one a thread, then each slot's match in turn
-  float my_ck = 0.f, my_ch = 0.f;
-  if (lane < per_warp && j0 + lane < kept) {
-    my_ck = sc.keys[(size_t)b * d.ccap + j0 + lane];
-    my_ch = sc.keys[cp + (size_t)b * d.ccap + j0 + lane];
-  }
-  int my_src = -1;   // thread s: slot j0 + s's previous slot
-  for (int s = 0; s < per_warp; ++s) {
-    const float ck = __shfl_sync(0xffffffffu, my_ck, s);
-    const float ch = __shfl_sync(0xffffffffu, my_ch, s);
-    int src = -1;
-    // an empty slot keys to (−2, 0), which matches no previous key
-    if (j0 + s < kept) {
-      for (int i0 = 0; i0 < n_prev && src < 0; i0 += 128) {
-        unsigned ballot[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + 32 * u + lane;
-          const bool hit = i < n_prev && fabsf(prev_ck[i] - ck) < 0.5f && fabsf(prev_kh[i] - ch) < 0.5f;
-          ballot[u] = __ballot_sync(0xffffffffu, hit);
-        }
-        // the lowest matching index: the serial scan's first match
-#pragma unroll
-        for (int u = 3; u >= 0; --u)
-          if (ballot[u]) src = i0 + 32 * u + __ffs(ballot[u]) - 1;
-      }
-    }
-    if (lane == s) my_src = src;
-  }
-  // rows 0:3 the matched λ, 3:8 zero: thread l writes row l % 8 of slot
-  // j0 + l / 8 (and of the slot 4 further on)
-  for (int k = lane; k < 8 * per_warp; k += 32) {
-    const int s = k >> 3, row = k & 7;
-    const int src = __shfl_sync(0xffffffffu, my_src, s);
-    const int j = j0 + s;
-    if (j < d.ccap)
-      warm[(size_t)row * cp + (size_t)b * d.ccap + j] = (row < 3 && src >= 0) ? pc[(size_t)src * 8 + 4 + row] : 0.f;
-  }
-}
-
 }  // namespace
 
 // Words (4 bytes) of int32 scratch the table call needs.
@@ -1122,7 +1059,7 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
                                             float gh, void* stream) {
   if (e < 1 || e > kMaxFaceVerts || 2 * e + 1 > 128 || kk > 2 * e + 1 || kg > 8 || kg > vcap || vcap > 128 || rows > 32 || (cap2 && cap2 > cap) || h < 1 || h * h > 31 ||
       ((uintptr_t)c16 & 15) || bucket0 < 0 || (size_t)(bucket0 + nb + 2) * kBlock > (size_t)npad ||
-      ccap % kWarmSlots)
+      ccap % 128)
     return (int)cudaErrorInvalidValue;
   Dims d;
   d.nb = nb;
@@ -1174,17 +1111,15 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
   if (kg > 0)
     hull_ground_kernel<<<dim3(kBlock / kWarps, nb), kWarps * 32, 0, st>>>(geom, gv, vbias, sc, d);
 
-  hull_scan_kernel<<<nb, kScanThreads, 0, st>>>(sc, meta, d);
+  hull_scan_kernel<<<nb, kScanThreads, 0, st>>>(pcols, sc, meta, d);
 
   const int e_tot = kk * d.sat_cap + kg * kBlock;
   const int row_items = e_tot > ccap ? e_tot : ccap;
   hull_rows_kernel<<<dim3((row_items + kRowThreads - 1) / kRowThreads, nb), kRowThreads, 0, st>>>(geom, sc, table,
                                                                                                  d);
   if (pcols != nullptr) {
-    const size_t warm_smem = (size_t)2 * ccap * 4;
-    err = cudaFuncSetAttribute(hull_warm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)warm_smem);
+    err = launch_warm_match<hull_table_warm>(pcols, sc.prev, sc.n_prev, sc.keys, sc.nact, warm, nb, ccap, st);
     if (err != cudaSuccess) return (int)err;
-    hull_warm_kernel<<<dim3(ccap / kWarmSlots, nb), kWarmThreads, warm_smem, st>>>(pcols, sc, warm, d);
   }
   return (int)cudaGetLastError();
 }

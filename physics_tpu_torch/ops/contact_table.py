@@ -546,28 +546,29 @@ def _launch_kernel(geom, la, lb, pcols, *, ccap, kk, kg, cap2,
     if npad < (bucket0 + nb) * BLOCK + 2 * BLOCK:
         raise ValueError(f"contact table: NPAD {npad} too small for "
                          f"{bucket0 + nb} buckets")
+    lib = _build.library()
+    words = lib.ct_scratch_words(nb, cap, cap2, kk, kg, ccap)
+    if words < 0:
+        raise ValueError(f"contact table: {nb} buckets of {cap} lanes need "
+                         f"more than 2³¹ words of scratch")
     table = torch.empty((rows_n, cp), dtype=f32, device=dev)
     meta = torch.empty((8, nb * BLOCK), dtype=f32, device=dev)
     warm = (torch.empty((8, cp), dtype=f32, device=dev)
             if pcols is not None else None)
+    scratch = torch.empty((words,), dtype=i32, device=dev)
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
     with torch.cuda.device(dev):
-        err = _build.library().ct_bucket_contact_table(
+        err = lib.ct_bucket_contact_table(
             ptr(geom), ptr(la), ptr(lb), ptr(pcols),
             ptr(gate[0] if gate is not None else None),
             ptr(gate[1] if gate is not None else None),
-            ptr(table), ptr(meta), ptr(warm),
+            ptr(table), ptr(meta), ptr(warm), ptr(scratch), words,
             nb, bucket0, cap, cap2, ccap, kk, kg, npad, rows_n, bp_k, env_k,
             ctypes.c_float(ground_height),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if err == _build.SMEM_TOO_LARGE:
-        raise ValueError(
-            f"contact table: a bucket of cap {cap}, cap2 {cap2}, kk {kk}, kg "
-            f"{kg} and ccap {ccap} needs more shared memory than a block can "
-            f"have on this card (232,448 bytes on the H100)")
     _build.check(err, "ct_bucket_contact_table")
     bucket_contact_table.launches += 1
     return table, meta, warm

@@ -12,9 +12,12 @@ step's single-sweep kernel (2.7) in each of its switch combinations and
 the table kernels' bucket-range mode. The box table's other modes: the
 in-kernel broad phase on the sweep order, the per-bucket gate (fired and
 passed-through buckets in one launch) and packed envs at the packed
-configuration's bucket shapes (896 lanes, 8 picks, 768 slots: the
-largest shared-memory working set), with a rebuild and a gated refresh
-step of the packed path, the gated pile and the hull rain's motion guard;
+configuration's bucket shapes (896 lanes, 8 picks, 768 slots), with a
+rebuild and a gated refresh step of the packed path, the gated pile and
+the hull rain's motion guard; saturated buckets (contacts beyond ccap,
+lanes beyond the prefilter's or the in-kernel broad phase's cap),
+duplicated previous keys, a call captured in a CUDA graph (candidates,
+gated) and 2,048 lanes of 8 picks a bucket;
 and the hull table on libraries whose largest face has 3, 5, 6, 8, 12,
 20 or 63 vertices (the last two above what the manifold kernel holds in
 registers). The persistent solves (2.3 and 2.5, one cooperative launch
@@ -721,6 +724,120 @@ def test_contact_table_kernel_packed_envs(packed, gate):
         plain=plain, gate=g), geom, s.num_bodies)
     assert int(tk[tct.CT_ACT].sum()) > 50
     assert float(mk[0].reshape(-1, 128)[:, 3].sum()) == 0
+
+
+def _live_prev(s, cfg, seed):
+    """Previous keys from a first plain table of `cfg`, random impulses."""
+    _, (t0, _, _) = _table(s, cfg, None, plain=True)
+    keys = tct.table_keys(t0)
+    lam = torch.rand((3, keys.shape[1]),
+                     generator=torch.Generator().manual_seed(seed))
+    return keys, lam.to(s.device)
+
+
+@pytest.mark.parametrize("mode", ["candidates", "bp_k"])
+def test_contact_table_kernel_saturated_buckets(pile, mode):
+    """Every capacity cut below what the buckets hold: contacts beyond
+    ccap (meta column 0) and lanes beyond the prefilter's or the in-kernel
+    broad phase's cap (column 2) are dropped and counted as the plain
+    version drops them."""
+    s, cfg = pile
+    cfg = cfg.replace(**(dict(bucket_ccap=128, bucket_cap2=128)
+                         if mode == "candidates" else
+                         dict(bucket_ccap=128, bucket_cap=128,
+                              sweep_window=16)))
+    aabbs = body_aabbs(s)
+    order = sweep_order(s, aabbs)
+    geom = tct.unified_geom(s, cfg, order)
+    cand = (pair_candidates(s, cfg, aabbs, order) if mode == "candidates"
+            else None)
+    prev = _live_prev(s, cfg, 10)
+    _, mk, wk = _tables_match(lambda plain: tct.bucket_contact_table(
+        s, cand, cfg, prev=prev, geom=geom, plain=plain), geom, N)
+    meta = mk[0].reshape(-1, 128)
+    assert float(meta[:, 0].sum()) > 0 and float(meta[:, 2].sum()) > 0
+    assert float(wk[0].abs().sum()) > 0
+
+
+def test_contact_table_warm_match_first_of_duplicate_keys(pile):
+    """Previous keys with duplicates in one bucket: the first previous
+    slot (index order) with the key gives the warm λ, as in the plain
+    version's first match."""
+    s, cfg = pile
+    keys, _ = _live_prev(s, cfg, 11)
+    lam = torch.ones((3, keys.shape[1]), device=s.device)
+    ccap = tct.table_shape(N, cfg)[1]
+    live = torch.nonzero(keys[0, :ccap] != 0).flatten()
+    assert live.numel() >= 8
+    for a, b in zip(live[:4].tolist(), live[-4:].tolist()):
+        keys[:, b] = keys[:, a]      # b > a: a later duplicate of a's key
+        lam[:, b] = 2.0
+    aabbs = body_aabbs(s)
+    order = sweep_order(s, aabbs)
+    cand = pair_candidates(s, cfg, aabbs, order)
+    geom = tct.unified_geom(s, cfg, order)
+    _, _, wk = _tables_match(lambda plain: tct.bucket_contact_table(
+        s, cand, cfg, prev=(keys, lam), geom=geom, plain=plain), geom, N)
+    assert not bool((wk[0:3, :ccap] == 2.0).any())
+    assert bool((wk[0:3, :ccap] == 1.0).any())
+
+
+@pytest.mark.parametrize("mode", ["candidates", "gated"])
+def test_contact_table_kernel_graph_replay(pile, mode):
+    """One 2.2 call captured in a CUDA graph and replayed, against the
+    eager call: with candidate lanes, and gated (a fired and a
+    passed-through bucket) over the in-kernel broad phase."""
+    s, cfg = pile
+    aabbs = body_aabbs(s)
+    order = sweep_order(s, aabbs)
+    geom = tct.unified_geom(s, cfg, order)
+    if mode == "candidates":
+        cand, gate = pair_candidates(s, cfg, aabbs, order), None
+        prev = _live_prev(s, cfg, 12)
+    else:
+        persisted, _, _ = tct.bucket_contact_table(s, None, cfg, geom=geom,
+                                                   plain=True)
+        cand = None
+        gate = (torch.tensor([1, 0], device=s.device), persisted)
+        prev = (tct.table_keys(persisted),
+                torch.rand((3, persisted.shape[1]), device=s.device))
+
+    def call():
+        return tct.bucket_contact_table(s, cand, cfg, prev=prev, geom=geom,
+                                        gate=gate)
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+    assert int(captured[0][tct.CT_ACT].sum()) > 100
+
+
+def test_contact_table_kernel_beyond_the_old_shared_memory_ceiling(pile):
+    """2,048 candidate lanes a bucket, 8 picks a pair and a body, no
+    prefilter: a bucket's working set (~360 KB) that no block's shared
+    memory holds runs on the card as in the plain version."""
+    s, cfg = pile
+    cfg = cfg.replace(bucket_cap=2048, bucket_cap2=0,
+                      max_contacts_per_pair=8)
+    aabbs = body_aabbs(s)
+    order = sweep_order(s, aabbs)
+    cand = pair_candidates(s, cfg, aabbs, order)
+    assert cand.mask.shape[0] == 2 * 2048
+    geom = tct.unified_geom(s, cfg, order)
+    tk, _, _ = _tables_match(lambda plain: tct.bucket_contact_table(
+        s, cand, cfg, prev=_live_prev(s, cfg, 13), geom=geom, plain=plain),
+        geom, N)
+    assert int(tk[tct.CT_ACT].sum()) > 500
 
 
 def test_packed_step_kernel_path_matches_plain(packed):
