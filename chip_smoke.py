@@ -10,29 +10,31 @@ ranks.
 Phases (any failure raises, so the run exits non-zero):
   1. card     name and power limit (nvidia-smi);
   2. build    compile csrc/*.cu with nvcc, one process per source, all at
-              once, and print ptxas's per-kernel report (the Triton kernel
-              compiles at its first launch) and the persistent solve's
-              grid at the table paths' widths;
+              once, and print ptxas's per-kernel report and the
+              persistent solve's grid at the table paths' widths;
   3. kernels  each pile kernel against its plain PyTorch version, on the
               card, at the pile's shapes (a pile settled by 60 steps),
               with median times from CUDA events and the live contacts of
-              the solve;
+              the solve: 2.1 in its masks mode and in its candidates
+              mode (pair_candidates, every field identical);
   4. pile     prepare_contacts + 240 steps of pile_config(4096) with
               contact_iters=8 through step_with_metrics: launch counts,
               finite state, overflow counters, one rebuild and one refresh
               step of the kernel path against the plain path, and the
               step rate over a timed window;
   5. rain     mesh_rain(1024) under rain_config(1024), settled 60 steps:
-              the hull contact table and the solve against their plain
-              versions at the rain's shapes, then 240 fresh steps with the
+              2.1's candidates, the hull contact table and the solve
+              against their plain versions at the rain's shapes, then 240
+              fresh steps with the
               same checks and measurements as phase 4;
   6. mixed    mesh_rain_mixed(128, n_types=3) settled 60 steps: the hull
               table against its plain version with all 9 ordered hull-type
               pairs live;
   7. two-kernel pile
               the 4k pile under pile_config(4096).replace(contact_iters=8,
-              contact_table=False), settled 60 steps: the contact list
-              (ground corners and pair manifolds in one launch), the
+              contact_table=False), settled 60 steps: 2.1's candidates,
+              the contact list (ground corners and pair manifolds in one
+              launch), the
               solve constants and the unfused sweeps against their
               plain versions at the path's shapes, then 240 fresh steps
               with the checks and measurements of phase 4 (one cold step,
@@ -67,7 +69,9 @@ Phases (any failure raises, so the run exits non-zero):
  11. sharded  the single-sweep kernel (2.7) against its plain version on
               one rank's quarter of each sharded path's solve (the 4k
               table pile's timed), in each of its four switch
-              combinations; the contact-list kernel (2.8) on each rank's
+              combinations (sweep 0 on a fresh scratch, a later sweep
+              on the plain loop's scratch: live list and next snapshot
+              table identical); the contact-list kernel (2.8) on each rank's
               quarter of the two-kernel pile's ground slots and candidate
               lanes (chunked mode); the box and hull table kernels by
               bucket range against the full-range kernels' blocks; then 4
@@ -84,8 +88,11 @@ Phases (any failure raises, so the run exits non-zero):
               µs a launch of each mode of 2.2 (the pile's candidates, the
               packed, gated and sweep modes; split by __global__) and of
               each solve checked in phases 3, 5, 7, 8 and 11 (2.3, 2.5,
-              2.7), beside its
-              CUDA-event time, its bound and its live contacts; with
+              2.7's sweep 0 and a later sweep), beside its CUDA-event
+              time, its bound and its live contacts; the device
+              operations and µs of 2.1's pair_candidates call at the
+              pile's, rain's and two-kernel pile's shapes and of a 2.7
+              sweep; with
               --solve-levers, each 2.3 and 2.5 call's device µs under
               each variant of LEVERS (banded_solve.cu rebuilt from a
               patched copy), in turns: design, the variants, design.
@@ -115,6 +122,7 @@ from physics_tpu_torch.ops import hull_table as ht
 from physics_tpu_torch.ops.broadphase import (
     PairCandidates,
     body_aabbs,
+    bucket_shape,
     pair_candidates,
     sweep_order,
 )
@@ -139,7 +147,10 @@ from physics_tpu_torch.ops.contact_table import (
 )
 from physics_tpu_torch.ops.narrowphase import banded_contacts
 from physics_tpu_torch.ops.narrowphase_banded import pair_operands
-from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
+from physics_tpu_torch.ops.sweep_kernel import (
+    bucketed_candidates,
+    sweep_window_masks,
+)
 from physics_tpu_torch.parallel.collectives import Shard, all_reduce_sum
 from physics_tpu_torch.parallel.sharding import launch, row_sharded_step
 from physics_tpu_torch.solver.banded_solve import (
@@ -148,11 +159,12 @@ from physics_tpu_torch.solver.banded_solve import (
     banded_sweep_once,
     banded_sweeps,
     banded_sweeps_fused,
-    banded_sweeps_plain,
     banded_z0,
     fused_consts_plain,
     prep_consts,
+    rows_of,
     solve_plan,
+    sweep_scratch,
     table_solve_operands,
 )
 from physics_tpu_torch.solver.contacts import (
@@ -202,13 +214,13 @@ OPS_INTEGRATE = 60           # one body's pos/quat integration
 R_RELAX, R_LAM0 = 21, 42     # solve constant rows (csrc/banded_solve.cu R_*)
 OPS_WINDOW_AABB = 30         # a window rank's |R|·half-extent AABB
 OPS_RAW_PAIR = 12            # one raw pair's overlap, liveness and env tests
-# device-kernel names of csrc/*.cu and ops/sweep_kernel.py
-# (2.2's are box_table_*, 2.4's hull_*; their shared warm match is
+# device-kernel names of csrc/*.cu (2.1's is sweep_kernel<true|false>,
+# 2.2's box_table_*, 2.4's hull_*; their shared warm match is
 # warm_match_kernel<box_table_warm> or <hull_table_warm>)
-PORT_KERNELS = ("masks_kernel", "box_table_", "hull_prefilter_kernel",
+PORT_KERNELS = ("sweep_kernel", "box_table_", "hull_prefilter_kernel",
                 "hull_sat_kernel", "hull_manifold_kernel", "hull_ground_kernel",
                 "hull_scan_kernel", "hull_rows_kernel", "warm_match_kernel",
-                "solve_kernel", "banded_sweep_kernel", "prep_consts_kernel",
+                "solve_kernel", "prep_consts_kernel",
                 "ground_corners_kernel", "pair_contacts_kernel")
 BOX_TABLE = ("box_table_",)
 KERNEL_NAME = r"\w+_kernel"      # a kernel's name in a profiler key
@@ -216,6 +228,8 @@ PORT_GROUPS = {"2.2 contact table": BOX_TABLE,
                "2.4 hull table": ("hull_",),
                "2.8 banded contacts": ("ground_corners_kernel",
                                        "pair_contacts_kernel")}
+# 2.1's pair_candidates call at each path's shapes, profiled in phase 12
+CANDIDATE_CALLS = {}
 # a solve checked in phases 3-11, measured by device time in phase 12:
 # its kernel, label, wrapper call, CUDA-event ms, bound and live contacts
 Solve = collections.namedtuple("Solve", "name label call ms bound live")
@@ -405,6 +419,57 @@ def table_bytes(state, geom, cand, prev, outs, *extra) -> int:
                   *prev, *outs, *extra)
 
 
+def device_ops(fn, reps: int = 5):
+    """(device operations a call of fn puts on the card, their device µs
+    a call, {kernel, copy or memset: count a call}) over `reps` calls
+    (torch.profiler; run after every timed window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count / reps, e.self_device_time_total / reps)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return (sum(r[1] for r in rows), sum(r[2] for r in rows),
+            {r[0][:60]: r[1] for r in rows})
+
+
+def check_candidates(label, state, cfg):
+    """2.1, the bucketed candidates from the sort order in one launch,
+    against its plain version: every field and the overflow identical.
+    Returns (0.0, kernel ms, plain ms, bound) and keeps the call for the
+    device profile of phase 12."""
+    n = state.num_bodies
+    aabbs = body_aabbs(state)
+    order = sweep_order(state, aabbs)
+
+    def run(plain):
+        return pair_candidates(state, cfg, aabbs, order, plain=plain)
+    ck, cp = run(False), run(True)
+    for f, a, b in zip(ck._fields, ck, cp):
+        if not (a.dtype == b.dtype and torch.equal(a, b)):
+            raise AssertionError(f"2.1 candidates ({label}): {f} differs")
+    block, cap, nb = bucket_shape(n, cfg)
+    k = min(cfg.sweep_window, n - 1)
+    # the order, the AABBs and shape types read once; every lane's five
+    # fields and the overflow written; eight compares a (rank, offset)
+    bnd = bound(nbytes(order, aabbs, state.shapes.stype, *ck), 8 * n * k)
+    kms = median_ms(lambda: run(False), 50)
+    pms = median_ms(lambda: run(True), 5)
+    CANDIDATE_CALLS[label] = lambda: run(False)
+    log(f"2.1 bucketed candidates ({label}): every field identical "
+        f"({int(ck.mask.sum())} live of {ck.mask.numel()} lanes, {nb} "
+        f"buckets of {block} ranks, window {k}, cap {cap}, overflow "
+        f"{int(ck.overflow)}); kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+        f"bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return 0.0, kms, pms, bnd
+
+
 def check_pile_kernels(state, cfg):
     """Phase 3: each pile kernel against its plain version at the pile's
     shapes. Returns ({name: (max_abs_err, ms, plain_ms, bound)},
@@ -421,13 +486,9 @@ def check_pile_kernels(state, cfg):
     mp, lp = sweep_window_masks(aabb_s, coll_s, k, plain=True)
     if not (torch.equal(mk, mp) and torch.equal(lk, lp)):
         raise AssertionError("sweep masks differ from the plain version")
-    log(f"2.1 sweep masks: identical ({int(mk.sum())} overlaps, "
+    log(f"2.1 sweep masks mode: identical ({int(mk.sum())} overlaps, "
         f"{int(lk.sum())} window-edge ranks)")
-    # six interval compares and their conjunction per (rank, offset)
-    bnd = bound(nbytes(aabb_s, coll_s, mk, lk), 8 * n * k)
-    out["sweep_window_masks"] = (0.0, median_ms(
-        lambda: sweep_window_masks(aabb_s, coll_s, k), 50), median_ms(
-        lambda: sweep_window_masks(aabb_s, coll_s, k, plain=True), 10), bnd)
+    out["sweep_window_masks"] = check_candidates("pile", state, cfg)
 
     cand = pair_candidates(state, cfg, aabbs, order)
     geom = unified_geom(state, cfg, order)
@@ -585,7 +646,7 @@ def profile_steps(state, cfg, steps: int) -> None:
 
 # kernel (named after the TPU function it replaces) → its wrapper, whose
 # `launches` counts the kernel's launches
-COUNTED = {"sweep_window_masks": sweep_window_masks,
+COUNTED = {"sweep_window_masks": bucketed_candidates,
            "bucket_contact_table": bucket_contact_table,
            "bucket_hull_contact_table": ht.bucket_hull_contact_table,
            "banded_sweeps_fused": banded_sweeps_fused,
@@ -1128,66 +1189,105 @@ def np_sharded_operands(state, cfg):
     return (banded_z0(geom), ops.bases, ops.la, ops.lb, consts, ops.tile)
 
 
+def clone_scratch(sc):
+    return type(sc)(*[t.clone() for t in sc])
+
+
 def check_sweep_once(label, n, z0, bases, la, lb, consts, tile,
                      timed=True):
     """2.7 against its plain version on rank 0's quarter of a sharded
-    solve's tiles, each switch combination; the later sweeps on the
-    snapshot after sweep 0 and one velocity sweep. Returns (max err, ms,
-    plain ms, bound) of the velocity + position sweep, the one the
-    schedule runs most (times None unless `timed`), and its Solve (None
-    unless `timed`)."""
-    z1, lam1, _ = banded_sweeps_plain(z0, bases, la, lb, consts, tile=tile,
-                                      vel_iters=1, pos_iters=0,
-                                      warm_sweep=True, posq=None,
-                                      integrate=None)
+    solve's tiles, each switch combination: sweep 0 from z0 on a fresh
+    scratch, a later sweep (2) from the plain loop's scratch after sweep 0
+    and one velocity sweep. The delta table and λ within SOLVE_RTOL, the
+    live list (as a set) and the next snapshot table identical. Returns
+    (max err, ms, plain ms, bound) of the velocity + position sweep, the
+    one the schedule runs most (times None unless `timed`), and the
+    Solves of sweep 0 and of that sweep (none unless `timed`)."""
     t_loc = bases.shape[0] // RANKS
     c_loc = t_loc * tile
+    npad = z0.shape[1]
     ops = (bases[:t_loc].contiguous(), la[:c_loc].contiguous(),
            lb[:c_loc].contiguous(), consts[:, :c_loc].contiguous())
-    n_live = int((ops[1] >= 0).sum())
-    # the data rows of z (v, ω; pseudo v, ω; degrees) at the bodies the
-    # rank's live contacts reach
+    n_touch = int(((ops[1] >= 0) | (ops[2] >= 0)).sum())
+    # the bodies the rank's contacts reach
     cols = touched_columns(ops[0], tile, ops[1], ops[2])
+    base = sweep_scratch(c_loc, npad, z0.device)
+    for sweep, vel in ((0, False), (1, True)):
+        banded_sweep_once(base, z0, *ops, sweep=sweep, tile=tile,
+                          vel_on=vel, pos_on=False, warm=True, plain=True)
+    n_live = int(base.count[0])
     log(f"2.7 operands ({label}): {la.shape[0]} contacts, tile {tile}, "
-        f"{bases.shape[0]} tiles, {t_loc} a rank; rank 0: {n_live} live "
-        f"reaching {cols} bodies")
+        f"{bases.shape[0]} tiles, {t_loc} a rank; rank 0: {n_touch} with "
+        f"an endpoint reaching {cols} bodies, {n_live} live after sweep 0")
     out = {}
-    solve = None
+    solves = []
     for case, (vel_on, pos_on, warm_on, deg) in SWEEP_CASES.items():
-        z, lam = (z0, torch.zeros((4, c_loc), device=z0.device)) if deg \
-            else (z1, lam1[:, :c_loc].contiguous())
+        sweep = 0 if deg else 2
 
-        def run(plain, z=z, lam=lam, v=vel_on, p=pos_on, w=warm_on, d=deg):
-            return banded_sweep_once(z, *ops, lam, tile=tile, vel_on=v,
-                                     pos_on=p, warm=w, deg_pass=d,
-                                     plain=plain)
-        (dk, lk), (dp, lp) = run(False), run(True)
-        err = max(row_check(f"2.7 {label} {case} dz", dk[:, :n], dp[:, :n],
-                            SOLVE_RTOL),
-                  row_check(f"2.7 {label} {case} lam", lk, lp, SOLVE_RTOL))
+        def start(deg=deg):
+            return (sweep_scratch(c_loc, npad, z0.device) if deg
+                    else clone_scratch(base))
+
+        def run(plain, sc, sweep=sweep, v=vel_on, p=pos_on, w=warm_on):
+            banded_sweep_once(sc, z0, *ops, sweep=sweep, tile=tile,
+                              vel_on=v, pos_on=p, warm=w, plain=plain)
+        sk, sp = start(), start()
+        run(False, sk)
+        run(True, sp)
+        m = int(sp.count[0])
+        if not (int(sk.count[0]) == m and torch.equal(
+                torch.sort(sk.live[:m]).values, sp.live[:m])):
+            raise AssertionError(f"2.7 {label} {case}: live lists differ")
+        if not torch.equal(sk.zt[sweep % 2], sp.zt[sweep % 2]):
+            raise AssertionError(f"2.7 {label} {case}: snapshot tables "
+                                 f"differ")
+        err = max(row_check(f"2.7 {label} {case} dz",
+                            rows_of(sk.dz[sweep % 3])[:, :n],
+                            rows_of(sp.dz[sweep % 3])[:, :n], SOLVE_RTOL),
+                  row_check(f"2.7 {label} {case} lam", sk.lam, sp.lam,
+                            SOLVE_RTOL))
         if not timed:
-            log(f"2.7 banded sweep once ({label}), {case}: max |Δ| {err}")
+            log(f"2.7 banded sweep once ({label}), {case}: max |Δ| {err}; "
+                f"live list and snapshot table identical")
             out[case] = (err, None, None, None)
             continue
-        # those z columns, the lane operands, the constants the sweep
-        # reads (λ₀ only when warm), λ in; the whole delta (its data
-        # rows) and λ out
-        read = R_PREP if warm_on else R_PREP - 3
-        bnd = bound(13 * 4 * cols + nbytes(*ops[:3], ops[3][:read], lam,
-                                           dk[0:6, :n], dk[8:15, :n], lk),
-                    OPS_SOLVE_CONTACT * n_live)
-        kms = median_ms(lambda: run(False), 50)
-        pms = median_ms(lambda: run(True), 5)
-        if case == "velocity + position":
-            solve = Solve("banded_sweep_once", f"{label} rank 0 of "
-                          f"{RANKS}, {case}", lambda run=run: run(False),
-                          kms, bnd, n_live)
-        log(f"2.7 banded sweep once ({label}), {case}: max |Δ| {err}; "
-            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{bnd[0]:.5f} ms ({bnd[1]})")
+        if deg:
+            # every slot's endpoints and relaxation, the touched slots'
+            # constants (λ₀ too: warm); λ of every slot, the live list,
+            # the delta's data rows at the bodies reached and the first
+            # snapshot table (z0's v, ω in) written
+            bnd = bound(nbytes(*ops[:3], z0[0:6, :n]) + 4 * c_loc
+                        + 4 * R_PREP * n_touch + 16 * c_loc + 4 * m
+                        + 13 * 4 * cols + 16 * 4 * n,
+                        OPS_SOLVE_CONTACT * n_touch)
+
+            def timed_call(plain, run=run, start=start):
+                run(plain, start())
+        else:
+            # the live contacts' sweep constants (no λ₀), endpoints, list
+            # entry and relaxation, their λ read and written; the next
+            # snapshot (the two tables' data rows read, one written, over
+            # the bodies) and the delta at the bodies reached
+            bnd = bound(4 * ((R_PREP - 3) + 4 + 8) * m + 3 * 13 * 4 * n
+                        + 12 * 4 * cols, OPS_SOLVE_CONTACT * m)
+            sk_t, sp_t = clone_scratch(base), clone_scratch(base)
+
+            def timed_call(plain, run=run, sk_t=sk_t, sp_t=sp_t):
+                run(plain, sp_t if plain else sk_t)
+        kms = median_ms(lambda: timed_call(False), 50)
+        pms = median_ms(lambda: timed_call(True), 5)
+        if deg or case == "velocity + position":
+            solves.append(Solve(
+                "banded_sweep_once", f"{label} rank 0 of {RANKS}, {case}",
+                lambda f=timed_call: f(False), kms, bnd,
+                n_touch if deg else m))
+        log(f"2.7 banded sweep once ({label}), {case}: max |Δ| {err}, live "
+            f"list and snapshot table identical; kernel {kms:.4f} ms"
+            f"{' with its scratch zeroing' if deg else ''}, plain "
+            f"{pms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
         out[case] = (err, kms, pms, bnd)
     err = max(v[0] for v in out.values())
-    return (err,) + out["velocity + position"][1:], solve
+    return (err,) + out["velocity + position"][1:], solves
 
 
 def check_bucket_ranges(state, cfg, hulls: bool, label: str) -> None:
@@ -1269,17 +1369,20 @@ def sharded_rank(shard, steps: int, states):
 def rank_probes(shard, dev, reps: int = 50):
     """What a sweep of the sharded solve costs on this rank while all the
     ranks run the same loop: ms per call, each call ending in a
-    synchronize, of the all-reduce of a [16, NPAD] delta as the solve
-    makes it (host-staged under gloo), of its host round trip alone
-    (device → host → device copies), and of one 2.7 launch on a quarter
-    of the 4k pile's slots."""
+    synchronize, of the all-reduce of a delta table [NPAD, 16] as the
+    solve makes it (host-staged under gloo), of its host round trip alone
+    (device → host → device copies), and of one later 2.7 launch on a
+    quarter of the 4k pile's slots (none live: its table work alone)."""
     npad = 4352
-    dz = torch.zeros((16, npad), device=dev)
     n_c = 6144
     zeros = torch.zeros((n_c,), dtype=torch.int32, device=dev)
     ops = (torch.zeros((n_c // 768,), dtype=torch.int32, device=dev), zeros,
            zeros, torch.zeros((R_PREP, n_c), device=dev))
-    lam = torch.zeros((4, n_c), device=dev)
+    z0 = torch.zeros((16, npad), device=dev)
+    sc = sweep_scratch(n_c, npad, dev)
+    banded_sweep_once(sc, z0, *ops, sweep=0, tile=768, vel_on=False,
+                      pos_on=False, warm=False)
+    dz = sc.dz[0]
 
     def timed(fn):
         for i in range(reps + 5):
@@ -1293,8 +1396,8 @@ def rank_probes(shard, dev, reps: int = 50):
         "all_reduce": timed(lambda: all_reduce_sum(dz, shard)),
         "host_round_trip": timed(lambda: dz.copy_(dz.cpu())),
         "sweep_once": timed(lambda: banded_sweep_once(
-            dz, *ops, lam, tile=768, vel_on=True, pos_on=True, warm=False,
-            deg_pass=False)),
+            sc, z0, *ops, sweep=1, tile=768, vel_on=True, pos_on=True,
+            warm=False)),
     }
 
 
@@ -1434,6 +1537,7 @@ def main() -> int:
     (tk, _, wk), geom, _, err, kms, pms, bnd = check_hull_table(
         st, rcfg, "rain 1024")
     results["bucket_hull_contact_table"] = (err, kms, pms, bnd)
+    check_candidates("rain", st, rcfg)
     _, rain_solve, rain_solves = check_solve(st, rcfg, tk, wk, geom, "rain")
     solves += rain_solves
     rain_launches, rain_st = drive("rain", rain, rcfg, args.steps, {
@@ -1468,6 +1572,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"two-kernel pile settled {args.settle} steps: contacts "
         f"{int(m['contact_count'])}, band_overflow {int(m['band_overflow'])}")
+    check_candidates("two-kernel pile", st, ncfg)
     np_results, np_solves = check_np_kernels(st, ncfg)
     results.update(np_results)
     solves += np_solves
@@ -1545,9 +1650,9 @@ def main() -> int:
     # ---- phase 11: the row-sharded step (no profile: it runs in the ranks)
     # 2.7 at the shapes each sharded path gives it (the pile's row is the
     # one timed), 2.8 in chunked mode on each rank's quarter of the lanes
-    sweep, sweep_solve = check_sweep_once(
+    sweep, sweep_solves = check_sweep_once(
         "pile", N_PILE, *table_sweep_operands(pile_st, cfg))
-    solves.append(sweep_solve)
+    solves += sweep_solves
     np_ops = np_sharded_operands(np_st, ncfg)
     err = max(sweep[0],
               check_sweep_once("rain", N_RAIN,
@@ -1590,18 +1695,29 @@ def main() -> int:
     # included (one launch a call for 2.3 and 2.5, one for 2.7)
     solve_us = {}
     for name, label, call, kms, (bms, by), live in solves:
-        names = ("banded_sweep_kernel",) if name == "banded_sweep_once" \
+        names = ("sharded_sweep_kernel",) if name == "banded_sweep_once" \
             else ("solve_kernel",)
         us = kernel_device_us(call, names)
         solve_us.setdefault(name, {})[label] = us
         log(f"{name} ({label}): {us:.1f} us of device a launch, "
             f"{kms:.4f} ms by CUDA events, bound {bms:.5f} ms ({by}), "
             f"{live} live contacts ({gpu})")
+    # the device operations a call puts on the card: 2.1's pair_candidates
+    # at each path's shapes, a 2.7 sweep
+    for label, call in CANDIDATE_CALLS.items():
+        n_ops, us, parts = device_ops(call)
+        log(f"2.1 pair_candidates ({label}): {n_ops:g} device operations, "
+            f"{us:.1f} us of device a call ({parts}; {gpu})")
+    for s in solves:
+        if s.name == "banded_sweep_once":
+            n_ops, us, parts = device_ops(s.call)
+            log(f"2.7 ({s.label}): {n_ops:g} device operations, {us:.1f} "
+                f"us of device a call ({parts}; {gpu})")
     if args.solve_levers:
         solve_levers(solves, gpu)
 
     sources = {
-        "sweep_window_masks": ("triton", "physics_tpu_torch/ops/sweep_kernel.py",
+        "sweep_window_masks": ("cuda", "physics_tpu_torch/csrc/sweep.cu",
                                "physics_tpu/ops/sweep_pallas.py:91"),
         "bucket_contact_table": ("cuda", "physics_tpu_torch/csrc/contact_table.cu",
                                  "physics_tpu/ops/contact_table.py:1032"),

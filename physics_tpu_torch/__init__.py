@@ -6,8 +6,8 @@ under scenes.pile_config, with or without the contact table) and the
 hull rains' step (scenes.mesh_rain and mesh_rain_mixed under
 scenes.rain_config), on one process or row-sharded over the ranks of a
 torch.distributed group (parallel/sharding.py), through eight
-hand-written Hopper kernels: the sweep-window masks (Triton,
-ops/sweep_kernel.py), the box and hull contact tables
+hand-written Hopper kernels: the sweep broad phase's masks and bucketed
+candidates (csrc/sweep.cu), the box and hull contact tables
 (csrc/contact_table.cu, csrc/hull_table.cu), the banded pair manifolds
 (csrc/narrowphase_banded.cu) and four banded solve kernels
 (csrc/banded_solve.cu). Each kernel wrapper runs its plain PyTorch

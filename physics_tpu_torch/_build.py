@@ -100,11 +100,24 @@ SIGNATURES = {
     ],
     # the persistent solve's grid and its kernel's resources
     "bs_solve_plan": [_I, _I, _P],   # fused, cp, int32 [7] out
-    "bs_banded_sweep_once": [
-        _P, _P, _P, _P, _P, _P,    # z snapshot, bases, la, lb, consts, lam
-        _P, _P,                    # dz out, lam out
-        _I, _I, _I,                # cp, npad, tile
-        _F, _F, _I, _I,            # vel on, pos on, warm, degree pass
+    "bs_sharded_sweep": [
+        _P, _P, _P, _P, _P,        # z0, bases, la, lb, consts
+        _P, _P, _P, _P, _P, _P, _P,  # scratch: λ, z tables, delta tables,
+                                     # live list, its length, endpoint
+                                     # ranks, relaxations
+        _I, _I, _I, _I,            # cp, npad, tile, sweep
+        _F, _F, _I,                # vel on, pos on, warm
+        _P,                        # stream
+    ],
+    "sw_window_masks": [
+        _P, _P, _P, _P,            # sorted AABBs, flags; mask, last out
+        _I, _I,                    # n, window
+        _P,                        # stream
+    ],
+    "sw_bucketed_candidates": [
+        _P, _P, _P,                # order, AABBs, shape types
+        _P, _P, _P, _P, _P, _P,    # body a/b, mask, rank a/b, overflow out
+        _I, _I, _I, _I,            # n, window, block, cap
         _P,                        # stream
     ],
     "np_banded_contacts": [

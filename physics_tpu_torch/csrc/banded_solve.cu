@@ -8,9 +8,9 @@
 //   bs_banded_sweeps      replaces banded_sweeps (kernel 2.5, :628; body
 //                         _make_kernel without prep=, with or without its
 //                         integrate= epilogue);
-//   bs_banded_sweep_once  replaces banded_sweep_once (kernel 2.7, :956; body
+//   bs_sharded_sweep      replaces banded_sweep_once (kernel 2.7, :956; body
 //                         _make_sweep1_kernel :914), one sweep of the
-//                         row-sharded solve (at the end of this file).
+//                         row-sharded solve (sharded_sweep_kernel).
 // Sweep math _sweep_tile_math :92, constants _prep_consts_math :1086. Plain
 // versions: physics_tpu_torch/solver/banded_solve.py (banded_sweeps_fused_plain,
 // prep_consts_plain, banded_sweeps_plain, banded_sweep_once_plain), which the
@@ -66,7 +66,9 @@
 // reads the contact table once. Atomic f32 sums land in a different order
 // every run, so results match the plain version to a tolerance, not
 // bitwise; 2.6 has no sums across contacts and matches bit for bit. 2.7
-// keeps its one-sweep launch (banded_sweep_kernel).
+// is a launch a sweep (sharded_sweep_kernel, below the persistent solve):
+// the same tables, gathers, scatters and live list, with the ranks'
+// all-reduce of each sweep's delta between two launches.
 
 #include <cooperative_groups.h>
 
@@ -102,7 +104,6 @@ struct Params {
   const float* warm8;
   const float* geom;
   float* z;
-  float* zread;
   float* lam;
   float* consts;
   float* pq;
@@ -154,105 +155,6 @@ __device__ __forceinline__ float effmass(V3 d, float ima, float imb, const float
 __device__ __forceinline__ void load_solve(const float* geom, int npad, int rank, float* g) {
 #pragma unroll
   for (int k = 0; k < 24; ++k) g[k] = rank >= 0 ? geom[(size_t)k * npad + rank] : 0.f;
-}
-
-__device__ __forceinline__ float cget(const Params& p, int row, int j) { return p.consts[(size_t)row * p.cp + j]; }
-
-// One Jacobi sweep for contact j with endpoint ranks rank_a/rank_b (−1: none)
-// (contacts_pallas._sweep_tile_math), reading the snapshot and adding the
-// deltas into z. vel_on/pos_on/warm_f/degf are the sweep's 0/1 switches.
-// 2.7's launch; the persistent solve has its own forms (sweep0, sweep_live).
-__device__ void sweep_contact(const Params& p, int j, int rank_a, int rank_b, float vel_on, float pos_on,
-                              float warm_f, float degf) {
-  float za[kZRows], zb[kZRows];
-#pragma unroll
-  for (int k = 0; k < kZRows; ++k) {
-    za[k] = rank_a >= 0 ? p.zread[(size_t)k * p.npad + rank_a] : 0.f;
-    zb[k] = rank_b >= 0 ? p.zread[(size_t)k * p.npad + rank_b] : 0.f;
-  }
-  const V3 r_a = mk(cget(p, R_RA, j), cget(p, R_RA + 1, j), cget(p, R_RA + 2, j));
-  const V3 r_b = mk(cget(p, R_RB, j), cget(p, R_RB + 1, j), cget(p, R_RB + 2, j));
-  const V3 nrm = mk(cget(p, R_N, j), cget(p, R_N + 1, j), cget(p, R_N + 2, j));
-  const V3 t1 = mk(cget(p, R_T1, j), cget(p, R_T1 + 1, j), cget(p, R_T1 + 2, j));
-  const V3 t2 = mk(cget(p, R_T2, j), cget(p, R_T2 + 1, j), cget(p, R_T2 + 2, j));
-  const float inv_k_n = cget(p, R_IKN, j), inv_k_t1 = cget(p, R_IKT1, j), inv_k_t2 = cget(p, R_IKT2, j);
-  const float v_target = cget(p, R_VTGT, j), bias = cget(p, R_BIAS, j);
-  const float friction = cget(p, R_FRIC, j);
-  const float inv_m_a = cget(p, R_IMA, j), inv_m_b = cget(p, R_IMB, j);
-  float iw_a[9], iw_b[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    iw_a[k] = cget(p, R_IWA + k, j);
-    iw_b[k] = cget(p, R_IWB + k, j);
-  }
-  const float relax = cget(p, R_RELAX, j) / fmaxf(fmaxf(za[14], zb[14]), 1.0f);
-
-  const size_t cp = (size_t)p.cp;
-  const float lam_n = p.lam[j], lam_t1 = p.lam[cp + j], lam_t2 = p.lam[2 * cp + j], lam_b = p.lam[3 * cp + j];
-
-  const V3 va = add(mk(za[0], za[1], za[2]), cross(mk(za[3], za[4], za[5]), r_a));
-  const V3 vb = add(mk(zb[0], zb[1], zb[2]), cross(mk(zb[3], zb[4], zb[5]), r_b));
-  const V3 v = sub(va, vb);
-  const float v_n = dot(nrm, v);
-  const float d_lam = (v_target - v_n) * inv_k_n * relax * vel_on;
-  float lam_n_new = fmaxf(lam_n + d_lam, 0.f);
-  const float lim = friction * lam_n_new;
-  const float v_t1 = dot(t1, v);
-  float lam_t1_new = fminf(fmaxf(lam_t1 - v_t1 * inv_k_t1 * relax * vel_on, -lim), lim);
-  const float v_t2 = dot(t2, v);
-  float lam_t2_new = fminf(fmaxf(lam_t2 - v_t2 * inv_k_t2 * relax * vel_on, -lim), lim);
-
-  const V3 pva = add(mk(za[8], za[9], za[10]), cross(mk(za[11], za[12], za[13]), r_a));
-  const V3 pvb = add(mk(zb[8], zb[9], zb[10]), cross(mk(zb[11], zb[12], zb[13]), r_b));
-  const float pv_n = dot(nrm, sub(pva, pvb));
-  const float d_lam_b = (bias - pv_n) * inv_k_n * relax * pos_on;
-  float lam_b_new = fmaxf(lam_b + d_lam_b, 0.f);
-
-  if (p.flags & FLAG_USE_SPLIT) {
-    const float nf = 1.0f - warm_f;
-    lam_n_new = warm_f * cget(p, R_LAM0, j) + nf * lam_n_new;
-    lam_t1_new = warm_f * cget(p, R_LAM0 + 1, j) + nf * lam_t1_new;
-    lam_t2_new = warm_f * cget(p, R_LAM0 + 2, j) + nf * lam_t2_new;
-    lam_b_new = nf * lam_b_new;
-  }
-
-  const V3 imp = add(add(scale(nrm, lam_n_new - lam_n), scale(t1, lam_t1_new - lam_t1)),
-                     scale(t2, lam_t2_new - lam_t2));
-  const V3 pimp = scale(nrm, lam_b_new - lam_b);
-
-  p.lam[j] = lam_n_new;
-  p.lam[cp + j] = lam_t1_new;
-  p.lam[2 * cp + j] = lam_t2_new;
-  p.lam[3 * cp + j] = lam_b_new;
-
-#pragma unroll
-  for (int side = 0; side < 2; ++side) {
-    const int rank = side == 0 ? rank_a : rank_b;
-    if (rank < 0) continue;
-    const float sign = side == 0 ? 1.0f : -1.0f;
-    const float inv_m = side == 0 ? inv_m_a : inv_m_b;
-    const float* iw = side == 0 ? iw_a : iw_b;
-    const V3 r = side == 0 ? r_a : r_b;
-    const V3 dv = scale(imp, sign * inv_m);
-    const V3 dw = scale(mat_vec(iw, cross(r, imp)), sign);
-    const V3 pdv = scale(pimp, sign * inv_m);
-    const V3 pdw = scale(mat_vec(iw, cross(r, pimp)), sign);
-    float* zc = p.z + rank;
-    const size_t np = (size_t)p.npad;
-    atomicAdd(zc + 0 * np, dv.x);
-    atomicAdd(zc + 1 * np, dv.y);
-    atomicAdd(zc + 2 * np, dv.z);
-    atomicAdd(zc + 3 * np, dw.x);
-    atomicAdd(zc + 4 * np, dw.y);
-    atomicAdd(zc + 5 * np, dw.z);
-    atomicAdd(zc + 8 * np, pdv.x);
-    atomicAdd(zc + 9 * np, pdv.y);
-    atomicAdd(zc + 10 * np, pdv.z);
-    atomicAdd(zc + 11 * np, pdw.x);
-    atomicAdd(zc + 12 * np, pdw.y);
-    atomicAdd(zc + 13 * np, pdw.z);
-    if (degf != 0.f) atomicAdd(zc + 14 * np, degf);
-  }
 }
 
 // contacts_pallas._prep_consts_math: the solve constants of one contact, rows
@@ -434,15 +336,6 @@ __global__ void __launch_bounds__(kThreads) prep_consts_kernel(Params p, const i
   for (int k = 0; k < kPrepRows; ++k) p.consts[(size_t)k * cp + j] = c[k];
 }
 
-// 2.5: one sweep over constants computed beforehand.
-__global__ void __launch_bounds__(kThreads) banded_sweep_kernel(Params p, const int* bases, const int* la,
-                                                                const int* lb, int tile, float vel_on, float pos_on,
-                                                                float warm_f, float degf) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p.cp) return;
-  sweep_contact(p, j, win_rank(bases, la, tile, j), win_rank(bases, lb, tile, j), vel_on, pos_on, warm_f, degf);
-}
-
 // ---------------------------------------------------------------------------
 // the persistent solve of 2.3 (kFused) and 2.5
 // ---------------------------------------------------------------------------
@@ -456,9 +349,15 @@ __device__ __forceinline__ constexpr int zslot(int r) {
 }
 
 // Quarter q (floats 4q:4q+4) of body `rank`'s row of a table, through L2:
-// other blocks' atomics changed it since this SM last read it.
-__device__ __forceinline__ float4 ld4(const float* zt, int rank, int q) {
-  return __ldcg(reinterpret_cast<const float4*>(zt + (size_t)rank * kZRows) + q);
+// other blocks' atomics changed it since this SM last read it (via_l1: a
+// table no block of the launch writes).
+__device__ __forceinline__ float4 ld4(const float* zt, int rank, int q, bool via_l1 = false) {
+  const float4* p = reinterpret_cast<const float4*>(zt + (size_t)rank * kZRows) + q;
+  return via_l1 ? __ldg(p) : __ldcg(p);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 // Adds to body `rank`'s row of a table: (dv, dw) when `vel`, (pdv, pdw)
@@ -480,7 +379,7 @@ __device__ __forceinline__ void scatter(float* zt, int rank, V3 dv, V3 dw, bool 
 
 // Sweep 0 of one contact with constants c: the degree scatter and, with
 // warm start, λ: 0 → λ₀ (vel_on = pos_on = 0, so nothing here reads z),
-// added into both tables. λ after the sweep → lam.
+// added into zt_a and, unless it is null, zt_b. λ after the sweep → lam.
 __device__ __forceinline__ void sweep0(const Params& p, const float* c, int rank_a, int rank_b, float* zt_a,
                                        float* zt_b, float* lam) {
   const bool warm = p.flags & FLAG_USE_SPLIT;
@@ -503,20 +402,24 @@ __device__ __forceinline__ void sweep0(const Params& p, const float* c, int rank
     const V3 dv = scale(imp, sign * inv_m);
     const V3 dw = scale(mat_vec(iw, cross(r, imp)), sign);
     scatter(zt_a, rank, dv, dw, warm, z3, z3, false, 1.0f);
-    scatter(zt_b, rank, dv, dw, warm, z3, z3, false, 1.0f);
+    if (zt_b != nullptr) scatter(zt_b, rank, dv, dw, warm, z3, z3, false, 1.0f);
   }
 }
 
 // A later sweep of one live contact (contacts_pallas._sweep_tile_math
 // without the warm and degree terms, which are 0 after sweep 0): its sweep
-// constants are cr[k·cs] (shared memory: cs = 1; global: cs = Cp), its λ,
-// previous impulse (x, y, z, Δλ_b) and relaxation sr[k·ss]. Reads the
-// snapshot zr and adds its previous and current deltas into zw, which
-// lacks the previous. The degrees are final after sweep 0, so the first
-// later sweep divides the relaxation by them once and keeps the quotient.
-__device__ __forceinline__ void sweep_live(const float* cr, size_t cs, float* sr, size_t ss, int rank_a,
-                                           int rank_b, const float* zr, float* zw, float vel_on, float pos_on,
-                                           bool pseudo, bool first) {
+// constants are cr[k·cs] (shared memory: cs = 1; global: cs = Cp), its λ
+// lam[k·ls]. It reads the snapshot zr, plus zd unless that is null (2.7:
+// the previous sweep's summed delta, added as the grid's next table is),
+// and adds its deltas into zw: with `prev` (the persistent solve, whose zw
+// lacks the previous sweep's deltas) the sum of its previous impulse
+// prev[k·ls] (x, y, z, Δλ_b) and the current one, which it keeps there;
+// else (2.7, whose zw is a zero delta table) the current one. The degrees
+// are final after sweep 0, so the first later sweep divides the
+// relaxation by them once and keeps the quotient in *rel.
+__device__ __forceinline__ void sweep_live(const float* cr, size_t cs, float* lam, size_t ls, float* prev,
+                                           float* rel, int rank_a, int rank_b, const float* zr, const float* zd,
+                                           float* zw, float vel_on, float pos_on, bool pseudo, bool first) {
   // the endpoints' rows: v, ω, pseudo v, pseudo ω; the degree (the
   // fourth quarter) only in the first later sweep
   float za[kZRows], zb[kZRows];
@@ -524,8 +427,14 @@ __device__ __forceinline__ void sweep_live(const float* cr, size_t cs, float* sr
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const bool need = q < 3 || first;
-    const float4 a = (need && rank_a >= 0) ? ld4(zr, rank_a, q) : zero4;
-    const float4 b = (need && rank_b >= 0) ? ld4(zr, rank_b, q) : zero4;
+    // 2.7 writes neither table it reads, so its reads may stay in L1
+    const bool ro = zd != nullptr;
+    float4 a = (need && rank_a >= 0) ? ld4(zr, rank_a, q, ro) : zero4;
+    float4 b = (need && rank_b >= 0) ? ld4(zr, rank_b, q, ro) : zero4;
+    if (ro) {
+      a = add4(a, (need && rank_a >= 0) ? ld4(zd, rank_a, q, true) : zero4);
+      b = add4(b, (need && rank_b >= 0) ? ld4(zd, rank_b, q, true) : zero4);
+    }
     za[4 * q] = a.x, za[4 * q + 1] = a.y, za[4 * q + 2] = a.z, za[4 * q + 3] = a.w;
     zb[4 * q] = b.x, zb[4 * q + 1] = b.y, zb[4 * q + 2] = b.z, zb[4 * q + 3] = b.w;
   }
@@ -540,11 +449,11 @@ __device__ __forceinline__ void sweep_live(const float* cr, size_t cs, float* sr
   float relax;
   if (first) {
     relax = at(R_RELAX) / fmaxf(fmaxf(za[12], zb[12]), 1.0f);
-    sr[8 * ss] = relax;
+    *rel = relax;
   } else {
-    relax = sr[8 * ss];
+    relax = *rel;
   }
-  const float lam_n = sr[0], lam_t1 = sr[ss], lam_t2 = sr[2 * ss], lam_b = sr[3 * ss];
+  const float lam_n = lam[0], lam_t1 = lam[ls], lam_t2 = lam[2 * ls], lam_b = lam[3 * ls];
 
   const V3 va = add(mk(za[0], za[1], za[2]), cross(mk(za[3], za[4], za[5]), r_a));
   const V3 vb = add(mk(zb[0], zb[1], zb[2]), cross(mk(zb[3], zb[4], zb[5]), r_b));
@@ -566,16 +475,21 @@ __device__ __forceinline__ void sweep_live(const float* cr, size_t cs, float* sr
   const V3 imp = add(add(scale(nrm, lam_n_new - lam_n), scale(t1, lam_t1_new - lam_t1)),
                      scale(t2, lam_t2_new - lam_t2));
   const float dlb = lam_b_new - lam_b;
-  const V3 tot = add(imp, mk(sr[4 * ss], sr[5 * ss], sr[6 * ss]));
-  const V3 ptot = scale(nrm, dlb + sr[7 * ss]);
-  sr[0] = lam_n_new;
-  sr[ss] = lam_t1_new;
-  sr[2 * ss] = lam_t2_new;
-  sr[3 * ss] = lam_b_new;
-  sr[4 * ss] = imp.x;
-  sr[5 * ss] = imp.y;
-  sr[6 * ss] = imp.z;
-  sr[7 * ss] = dlb;
+  V3 tot = imp;
+  float pdlb = dlb;
+  if (prev != nullptr) {
+    tot = add(imp, mk(prev[0], prev[ls], prev[2 * ls]));
+    pdlb = dlb + prev[3 * ls];
+    prev[0] = imp.x;
+    prev[ls] = imp.y;
+    prev[2 * ls] = imp.z;
+    prev[3 * ls] = dlb;
+  }
+  const V3 ptot = scale(nrm, pdlb);
+  lam[0] = lam_n_new;
+  lam[ls] = lam_t1_new;
+  lam[2 * ls] = lam_t2_new;
+  lam[3 * ls] = lam_b_new;
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
     const int rank = side == 0 ? rank_a : rank_b;
@@ -749,7 +663,8 @@ __global__ void __launch_bounds__(kThreads, 2) solve_kernel(Params p, Live l) {
         sr = l.st + j;
         cs = ss = cp;
       }
-      sweep_live(cr, cs, sr, ss, rank_a, rank_b, zr, zw, vel_on, pos_on, pseudo, s == 1);
+      sweep_live(cr, cs, sr, ss, sr + 4 * ss, sr + 8 * ss, rank_a, rank_b, zr, nullptr, zw, vel_on, pos_on, pseudo,
+                 s == 1);
       if (last) {
         p.lam[j] = sr[0];
         p.lam[cp + j] = sr[ss];
@@ -867,6 +782,117 @@ cudaError_t launch_solve(const Params& p, Live l, int list_len, cudaStream_t str
   return cudaLaunchKernelEx(&cfg, solve_kernel<kFused>, p, l);
 }
 
+// 2.7 (banded_sweep_once, contacts_pallas.py:956; body _make_sweep1_kernel
+// :914): one sweep of a rank's contact tiles for the row-sharded solve, a
+// launch a sweep. Between two launches the ranks all-reduce the sweep's
+// delta table; each launch folds the previous summed delta into the next
+// snapshot table itself. Tables body-major [NPAD, 16] (zslot): two snapshot
+// tables Z, three delta tables D. Sweep s adds into D[s % 3], reads Z[(s −
+// 1) % 2] + D[(s − 1) % 3] for its gathers, writes that sum, computed by the
+// same f32 add, to Z[s % 2] and zeroes D[(s + 1) % 3], which sweep s − 2
+// filled and sweep s − 1 folded in. Every rank applies the same adds to the
+// same summed bits, so the ranks' z stay bitwise equal; the caller zeroes D
+// and the live count once a solve. Sweep 0 writes Z[0] from z0 and runs
+// over every slot: the degrees, the warm start and λ of each, and the live
+// ones (relaxation or impulse; a slot that has neither adds exact zeros in
+// every later sweep) compacted into the list, a block scan and one atomic
+// offset a block. The later sweeps run on the same grid over the list's
+// first *count entries (read on the card: no host round trip), λ updated
+// in place by slot, the endpoint ranks and the relaxation over the degrees
+// kept by list entry.
+struct Sharded {
+  const float* z0;      // [16, NPAD] z at the start (sweep 0)
+  const int* bases;     // window starts [Cp / tile] ...
+  const int* la;        // ... and window-local endpoint ranks (−1: none)
+  const int* lb;
+  float* zt;            // [2, NPAD, 16] snapshot tables
+  float* dz;            // [3, NPAD, 16] delta tables
+  int* list;            // [Cp] the live slots ...
+  int* count;           // ... and how many
+  int* ends;            // [2, Cp] endpoint ranks (−1: none), by list entry
+  float* relax;         // [Cp] relaxation over the degrees, by list entry
+  int tile, sweep;
+  float vel_on, pos_on;
+};
+
+// 2.7's blocks: of 32 to 128 threads, as few as spread a rank's slots over
+// every SM (a later sweep is a chain of dependent loads a contact; more
+// SMs, more of them in flight)
+constexpr int kShardThreads = 128;
+
+__global__ void __launch_bounds__(kShardThreads) sharded_sweep_kernel(Params p, Sharded h) {
+  __shared__ int warp_sums[32];
+  __shared__ int block_off;
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * blockDim.x + tid;
+  const int nthreads = gridDim.x * blockDim.x;
+  const size_t np = (size_t)p.npad, cp = (size_t)p.cp;
+  const size_t tbl = np * kZRows;
+  const int s = h.sweep;
+  float* zw = h.dz + (size_t)(s % 3) * tbl;
+
+  if (s == 0) {
+    float* z_a = h.zt;
+    for (int c = t0; c < p.npad; c += nthreads) {
+      float v[kZRows];
+#pragma unroll
+      for (int r = 0; r < kZRows; ++r) v[zslot(r)] = h.z0[(size_t)r * np + c];
+      float4* row = reinterpret_cast<float4*>(z_a + (size_t)c * kZRows);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) row[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+    const bool warm = p.flags & FLAG_USE_SPLIT;
+    const int j = t0;
+    bool live = false;
+    if (j < p.cp) {
+      float c[kRConst];
+      float lam[4] = {0.f, 0.f, 0.f, 0.f};
+      const int rank_a = win_rank(h.bases, h.la, h.tile, j);
+      const int rank_b = win_rank(h.bases, h.lb, h.tile, j);
+      const bool touch = rank_a >= 0 || rank_b >= 0 || p.consts[R_RELAX * cp + j] != 0.f;
+      if (touch) {
+#pragma unroll
+        for (int k = 0; k < kPrepRows; ++k) c[k] = p.consts[k * cp + j];
+        sweep0(p, c, rank_a, rank_b, zw, nullptr, lam);
+        live = c[R_RELAX] != 0.f || lam[0] != 0.f || lam[1] != 0.f || lam[2] != 0.f;
+      } else if (warm) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) lam[k] = p.consts[(R_LAM0 + k) * cp + j];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) p.lam[k * cp + j] = lam[k];
+    }
+    int total;
+    const int off = block_exclusive_scan(live ? 1 : 0, warp_sums, total);
+    if (tid == 0) block_off = total ? atomicAdd(h.count, total) : 0;
+    __syncthreads();
+    const int e = block_off + off;
+    if (live && e < p.cp) {  // (a scratch used twice: never past the list)
+      h.list[e] = j;
+      h.ends[e] = win_rank(h.bases, h.la, h.tile, j);
+      h.ends[cp + e] = win_rank(h.bases, h.lb, h.tile, j);
+    }
+    return;
+  }
+
+  // ---- a later sweep: the next snapshot table, the delta table after ----
+  const float* zr = h.zt + (size_t)((s - 1) % 2) * tbl;
+  const float* zd = h.dz + (size_t)((s - 1) % 3) * tbl;
+  float4* z_next = reinterpret_cast<float4*>(h.zt + (size_t)(s % 2) * tbl);
+  float4* d_next = reinterpret_cast<float4*>(h.dz + (size_t)((s + 1) % 3) * tbl);
+  for (int q = t0; q < p.npad * 4; q += nthreads) {
+    z_next[q] = add4(__ldcg(reinterpret_cast<const float4*>(zr) + q), __ldcg(reinterpret_cast<const float4*>(zd) + q));
+    d_next[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int n_live = min(*h.count, p.cp);
+  const bool pseudo = h.pos_on != 0.f;
+  for (int e = t0; e < n_live; e += nthreads) {
+    const int j = h.list[e];
+    sweep_live(p.consts + j, cp, p.lam + j, cp, nullptr, h.relax + e, h.ends[e], h.ends[cp + e], zr, zd, zw,
+               h.vel_on, h.pos_on, pseudo, s == 1);
+  }
+}
+
 }  // namespace
 
 extern "C" int bs_banded_solve(const float* table, const float* warm8, const float* geom, float* z_out,
@@ -980,32 +1006,47 @@ extern "C" int bs_solve_plan(int fused, int cp, int* out) {
   return 0;
 }
 
-// 2.7 (banded_sweep_once, contacts_pallas.py:956; body _make_sweep1_kernel
-// :914): one sweep of a rank's contact tiles for the row-sharded solve. Every
-// contact reads the snapshot z (never written) and adds its deltas into dz,
-// which starts at zero; λ starts as a copy of lam_in and is updated in place.
-// The caller sums dz over the ranks and adds it to z, which makes the next
-// snapshot, so no snapshot copy is needed here. One launch of 2.5's sweep
-// kernel with zread = z and z = dz; warm start is gated by FLAG_USE_SPLIT.
-extern "C" int bs_banded_sweep_once(const float* z, const int* bases, const int* la, const int* lb,
-                                    const float* consts, const float* lam_in, float* dz, float* lam_out, int cp,
-                                    int npad, int tile, float vel_on, float pos_on, int warm, int deg_pass,
-                                    void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (cp < 1 || tile < 1 || cp % tile) return (int)cudaErrorInvalidValue;
+// 2.7, sweep `sweep` of a rank's sharded solve (see sharded_sweep_kernel):
+// consts [45, cp] by slot, lam [4, cp] (written by sweep 0, updated in
+// place), the tables zt [2, NPAD, 16] and dz [3, NPAD, 16] (dz and *count
+// zero before sweep 0), list and relax [cp], ends [2, cp]. warm (sweep 0)
+// applies λ₀.
+extern "C" int bs_sharded_sweep(const float* z0, const int* bases, const int* la, const int* lb, const float* consts,
+                                float* lam, float* zt, float* dz, int* list, int* count, int* ends, float* relax,
+                                int cp, int npad, int tile, int sweep, float vel_on, float pos_on, int warm,
+                                void* stream_ptr) {
+  if (cp < 1 || tile < 1 || cp % tile || sweep < 0 || (((uintptr_t)zt | (uintptr_t)dz) & 15))
+    return (int)cudaErrorInvalidValue;
   Params p = {};
-  p.z = dz;
-  p.zread = const_cast<float*>(z);        // read only: the sweep writes dz
-  p.lam = lam_out;
+  p.lam = lam;
   p.consts = const_cast<float*>(consts);  // read only
   p.cp = cp;
   p.npad = npad;
   p.flags = warm ? FLAG_USE_SPLIT : 0;
-  cudaError_t err = cudaMemsetAsync(dz, 0, sizeof(float) * kZRows * (size_t)npad, stream);
-  if (err == cudaSuccess)
-    err = cudaMemcpyAsync(lam_out, lam_in, sizeof(float) * 4 * (size_t)cp, cudaMemcpyDeviceToDevice, stream);
+  Sharded h = {};
+  h.z0 = z0;
+  h.bases = bases;
+  h.la = la;
+  h.lb = lb;
+  h.zt = zt;
+  h.dz = dz;
+  h.list = list;
+  h.count = count;
+  h.ends = ends;
+  h.relax = relax;
+  h.tile = tile;
+  h.sweep = sweep;
+  h.vel_on = vel_on;
+  h.pos_on = pos_on;
+  static int sms[kMaxDevices];  // per device, once (no stream work: capturable)
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && sms[dev] == 0)
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  banded_sweep_kernel<<<(cp + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      p, bases, la, lb, tile, vel_on, pos_on, warm ? 1.0f : 0.0f, deg_pass ? 1.0f : 0.0f);
+  const int per_sm = (cp + sms[dev] - 1) / sms[dev];
+  const int threads = min(kShardThreads, max(32, (per_sm + 31) / 32 * 32));
+  sharded_sweep_kernel<<<(cp + threads - 1) / threads, threads, 0, (cudaStream_t)stream_ptr>>>(p, h);
   return (int)cudaGetLastError();
 }

@@ -4,21 +4,26 @@
 `sweep_candidates_bucketed`, `pair_candidates`).
 
 Bodies are sorted by AABB min-x; each rank is tested against its next
-`sweep_window` ranks (ops/sweep_kernel.py); the hits of each block of
-`bucket_block` consecutive ranks are compacted, in rank-major order, into
-that bucket's `cap` candidate lanes. Pairs a window or a bucket cannot
-hold are counted in `overflow`, never dropped silently.
+`sweep_window` ranks, and the hits of each block of `bucket_block`
+consecutive ranks are compacted, in rank-major order, into that bucket's
+`cap` candidate lanes: one launch of the kernel in ops/sweep_kernel.py.
+Pairs a window or a bucket cannot hold are counted in `overflow`, never
+dropped silently.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import torch
 
 from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import quaternion as quat
-from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
+from physics_tpu_torch.ops.sweep_kernel import (
+    PairCandidates,
+    bucketed_candidates,
+    sweep_window_masks,
+)
 from physics_tpu_torch.state import (
     SHAPE_BOX,
     SHAPE_HULL,
@@ -28,15 +33,6 @@ from physics_tpu_torch.state import (
 )
 
 Tensor = torch.Tensor
-
-
-class PairCandidates(NamedTuple):
-    body_a: Tensor   # [P] int32
-    body_b: Tensor   # [P] int32
-    mask: Tensor     # [P] bool
-    overflow: Tensor # [] int32 — pairs possibly missed
-    rank_a: Tensor   # [P] int32 sorted rank of body_a (rank_a < rank_b)
-    rank_b: Tensor   # [P] int32
 
 
 def body_aabbs(state: SimState) -> Tensor:
@@ -115,44 +111,18 @@ def sweep_candidates_bucketed(state: SimState, aabbs: Tensor,
                               cfg: SimConfig, order: Tensor | None = None,
                               plain: bool = False) -> PairCandidates:
     """Sweep candidates compacted per bucket of `bucket_block` ranks: each
-    bucket keeps its first `cap` hits in (rank, d) order. The JAX
-    package's segmented uint32 sort (hit flag in bit 31, slot index
-    below) is the same sort here on int64 keys."""
+    bucket keeps its first `cap` hits in (rank, d) order, its misses in
+    the lanes after them, as the JAX package's segmented uint32 sort
+    (hit flag in bit 31, slot index below) leaves them. One launch of
+    ops/sweep_kernel.py's candidates mode from the order on."""
     n = state.num_bodies
-    k = min(cfg.sweep_window, n - 1)
-    block, cap, n_blocks = bucket_shape(n, cfg)
-    order, mask, last_overlap = _sweep_masks(state, aabbs, k, order, plain)
-
-    npad_b = n_blocks * block
-    if npad_b != n:
-        mask = torch.nn.functional.pad(mask, (0, 0, 0, npad_b - n))
-    m2 = mask.reshape(n_blocks, block * k)
-    dev = mask.device
-    dead = 1 << 31
-    slot = torch.arange(block * k, dtype=torch.int64, device=dev)[None, :]
-    keyu = torch.where(m2, slot, slot + dead)
-    kept = torch.sort(keyu, dim=1).values[:, :min(cap, block * k)]
-    if kept.shape[1] < cap:     # tiny blocks: pad to the 128-aligned cap
-        kept = torch.nn.functional.pad(
-            kept, (0, cap - kept.shape[1]), value=dead)
-    live = kept < dead
-    slot_s = kept & (dead - 1)
-
-    blk_base = (torch.arange(n_blocks, dtype=torch.int64, device=dev)
-                * block)[:, None]
-    rank_a = torch.clamp(blk_base + slot_s // k, max=n - 1)
-    rank_b = torch.clamp(rank_a + 1 + slot_s % k, max=n - 1)
-    rank_a = rank_a.reshape(-1)
-    rank_b = rank_b.reshape(-1)
-    body_a = order[rank_a]
-    body_b = order[rank_b]
-
-    dropped = torch.sum(torch.clamp(
-        torch.sum(m2.to(torch.int32), dim=1) - cap, min=0))
-    overflow = (torch.sum(last_overlap.to(torch.int32)) + dropped).to(
-        torch.int32)
-    return PairCandidates(body_a, body_b, live.reshape(-1), overflow,
-                          rank_a.to(torch.int32), rank_b.to(torch.int32))
+    block, cap, _ = bucket_shape(n, cfg)
+    if order is None:
+        order = sweep_order(state, aabbs)
+    return bucketed_candidates(order, aabbs.contiguous(),
+                               state.shapes.stype,
+                               k=min(cfg.sweep_window, n - 1), block=block,
+                               cap=cap, plain=plain)
 
 
 def pair_candidates(state: SimState, cfg: SimConfig,

@@ -1,9 +1,12 @@
-"""Sweep-window masks: Triton kernel and its plain PyTorch version.
+"""The sweep broad phase's kernel (csrc/sweep.cu) and its plain PyTorch
+versions.
 
 Replaces the TPU kernel `sweep_window_masks` (physics_tpu/ops/
 sweep_pallas.py:61, body `_window_mask_kernel` :34-57), which kept the
 sorted AABBs in VMEM and unrolled the window loop over lane-shifted
-slices.
+slices, and the segmented sort with which its consumer compacted the
+masks into bucketed candidates (physics_tpu/ops/broadphase.py:242
+`sweep_candidates_bucketed`).
 
 What it computes, for AABBs sorted by min-x and each rank i and offset
 d = 1..k: mask[i, d-1] = rank i+d exists, its min-x starts before i's
@@ -13,24 +16,40 @@ window may be too short). These are the semantics of the JAX package's
 XLA branch (physics_tpu/ops/broadphase.py:136-162), which is what that
 package runs off the TPU and what the tests hold this port to.
 
-On the H100: the work is 7 compares per (i, d), about 200k pairs at the
-4k pile, so the kernel is bound by launch latency and by writing the
-[N, k] byte mask (0.2 MB). One program handles a [64, 64] tile of
-(rank, offset); the neighbour reads stay within 48 ranks of the tile, so
-L1/L2 serve them; nothing but the mask and the last-overlap flags is
-written.
+One CUDA kernel has two modes. `sweep_window_masks` writes the [N, k]
+masks and the last flags, as the TPU kernel did. `bucketed_candidates`
+goes in one launch from the sort order and the unsorted AABBs to every
+field of PairCandidates: each bucket of `block` consecutive ranks keeps
+its first `cap` hits in (rank, d) order, then its misses in the same
+order (the dead lanes the reference's sort leaves there), then slot 0
+where block·k < cap; the window-edge ranks and the hits beyond each cap
+are counted in `overflow`. On the H100 a cluster of four blocks takes a
+bucket: each gathers the bucket's AABBs through the order into shared
+memory, turns each warp's 32 consecutive tests of its quarter into a
+ballot and places the hits and misses by a block scan over those
+ballots and the other quarters' counts (read from their shared memory),
+where the TPU needed a sort.
 """
 
 from __future__ import annotations
 
-import functools
-import os
+import ctypes
+from typing import NamedTuple
 
 import torch
 
+from physics_tpu_torch.state import SHAPE_NONE
+
 Tensor = torch.Tensor
 
-_BLOCK_N = 64
+
+class PairCandidates(NamedTuple):
+    body_a: Tensor   # [P] int32
+    body_b: Tensor   # [P] int32
+    mask: Tensor     # [P] bool
+    overflow: Tensor # [] int32 — pairs possibly missed
+    rank_a: Tensor   # [P] int32 sorted rank of body_a (rank_a < rank_b)
+    rank_b: Tensor   # [P] int32
 
 
 def sweep_window_masks_plain(aabb_sorted: Tensor, coll_sorted: Tensor,
@@ -58,60 +77,13 @@ def sweep_window_masks_plain(aabb_sorted: Tensor, coll_sorted: Tensor,
     return mask, last
 
 
-@functools.cache
-def _triton_kernel():
-    from physics_tpu_torch._build import BUILD_DIR
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
-    # Triton's compile cache goes beside the CUDA library, inside the
-    # checkout, unless the caller chose one
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
 
-    @triton.jit
-    def masks_kernel(aabb_ptr, coll_ptr, mask_ptr, last_ptr, n,
-                     K: tl.constexpr, KP: tl.constexpr,
-                     BLOCK: tl.constexpr):
-        i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        in_i = i < n
-        d = tl.arange(0, KP) + 1
-        j = i[:, None] + d[None, :]
-        in_d = d[None, :] <= K
-        valid = in_i[:, None] & in_d & (j < n)
-        inf = float("inf")
-        c_lo_x = tl.load(aabb_ptr + i * 6 + 0, mask=in_i, other=inf)
-        c_lo_y = tl.load(aabb_ptr + i * 6 + 1, mask=in_i, other=inf)
-        c_lo_z = tl.load(aabb_ptr + i * 6 + 2, mask=in_i, other=inf)
-        c_hi_x = tl.load(aabb_ptr + i * 6 + 3, mask=in_i, other=-inf)
-        c_hi_y = tl.load(aabb_ptr + i * 6 + 4, mask=in_i, other=-inf)
-        c_hi_z = tl.load(aabb_ptr + i * 6 + 5, mask=in_i, other=-inf)
-        n_lo_x = tl.load(aabb_ptr + j * 6 + 0, mask=valid, other=inf)
-        n_lo_y = tl.load(aabb_ptr + j * 6 + 1, mask=valid, other=inf)
-        n_lo_z = tl.load(aabb_ptr + j * 6 + 2, mask=valid, other=inf)
-        n_hi_x = tl.load(aabb_ptr + j * 6 + 3, mask=valid, other=inf)
-        n_hi_y = tl.load(aabb_ptr + j * 6 + 4, mask=valid, other=inf)
-        n_hi_z = tl.load(aabb_ptr + j * 6 + 5, mask=valid, other=inf)
-        c_coll = tl.load(coll_ptr + i, mask=in_i, other=0) != 0
-        n_coll = tl.load(coll_ptr + j, mask=valid, other=0) != 0
-
-        x_ov = n_lo_x <= c_hi_x[:, None]
-        full = ((tl.maximum(c_lo_x[:, None], n_lo_x)
-                 <= tl.minimum(c_hi_x[:, None], n_hi_x))
-                & (tl.maximum(c_lo_y[:, None], n_lo_y)
-                   <= tl.minimum(c_hi_y[:, None], n_hi_y))
-                & (tl.maximum(c_lo_z[:, None], n_lo_z)
-                   <= tl.minimum(c_hi_z[:, None], n_hi_z)))
-        hit = valid & x_ov & full & c_coll[:, None] & n_coll
-        tl.store(mask_ptr + i[:, None] * K + (d[None, :] - 1),
-                 hit.to(tl.uint8), mask=in_i[:, None] & in_d)
-
-        jl = i + K
-        vl = in_i & (jl < n)
-        l_lo_x = tl.load(aabb_ptr + jl * 6, mask=vl, other=inf)
-        last = vl & (l_lo_x <= c_hi_x) & c_coll
-        tl.store(last_ptr + i, last.to(tl.uint8), mask=in_i)
-
-    return masks_kernel
+def _check_window(n: int, k: int) -> None:
+    if not 1 <= k < n:
+        raise ValueError(f"window {k} must be in [1, {n})")
 
 
 def sweep_window_masks(aabb_sorted: Tensor, coll_sorted: Tensor, k: int,
@@ -121,34 +93,115 @@ def sweep_window_masks(aabb_sorted: Tensor, coll_sorted: Tensor, k: int,
 
     A CPU tensor (or `plain=True`, used to hold the kernel against its
     plain version on the card) runs `sweep_window_masks_plain`; a CUDA
-    tensor launches the Triton kernel."""
+    tensor launches csrc/sweep.cu's masks mode."""
     n = aabb_sorted.shape[0]
     if aabb_sorted.shape != (n, 2, 3) or aabb_sorted.dtype != torch.float32:
         raise ValueError(f"aabb_sorted must be [N, 2, 3] f32, got "
                          f"{tuple(aabb_sorted.shape)} {aabb_sorted.dtype}")
     if coll_sorted.shape != (n,) or coll_sorted.dtype != torch.bool:
         raise ValueError("coll_sorted must be [N] bool")
-    if not 1 <= k < n:
-        raise ValueError(f"window {k} must be in [1, {n})")
+    _check_window(n, k)
     if plain or aabb_sorted.device.type == "cpu":
         return sweep_window_masks_plain(aabb_sorted, coll_sorted, k)
-    if aabb_sorted.device.type != "cuda" or coll_sorted.device != \
-            aabb_sorted.device:
-        raise ValueError("sweep_window_masks: tensors must share one "
-                         "CUDA device")
-    if not (aabb_sorted.is_contiguous() and coll_sorted.is_contiguous()):
-        raise ValueError("sweep_window_masks: inputs must be contiguous")
+    from physics_tpu_torch import _build
+
     dev = aabb_sorted.device
+    _build.check_operands("sweep window masks", dev,
+                          ("aabb_sorted", aabb_sorted, torch.float32,
+                           (n, 2, 3)),
+                          ("coll_sorted", coll_sorted, torch.bool, (n,)))
     mask = torch.empty((n, k), dtype=torch.uint8, device=dev)
     last = torch.empty((n,), dtype=torch.uint8, device=dev)
-    kp = 1 << (k - 1).bit_length()
-    grid = (-(-n // _BLOCK_N),)
+    ptr = ctypes.c_void_p
     with torch.cuda.device(dev):
-        _triton_kernel()[grid](
-            aabb_sorted, coll_sorted.view(torch.uint8), mask, last, n,
-            K=k, KP=kp, BLOCK=_BLOCK_N, num_warps=4)
+        err = _build.library().sw_window_masks(
+            ptr(aabb_sorted.data_ptr()), ptr(coll_sorted.data_ptr()),
+            ptr(mask.data_ptr()), ptr(last.data_ptr()), n, k, _stream(dev))
+    _build.check(err, "sw_window_masks")
     sweep_window_masks.launches += 1
     return mask.view(torch.bool), last.view(torch.bool)
 
 
 sweep_window_masks.launches = 0
+
+
+def bucketed_candidates_plain(order: Tensor, aabbs: Tensor, stype: Tensor,
+                              *, k: int, block: int,
+                              cap: int) -> PairCandidates:
+    """Plain version of the candidates mode, bucket by bucket without a
+    sort: a test's lane is the hits before it when it hits, else the
+    bucket's hits plus the misses before it."""
+    n = order.shape[0]
+    dev = order.device
+    oi = order.long()
+    mask, last = sweep_window_masks_plain(
+        aabbs[oi], (stype != SHAPE_NONE)[oi], k)
+    n_blocks = -(-n // block)
+    t_all = block * k
+    if n_blocks * block != n:
+        mask = torch.nn.functional.pad(mask, (0, 0, 0, n_blocks * block - n))
+    m2 = mask.reshape(n_blocks, t_all)
+    hits = m2.to(torch.int64)
+    below = torch.cumsum(hits, dim=1) - hits
+    h = hits.sum(dim=1, keepdim=True)
+    f = torch.arange(t_all, device=dev).expand(n_blocks, t_all)
+    lane = torch.where(m2, below, h + f - below)
+    slot = torch.empty_like(lane).scatter_(1, lane, f)[:, :min(cap, t_all)]
+    if slot.shape[1] < cap:     # tiny blocks: the other lanes hold slot 0
+        slot = torch.nn.functional.pad(slot, (0, cap - slot.shape[1]))
+    live = torch.arange(cap, device=dev)[None, :] < h
+
+    base = (torch.arange(n_blocks, device=dev) * block)[:, None]
+    rank_a = torch.clamp(base + slot // k, max=n - 1).reshape(-1)
+    rank_b = torch.clamp(rank_a.reshape(n_blocks, cap) + 1 + slot % k,
+                         max=n - 1).reshape(-1)
+    dropped = torch.sum(torch.clamp(h - cap, min=0))
+    overflow = (torch.sum(last.to(torch.int64)) + dropped).to(torch.int32)
+    return PairCandidates(order[rank_a], order[rank_b], live.reshape(-1),
+                          overflow, rank_a.to(torch.int32),
+                          rank_b.to(torch.int32))
+
+
+def bucketed_candidates(order: Tensor, aabbs: Tensor, stype: Tensor, *,
+                        k: int, block: int, cap: int,
+                        plain: bool = False) -> PairCandidates:
+    """The bucketed sweep candidates of N bodies: order [N] int32 (body
+    id per sorted rank), aabbs [N, 2, 3] f32 and stype [N] int32 by body,
+    window k, buckets of `block` ranks with `cap` lanes each. Fields
+    [ceil(N / block)·cap], overflow [] int32.
+
+    A CPU tensor (or `plain=True`) runs `bucketed_candidates_plain`; a
+    CUDA tensor launches csrc/sweep.cu's candidates mode (one launch, one
+    call at a time a card: the blocks share one overflow counter)."""
+    n = order.shape[0]
+    _check_window(n, k)
+    if block < 1 or cap < 1:
+        raise ValueError(f"buckets of {block} ranks and {cap} lanes")
+    if plain or order.device.type == "cpu":
+        return bucketed_candidates_plain(order, aabbs, stype, k=k,
+                                         block=block, cap=cap)
+    from physics_tpu_torch import _build
+
+    dev = order.device
+    _build.check_operands("bucketed candidates", dev,
+                          ("order", order, torch.int32, (n,)),
+                          ("aabbs", aabbs, torch.float32, (n, 2, 3)),
+                          ("stype", stype, torch.int32, (n,)))
+    p = -(-n // block) * cap
+    ints = torch.empty((4, p), dtype=torch.int32, device=dev)
+    mask = torch.empty((p,), dtype=torch.uint8, device=dev)
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        err = _build.library().sw_bucketed_candidates(
+            ptr(order.data_ptr()), ptr(aabbs.data_ptr()),
+            ptr(stype.data_ptr()), *[ptr(t.data_ptr()) for t in (
+                ints[0], ints[1], mask, ints[2], ints[3], overflow)],
+            n, k, block, cap, _stream(dev))
+    _build.check(err, "sw_bucketed_candidates")
+    bucketed_candidates.launches += 1
+    return PairCandidates(ints[0], ints[1], mask.view(torch.bool), overflow,
+                          ints[2], ints[3])
+
+
+bucketed_candidates.launches = 0

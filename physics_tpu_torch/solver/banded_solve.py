@@ -22,7 +22,9 @@ unfused one computes them first (prep_consts, 2.6) and sweeps over them
 with fuse_prep off. The row-sharded solve splits the unfused sweeps'
 tiles over the ranks: each sweep is one launch of banded_sweep_once
 (2.7) per rank, which writes the sweep's delta of z, and an all-reduce of
-that delta (banded_sweeps_sharded).
+that delta, which the next launch folds into its snapshot
+(banded_sweeps_sharded); its later sweeps visit only the rank's live
+contacts too.
 
 The TPU kernel moved z through one-hot matmuls with hi/lo bf16 splits
 (about 2⁻¹⁷ relative per read); here every read is an exact f32 gather,
@@ -611,70 +613,149 @@ banded_sweeps.launches = 0
 # the sharded sweeps: banded_sweep_once (2.7) and its loop
 # ---------------------------------------------------------------------------
 
-def banded_sweep_once_plain(z, bases, la, lb, consts, lam, *, tile, vel_on,
-                            pos_on, warm, deg_pass):
-    """Plain version of the single-sweep kernel: the deltas of one sweep
-    summed into a zero table. Returns (dz [16, NPAD], λ [4, Cp])."""
-    dz = torch.zeros_like(z)
-    lam_new = _sweep_once(
-        z, dz, consts, _win_rank(bases, la, tile), _win_rank(bases, lb, tile),
-        list(lam), vel_on=1.0 if vel_on else 0.0,
-        pos_on=1.0 if pos_on else 0.0, warm_f=1.0 if warm else None,
-        degf=1.0 if deg_pass else 0.0)
-    return dz, torch.stack(lam_new)
+# z row r of a body lives at column ZSLOT[r] of its row of a body-major
+# table (csrc/banded_solve.cu zslot: v, ω, pseudo v, pseudo ω, degree, then
+# rows 6, 7 and 15); ZROW inverts it
+ZSLOT = (0, 1, 2, 3, 4, 5, 13, 14, 6, 7, 8, 9, 10, 11, 12, 15)
+ZROW = tuple(ZSLOT.index(c) for c in range(Z_ROWS))
 
 
-def banded_sweep_once(z: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
-                      consts: Tensor, lam: Tensor, *, tile: int,
-                      vel_on: bool, pos_on: bool, warm: bool,
-                      deg_pass: bool, plain: bool = False
-                      ) -> Tuple[Tensor, Tensor]:
-    """One Jacobi sweep over a range of contact tiles: every contact reads
-    the snapshot z [16, NPAD] (not written) and its deltas are summed into
-    dz, the pure delta that the caller sums over the ranks and adds to z.
-    bases [Cp / tile] int32 window starts and la/lb [Cp] int32
-    window-local endpoint ranks of the range's contacts, consts [R_PREP,
-    Cp] their constants, lam [4, Cp] their impulses before the sweep.
-    vel_on/pos_on switch the velocity and position rows, `warm` applies
-    λ: 0 → λ₀, `deg_pass` scatters the contact degrees (sweep 0). Returns
-    (dz, λ [4, Cp]).
+def rows_of(zb: Tensor) -> Tensor:
+    """A body-major table [NPAD, 16] as z rows [16, NPAD]."""
+    return zb[:, list(ZSLOT)].T
+
+
+class SweepScratch(NamedTuple):
+    """One rank's state across the sweeps of its sharded solve (2.7):
+    the snapshot tables, the delta tables (the ranks all-reduce dz[s % 3]
+    after sweep s), λ by slot, the live list and its length, and the
+    endpoint ranks and the relaxation over the degrees by list entry."""
+
+    zt: Tensor      # [2, NPAD, 16] f32, body-major (ZSLOT)
+    dz: Tensor      # [3, NPAD, 16] f32
+    lam: Tensor     # [4, C] f32
+    live: Tensor    # [C] int32
+    count: Tensor   # [1] int32
+    ends: Tensor    # [2, C] int32 endpoint ranks (−1: none)
+    relax: Tensor   # [C] f32
+
+
+def sweep_scratch(c: int, npad: int, device) -> SweepScratch:
+    """A rank's scratch for C contacts: the delta tables and the live
+    count zeroed (one device operation), the rest uninitialised."""
+    f32 = torch.float32
+    zeroed = torch.zeros((3 * npad * Z_ROWS + 4,), dtype=f32, device=device)
+    return SweepScratch(
+        torch.empty((2, npad, Z_ROWS), dtype=f32, device=device),
+        zeroed[:-4].view(3, npad, Z_ROWS), torch.empty((4, c), dtype=f32,
+                                                        device=device),
+        torch.empty((c,), dtype=torch.int32, device=device),
+        zeroed[-4:].view(torch.int32)[:1],
+        torch.empty((2, c), dtype=torch.int32, device=device),
+        torch.empty((c,), dtype=f32, device=device))
+
+
+def sweep_result(sc: SweepScratch, sweep: int) -> Tensor:
+    """z [16, NPAD] after sweep `sweep` and the all-reduce of its delta:
+    the same f32 add the next sweep would make."""
+    return rows_of(sc.zt[sweep % 2] + sc.dz[sweep % 3])
+
+
+def banded_sweep_once_plain(sc, z0, bases, la, lb, consts, *, sweep, tile,
+                            vel_on, pos_on, warm):
+    """Plain version of the sharded sweep kernel, on the same scratch."""
+    ra_all, rb_all = _win_rank(bases, la, tile), _win_rank(bases, lb, tile)
+    zw = sc.dz[sweep % 3]
+    if sweep == 0:
+        sc.zt[0] = z0[list(ZROW)].T
+        acc = torch.zeros_like(z0)
+        lam = _sweep_once(
+            torch.zeros_like(z0), acc, consts, ra_all, rb_all,
+            [torch.zeros_like(consts[0])] * 4, vel_on=0.0, pos_on=0.0,
+            warm_f=1.0 if warm else None, degf=1.0)
+        zw += acc[list(ZROW)].T
+        sc.lam.copy_(torch.stack(lam))
+        touch = (ra_all >= 0) | (rb_all >= 0) | (consts[_R_RELAX] != 0)
+        live = touch & ((consts[_R_RELAX] != 0) | (sc.lam[0:3] != 0).any(0))
+        idx = torch.nonzero(live).flatten()
+        sc.live[:idx.numel()] = idx.to(torch.int32)
+        sc.count.fill_(idx.numel())
+        sc.ends[:, :idx.numel()] = torch.stack([ra_all[idx], rb_all[idx]])
+        return
+    snap = sc.zt[(sweep - 1) % 2] + sc.dz[(sweep - 1) % 3]
+    sc.zt[sweep % 2] = snap
+    sc.dz[(sweep + 1) % 3] = 0.0
+    m = int(sc.count[0])
+    j = sc.live[:m].long()
+    ra, rb = sc.ends[0, :m].long(), sc.ends[1, :m].long()
+    z = rows_of(snap)
+    acc = torch.zeros_like(z)
+    lam = _sweep_once(z, acc, consts[:, j], ra, rb, list(sc.lam[:, j]),
+                      vel_on=1.0 if vel_on else 0.0,
+                      pos_on=1.0 if pos_on else 0.0, warm_f=None, degf=0.0)
+    sc.lam[:, j] = torch.stack(lam)
+    if sweep == 1:
+        deg = torch.maximum(_gather(z[14:15], ra)[0], _gather(z[14:15], rb)[0])
+        sc.relax[:m] = consts[_R_RELAX, j] / torch.clamp(deg, min=1.0)
+    zw += acc[list(ZROW)].T
+
+
+def banded_sweep_once(sc: SweepScratch, z0: Tensor, bases: Tensor,
+                      la: Tensor, lb: Tensor, consts: Tensor, *, sweep: int,
+                      tile: int, vel_on: bool, pos_on: bool, warm: bool,
+                      plain: bool = False) -> None:
+    """Sweep `sweep` of one rank's share of the sharded solve, on its
+    scratch `sc` (sweep_scratch): z0 [16, NPAD] the velocity table at the
+    start (read by sweep 0), bases [C / tile] int32 window starts and
+    la/lb [C] int32 window-local endpoint ranks of the rank's contacts,
+    consts [R_PREP, C] their constants. Sweep 0 scatters the degrees and,
+    with `warm`, applies λ: 0 → λ₀, and lists the live contacts; a later
+    sweep reads the snapshot (the previous snapshot plus the previous
+    summed delta, which it also writes as the next snapshot table) and
+    updates the listed contacts, vel_on/pos_on switching the velocity and
+    position rows. The sweep's delta is added into sc.dz[sweep % 3],
+    which the ranks then all-reduce; sweep_result gives z.
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA tensor
-    launches csrc/banded_solve.cu bs_banded_sweep_once."""
-    kw = dict(tile=tile, vel_on=vel_on, pos_on=pos_on, warm=warm,
-              deg_pass=deg_pass)
-    if plain or z.device.type == "cpu":
-        return banded_sweep_once_plain(z, bases, la, lb, consts, lam, **kw)
-    if z.device.type != "cuda":
-        raise ValueError(f"banded sweep once: unsupported device {z.device}")
+    launches csrc/banded_solve.cu bs_sharded_sweep."""
+    kw = dict(sweep=sweep, tile=tile, vel_on=vel_on, pos_on=pos_on,
+              warm=warm)
+    if plain or z0.device.type == "cpu":
+        return banded_sweep_once_plain(sc, z0, bases, la, lb, consts, **kw)
+    if z0.device.type != "cuda":
+        raise ValueError(f"banded sweep once: unsupported device {z0.device}")
     from physics_tpu_torch import _build
 
-    dev = z.device
+    dev = z0.device
     cp = la.shape[0]
-    npad = z.shape[1]
-    if cp < 1 or cp % tile:
-        raise ValueError(f"banded sweep once: {cp} contacts, tile {tile}")
+    npad = z0.shape[1]
+    if cp < 1 or cp % tile or sweep < 0:
+        raise ValueError(f"banded sweep once: {cp} contacts, tile {tile}, "
+                         f"sweep {sweep}")
+    f32, i32 = torch.float32, torch.int32
     _build.check_operands("banded sweep once", dev,
-                          ("z", z, torch.float32, (Z_ROWS, npad)),
-                          ("bases", bases, torch.int32, (cp // tile,)),
-                          ("la", la, torch.int32, (cp,)),
-                          ("lb", lb, torch.int32, (cp,)),
-                          ("consts", consts, torch.float32, (R_PREP, cp)),
-                          ("lam", lam, torch.float32, (4, cp)))
-    dz = torch.empty((Z_ROWS, npad), dtype=torch.float32, device=dev)
-    lam_new = torch.empty((4, cp), dtype=torch.float32, device=dev)
+                          ("z0", z0, f32, (Z_ROWS, npad)),
+                          ("bases", bases, i32, (cp // tile,)),
+                          ("la", la, i32, (cp,)), ("lb", lb, i32, (cp,)),
+                          ("consts", consts, f32, (R_PREP, cp)),
+                          ("zt", sc.zt, f32, (2, npad, Z_ROWS)),
+                          ("dz", sc.dz, f32, (3, npad, Z_ROWS)),
+                          ("lam", sc.lam, f32, (4, cp)),
+                          ("live", sc.live, i32, (cp,)),
+                          ("count", sc.count, i32, (1,)),
+                          ("ends", sc.ends, i32, (2, cp)),
+                          ("relax", sc.relax, f32, (cp,)))
     ptr = ctypes.c_void_p
     with torch.cuda.device(dev):
-        err = _build.library().bs_banded_sweep_once(
-            ptr(z.data_ptr()), ptr(bases.data_ptr()), ptr(la.data_ptr()),
-            ptr(lb.data_ptr()), ptr(consts.data_ptr()), ptr(lam.data_ptr()),
-            ptr(dz.data_ptr()), ptr(lam_new.data_ptr()), cp, npad, tile,
-            ctypes.c_float(1.0 if vel_on else 0.0),
-            ctypes.c_float(1.0 if pos_on else 0.0), int(warm), int(deg_pass),
+        err = _build.library().bs_sharded_sweep(
+            *[ptr(t.data_ptr()) for t in (z0, bases, la, lb, consts, sc.lam,
+                                          sc.zt, sc.dz, sc.live, sc.count,
+                                          sc.ends, sc.relax)],
+            cp, npad, tile, sweep, ctypes.c_float(1.0 if vel_on else 0.0),
+            ctypes.c_float(1.0 if pos_on else 0.0), int(warm),
             ptr(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(err, "bs_banded_sweep_once")
+    _build.check(err, "bs_sharded_sweep")
     banded_sweep_once.launches += 1
-    return dz, lam_new
 
 
 banded_sweep_once.launches = 0
@@ -688,11 +769,12 @@ def banded_sweeps_sharded(z0: Tensor, bases: Tensor, la: Tensor,
     """The sweep loop of banded_sweeps with the contact tiles split over
     the ranks of `shard` (parallel.collectives.Shard): rank r sweeps tiles
     [r·T, (r+1)·T), T = ntiles / ranks, against the replicated z; after
-    each sweep the ranks all-reduce the delta and add it to z. The same
-    schedule as banded_sweeps: sweep 0 (degrees, warm start), then
-    max(vel_iters, pos_iters) sweeps. Takes the whole (replicated)
-    operands; returns (z [16, NPAD], λ [4, Cp]) with λ all-gathered in
-    rank order. Needs ntiles % ranks == 0."""
+    each sweep the ranks all-reduce its delta, which the next sweep adds
+    to z. The same schedule as banded_sweeps: sweep 0 (degrees, warm
+    start), then max(vel_iters, pos_iters) sweeps, a launch each
+    (banded_sweep_once). Takes the whole (replicated) operands; returns
+    (z [16, NPAD], λ [4, Cp]) with λ all-gathered in rank order. Needs
+    ntiles % ranks == 0."""
     cp = la.shape[0]
     ntiles = cp // tile
     if ntiles * tile != cp or ntiles % shard.size:
@@ -703,24 +785,18 @@ def banded_sweeps_sharded(z0: Tensor, bases: Tensor, la: Tensor,
     t_loc = ntiles // shard.size
     c_loc = t_loc * tile
     t0, c0 = shard.rank * t_loc, shard.rank * c_loc
-    bases_l = bases[t0:t0 + t_loc].contiguous()
-    la_l = la[c0:c0 + c_loc].contiguous()
-    lb_l = lb[c0:c0 + c_loc].contiguous()
-    consts_l = consts[:, c0:c0 + c_loc].contiguous()
-    lam = torch.zeros((4, c_loc), dtype=torch.float32, device=z0.device)
-    z = z0
-    kw = dict(tile=tile, plain=plain)
-    dz, lam = banded_sweep_once(z, bases_l, la_l, lb_l, consts_l, lam,
-                                vel_on=False, pos_on=False, warm=warm_sweep,
-                                deg_pass=True, **kw)
-    z = z + all_reduce_sum(dz, shard)
-    for i in range(max(vel_iters, pos_iters)):
-        dz, lam = banded_sweep_once(z, bases_l, la_l, lb_l, consts_l, lam,
-                                    vel_on=i < vel_iters,
-                                    pos_on=i < pos_iters, warm=False,
-                                    deg_pass=False, **kw)
-        z = z + all_reduce_sum(dz, shard)
-    return z, all_gather_last(lam, shard)
+    ops = (bases[t0:t0 + t_loc].contiguous(), la[c0:c0 + c_loc].contiguous(),
+           lb[c0:c0 + c_loc].contiguous(),
+           consts[:, c0:c0 + c_loc].contiguous())
+    sc = sweep_scratch(c_loc, z0.shape[1], z0.device)
+    n_sweeps = max(vel_iters, pos_iters) + 1
+    for s in range(n_sweeps):
+        banded_sweep_once(sc, z0, *ops, sweep=s, tile=tile,
+                          vel_on=0 <= s - 1 < vel_iters,
+                          pos_on=0 <= s - 1 < pos_iters, warm=warm_sweep,
+                          plain=plain)
+        all_reduce_sum(sc.dz[s % 3], shard)
+    return sweep_result(sc, n_sweeps - 1), all_gather_last(sc.lam, shard)
 
 
 def banded_z0(geom: Tensor) -> Tensor:

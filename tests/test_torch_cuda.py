@@ -9,7 +9,11 @@ two-kernel path's contact list (ground corners and pair manifolds in one
 launch, whole and one rank's slice), solve constants and unfused sweeps,
 two of its steps, and a step of the unfused table solve; the row-sharded
 step's single-sweep kernel (2.7) in each of its switch combinations and
-the table kernels' bucket-range mode. The box table's other modes: the
+its whole loop on one rank, and the table kernels' bucket-range mode. The
+sweep kernel (2.1) in both modes: the masks, and the bucketed candidates
+at the pile's, the rain's and the two-kernel pile's bucket shapes and at
+the compaction's edges; a 2.1 call and a 2.7 sweep captured in a CUDA
+graph and replayed. The box table's other modes: the
 in-kernel broad phase on the sweep order, the per-bucket gate (fired and
 passed-through buckets in one launch) and packed envs at the packed
 configuration's bucket shapes (896 lanes, 8 picks, 768 slots), with a
@@ -32,7 +36,7 @@ Every test skips without a card. On a GPU machine:
 (`--noconftest`: tests/conftest.py configures JAX, which neither the port
 nor this file needs.)
 
-Tolerances: the sweep masks, the contact table's integer rows, its meta
+Tolerances: the sweep masks and candidates, the contact table's integer rows, its meta
 counters and warm rows are compared exactly (the table kernel computes the
 plain version's f32 operations in the same order, built with
 -fmad=false); its f32 rows to 1e-5 of the scene extent, as the contact
@@ -58,15 +62,22 @@ from physics_tpu_torch.ops.broadphase import (
     sweep_order,
 )
 from physics_tpu_torch.ops.narrowphase import banded_contacts
-from physics_tpu_torch.ops.sweep_kernel import sweep_window_masks
+from physics_tpu_torch.ops.sweep_kernel import (
+    bucketed_candidates,
+    sweep_window_masks,
+)
 from physics_tpu_torch.solver.banded_solve import (
     banded_operands,
     banded_sweep_once,
     banded_sweeps,
     banded_sweeps_fused,
+    banded_sweeps_plain,
     banded_z0,
     prep_consts,
+    rows_of,
     solve_plan,
+    sweep_result,
+    sweep_scratch,
     table_solve_operands,
 )
 from physics_tpu_torch.parallel.collectives import Shard
@@ -118,6 +129,7 @@ def _rows_close(name, got, ref, rtol):
 
 @pytest.mark.parametrize("k", [1, 12, 48])
 def test_sweep_masks_kernel(pile, k):
+    """2.1's masks mode, bit for bit."""
     s, _ = pile
     aabbs = body_aabbs(s)
     oi = sweep_order(s, aabbs).long()
@@ -129,6 +141,51 @@ def test_sweep_masks_kernel(pile, k):
     mp, lp = sweep_window_masks(aabb_s, coll_s, k, plain=True)
     assert torch.equal(mk, mp) and torch.equal(lk, lp)
     assert int(mk.sum()) > 0
+
+
+# 2.1's candidates mode: config overrides and a non-collidable tail at the
+# shapes of the 4k pile (window 48, buckets of 128: 192 bodies are 1.5 of
+# them), the rain (window 32, 1,536 lanes), the two-kernel pile's test
+# size, and the edges of tests/test_torch_sweep_candidates.py
+CAND_CASES = {
+    "pile": ({}, 0),
+    "rain": ({"sweep_window": 32, "bucket_cap": 1536}, 0),
+    "two_kernel": ({"bucket_block": 8, "bucket_cap": 128}, 0),
+    "block_k_below_cap": ({"bucket_block": 8, "sweep_window": 6,
+                           "bucket_cap": 128}, 0),
+    "saturated_bucket": ({"bucket_cap": 128}, 0),
+    "window_edge": ({"sweep_window": 3}, 0),
+    "non_collidable_tail": ({}, 40),
+}
+
+
+def _candidates(s, cfg, plain):
+    aabbs = body_aabbs(s)
+    return pair_candidates(s, cfg, aabbs, sweep_order(s, aabbs), plain=plain)
+
+
+@pytest.mark.parametrize("case", list(CAND_CASES))
+def test_bucketed_candidates_kernel(pile, case):
+    """2.1's candidates mode (one launch from the order to every field)
+    against its plain version, bit for bit, dead lanes and overflow
+    included."""
+    s, cfg = pile
+    overrides, tail = CAND_CASES[case]
+    cfg = cfg.replace(**overrides)
+    if tail:
+        stype = s.shapes.stype.clone()
+        stype[-tail:] = SHAPE_NONE
+        s = s.replace(shapes=s.shapes.replace(stype=stype))
+    before = bucketed_candidates.launches
+    ck = _candidates(s, cfg, False)
+    assert bucketed_candidates.launches == before + 1
+    cp = _candidates(s, cfg, True)
+    for name, a, b in zip(ck._fields, ck, cp):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert int(ck.mask.sum()) > 50
+    if case == "saturated_bucket":
+        hits = ck.mask.reshape(-1, 128).sum(dim=1)
+        assert int(ck.overflow) > 0 and int(hits.max()) == 128
 
 
 def _table(s, cfg, prev, plain):
@@ -582,11 +639,9 @@ SWEEP_CASES = {      # (vel_on, pos_on, warm, deg_pass)
 }
 
 
-@pytest.mark.parametrize("case", list(SWEEP_CASES))
-def test_banded_sweep_once_kernel(pile, case):
-    """Kernel 2.7 on the unfused table solve's operands, each switch
-    combination, on the snapshot after sweep 0 and one velocity sweep
-    (sweep 0 itself from z0)."""
+def _sweep_operands(pile):
+    """The unfused table solve's operands on the pile: (z0, (bases, la,
+    lb, consts), tile)."""
     s, cfg = pile
     cfg = cfg.replace(contact_rebuild=1, fuse_prep=False)
     geom, (table, _, warm) = _table(
@@ -595,26 +650,113 @@ def test_banded_sweep_once_kernel(pile, case):
     ccap = tct.table_shape(N, cfg)[1]
     consts = prep_consts(geom, bases, la, lb, cin, cfg, tile=ccap,
                          use_split=True, plain=True)
-    ops = (bases, la, lb, consts)
-    z = banded_z0(geom)
-    lam = torch.zeros((4, la.shape[0]), device=s.device)
+    return banded_z0(geom), (bases, la, lb, consts), ccap
+
+
+def _clone(sc):
+    return type(sc)(*[t.clone() for t in sc])
+
+
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_banded_sweep_once_kernel(pile, case):
+    """Kernel 2.7 on the unfused table solve's operands, each switch
+    combination: sweep 0 from z0, a later sweep (2) from the plain loop's
+    scratch after sweep 0 and one velocity sweep. The delta table and λ
+    within SOLVE_RTOL, the live list (as a set) and the next snapshot
+    table identical."""
+    z0, ops, ccap = _sweep_operands(pile)
+    cp = ops[1].shape[0]
+    sc = sweep_scratch(cp, z0.shape[1], z0.device)
     vel_on, pos_on, warm_on, deg = SWEEP_CASES[case]
+    sweep = 0 if deg else 2
     if not deg:
-        for v, w in ((False, True), (True, False)):
-            dz, lam = banded_sweep_once(z, *ops, lam, tile=ccap, vel_on=v,
-                                        pos_on=False, warm=w, deg_pass=w,
-                                        plain=True)
-            z = z + dz
+        for s_, v in ((0, False), (1, True)):
+            banded_sweep_once(sc, z0, *ops, sweep=s_, tile=ccap, vel_on=v,
+                              pos_on=False, warm=True, plain=True)
+    kw = dict(sweep=sweep, tile=ccap, vel_on=vel_on, pos_on=pos_on,
+              warm=warm_on)
+    sk, sp = _clone(sc), _clone(sc)
     before = banded_sweep_once.launches
-    dk, lk = banded_sweep_once(z, *ops, lam, tile=ccap, vel_on=vel_on,
-                               pos_on=pos_on, warm=warm_on, deg_pass=deg)
+    banded_sweep_once(sk, z0, *ops, **kw)
     assert banded_sweep_once.launches == before + 1
-    dp, lp = banded_sweep_once(z, *ops, lam, tile=ccap, vel_on=vel_on,
-                               pos_on=pos_on, warm=warm_on, deg_pass=deg,
-                               plain=True)
-    assert int((la >= 0).sum()) > 500
-    _rows_close("dz", dk[:, :N], dp[:, :N], SOLVE_RTOL)
-    _rows_close("lam", lk, lp, SOLVE_RTOL)
+    banded_sweep_once(sp, z0, *ops, **kw, plain=True)
+    n_live = int(sp.count[0])
+    assert int(sk.count[0]) == n_live and 500 < n_live < cp
+    assert torch.equal(torch.sort(sk.live[:n_live]).values,
+                       sp.live[:n_live])
+    assert torch.equal(sk.zt[sweep % 2], sp.zt[sweep % 2])
+    if sweep:
+        assert not bool(sk.dz[(sweep + 1) % 3].any())
+    _rows_close("dz", rows_of(sk.dz[sweep % 3])[:, :N],
+                rows_of(sp.dz[sweep % 3])[:, :N], SOLVE_RTOL)
+    _rows_close("lam", sk.lam, sp.lam, SOLVE_RTOL)
+
+
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+def test_sharded_sweep_loop_kernel(pile, warm):
+    """The whole sharded loop on one rank (a launch a sweep, no
+    collective) against the plain loop and against banded_sweeps_plain."""
+    z0, ops, ccap = _sweep_operands(pile)
+    cp = ops[1].shape[0]
+    vel_iters, pos_iters = 8, 8 if warm else 0
+    n_sweeps = max(vel_iters, pos_iters) + 1
+    out = {}
+    for plain in (False, True):
+        sc = sweep_scratch(cp, z0.shape[1], z0.device)
+        for s_ in range(n_sweeps):
+            banded_sweep_once(sc, z0, *ops, sweep=s_, tile=ccap,
+                              vel_on=0 <= s_ - 1 < vel_iters,
+                              pos_on=0 <= s_ - 1 < pos_iters, warm=warm,
+                              plain=plain)
+        out[plain] = (sweep_result(sc, n_sweeps - 1), sc.lam)
+    z_ref, lam_ref, _ = banded_sweeps_plain(
+        z0, *ops, tile=ccap, vel_iters=vel_iters, pos_iters=pos_iters,
+        warm_sweep=warm, posq=None, integrate=None)
+    for z, lam in out.values():
+        _rows_close("z", z[:, :N], z_ref[:, :N], SOLVE_RTOL)
+        _rows_close("lam", lam, lam_ref, SOLVE_RTOL)
+
+
+def test_sweep_kernels_graph_replay(pile):
+    """A 2.1 call (replayed twice: its overflow counter resets itself) and
+    a 2.7 sweep captured in a CUDA graph and replayed, against the eager
+    calls."""
+    s, cfg = pile
+    cfg = cfg.replace(bucket_cap=128)          # overflow > 0
+    aabbs = body_aabbs(s)
+    order = sweep_order(s, aabbs)
+    z0, ops, ccap = _sweep_operands(pile)
+    sc = sweep_scratch(ops[1].shape[0], z0.shape[1], z0.device)
+    banded_sweep_once(sc, z0, *ops, sweep=0, tile=ccap, vel_on=False,
+                      pos_on=False, warm=True)
+    eager_sc, graph_sc = _clone(sc), _clone(sc)
+    kw = dict(sweep=1, tile=ccap, vel_on=True, pos_on=True, warm=False)
+
+    def cand():
+        return pair_candidates(s, cfg, aabbs, order)
+    eager = cand()
+    banded_sweep_once(eager_sc, z0, *ops, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cand()
+        banded_sweep_once(_clone(sc), z0, *ops, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = cand()
+        banded_sweep_once(graph_sc, z0, *ops, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graph_sc.zt[1], eager_sc.zt[1])
+    _rows_close("dz", rows_of(graph_sc.dz[1]), rows_of(eager_sc.dz[1]),
+                SOLVE_RTOL)
+    _rows_close("lam", graph_sc.lam, eager_sc.lam, SOLVE_RTOL)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int(eager.overflow) > 0
+    for name, a, b in zip(eager._fields, captured, eager):
+        assert torch.equal(a, b), name
 
 
 def test_table_kernels_bucket_range(pile, rain):

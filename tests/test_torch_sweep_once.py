@@ -1,11 +1,13 @@
 """The single-sweep kernel of the row-sharded solve: physics_tpu_torch's
 plain `banded_sweep_once` (the CPU side of csrc/banded_solve.cu
-bs_banded_sweep_once, kernel 2.7) against the JAX package's Pallas kernel
+bs_sharded_sweep, kernel 2.7: body-major snapshot tables, rotating delta
+tables, a live list from sweep 0) against the JAX package's Pallas kernel
 in interpret mode, one case per switch combination the sharded loop runs:
 sweep 0 (degrees and warm start), velocity + position, velocity only,
 position only. Then the sharded loop's arithmetic: the deltas of two
-halves of the contact tiles summed into z, sweep after sweep, against
-banded_sweeps_plain on all of them.
+halves of the contact tiles summed, sweep after sweep, against
+banded_sweeps_plain on all of them; and the live list and the one-rank
+loop, warm and cold.
 
 Operands: the unfused table solve of a box_pile(256) (two buckets) that
 settled 24 steps on the port, warm-started; the later sweeps read the
@@ -54,11 +56,26 @@ def _rows_close(name, got, ref, rtol):
                                    err_msg=f"{name} row {r}")
 
 
+def _z_scratch(z, lam, src):
+    """A scratch whose next sweep (2) reads exactly z and λ, with the
+    live list of scratch `src`."""
+    sc = tbs.sweep_scratch(lam.shape[1], z.shape[1], "cpu")
+    sc.zt[1] = z[list(tbs.ZROW)].T
+    sc.lam.copy_(lam)
+    for t in ("live", "count", "ends", "relax"):
+        getattr(sc, t).copy_(getattr(src, t))
+    return sc
+
+
+def _delta(sc, sweep):
+    return tbs.rows_of(sc.dz[sweep % 3])
+
+
 @pytest.fixture(scope="module")
 def operands():
     """(z0, bases, la, lb, consts, tile) of the settled pile's warm
-    unfused table solve, and (z, λ) after sweep 0 and one velocity
-    sweep."""
+    unfused table solve, and the one-rank loop's scratch after sweep 0
+    and one velocity sweep, with the z those sweeps end with."""
     torch.manual_seed(0)
     cfg = tscenes.pile_config(N).replace(contact_iters=8)
     s = prepare_contacts(tscenes.box_pile(N, x_aspect=4.0, device="cpu"),
@@ -74,32 +91,36 @@ def operands():
                              use_split=True)
     z0 = tbs.banded_z0(geom)
     ops = (bases, la, lb, consts)
-    dz, lam = tbs.banded_sweep_once(z0, *ops, lam=torch.zeros(
-        (4, la.shape[0])), tile=ccap, vel_on=False, pos_on=False, warm=True,
-        deg_pass=True)
-    z1 = z0 + dz
-    dz, lam = tbs.banded_sweep_once(z1, *ops, lam=lam, tile=ccap,
-                                    vel_on=True, pos_on=False, warm=False,
-                                    deg_pass=False)
-    return (z0, *ops, ccap), (z1 + dz, lam)
+    sc = tbs.sweep_scratch(la.shape[0], z0.shape[1], "cpu")
+    for sweep, vel in ((0, False), (1, True)):
+        tbs.banded_sweep_once(sc, z0, *ops, sweep=sweep, tile=ccap,
+                              vel_on=vel, pos_on=False, warm=True)
+    return (z0, *ops, ccap), (sc, tbs.sweep_result(sc, 1))
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_sweep_once_matches_jax(operands, case):
-    (z0, bases, la, lb, consts, tile), (zm, lam_m) = operands
+    """One sweep of the loop's plain form (sweep 0 from z0; a later sweep
+    from the snapshot after sweep 0 and one velocity sweep, over the live
+    list) against the JAX kernel on the same z and λ."""
+    (z0, bases, la, lb, consts, tile), (sc1, zm) = operands
     vel_on, pos_on, warm, deg_pass = CASES[case]
+    c = la.shape[0]
     if deg_pass:
-        z, lam = z0, torch.zeros_like(lam_m)
+        z = torch.from_numpy(bf16_pair_exact(z0))
+        lam = torch.zeros((4, c))
+        sc, sweep = tbs.sweep_scratch(c, z.shape[1], "cpu"), 0
     else:
-        z, lam = zm, lam_m
-    z = torch.from_numpy(bf16_pair_exact(z))
-    tdz, tlam = tbs.banded_sweep_once(z, bases, la, lb, consts, lam,
-                                      tile=tile, vel_on=vel_on,
-                                      pos_on=pos_on, warm=warm,
-                                      deg_pass=deg_pass)
+        z = torch.from_numpy(bf16_pair_exact(zm))
+        lam = sc1.lam.clone()
+        sc, sweep = _z_scratch(z, lam, sc1), 2
+    tbs.banded_sweep_once(sc, z, bases, la, lb, consts, sweep=sweep,
+                          tile=tile, vel_on=vel_on, pos_on=pos_on,
+                          warm=warm)
+    tdz, tlam = _delta(sc, sweep), sc.lam
     cfg_n = tscenes.pile_config(N)
     wtot, _ = jct.geom_pad(N, cfg_n)
-    c48 = np.zeros((48, la.shape[0]), np.float32)
+    c48 = np.zeros((48, c), np.float32)
     c48[:tbs.R_PREP] = consts.numpy()
     jdz, jlam = jax.jit(lambda *a: jcp.banded_sweep_once(
         *a, tile=tile, wtot=wtot, vel_on=vel_on, pos_on=pos_on, warm=warm,
@@ -110,6 +131,9 @@ def test_sweep_once_matches_jax(operands, case):
     assert int((la >= 0).sum()) > 300
     if deg_pass:
         assert jdz[14].max() >= 3                    # contact degrees
+        assert torch.equal(tbs.rows_of(sc.zt[0]), z)
+    else:
+        assert 300 < int(sc.count[0]) < c            # a live list
     if vel_on:
         assert np.abs(jdz[0:6]).max() > 1e-3
     if pos_on:
@@ -118,30 +142,67 @@ def test_sweep_once_matches_jax(operands, case):
     _rows_close("lam", tlam.numpy(), jlam, RTOL)
 
 
+def _halves(bases, la, lb, consts, tile):
+    t_half = bases.shape[0] // 2
+    c_half = t_half * tile
+    return [(bases[h * t_half:(h + 1) * t_half],
+             la[h * c_half:(h + 1) * c_half],
+             lb[h * c_half:(h + 1) * c_half],
+             consts[:, h * c_half:(h + 1) * c_half]) for h in (0, 1)]
+
+
 @pytest.mark.parametrize("vel_iters,pos_iters", [(0, 0), (3, 2)],
                          ids=["one_sweep", "four_sweeps"])
 def test_two_halves_sum_to_the_whole(operands, vel_iters, pos_iters):
+    """The loop's plain form on two halves of the tiles, their delta
+    tables summed after each sweep as the all-reduce sums them, against
+    banded_sweeps_plain on all of them."""
     (z0, bases, la, lb, consts, tile), _ = operands
     z_ref, lam_ref, _ = tbs.banded_sweeps_plain(
         z0, bases, la, lb, consts, tile=tile, vel_iters=vel_iters,
         pos_iters=pos_iters, warm_sweep=True, posq=None, integrate=None)
-    t_half = bases.shape[0] // 2
-    c_half = t_half * tile
-    halves = [(bases[h * t_half:(h + 1) * t_half],
-               la[h * c_half:(h + 1) * c_half],
-               lb[h * c_half:(h + 1) * c_half],
-               consts[:, h * c_half:(h + 1) * c_half]) for h in (0, 1)]
-    lams = [torch.zeros((4, c_half)) for _ in halves]
-    z = z0
-    for s in range(max(vel_iters, pos_iters) + 1):
-        i = s - 1
-        dz = torch.zeros_like(z)
-        for h, ops in enumerate(halves):
-            d, lams[h] = tbs.banded_sweep_once(
-                z, *ops, lams[h], tile=tile, vel_on=0 <= i < vel_iters,
-                pos_on=0 <= i < pos_iters, warm=s == 0, deg_pass=s == 0)
-            dz = dz + d
-        z = z + dz
+    halves = _halves(bases, la, lb, consts, tile)
+    scs = [tbs.sweep_scratch(h[1].shape[0], z0.shape[1], "cpu")
+           for h in halves]
+    n_sweeps = max(vel_iters, pos_iters) + 1
+    for s in range(n_sweeps):
+        for sc, ops in zip(scs, halves):
+            tbs.banded_sweep_once(sc, z0, *ops, sweep=s, tile=tile,
+                                  vel_on=0 <= s - 1 < vel_iters,
+                                  pos_on=0 <= s - 1 < pos_iters, warm=True)
+        total = scs[0].dz[s % 3] + scs[1].dz[s % 3]
+        for sc in scs:
+            sc.dz[s % 3] = total
+    z = tbs.sweep_result(scs[0], n_sweeps - 1)
+    assert torch.equal(z, tbs.sweep_result(scs[1], n_sweeps - 1))
     assert z_ref[14].max() >= 3
     _rows_close("z", z.numpy(), z_ref.numpy(), RTOL)
-    _rows_close("lam", torch.cat(lams, dim=1).numpy(), lam_ref.numpy(), RTOL)
+    _rows_close("lam", torch.cat([sc.lam for sc in scs], dim=1).numpy(),
+                lam_ref.numpy(), RTOL)
+
+
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+def test_live_list_and_one_rank_loop(operands, warm):
+    """Sweep 0 lists exactly the slots with a relaxation or an impulse;
+    the one-rank loop over that list matches banded_sweeps_plain over
+    every slot, the tables rotating as on the card."""
+    (z0, bases, la, lb, consts, tile), _ = operands
+    vel_iters, pos_iters = 4, 3 if warm else 0
+    sc = tbs.sweep_scratch(la.shape[0], z0.shape[1], "cpu")
+    n_sweeps = max(vel_iters, pos_iters) + 1
+    for s in range(n_sweeps):
+        tbs.banded_sweep_once(sc, z0, bases, la, lb, consts, sweep=s,
+                              tile=tile, vel_on=0 <= s - 1 < vel_iters,
+                              pos_on=0 <= s - 1 < pos_iters, warm=warm)
+    live = consts[tbs._R_RELAX] != 0
+    if warm:
+        live = live | (consts[tbs._R_LAM0:tbs._R_LAM0 + 3] != 0).any(0)
+    n_live = int(sc.count[0])
+    assert n_live == int(live.sum()) and 300 < n_live < la.shape[0]
+    assert torch.equal(sc.live[:n_live].long(), torch.nonzero(live)[:, 0])
+    z_ref, lam_ref, _ = tbs.banded_sweeps_plain(
+        z0, bases, la, lb, consts, tile=tile, vel_iters=vel_iters,
+        pos_iters=pos_iters, warm_sweep=warm, posq=None, integrate=None)
+    _rows_close("z", tbs.sweep_result(sc, n_sweeps - 1).numpy(),
+                z_ref.numpy(), RTOL)
+    _rows_close("lam", sc.lam.numpy(), lam_ref.numpy(), RTOL)

@@ -1,0 +1,131 @@
+"""Device operations and device µs of the broad phase's candidates call
+and of one sweep of the row-sharded solve, for a checkout of this repo
+(its own physics_tpu_torch), on one NVIDIA card.
+
+    python3 tools/sweep_ops.py [CHECKOUT]     # default: this checkout
+
+For each of the 4k pile (table path), the 1,024-hull rain and the
+two-kernel 4k pile, settled 20 steps: `pair_candidates` from a given sort
+order, profiled over 10 calls (torch.profiler: every kernel, copy and
+memset it puts on the card). Then a later sweep of the sharded solve on
+rank 0's quarter of the 4k pile's unfused table solve, without the
+collective: before the single-sweep redesign, `banded_sweep_once` and the
+add of its delta to z; after it, `banded_sweep_once` on the rank's
+scratch. One JSON line per measurement, with the card's name and power
+limit.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def main() -> int:
+    root = Path(sys.argv[1] if len(sys.argv) > 1 else ".").resolve()
+    sys.path.insert(0, str(root))
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from physics_tpu_torch import scenes
+    from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+    from physics_tpu_torch.ops.broadphase import (
+        body_aabbs,
+        pair_candidates,
+        sweep_order,
+    )
+    from physics_tpu_torch.ops.contact_table import table_shape
+    from physics_tpu_torch.solver import banded_solve as bs
+    from physics_tpu_torch.solver.contacts import _rebuild
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+
+    def measure(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key[:50], e.count / reps, e.self_device_time_total / reps)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        return {"device_ops": sum(r[1] for r in rows),
+                "device_us": sum(r[2] for r in rows),
+                "by_op": {r[0]: [r[1], round(r[2], 2)] for r in rows}}
+
+    def emit(what, **kw):
+        print(json.dumps({"checkout": str(root), "what": what, "card": card,
+                          **kw}), flush=True)
+
+    pile_cfg = scenes.pile_config(4096).replace(contact_iters=8)
+    paths = {
+        "pile": (lambda: scenes.box_pile(4096, x_aspect=16.0, device=dev),
+                 pile_cfg),
+        "rain": (lambda: scenes.mesh_rain(1024, real_assets=False,
+                                          device=dev),
+                 scenes.rain_config(1024)),
+        "two-kernel pile": (
+            lambda: scenes.box_pile(4096, x_aspect=16.0, device=dev),
+            pile_cfg.replace(contact_table=False)),
+    }
+    settled = {}
+    for label, (make, cfg) in paths.items():
+        st = prepare_contacts(make(), cfg)
+        for _ in range(20):
+            st, _ = step_with_metrics(st, cfg)
+        settled[label] = st
+        aabbs = body_aabbs(st)
+        order = sweep_order(st, aabbs)
+        emit(f"pair_candidates ({label})", **measure(
+            lambda st=st, cfg=cfg, aabbs=aabbs, order=order:
+            pair_candidates(st, cfg, aabbs, order)))
+
+    # a later sharded sweep on rank 0's quarter of the pile's table solve
+    st = settled["pile"]
+    ucfg = pile_cfg.replace(contact_rebuild=1, fuse_prep=False,
+                            fuse_integrate=False)
+    table, _, geom, warm, _ = _rebuild(st, ucfg, True, plain=False)
+    bases, la, lb, cin = bs.table_solve_operands(table, warm, 4096, ucfg)
+    ccap = table_shape(4096, ucfg)[1]
+    consts = bs.prep_consts(geom, bases, la, lb, cin, ucfg, tile=ccap,
+                            use_split=True)
+    z0 = bs.banded_z0(geom)
+    t_loc = bases.shape[0] // 4
+    c_loc = t_loc * ccap
+    ops = (bases[:t_loc].contiguous(), la[:c_loc].contiguous(),
+           lb[:c_loc].contiguous(), consts[:, :c_loc].contiguous())
+    if hasattr(bs, "sweep_scratch"):
+        sc = bs.sweep_scratch(c_loc, z0.shape[1], dev)
+        for s, v in ((0, False), (1, True)):
+            bs.banded_sweep_once(sc, z0, *ops, sweep=s, tile=ccap,
+                                 vel_on=v, pos_on=False, warm=True)
+
+        def sweep():
+            bs.banded_sweep_once(sc, z0, *ops, sweep=2, tile=ccap,
+                                 vel_on=True, pos_on=True, warm=False)
+    else:
+        lam = torch.zeros((4, c_loc), device=dev)
+
+        def sweep():
+            dz, _ = bs.banded_sweep_once(z0, *ops, lam, tile=ccap,
+                                         vel_on=True, pos_on=True,
+                                         warm=False, deg_pass=False)
+            return z0 + dz
+    emit("sharded sweep, rank 0 of 4 (pile), without the collective",
+         **measure(sweep))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
