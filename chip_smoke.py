@@ -34,9 +34,10 @@ Phases (any failure raises, so the run exits non-zero):
               the 4k pile under pile_config(4096).replace(contact_iters=8,
               contact_table=False), settled 60 steps: 2.1's candidates,
               the contact list (ground corners and pair manifolds in one
-              launch), the
-              solve constants and the unfused sweeps against their
-              plain versions at the path's shapes, then 240 fresh steps
+              launch), the unfused sweeps (2.5) against their plain
+              version and the solve constants their sweep 0 builds (2.6,
+              folded in) against prep_consts_plain, bit for bit, at the
+              path's shapes, then 240 fresh steps
               with the checks and measurements of phase 4 (one cold step,
               with no warm buffers, and one warm step, with live keys,
               against the plain path); and one warm step of
@@ -69,9 +70,10 @@ Phases (any failure raises, so the run exits non-zero):
  11. sharded  the single-sweep kernel (2.7) against its plain version on
               one rank's quarter of each sharded path's solve (the 4k
               table pile's timed), in each of its four switch
-              combinations (sweep 0 on a fresh scratch, a later sweep
-              on the plain loop's scratch: live list and next snapshot
-              table identical); the contact-list kernel (2.8) on each rank's
+              combinations (sweep 0 on a fresh scratch, its constants
+              bit for bit prep_consts_plain's, a later sweep on the
+              plain loop's scratch: live list and next snapshot table
+              identical); the contact-list kernel (2.8) on each rank's
               quarter of the two-kernel pile's ground slots and candidate
               lanes (chunked mode); the box and hull table kernels by
               bucket range against the full-range kernels' blocks; then 4
@@ -83,8 +85,21 @@ Phases (any failure raises, so the run exits non-zero):
               step_with_metrics with the rank's shard: overflow counters,
               every rank's state bitwise equal to rank 0's, and the step
               against the one-process kernel path from the same state;
- 12. profile  device time by kernel over 8 more steps of each path
-              (torch.profiler), after every timed window; then the device
+ 12. rollout  engine.rollout on the card, a captured CUDA graph a branch of
+              the step (DeviceStepper), on the table pile, the rain, the
+              two-kernel pile and the packed envs: from the state each
+              path's drive ended with, 2K + 2 steps (3 off the anchored
+              paths), each replayed step against an eager step from a copy
+              of the same state (integer fields identical, f32 within
+              1e-4); then from fresh scenes, in this process, 240 eager
+              steps and 240 steps of a DeviceStepper, ms/step over steps
+              40..240 on the host clock ending in a synchronize, and one
+              rollout(240, sample_every=40) call with the launch counters
+              set to 0 just before and read just after (its warm-up steps
+              launch, each replay adds what its graph captured);
+ 13. profile  device time by kernel over 8 more steps of each path
+              (torch.profiler), after every timed window, eager and
+              replayed (the device's busy share of each); then the device
               µs a launch of each mode of 2.2 (the pile's candidates, the
               packed, gated and sweep modes; split by __global__) and of
               each solve checked in phases 3, 5, 7, 8 and 11 (2.3, 2.5,
@@ -116,7 +131,12 @@ import numpy as np
 import torch
 
 from physics_tpu_torch import _build, scenes
-from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+from physics_tpu_torch.engine import (
+    DeviceStepper,
+    prepare_contacts,
+    rollout,
+    step_with_metrics,
+)
 from physics_tpu_torch.io.primitives import octahedron_verts, prism_verts
 from physics_tpu_torch.ops import hull_table as ht
 from physics_tpu_torch.ops.broadphase import (
@@ -154,14 +174,18 @@ from physics_tpu_torch.ops.sweep_kernel import (
 from physics_tpu_torch.parallel.collectives import Shard, all_reduce_sum
 from physics_tpu_torch.parallel.sharding import launch, row_sharded_step
 from physics_tpu_torch.solver.banded_solve import (
+    CIN_ROWS,
     R_PREP,
+    R_SWEEP,
     banded_operands,
     banded_sweep_once,
     banded_sweeps,
     banded_sweeps_fused,
     banded_z0,
+    folded_prep_consts,
     fused_consts_plain,
-    prep_consts,
+    prep_consts_plain,
+    prep_kw,
     rows_of,
     solve_plan,
     sweep_scratch,
@@ -174,6 +198,7 @@ from physics_tpu_torch.solver.contacts import (
     anchored_path,
     banded_contact_list,
     banded_inputs,
+    rebuild_branch,
     refresh_gate,
 )
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
@@ -183,12 +208,11 @@ EXACT_ROWS = [CT_ACT, CT_KL, CT_KH, CT_KSGN, CT_RA, CT_RB1, CT_KS, CT_MU,
 # kernel vs plain on the card. The contact tables and the contact list
 # compute the same f32 operations in the same order (nvcc -fmad=false), so
 # they should agree to the bit; 1e-5 of the scene extent is allowed. The
-# solve constants have no sums across contacts: 1e-6 of each row's largest
-# magnitude on the live contacts (0 expected). The solves sum impulse
+# solve constants (2.6, built in the sweep 0 of 2.5 and 2.7) have no sums
+# across contacts: bit for bit on the touched slots. The solves sum impulse
 # deltas with atomics in a run-dependent order: 1e-4 of each output row's
 # largest magnitude, and 1e-4 absolute for one whole step's state.
 TABLE_TOL = 1e-5
-PREP_RTOL = 1e-6
 SOLVE_RTOL = 1e-4
 STEP_ATOL = 1e-4
 N_PILE = 4096
@@ -220,7 +244,7 @@ OPS_RAW_PAIR = 12            # one raw pair's overlap, liveness and env tests
 PORT_KERNELS = ("sweep_kernel", "box_table_", "hull_prefilter_kernel",
                 "hull_sat_kernel", "hull_manifold_kernel", "hull_ground_kernel",
                 "hull_scan_kernel", "hull_rows_kernel", "warm_match_kernel",
-                "solve_kernel", "prep_consts_kernel",
+                "solve_kernel", "sharded_sweep_kernel",
                 "ground_corners_kernel", "pair_contacts_kernel")
 BOX_TABLE = ("box_table_",)
 KERNEL_NAME = r"\w+_kernel"      # a kernel's name in a profiler key
@@ -599,19 +623,37 @@ def state_close(a, b, what):
         raise AssertionError(f"{what}: contact keys differ")
 
 
-def profile_steps(state, cfg, steps: int) -> None:
-    """Device time by kernel over `steps` steps (torch.profiler), and the
-    device's busy share of the profiled wall time (which the profiler's
-    own overhead lengthens, so the share is a lower bound)."""
+class EagerStepper:
+    """Eager steps of a state, with DeviceStepper's `step`."""
+
+    def __init__(self, state, cfg):
+        self.state, self.cfg = state, cfg
+
+    def step(self):
+        self.state, _ = step_with_metrics(self.state, self.cfg)
+        return self.state
+
+
+def profile_steps(stepper, steps: int) -> None:
+    """Device time by kernel over `steps` steps of `stepper` (eager or
+    replayed; torch.profiler), and the device's busy share: of the
+    profiled wall time (which the profiler's own overhead lengthens, so
+    the share is a lower bound), and of the wall time of 3·steps steps
+    just before, unprofiled (host clock, ending in a synchronize)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3 * steps):
+        stepper.step()
+    torch.cuda.synchronize()
+    plain_us = 1e6 * (time.perf_counter() - t0) / (3 * steps)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = step_with_metrics(state, cfg)
+            stepper.step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     # device-side events only (kernels, copies): the host operators that
@@ -622,9 +664,15 @@ def profile_steps(state, cfg, steps: int) -> None:
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    if not rows:
+        log(f"profile over {steps} steps: no device events recorded "
+            f"(device busy not measured), {wall_us / steps:.1f} us/step wall")
+        return
     log(f"profile over {steps} steps: device busy {busy / steps:.1f} us/step"
         f" of {wall_us / steps:.1f} us/step wall ({100 * busy / wall_us:.1f}%"
-        f" busy), {sum(r[1] for r in rows) / steps:.0f} device ops/step")
+        f" busy), {sum(r[1] for r in rows) / steps:.0f} device ops/step; "
+        f"{plain_us:.1f} us/step unprofiled just before "
+        f"({100 * busy / steps / plain_us:.1f}% busy)")
     for us, count, key in rows[:15]:
         log(f"  {us / steps:9.1f} us/step  {count / steps:6.1f}/step  "
             f"{key[:90]}")
@@ -651,7 +699,8 @@ COUNTED = {"sweep_window_masks": bucketed_candidates,
            "bucket_hull_contact_table": ht.bucket_hull_contact_table,
            "banded_sweeps_fused": banded_sweeps_fused,
            "pair_manifolds_banded": banded_contacts,
-           "prep_consts": prep_consts,
+           # 2.6 runs in the sweep 0 of 2.5 and 2.7: a launch a solve
+           "prep_consts": folded_prep_consts,
            "banded_sweeps": banded_sweeps,
            "banded_sweep_once": banded_sweep_once}
 
@@ -730,11 +779,20 @@ def check_banded_contacts(label, state, cfg, shard=None):
     return err, kms, pms, bnd
 
 
+def folded_consts_check(label, got, ref, touch) -> float:
+    """2.6 folded into a sweep 0: the constants it wrote for the touched
+    slots against prep_consts_plain's, bit for bit. Returns 0.0."""
+    if not torch.equal(got[:, touch], ref[:, touch]):
+        bad = (got[:, touch] != ref[:, touch]).any(1).nonzero().flatten()
+        raise AssertionError(f"2.6 folded into {label}: constant rows "
+                             f"{bad.tolist()} differ from prep_consts_plain")
+    return 0.0
+
+
 def check_np_kernels(state, cfg):
-    """Phase 7: the two-kernel path's kernels (2.8, 2.6, 2.5) against
-    their plain versions at the path's shapes, 2.5 fed 2.6's plain
-    output. Returns ({name: (max_abs_err, ms, plain_ms, bound)},
-    [Solve])."""
+    """Phase 7: the two-kernel path's kernels (2.8; 2.5 with 2.6 in its
+    sweep 0) against their plain versions at the path's shapes. Returns
+    ({name: (max_abs_err, ms, plain_ms, bound)}, [Solve])."""
     n = state.num_bodies
     out = {}
     out["pair_manifolds_banded"] = check_banded_contacts(
@@ -743,54 +801,58 @@ def check_np_kernels(state, cfg):
 
     ops = banded_operands(state, contacts, cfg,
                           (state.contact_key, state.contact_lam), ranks, cp)
-    args = (geom, ops.bases, ops.la, ops.lb, ops.cin, cfg)
-
-    def prep_run(plain):
-        return prep_consts(*args, tile=ops.tile, use_split=ops.use_split,
-                           plain=plain)
-    ck, cpl = prep_run(False), prep_run(True)
-    live = ops.la >= 0
-    n_live = int(live.sum())
-    err = row_check("prep consts", ck[:, live], cpl[:, live], PREP_RTOL)
-    bnd = bound(nbytes(geom[0:19, :n], ops.bases, ops.la, ops.lb, ops.cin,
-                       ck), OPS_SOLVE_PREP * n_live)
-    kms, pms = median_ms(lambda: prep_run(False), 20), median_ms(
-        lambda: prep_run(True), 3)
-    log(f"2.6 prep consts (warm {ops.use_split}): max |Δ| {err} on "
-        f"{n_live} live of {cp} contacts (band overflow "
-        f"{int(ops.band_overflow)}, capacity overflow "
-        f"{int(ops.cap_overflow)}); kernel {kms:.4f} ms, plain {pms:.4f} ms,"
-        f" bound {bnd[0]:.5f} ms ({bnd[1]})")
-    out["prep_consts"] = (err, kms, pms, bnd)
-
+    pk = prep_kw(cfg, ops.use_split)
+    cpl = prep_consts_plain(geom, ops.bases, ops.la, ops.lb, ops.cin,
+                            tile=ops.tile, **pk)
+    touch = ops.la >= 0
+    n_touch = int(touch.sum())
     z0 = banded_z0(geom)
     pos_iters = cfg.position_iters if ops.use_split else 0
     sweeps = max(cfg.contact_iters, pos_iters) + 1
 
-    def sw_run(plain):
-        return banded_sweeps(z0, ops.bases, ops.la, ops.lb, cpl,
+    def sw_run(plain, consts_out=None):
+        return banded_sweeps(z0, ops.bases, ops.la, ops.lb, geom, ops.cin,
                              tile=ops.tile, vel_iters=cfg.contact_iters,
-                             pos_iters=pos_iters, warm_sweep=ops.use_split,
-                             plain=plain)
-    (zk, lk, _), (zp, lp, _) = sw_run(False), sw_run(True)
+                             pos_iters=pos_iters, consts_out=consts_out,
+                             plain=plain, **pk)
+    ck = torch.full_like(cpl, float("nan"))
+    (zk, lk, _), (zp, lp, _) = sw_run(False, ck), sw_run(True)
+    err_c = folded_consts_check("2.5's sweep 0 (two-kernel pile)", ck, cpl,
+                                touch)
     err = max(row_check("sweeps z", zk[:, :n], zp[:, :n], SOLVE_RTOL),
               row_check("sweeps lam", lk, lp, SOLVE_RTOL))
-    # the rows that hold data: z0's (v, ω), the lane operands, the
-    # constants the sweeps read of the n_live slots with an endpoint (λ₀
-    # rows 42:45 only when warm), z's velocities, pseudo-velocities and
-    # degrees, and λ; sweep 0 for the n_live, later sweeps for the live
-    read = R_PREP if ops.use_split else R_PREP - 3
+    # what 2.6 + 2.5 must move: z0's (v, ω), the lane operands, every
+    # slot's activity and the other cin rows of the touched slots, the 24
+    # solve rows of the bodies they reach; z's velocities, pseudo-
+    # velocities and degrees, and λ written. 2.6 for the touched slots,
+    # sweep 0 for them, later sweeps for the live
     live = live_count(cpl, ops.use_split)
+    cols = touched_columns(ops.bases, ops.tile, ops.la, ops.lb)
     bnd = bound(nbytes(z0[0:6, :n], ops.bases, ops.la, ops.lb, zk[0:6, :n],
-                       zk[8:15, :n], lk) + 4 * read * n_live,
-                OPS_SOLVE_CONTACT * (n_live + (sweeps - 1) * live))
+                       zk[8:15, :n], lk) + 4 * cp
+                + 4 * (CIN_ROWS - 1) * n_touch + 4 * 24 * cols,
+                OPS_SOLVE_PREP * n_touch
+                + OPS_SOLVE_CONTACT * (n_touch + (sweeps - 1) * live))
     kms, pms = median_ms(lambda: sw_run(False), 20), median_ms(
         lambda: sw_run(True), 3)
-    log(f"2.5 banded sweeps ({sweeps} sweeps, tile {ops.tile}): max |Δ| "
-        f"{err}; kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
-        f"{bnd[0]:.5f} ms ({bnd[1]}); {live} live of {cp} slots; grid "
+    log(f"2.5 banded sweeps with 2.6 in sweep 0 ({sweeps} sweeps, tile "
+        f"{ops.tile}, warm {ops.use_split}): constants of the {n_touch} "
+        f"touched slots bit for bit prep_consts_plain's; max |Δ| {err}; "
+        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.5f} ms "
+        f"({bnd[1]}); {live} live of {cp} slots (band overflow "
+        f"{int(ops.band_overflow)}, capacity overflow "
+        f"{int(ops.cap_overflow)}); grid "
         f"{solve_plan(False, cp, geom.device)}")
     out["banded_sweeps"] = (err, kms, pms, bnd)
+    # 2.6's own row: its plain version's time, its bound (cin and the
+    # geometry gathers in, the constants out once), the time of the 2.5
+    # launch it now runs in
+    pms6 = median_ms(lambda: prep_consts_plain(
+        geom, ops.bases, ops.la, ops.lb, ops.cin, tile=ops.tile, **pk), 3)
+    bnd6 = bound(nbytes(ops.bases, ops.la, ops.lb) + 4 * cp
+                 + 4 * (CIN_ROWS - 1) * n_touch + 4 * 24 * cols
+                 + 4 * R_PREP * n_touch, OPS_SOLVE_PREP * n_touch)
+    out["prep_consts"] = (err_c, kms, pms6, bnd6)
     return out, [Solve("banded_sweeps", "two-kernel pile",
                        lambda: sw_run(False), kms, bnd, live)]
 
@@ -1163,20 +1225,22 @@ def unfused(cfg):
 
 def table_sweep_operands(state, cfg):
     """The sharded table solve's operands from this state (the unfused
-    solve, warm): (z0, bases, la, lb, consts, tile)."""
+    solve, warm): (z0, bases, la, lb, geom, cin, tile, the constants'
+    keywords but use_split)."""
     n = state.num_bodies
     ucfg = unfused(cfg)
     table, _, geom, warm, _ = _rebuild(state, ucfg, True, plain=False)
     bases, la, lb, cin = table_solve_operands(table, warm, n, ucfg)
     ccap = table_shape(n, ucfg)[1]
-    consts = prep_consts(geom, bases, la, lb, cin, ucfg, tile=ccap,
-                         use_split=True)
-    return banded_z0(geom), bases, la, lb, consts, ccap
+    kw = prep_kw(ucfg, True)
+    del kw["use_split"]
+    return banded_z0(geom), bases, la, lb, geom, cin, ccap, kw
 
 
 def np_sharded_operands(state, cfg):
     """The sharded two-kernel solve's operands from this state, at the
-    capacity the ranks round up to: (z0, bases, la, lb, consts, tile)."""
+    capacity the ranks round up to: (z0, bases, la, lb, geom, cin, tile,
+    the constants' keywords but use_split)."""
     n = state.num_bodies
     contacts, ranks, _, geom, _, _ = banded_contact_list(state, cfg)
     cp = _sharded_capacity(n, contacts.body_a.shape[0], cfg,
@@ -1184,37 +1248,41 @@ def np_sharded_operands(state, cfg):
     warm = ((state.contact_key, state.contact_lam)
             if tuple(state.contact_key.shape) == (cp,) else None)
     ops = banded_operands(state, contacts, cfg, warm, ranks, cp)
-    consts = prep_consts(geom, ops.bases, ops.la, ops.lb, ops.cin, cfg,
-                         tile=ops.tile, use_split=ops.use_split)
-    return (banded_z0(geom), ops.bases, ops.la, ops.lb, consts, ops.tile)
+    kw = prep_kw(cfg, True)
+    del kw["use_split"]
+    return (banded_z0(geom), ops.bases, ops.la, ops.lb, geom, ops.cin,
+            ops.tile, kw)
 
 
 def clone_scratch(sc):
     return type(sc)(*[t.clone() for t in sc])
 
 
-def check_sweep_once(label, n, z0, bases, la, lb, consts, tile,
+def check_sweep_once(label, n, z0, bases, la, lb, geom, cin, tile, pk,
                      timed=True):
     """2.7 against its plain version on rank 0's quarter of a sharded
-    solve's tiles, each switch combination: sweep 0 from z0 on a fresh
-    scratch, a later sweep (2) from the plain loop's scratch after sweep 0
-    and one velocity sweep. The delta table and λ within SOLVE_RTOL, the
-    live list (as a set) and the next snapshot table identical. Returns
-    (max err, ms, plain ms, bound) of the velocity + position sweep, the
-    one the schedule runs most (times None unless `timed`), and the
-    Solves of sweep 0 and of that sweep (none unless `timed`)."""
+    solve's tiles (its columns of cin read in place), each switch
+    combination: sweep 0 from z0 on a fresh scratch, the constants it
+    builds (2.6 folded in) bit for bit prep_consts_plain's, a later sweep
+    (2) from the plain loop's scratch after sweep 0 and one velocity
+    sweep. The delta table and λ within SOLVE_RTOL, the live list (as a
+    set) and the next snapshot table identical. Returns (max err, ms,
+    plain ms, bound) of the velocity + position sweep, the one the
+    schedule runs most (times None unless `timed`), and the Solves of
+    sweep 0 and of that sweep (none unless `timed`)."""
     t_loc = bases.shape[0] // RANKS
     c_loc = t_loc * tile
     npad = z0.shape[1]
-    ops = (bases[:t_loc].contiguous(), la[:c_loc].contiguous(),
-           lb[:c_loc].contiguous(), consts[:, :c_loc].contiguous())
-    n_touch = int(((ops[1] >= 0) | (ops[2] >= 0)).sum())
+    ops = (bases[:t_loc], la[:c_loc], lb[:c_loc], geom, cin[:, :c_loc])
+    touch = (ops[1] >= 0) | (ops[2] >= 0)
+    n_touch = int(touch.sum())
     # the bodies the rank's contacts reach
     cols = touched_columns(ops[0], tile, ops[1], ops[2])
     base = sweep_scratch(c_loc, npad, z0.device)
     for sweep, vel in ((0, False), (1, True)):
         banded_sweep_once(base, z0, *ops, sweep=sweep, tile=tile,
-                          vel_on=vel, pos_on=False, warm=True, plain=True)
+                          vel_on=vel, pos_on=False, use_split=True,
+                          plain=True, **pk)
     n_live = int(base.count[0])
     log(f"2.7 operands ({label}): {la.shape[0]} contacts, tile {tile}, "
         f"{bases.shape[0]} tiles, {t_loc} a rank; rank 0: {n_touch} with "
@@ -1228,12 +1296,21 @@ def check_sweep_once(label, n, z0, bases, la, lb, consts, tile,
             return (sweep_scratch(c_loc, npad, z0.device) if deg
                     else clone_scratch(base))
 
-        def run(plain, sc, sweep=sweep, v=vel_on, p=pos_on, w=warm_on):
+        def run(plain, sc, sweep=sweep, v=vel_on, p=pos_on, w=warm_on,
+                consts_out=None):
             banded_sweep_once(sc, z0, *ops, sweep=sweep, tile=tile,
-                              vel_on=v, pos_on=p, warm=w, plain=plain)
+                              vel_on=v, pos_on=p, use_split=w,
+                              consts_out=consts_out, plain=plain, **pk)
         sk, sp = start(), start()
-        run(False, sk)
+        ck = torch.full((R_PREP, c_loc), float("nan"), device=z0.device)
+        run(False, sk, consts_out=ck if deg else None)
         run(True, sp)
+        if deg:
+            folded_consts_check(f"2.7's sweep 0 ({label} rank 0)", ck,
+                                prep_consts_plain(
+                                    geom, *ops[:3], ops[4], tile=tile,
+                                    use_split=warm_on, **pk),
+                                touch)
         m = int(sp.count[0])
         if not (int(sk.count[0]) == m and torch.equal(
                 torch.sort(sk.live[:m]).values, sp.live[:m])):
@@ -1248,18 +1325,22 @@ def check_sweep_once(label, n, z0, bases, la, lb, consts, tile,
                             SOLVE_RTOL))
         if not timed:
             log(f"2.7 banded sweep once ({label}), {case}: max |Δ| {err}; "
-                f"live list and snapshot table identical")
+                f"live list and snapshot table identical"
+                f"{'; constants bit for bit' if deg else ''}")
             out[case] = (err, None, None, None)
             continue
         if deg:
-            # every slot's endpoints and relaxation, the touched slots'
-            # constants (λ₀ too: warm); λ of every slot, the live list,
-            # the delta's data rows at the bodies reached and the first
-            # snapshot table (z0's v, ω in) written
+            # every slot's endpoints and activity, the touched slots'
+            # other cin rows and the 24 solve rows of the bodies they
+            # reach (2.6 folded in); λ of every slot, the live list with
+            # its ends and its slots' sweep constants, the delta's data
+            # rows at the bodies reached and the first snapshot table
+            # (z0's v, ω in) written
             bnd = bound(nbytes(*ops[:3], z0[0:6, :n]) + 4 * c_loc
-                        + 4 * R_PREP * n_touch + 16 * c_loc + 4 * m
+                        + 4 * (CIN_ROWS - 1) * n_touch + 4 * 24 * cols
+                        + 16 * c_loc + 4 * (3 + R_SWEEP) * m
                         + 13 * 4 * cols + 16 * 4 * n,
-                        OPS_SOLVE_CONTACT * n_touch)
+                        (OPS_SOLVE_PREP + OPS_SOLVE_CONTACT) * n_touch)
 
             def timed_call(plain, run=run, start=start):
                 run(plain, start())
@@ -1282,7 +1363,8 @@ def check_sweep_once(label, n, z0, bases, la, lb, consts, tile,
                 lambda f=timed_call: f(False), kms, bnd,
                 n_touch if deg else m))
         log(f"2.7 banded sweep once ({label}), {case}: max |Δ| {err}, live "
-            f"list and snapshot table identical; kernel {kms:.4f} ms"
+            f"list and snapshot table identical"
+            f"{'; constants bit for bit' if deg else ''}; kernel {kms:.4f} ms"
             f"{' with its scratch zeroing' if deg else ''}, plain "
             f"{pms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
         out[case] = (err, kms, pms, bnd)
@@ -1377,11 +1459,13 @@ def rank_probes(shard, dev, reps: int = 50):
     n_c = 6144
     zeros = torch.zeros((n_c,), dtype=torch.int32, device=dev)
     ops = (torch.zeros((n_c // 768,), dtype=torch.int32, device=dev), zeros,
-           zeros, torch.zeros((R_PREP, n_c), device=dev))
+           zeros, torch.zeros((48, npad), device=dev),
+           torch.zeros((CIN_ROWS, n_c), device=dev))
     z0 = torch.zeros((16, npad), device=dev)
     sc = sweep_scratch(n_c, npad, dev)
+    kw = dict(use_split=False, baum_over_dt=0.0, slop=0.0, relaxation=0.0)
     banded_sweep_once(sc, z0, *ops, sweep=0, tile=768, vel_on=False,
-                      pos_on=False, warm=False)
+                      pos_on=False, **kw)
     dz = sc.dz[0]
 
     def timed(fn):
@@ -1397,7 +1481,7 @@ def rank_probes(shard, dev, reps: int = 50):
         "host_round_trip": timed(lambda: dz.copy_(dz.cpu())),
         "sweep_once": timed(lambda: banded_sweep_once(
             sc, z0, *ops, sweep=1, tile=768, vel_on=True, pos_on=True,
-            warm=False)),
+            **kw)),
     }
 
 
@@ -1471,6 +1555,105 @@ def run_sharded(steps: int, gpu: str, states):
     return summed
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the device rollout (captured CUDA graphs)
+# ---------------------------------------------------------------------------
+
+def clone_state(st):
+    return st.replace(**{f.name: getattr(st, f.name).clone()
+                         for f in dataclasses.fields(st)
+                         if isinstance(getattr(st, f.name), torch.Tensor)})
+
+
+def replay_close(got, ref, what) -> None:
+    """A replayed step against the eager step from the same state:
+    integer fields identical, f32 within STEP_ATOL, λ within SOLVE_RTOL
+    of each row's largest magnitude."""
+    state_close(got, ref, what)
+    for name in ("contact_order", "contact_meta", "step_count"):
+        if not torch.equal(getattr(got, name), getattr(ref, name)):
+            raise AssertionError(f"{what}: {name} differs")
+    if got.step_count_host != ref.step_count_host:
+        raise AssertionError(f"{what}: step_count_host differs")
+    if got.contact_lam.numel():
+        row_check(f"{what} lam", got.contact_lam, ref.contact_lam,
+                  SOLVE_RTOL)
+
+
+def replay_agreement(label, st, cfg) -> dict:
+    """2K + 2 steps of a DeviceStepper from `st` (3 with one branch),
+    each replayed step against the eager step from a copy of the same
+    state. Returns {branch: replayed steps checked}."""
+    k_eff = cfg.contact_rebuild if anchored_path(st, cfg) else 1
+    stepper = DeviceStepper(st, cfg)
+    checked = collections.Counter()
+    for _ in range(2 * k_eff + 2 if k_eff > 1 else 3):
+        branch = rebuild_branch(stepper.state, cfg)
+        if branch not in stepper.captured:
+            stepper.step()
+            continue
+        ref, _ = step_with_metrics(clone_state(stepper.state), cfg)
+        stepper.step()
+        replay_close(stepper.state, ref,
+                     f"{label} replayed step {ref.step_count_host - 1}")
+        checked[{None: "step", True: "rebuild", False: "refresh"}[
+            branch]] += 1
+    if len(checked) != len(stepper.captured):
+        raise AssertionError(f"{label}: replayed {dict(checked)} of "
+                             f"{stepper.captured}")
+    return dict(checked)
+
+
+def time_rollout(label, make, cfg, steps, want, gpu):
+    """From fresh scenes, in this process: `steps` eager steps and
+    `steps` steps of a DeviceStepper, ms/step over steps 40..steps on the
+    host clock ending in a synchronize; then rollout(steps,
+    sample_every=steps // 6) with the launch counters set to 0 just
+    before and read just after (they must equal `want`, the eager
+    drive's), its samples finite and its last sample the final pose.
+    Returns ({eager, replayed, rollout call ms/step}, launches, the
+    replaying stepper)."""
+    window0 = min(40, steps // 2)
+
+    def timed(stepper):
+        torch.cuda.synchronize()
+        for i in range(steps):
+            if i == window0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            stepper.step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (steps - window0)
+    eager = timed(EagerStepper(prepare_contacts(make(), cfg), cfg))
+    replayer = DeviceStepper(prepare_contacts(make(), cfg), cfg)
+    replayed = timed(replayer)
+    st = prepare_contacts(make(), cfg)
+    every = steps // 6
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    final, (pos, quat) = rollout(st, cfg, steps, sample_every=every)
+    torch.cuda.synchronize()
+    call = 1e3 * (time.perf_counter() - t0) / steps
+    launches = read_counts()
+    want = {name: want.get(name, 0) for name in launches}
+    if launches != want:
+        raise AssertionError(f"rollout {label}: launch counts {launches} "
+                             f"!= {want}")
+    if not (pos.shape[0] == steps // every and torch.equal(pos[-1], final.pos)
+            and torch.equal(quat[-1], final.quat)
+            and bool(torch.isfinite(pos).all() and torch.isfinite(quat).all())
+            and final.step_count_host == steps):
+        raise AssertionError(f"rollout {label}: samples wrong or not finite")
+    ms = {"eager": eager, "replayed": replayed, "rollout_call": call}
+    log(f"rollout {label}: eager {eager:.4f} ms/step, replayed "
+        f"{replayed:.4f} ms/step over steps {window0}..{steps}; one "
+        f"rollout({steps}, sample_every={every}) call {call:.4f} ms/step "
+        f"(warm-up steps and captures included); launches through it "
+        f"{launches}, as the eager drive's; {gpu}")
+    return ms, launches, replayer
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--settle", type=int, default=60)
@@ -1516,10 +1699,11 @@ def main() -> int:
     log(f"pile settled {args.settle} steps: contacts "
         f"{int(m['contact_count'])}")
     results, solves, pile_mode = check_pile_kernels(st, cfg)
-    pile_launches, pile_st = drive("pile", pile, cfg, args.steps, {
-        "sweep_window_masks": rebuilds, "bucket_contact_table": rebuilds,
-        "bucket_hull_contact_table": 0, "banded_sweeps_fused": args.steps},
-        gpu)
+    want = {"pile": {"sweep_window_masks": rebuilds,
+                     "bucket_contact_table": rebuilds,
+                     "banded_sweeps_fused": args.steps}}
+    pile_launches, pile_st = drive("pile", pile, cfg, args.steps,
+                                   want["pile"], gpu)
 
     # ---- phase 5: the 1,024-hull rain ----
     n = 1024
@@ -1540,10 +1724,11 @@ def main() -> int:
     check_candidates("rain", st, rcfg)
     _, rain_solve, rain_solves = check_solve(st, rcfg, tk, wk, geom, "rain")
     solves += rain_solves
-    rain_launches, rain_st = drive("rain", rain, rcfg, args.steps, {
-        "sweep_window_masks": rebuilds, "bucket_contact_table": 0,
-        "bucket_hull_contact_table": rebuilds,
-        "banded_sweeps_fused": args.steps}, gpu)
+    want["rain"] = {"sweep_window_masks": rebuilds,
+                    "bucket_hull_contact_table": rebuilds,
+                    "banded_sweeps_fused": args.steps}
+    rain_launches, rain_st = drive("rain", rain, rcfg, args.steps,
+                                   want["rain"], gpu)
 
     # ---- phase 6: the 3-type hull library, all 9 ordered type pairs ----
     n = 128
@@ -1576,10 +1761,12 @@ def main() -> int:
     np_results, np_solves = check_np_kernels(st, ncfg)
     results.update(np_results)
     solves += np_solves
-    np_launches, np_st = drive("two-kernel pile", pile, ncfg, args.steps, {
+    want["two_kernel_pile"] = {
         "sweep_window_masks": args.steps,
         "pair_manifolds_banded": args.steps, "prep_consts": args.steps,
-        "banded_sweeps": args.steps}, gpu)
+        "banded_sweeps": args.steps}
+    np_launches, np_st = drive("two-kernel pile", pile, ncfg, args.steps,
+                               want["two_kernel_pile"], gpu)
     # the unfused table solve (2.6 + 2.5 on the table), one warm step
     for fuse in (True, False):
         ucfg = cfg.replace(fuse_prep=False, fuse_integrate=fuse)
@@ -1611,10 +1798,11 @@ def main() -> int:
     _, packed_solve, packed_solves = check_solve(
         st, pcfg, tk, wk, unified_geom(st, pcfg, None), "packed")
     solves += packed_solves
+    want["packed_envs"] = {"bucket_contact_table": args.steps,
+                           "banded_sweeps_fused": args.steps}
     packed_launches, packed_st = drive("packed envs", packed, pcfg,
-                                       args.steps, {
-        "bucket_contact_table": args.steps,
-        "banded_sweeps_fused": args.steps}, gpu, zero_overflow=True)
+                                       args.steps, want["packed_envs"], gpu,
+                                       zero_overflow=True)
 
     # ---- phase 9: the gated pile and the sweep's in-kernel broad phase --
     gcfg = cfg.replace(contact_rebuild_vel_factor=2.0)
@@ -1674,13 +1862,31 @@ def main() -> int:
         "sharded_pile": to_numpy(pile_st), "sharded_rain": to_numpy(rain_st),
         "sharded_two_kernel_pile": to_numpy(np_st)})
 
-    # ---- profiles, after every timed window: a finished profiler
-    # session can leave the launch path slower ----
-    for label, st, c in (("pile", pile_st, cfg), ("rain", rain_st, rcfg),
-                         ("two-kernel pile", np_st, ncfg),
-                         ("packed envs", packed_st, pcfg)):
+    # ---- phase 12: the device rollout, replayed from CUDA graphs ----
+    rollout_paths = {"pile": (pile, cfg, pile_st),
+                     "rain": (rain, rcfg, rain_st),
+                     "two_kernel_pile": (pile, ncfg, np_st),
+                     "packed_envs": (packed, pcfg, packed_st)}
+    rollout_launches, replayers, rollout_ms = {}, {}, {}
+    for name, (make, c, end_st) in rollout_paths.items():
+        checked = replay_agreement(name, end_st, c)
+        log(f"rollout {name}: replayed steps match eager steps from the "
+            f"same states (atol {STEP_ATOL}, integer fields identical): "
+            f"{checked}")
+        rollout_ms[name], rollout_launches[name], replayers[name] = \
+            time_rollout(name, make, c, args.steps, want[name], gpu)
+
+    # ---- phase 13: profiles, after every timed window: a finished
+    # profiler session can leave the launch path slower ----
+    for label, st, c, name in (
+            ("pile", pile_st, cfg, "pile"),
+            ("rain", rain_st, rcfg, "rain"),
+            ("two-kernel pile", np_st, ncfg, "two_kernel_pile"),
+            ("packed envs", packed_st, pcfg, "packed_envs")):
         log(f"{label} ({gpu}):")
-        profile_steps(st, c, 8)
+        profile_steps(EagerStepper(st, c), 8)
+        log(f"{label}, replayed from CUDA graphs ({gpu}):")
+        profile_steps(replayers[name], 8)
     mode_lines = {}
     for case, (err, kms, pms, (bms, by), fired, call) in modes.items():
         split = kernel_device_split(call, BOX_TABLE)
@@ -1742,7 +1948,9 @@ def main() -> int:
                    "two_kernel_pile": np_launches[name],
                    "packed_envs": packed_launches[name],
                    **{path: counts[name]
-                      for path, counts in sharded_launches.items()}}
+                      for path, counts in sharded_launches.items()},
+                   **{f"rollout_{path}": counts[name]
+                      for path, counts in rollout_launches.items()}}
         kernels.append({"name": name, "route": route, "source": src,
                         "replaces": rep,
                         "launches": sum(by_path.values()),
@@ -1753,8 +1961,16 @@ def main() -> int:
                         "library_ms": None})
         if name == "bucket_contact_table":
             kernels[-1]["modes"] = mode_lines
+        if name == "prep_consts":
+            # no launch of its own: sweep 0 of 2.5 and of 2.7 computes it
+            # (ms: the 2.5 launch it runs in; max_abs_err: its bit-for-bit
+            # check; launches: one a solve)
+            kernels[-1]["folded_into"] = ["banded_sweeps",
+                                          "banded_sweep_once"]
         if name in solve_us:
             kernels[-1]["device_us"] = solve_us[name]
+    log(f"rollout ms/step (host clock, steps 40..{args.steps}; {gpu}): "
+        f"{json.dumps(rollout_ms)}")
     log(f"rain solve: {json.dumps(rain_solve)}")
     log(f"packed solve: {json.dumps(packed_solve)}")
     print(json.dumps({"kernels": kernels}))

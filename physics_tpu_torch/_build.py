@@ -80,33 +80,33 @@ SIGNATURES = {
         _F, _I,                    # dt, flags
         _P,                        # stream
     ],
-    "bs_prep_consts": [
-        _P, _P, _P, _P, _P,        # geom, bases, la, lb, cin
-        _P,                        # consts out
-        _I, _I, _I,                # cp, npad, tile
-        _F, _F, _F,                # baumgarte/dt, slop, relaxation
-        _I, _P,                    # flags, stream
-    ],
     "bs_banded_sweeps": [
-        _P, _P, _P, _P, _P,        # z0, bases, la, lb, consts
+        _P, _P, _P, _P,            # z0, bases, la, lb
+        _P, _P,                    # geom, cin
+        _P, _P,                    # consts scratch, consts out (or NULL)
         _P,                        # posq (or NULL)
         _P, _P, _P,                # z out, lam out, posq out (or NULL)
         _P, _P, _P,                # scratch: z tables, global state, list
         _I,                        # live list length
         _I, _I, _I, _I,            # cp, npad, tile, n sweeps
         _I, _I,                    # vel iters, pos iters
+        _F, _F, _F,                # baumgarte/dt, slop, relaxation
         _F, _I,                    # dt, flags
         _P,                        # stream
     ],
     # the persistent solve's grid and its kernel's resources
     "bs_solve_plan": [_I, _I, _P],   # fused, cp, int32 [7] out
     "bs_sharded_sweep": [
-        _P, _P, _P, _P, _P,        # z0, bases, la, lb, consts
+        _P, _P, _P, _P,            # z0, bases, la, lb
+        _P, _P, _I,                # geom, cin, cin's row stride
+        _P, _P,                    # consts scratch, consts out (or NULL)
         _P, _P, _P, _P, _P, _P, _P,  # scratch: λ, z tables, delta tables,
                                      # live list, its length, endpoint
                                      # ranks, relaxations
         _I, _I, _I, _I,            # cp, npad, tile, sweep
-        _F, _F, _I,                # vel on, pos on, warm
+        _F, _F,                    # vel on, pos on
+        _F, _F, _F,                # baumgarte/dt, slop, relaxation
+        _I,                        # warm
         _P,                        # stream
     ],
     "sw_window_masks": [
@@ -134,7 +134,7 @@ SIGNATURES = {
     ],
 }
 
-# bs_banded_solve / bs_banded_sweeps / bs_prep_consts flags
+# bs_banded_solve / bs_banded_sweeps flags
 FLAG_USE_SPLIT = 1
 FLAG_ANCHORED = 2
 FLAG_INTEGRATE = 4

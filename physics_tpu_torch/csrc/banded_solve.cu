@@ -3,14 +3,15 @@
 //   bs_banded_solve       replaces banded_sweeps_fused (kernel 2.3,
 //                         physics_tpu/solver/contacts_pallas.py:736; body
 //                         _make_kernel with prep= and integrate=, :245-626);
-//   bs_prep_consts        replaces prep_consts (kernel 2.6, :1199; body
-//                         _make_prep_kernel :1154);
-//   bs_banded_sweeps      replaces banded_sweeps (kernel 2.5, :628; body
-//                         _make_kernel without prep=, with or without its
-//                         integrate= epilogue);
+//   bs_banded_sweeps      replaces prep_consts (kernel 2.6, :1199; body
+//                         _make_prep_kernel :1154) and banded_sweeps (kernel
+//                         2.5, :628; body _make_kernel without prep=, with
+//                         or without its integrate= epilogue): 2.6 is folded
+//                         into 2.5's sweep 0;
 //   bs_sharded_sweep      replaces banded_sweep_once (kernel 2.7, :956; body
 //                         _make_sweep1_kernel :914), one sweep of the
-//                         row-sharded solve (sharded_sweep_kernel).
+//                         row-sharded solve (sharded_sweep_kernel), with
+//                         2.6 folded into its sweep 0 for the rank's slots.
 // Sweep math _sweep_tile_math :92, constants _prep_consts_math :1086. Plain
 // versions: physics_tpu_torch/solver/banded_solve.py (banded_sweeps_fused_plain,
 // prep_consts_plain, banded_sweeps_plain, banded_sweep_once_plain), which the
@@ -20,8 +21,9 @@
 // table z [16, NPAD] (rows 0:3 v, 3:6 ω, 8:11 pseudo v, 11:14 pseudo ω,
 // 14 contact degree). Sweep 0 builds each contact's constants (2.3: from
 // the contact table and the geometry, with the anchored re-derivation of
-// point/normal/depth; 2.5: 2.6 computed them beforehand), scatters the
-// endpoint degrees and applies the warm-start impulses; each later sweep
+// point/normal/depth; 2.5 and 2.7: 2.6's, from the contact rows `cin` and
+// the geometry), scatters the endpoint degrees and applies the warm-start
+// impulses; each later sweep
 // reads a snapshot of z and adds every live contact's impulse deltas,
 // relaxed by 1/degree and Coulomb-clamped (Jacobi: every contact of a sweep
 // sees the same snapshot); the epilogue integrates pos/quat from the final
@@ -55,9 +57,11 @@
 //     relaxation over the degrees (final after sweep 0, so divided once)
 //     stay in the block's shared memory (55 floats: an odd stride, so a
 //     warp reads without bank conflicts) for the first `scap` contacts of
-//     the block; the rest are read from global memory by slot (2.3 writes
-//     them to its constants scratch, 2.5 reads 2.6's output) with their
-//     state in a global scratch. Any live count is solved.
+//     the block; the rest are written to a constants scratch in global
+//     memory and read from there by slot, with their state in a global
+//     scratch. Any live count is solved. 2.6 folded into sweep 0 moves no
+//     constants through global memory for a held contact (its own kernel
+//     wrote 45 rows a slot, which 2.5's sweep 0 read back).
 // What bounds it on the H100: the sweeps are a chain of small dependent
 // steps (about 18,200 live contacts of the 4k pile: a 48-byte gather per
 // endpoint, ~250 flops, 12 atomic floats per endpoint), so a later sweep
@@ -65,10 +69,12 @@
 // barrier of ~1 µs, not bytes; sweep 0 of the packed envs (196,608 slots)
 // reads the contact table once. Atomic f32 sums land in a different order
 // every run, so results match the plain version to a tolerance, not
-// bitwise; 2.6 has no sums across contacts and matches bit for bit. 2.7
-// is a launch a sweep (sharded_sweep_kernel, below the persistent solve):
-// the same tables, gathers, scatters and live list, with the ranks'
-// all-reduce of each sweep's delta between two launches.
+// bitwise; 2.6 has no sums across contacts and matches bit for bit (an
+// optional constants output of sweep 0 receives every touched slot's 45
+// rows, for that check only). 2.7 is a launch a sweep
+// (sharded_sweep_kernel, below the persistent solve): the same tables,
+// gathers, scatters and live list, with the ranks' all-reduce of each
+// sweep's delta between two launches.
 
 #include <cooperative_groups.h>
 
@@ -88,6 +94,7 @@ constexpr int R_IKN = 15, R_IKT1 = 16, R_IKT2 = 17, R_VTGT = 18, R_BIAS = 19;
 constexpr int R_FRIC = 20, R_RELAX = 21, R_IMA = 22, R_IMB = 23, R_IWA = 24, R_IWB = 33;
 constexpr int R_LAM0 = 42, R_DEPTH = 45, R_RANKA = 46, R_RANKB = 47;
 constexpr int kPrepRows = R_DEPTH;  // rows the constants math fills: 2.6's output
+constexpr int kCinRows = 14;        // a contact's rows of cin (solver/banded_solve.py _cin)
 
 // the persistent solve: a live contact's record in shared memory, rows
 // 0:42 its sweep constants (R_* layout), then its λ, the impulse and Δλ_b
@@ -105,7 +112,10 @@ struct Params {
   const float* geom;
   float* z;
   float* lam;
-  float* consts;
+  float* consts;       // constants scratch, by slot (R_* rows)
+  float* consts_out;   // 2.5, 2.7: 2.6's 45 rows of each touched slot, or null
+  const float* cin;    // 2.5, 2.7: the contact rows [kCinRows, cin_ld]
+  size_t cin_ld;
   float* pq;
   const float* pos0;   // rows of the pre-step pos (x, y, z) ...
   const float* quat0;  // ... and quat (w, x, y, z), row stride npad
@@ -314,26 +324,37 @@ __device__ __forceinline__ int win_rank(const int* bases, const int* loc, int ti
   return l >= 0 ? bases[j / tile] + l : -1;
 }
 
-// 2.6: the solve constants of contact j from its cin rows (point 0:3, normal
-// 3:6, depth, friction, restitution, activity, λ₀ 10:13, has_b) and its
-// endpoints' geometry: rows 0:45 (the fused solve's depth and rank rows are
-// not part of 2.6's output; 2.5 refuses the anchored flag that reads depth).
-__global__ void __launch_bounds__(kThreads) prep_consts_kernel(Params p, const int* bases, const int* la,
-                                                               const int* lb, const float* cin, int tile) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p.cp) return;
-  const size_t cp = (size_t)p.cp;
-  float ci[14];
+// 2.6 folded into sweep 0 of 2.5 and 2.7: slot j (endpoint ranks rank_a,
+// rank_b; −1: none) is touched when it has an endpoint or a relaxation
+// (relaxation·activity ≠ 0); a touched slot's constants, rows 0:45 of c,
+// from its cin rows (point 0:3, normal 3:6, depth, friction, restitution,
+// activity, λ₀ 10:13, has_b) and its endpoints' geometry, and into
+// consts_out when that is given. An untouched slot changes nothing: with
+// warm start its λ is λ₀·activity, as 2.6's rows 42:45 were. Returns
+// whether j is touched. (The fused solve's depth and rank rows are not
+// part of 2.6's output; 2.5 refuses the anchored flag that reads depth.)
+__device__ __forceinline__ bool cin_consts(const Params& p, int j, int rank_a, int rank_b, float* c, float* lam) {
+  const size_t ld = p.cin_ld;
+  const float actf = p.cin[9 * ld + j];
+  const bool touch = rank_a >= 0 || rank_b >= 0 || p.relaxation * actf != 0.f;
+  if (touch) {
+    float ci[kCinRows];
 #pragma unroll
-  for (int k = 0; k < 14; ++k) ci[k] = cin[(size_t)k * cp + j];
-  float ga[24], gb[24];
-  load_solve(p.geom, p.npad, win_rank(bases, la, tile, j), ga);
-  load_solve(p.geom, p.npad, win_rank(bases, lb, tile, j), gb);
-  float c[kPrepRows];
-  prep_consts_math(p, ga, gb, mk(ci[0], ci[1], ci[2]), mk(ci[3], ci[4], ci[5]), ci[6], ci[7], ci[8], ci[9], ci + 10,
-                   ci[13], c);
+    for (int k = 0; k < kCinRows; ++k) ci[k] = p.cin[(size_t)k * ld + j];
+    float ga[24], gb[24];
+    load_solve(p.geom, p.npad, rank_a, ga);
+    load_solve(p.geom, p.npad, rank_b, gb);
+    prep_consts_math(p, ga, gb, mk(ci[0], ci[1], ci[2]), mk(ci[3], ci[4], ci[5]), ci[6], ci[7], ci[8], ci[9],
+                     ci + 10, ci[13], c);
+    if (p.consts_out != nullptr) {
 #pragma unroll
-  for (int k = 0; k < kPrepRows; ++k) p.consts[(size_t)k * cp + j] = c[k];
+      for (int k = 0; k < kPrepRows; ++k) p.consts_out[(size_t)k * p.cp + j] = c[k];
+    }
+  } else if (p.flags & FLAG_USE_SPLIT) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) lam[k] = p.cin[(size_t)(10 + k) * ld + j] * actf;
+  }
+  return touch;
 }
 
 // ---------------------------------------------------------------------------
@@ -521,7 +542,6 @@ __global__ void __launch_bounds__(kThreads, 2) solve_kernel(Params p, Live l) {
   const int nthreads = gridDim.x * blockDim.x;
   const size_t np = (size_t)p.npad, cp = (size_t)p.cp;
   const bool anchored = p.flags & FLAG_ANCHORED;
-  const bool warm = p.flags & FLAG_USE_SPLIT;
   float* zt_a = l.zt;
   float* zt_b = l.zt + np * kZRows;
 
@@ -572,14 +592,7 @@ __global__ void __launch_bounds__(kThreads, 2) solve_kernel(Params p, Live l) {
       } else {
         rank_a = win_rank(l.bases, l.la, l.tile, j);
         rank_b = win_rank(l.bases, l.lb, l.tile, j);
-        touch = rank_a >= 0 || rank_b >= 0 || p.consts[R_RELAX * cp + j] != 0.f;
-        if (touch) {
-#pragma unroll
-          for (int k = 0; k < kPrepRows; ++k) c[k] = p.consts[k * cp + j];
-        } else if (warm) {
-#pragma unroll
-          for (int k = 0; k < 3; ++k) lam[k] = p.consts[(R_LAM0 + k) * cp + j];
-        }
+        touch = cin_consts(p, j, rank_a, rank_b, c, lam);
       }
       if (touch) {
         sweep0(p, c, rank_a, rank_b, zt_a, zt_b, lam);
@@ -611,9 +624,9 @@ __global__ void __launch_bounds__(kThreads, 2) solve_kernel(Params p, Live l) {
         r[S_RANKA] = __int_as_float(rank_a);
         r[S_RANKB] = __int_as_float(rank_b);
       } else {
-        if (kFused) {
 #pragma unroll
-          for (int k = 0; k < kSweepRows; ++k) p.consts[k * cp + j] = c[k];
+        for (int k = 0; k < kSweepRows; ++k) p.consts[k * cp + j] = c[k];
+        if (kFused) {
           p.consts[R_RANKA * cp + j] = (float)rank_a;
           p.consts[R_RANKB * cp + j] = (float)rank_b;
         }
@@ -793,13 +806,16 @@ cudaError_t launch_solve(const Params& p, Live l, int list_len, cudaStream_t str
 // filled and sweep s − 1 folded in. Every rank applies the same adds to the
 // same summed bits, so the ranks' z stay bitwise equal; the caller zeroes D
 // and the live count once a solve. Sweep 0 writes Z[0] from z0 and runs
-// over every slot: the degrees, the warm start and λ of each, and the live
-// ones (relaxation or impulse; a slot that has neither adds exact zeros in
-// every later sweep) compacted into the list, a block scan and one atomic
-// offset a block. The later sweeps run on the same grid over the list's
-// first *count entries (read on the card: no host round trip), λ updated
-// in place by slot, the endpoint ranks and the relaxation over the degrees
-// kept by list entry.
+// over every slot of the rank: 2.6's constants of the touched ones (from
+// the rank's columns of cin, read in place: no slice copy), the degrees,
+// the warm start and λ of each, and the live ones (relaxation or impulse;
+// a slot that has neither adds exact zeros in every later sweep)
+// compacted into the list, a block scan and one atomic offset a block,
+// their sweep constants kept in the rank's constants scratch. The later
+// sweeps run on the same grid over the list's first *count entries (read
+// on the card: no host round trip), their constants read from that
+// scratch by slot, λ updated in place by slot, the endpoint ranks and the
+// relaxation over the degrees kept by list entry.
 struct Sharded {
   const float* z0;      // [16, NPAD] z at the start (sweep 0)
   const int* bases;     // window starts [Cp / tile] ...
@@ -841,7 +857,6 @@ __global__ void __launch_bounds__(kShardThreads) sharded_sweep_kernel(Params p, 
 #pragma unroll
       for (int q = 0; q < 4; ++q) row[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
     }
-    const bool warm = p.flags & FLAG_USE_SPLIT;
     const int j = t0;
     bool live = false;
     if (j < p.cp) {
@@ -849,15 +864,13 @@ __global__ void __launch_bounds__(kShardThreads) sharded_sweep_kernel(Params p, 
       float lam[4] = {0.f, 0.f, 0.f, 0.f};
       const int rank_a = win_rank(h.bases, h.la, h.tile, j);
       const int rank_b = win_rank(h.bases, h.lb, h.tile, j);
-      const bool touch = rank_a >= 0 || rank_b >= 0 || p.consts[R_RELAX * cp + j] != 0.f;
-      if (touch) {
-#pragma unroll
-        for (int k = 0; k < kPrepRows; ++k) c[k] = p.consts[k * cp + j];
+      if (cin_consts(p, j, rank_a, rank_b, c, lam)) {
         sweep0(p, c, rank_a, rank_b, zw, nullptr, lam);
         live = c[R_RELAX] != 0.f || lam[0] != 0.f || lam[1] != 0.f || lam[2] != 0.f;
-      } else if (warm) {
+        if (live) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) lam[k] = p.consts[(R_LAM0 + k) * cp + j];
+          for (int k = 0; k < kSweepRows; ++k) p.consts[k * cp + j] = c[k];
+        }
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k) p.lam[k * cp + j] = lam[k];
@@ -931,37 +944,29 @@ extern "C" int bs_banded_solve(const float* table, const float* warm8, const flo
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-extern "C" int bs_prep_consts(const float* geom, const int* bases, const int* la, const int* lb, const float* cin,
-                              float* consts, int cp, int npad, int tile, float baum_over_dt, float slop,
-                              float relaxation, int flags, void* stream_ptr) {
-  if (cp < 1 || tile < 1 || cp % tile) return (int)cudaErrorInvalidValue;
-  Params p = {};
-  p.geom = geom;
-  p.consts = consts;
-  p.cp = cp;
-  p.npad = npad;
-  p.baum_over_dt = baum_over_dt;
-  p.slop = slop;
-  p.relaxation = relaxation;
-  p.flags = flags & FLAG_USE_SPLIT;
-  prep_consts_kernel<<<(cp + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream_ptr>>>(p, bases, la, lb,
-                                                                                                cin, tile);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int bs_banded_sweeps(const float* z0, const int* bases, const int* la, const int* lb, const float* consts,
-                                const float* posq, float* z_out, float* lam_out, float* pq_out, float* zt, float* st,
-                                int* list, int list_len, int cp, int npad, int tile, int n_sweeps, int vel_iters,
-                                int pos_iters,
-                                float dt, int flags, void* stream_ptr) {
+// 2.6 + 2.5: geom [48, npad] (solve rows 0:24 read), cin [14, cp] the
+// contact rows, consts [42, cp] the scratch of the contacts a block cannot
+// hold, consts_out [45, cp] 2.6's rows of each touched slot (or null).
+extern "C" int bs_banded_sweeps(const float* z0, const int* bases, const int* la, const int* lb, const float* geom,
+                                const float* cin, float* consts, float* consts_out, const float* posq, float* z_out,
+                                float* lam_out, float* pq_out, float* zt, float* st, int* list, int list_len, int cp,
+                                int npad, int tile, int n_sweeps, int vel_iters, int pos_iters, float baum_over_dt,
+                                float slop, float relaxation, float dt, int flags, void* stream_ptr) {
   const bool integrate = flags & FLAG_INTEGRATE;
   if (cp < 1 || tile < 1 || cp % tile || n_sweeps < 1 || (flags & FLAG_ANCHORED) ||
       (integrate && (pq_out == nullptr || posq == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p = {};
+  p.geom = geom;
+  p.cin = cin;
+  p.cin_ld = (size_t)cp;
   p.z = z_out;
   p.lam = lam_out;
-  p.consts = const_cast<float*>(consts);  // read only: 2.5 writes no constants
+  p.consts = consts;
+  p.consts_out = consts_out;
+  p.baum_over_dt = baum_over_dt;
+  p.slop = slop;
+  p.relaxation = relaxation;
   p.pq = pq_out;
   p.pos0 = posq;
   p.quat0 = posq + 3 * (size_t)npad;
@@ -1007,21 +1012,32 @@ extern "C" int bs_solve_plan(int fused, int cp, int* out) {
 }
 
 // 2.7, sweep `sweep` of a rank's sharded solve (see sharded_sweep_kernel):
-// consts [45, cp] by slot, lam [4, cp] (written by sweep 0, updated in
-// place), the tables zt [2, NPAD, 16] and dz [3, NPAD, 16] (dz and *count
-// zero before sweep 0), list and relax [cp], ends [2, cp]. warm (sweep 0)
-// applies λ₀.
-extern "C" int bs_sharded_sweep(const float* z0, const int* bases, const int* la, const int* lb, const float* consts,
-                                float* lam, float* zt, float* dz, int* list, int* count, int* ends, float* relax,
-                                int cp, int npad, int tile, int sweep, float vel_on, float pos_on, int warm,
-                                void* stream_ptr) {
-  if (cp < 1 || tile < 1 || cp % tile || sweep < 0 || (((uintptr_t)zt | (uintptr_t)dz) & 15))
+// geom [48, npad] and the rank's contact rows cin [14, cp] with row stride
+// cin_ld (sweep 0), consts [42, cp] the sweep constants by slot (written by
+// sweep 0), consts_out [45, cp] 2.6's rows of each touched slot (sweep 0;
+// or null), lam [4, cp] (written by sweep 0, updated in place), the tables
+// zt [2, NPAD, 16] and dz [3, NPAD, 16] (dz and *count zero before sweep
+// 0), list and relax [cp], ends [2, cp]. warm (sweep 0) applies λ₀ and
+// the split impulses' velocity target.
+extern "C" int bs_sharded_sweep(const float* z0, const int* bases, const int* la, const int* lb, const float* geom,
+                                const float* cin, int cin_ld, float* consts, float* consts_out, float* lam, float* zt,
+                                float* dz, int* list, int* count, int* ends, float* relax, int cp, int npad, int tile,
+                                int sweep, float vel_on, float pos_on, float baum_over_dt, float slop,
+                                float relaxation, int warm, void* stream_ptr) {
+  if (cp < 1 || tile < 1 || cp % tile || sweep < 0 || cin_ld < cp || (((uintptr_t)zt | (uintptr_t)dz) & 15))
     return (int)cudaErrorInvalidValue;
   Params p = {};
+  p.geom = geom;
+  p.cin = cin;
+  p.cin_ld = (size_t)cin_ld;
   p.lam = lam;
-  p.consts = const_cast<float*>(consts);  // read only
+  p.consts = consts;
+  p.consts_out = consts_out;
   p.cp = cp;
   p.npad = npad;
+  p.baum_over_dt = baum_over_dt;
+  p.slop = slop;
+  p.relaxation = relaxation;
   p.flags = warm ? FLAG_USE_SPLIT : 0;
   Sharded h = {};
   h.z0 = z0;

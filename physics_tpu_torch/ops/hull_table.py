@@ -708,6 +708,14 @@ def _scratch(dev: torch.device, words: int) -> Tensor:
     return buf
 
 
+def scratch_buffers() -> list:
+    """The scratch buffers the wrapper keeps now (one a device). A CUDA
+    graph that captured a call keeps its buffer's address, and a larger
+    call replaces the buffer: whoever replays such a graph keeps these
+    alive (engine.DeviceStepper)."""
+    return list(_SCRATCH.values())
+
+
 def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
                    cap2, ground_height, anchors, bucket0):
     from physics_tpu_torch import _build

@@ -74,14 +74,15 @@ def body_table_width(n: int, cfg: SimConfig) -> int:
     return _round_up(max(n + wtot, wtot), 128)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache
 def _static_bases(n: int, p0: int, cfg: SimConfig,
                   device: torch.device) -> Tensor:
     """Window start of each tile: tile t covers candidate lanes
     [t·tile, (t+1)·tile), i.e. buckets [t·tile/cap, ((t+1)·tile − 1)/cap],
     whose ranks span [lo·block, hi·block + block − 1 + sweep_window].
     Cached per shape: every caller shares the one (read-only) tensor, so
-    the host copies it to the device once."""
+    the host copies it to the device once; never evicted, so a CUDA graph
+    that captured it can replay (engine.DeviceStepper)."""
     _, tile, pp = np_shape(n, p0, cfg)
     wtot = cfg.pallas_window
     npad = body_table_width(n, cfg)

@@ -17,14 +17,16 @@ impulse (the others add exact zeros).
 The fused solve (kernel 2.3) builds each contact's constants in its
 sweep 0 from the contact table and the geometry (re-deriving point,
 normal and depth from the body-frame anchors on anchored paths); the
-unfused one computes them first (prep_consts, 2.6) and sweeps over them
-(banded_sweeps, 2.5), for the generic banded path and the table path
-with fuse_prep off. The row-sharded solve splits the unfused sweeps'
-tiles over the ranks: each sweep is one launch of banded_sweep_once
-(2.7) per rank, which writes the sweep's delta of z, and an all-reduce of
-that delta, which the next launch folds into its snapshot
-(banded_sweeps_sharded); its later sweeps visit only the rank's live
-contacts too.
+unfused one (banded_sweeps, 2.5, for the generic banded path and the
+table path with fuse_prep off) builds them in its sweep 0 from the
+contact rows `cin` and the geometry: the TPU's prep_consts (2.6) is
+folded into that sweep 0, and prep_consts_plain is its plain version.
+The row-sharded solve splits the unfused sweeps' tiles over the ranks:
+each sweep is one launch of banded_sweep_once (2.7) per rank, which
+writes the sweep's delta of z, and an all-reduce of that delta, which
+the next launch folds into its snapshot (banded_sweeps_sharded); its
+sweep 0 builds the constants of the rank's own slots (2.6 folded in
+again) and its later sweeps visit only the rank's live contacts too.
 
 The TPU kernel moved z through one-hot matmuls with hi/lo bf16 splits
 (about 2⁻¹⁷ relative per read); here every read is an exact f32 gather,
@@ -35,6 +37,7 @@ an order that is not the TPU's — so results agree to a tolerance.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -71,7 +74,8 @@ _R_RA, _R_RB, _R_N, _R_T1, _R_T2 = 0, 3, 6, 9, 12
 _R_IKN, _R_IKT1, _R_IKT2, _R_VTGT, _R_BIAS = 15, 16, 17, 18, 19
 _R_FRIC, _R_RELAX, _R_IMA, _R_IMB, _R_IWA, _R_IWB = 20, 21, 22, 23, 24, 33
 _R_LAM0 = 42
-R_PREP = 45      # rows the constants math fills (the unfused solve's consts)
+R_SWEEP = 42     # rows a later sweep reads (no λ₀)
+R_PREP = 45      # rows the constants math fills (2.6's output)
 R_CONST = 48     # + depth and endpoint ranks in the fused solve's scratch
 CIN_ROWS = 14
 Z_ROWS = 16
@@ -372,12 +376,15 @@ banded_sweeps_fused.launches = 0
 
 def _solve_scratch(cp: int, npad: int, dev):
     """Scratch of the persistent solve (csrc/banded_solve.cu
-    solve_kernel): the two body-major z tables [2, NPAD, 16], the λ,
+    solve_kernel): the constants [48, Cp] (R_* rows; the endpoint ranks
+    too in 2.3), the two body-major z tables [2, NPAD, 16], the λ,
     previous impulse and relaxation [9, Cp] of the live contacts a block
     cannot hold in shared memory, and the blocks' live lists (each block's
     share of the slots rounded up to 32: room for 1,024 blocks)."""
-    return (torch.empty((2, npad, Z_ROWS), dtype=torch.float32, device=dev),
-            torch.empty((9, cp), dtype=torch.float32, device=dev),
+    f32 = torch.float32
+    return (torch.empty((R_CONST, cp), dtype=f32, device=dev),
+            torch.empty((2, npad, Z_ROWS), dtype=f32, device=dev),
+            torch.empty((9, cp), dtype=f32, device=dev),
             torch.empty((cp + 32 * 1024,), dtype=torch.int32, device=dev))
 
 
@@ -415,8 +422,7 @@ def _launch_kernel(table, warm8, geom, *, vel_iters, pos_iters, use_split,
     lam4 = torch.empty((4, cp), dtype=f32, device=dev)
     pq = (torch.empty((8, npad), dtype=f32, device=dev)
           if integrate is not None else None)
-    consts = torch.empty((R_CONST, cp), dtype=f32, device=dev)
-    zt, st, lst = _solve_scratch(cp, npad, dev)
+    consts, zt, st, lst = _solve_scratch(cp, npad, dev)
     flags = ((_build.FLAG_USE_SPLIT if use_split else 0)
              | (_build.FLAG_ANCHORED if anchored else 0))
     dt = 0.0
@@ -442,7 +448,7 @@ def _launch_kernel(table, warm8, geom, *, vel_iters, pos_iters, use_split,
 
 
 # ---------------------------------------------------------------------------
-# the unfused solve: prep_consts (2.6), then banded_sweeps (2.5)
+# the unfused solve: banded_sweeps (2.5, with 2.6 in its sweep 0)
 # ---------------------------------------------------------------------------
 
 def _win_rank(bases: Tensor, loc: Tensor, tile: int) -> Tensor:
@@ -453,16 +459,29 @@ def _win_rank(bases: Tensor, loc: Tensor, tile: int) -> Tensor:
 
 
 def _cin(point, normal, depth, friction, restitution, actf, lam0, has_bf):
-    """The contact rows prep_consts reads, cin [CIN_ROWS, Cp]: point 0:3,
-    normal 3:6, depth, friction, restitution, activity, λ₀ 10:13, has_b."""
+    """The contact rows the constants read, cin [CIN_ROWS, Cp]: point
+    0:3, normal 3:6, depth, friction, restitution, activity, λ₀ 10:13,
+    has_b."""
     return torch.stack([*point, *normal, depth, friction, restitution, actf,
                         *lam0, has_bf])
 
 
+def prep_kw(cfg: SimConfig, use_split: bool) -> Dict:
+    """The keywords of the constants (2.6) that the config and the
+    warm-start switch give: what banded_sweeps, banded_sweep_once and
+    banded_sweeps_sharded take beside `cin`."""
+    return dict(use_split=use_split, baum_over_dt=cfg.baumgarte / cfg.dt,
+                slop=cfg.penetration_slop, relaxation=cfg.contact_relaxation)
+
+
 def prep_consts_plain(geom, bases, la, lb, cin, *, tile, baum_over_dt, slop,
                       relaxation, use_split):
-    """Plain version of the constants kernel: cin [CIN_ROWS, Cp] (see
-    _cin) → consts [R_PREP, Cp]."""
+    """Plain version of kernel 2.6 (folded into sweep 0 of 2.5 and 2.7 on
+    the card): geom [48, NPAD] rank-space geometry table (solve rows 0:24
+    read), bases [Cp / tile] int32 window starts, la/lb [Cp] int32
+    window-local endpoint ranks (−1: none), cin [CIN_ROWS, Cp] contact
+    rows (see _cin) → consts [R_PREP, Cp]. The TPU kernel's rows 45:48
+    (zero there, and read by no sweep) are not written."""
     ga = _gather(geom[0:24], _win_rank(bases, la, tile))
     gb = _gather(geom[0:24], _win_rank(bases, lb, tile))
     cs = _prep_consts_math(
@@ -473,93 +492,90 @@ def prep_consts_plain(geom, bases, la, lb, cin, *, tile, baum_over_dt, slop,
     return torch.stack(cs)
 
 
-def prep_consts(geom: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
-                cin: Tensor, cfg: SimConfig, *, tile: int, use_split: bool,
-                plain: bool = False) -> Tensor:
-    """The per-contact solve constants [R_PREP, Cp] of the unfused solves.
-    The TPU kernel's rows 45:48 (zero there, and read by no sweep) are not
-    written.
+def touched(consts: Tensor, ra: Tensor, rb: Tensor) -> Tensor:
+    """The slots whose constants sweep 0 builds [Cp] bool: an endpoint
+    (ranks ra/rb, −1: none) or a relaxation; the others change nothing."""
+    return (ra >= 0) | (rb >= 0) | (consts[_R_RELAX] != 0)
 
-    geom [48, NPAD] rank-space geometry table (solve rows 0:24 read);
-    bases [Cp / tile] int32 window starts; la/lb [Cp] int32 window-local
-    endpoint ranks (−1: none); cin [CIN_ROWS, Cp] contact rows (see
-    _cin). A CPU tensor (or `plain=True`) runs the plain
-    version; a CUDA tensor launches csrc/banded_solve.cu bs_prep_consts."""
-    kw = dict(tile=tile, baum_over_dt=cfg.baumgarte / cfg.dt,
-              slop=cfg.penetration_slop, relaxation=cfg.contact_relaxation,
-              use_split=use_split)
-    if plain or geom.device.type == "cpu":
-        return prep_consts_plain(geom, bases, la, lb, cin, **kw)
-    if geom.device.type != "cuda":
-        raise ValueError(f"prep consts: unsupported device {geom.device}")
-    from physics_tpu_torch import _build
 
-    dev = geom.device
-    cp = la.shape[0]
-    npad = geom.shape[1]
-    if cp % tile:
-        raise ValueError(f"prep consts: {cp} contacts, tile {tile}")
-    _build.check_operands("prep consts", dev,
-                    ("geom", geom, torch.float32, (48, npad)),
-                    ("bases", bases, torch.int32, (cp // tile,)),
-                    ("la", la, torch.int32, (cp,)),
-                    ("lb", lb, torch.int32, (cp,)),
-                    ("cin", cin, torch.float32, (CIN_ROWS, cp)))
-    consts = torch.empty((R_PREP, cp), dtype=torch.float32, device=dev)
-    ptr = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        err = _build.library().bs_prep_consts(
-            ptr(geom.data_ptr()), ptr(bases.data_ptr()), ptr(la.data_ptr()),
-            ptr(lb.data_ptr()), ptr(cin.data_ptr()), ptr(consts.data_ptr()),
-            cp, npad, tile, ctypes.c_float(kw["baum_over_dt"]),
-            ctypes.c_float(kw["slop"]), ctypes.c_float(kw["relaxation"]),
-            _build.FLAG_USE_SPLIT if use_split else 0,
-            ptr(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(err, "bs_prep_consts")
-    prep_consts.launches += 1
+# Kernel 2.6's launches: it runs inside sweep 0 of 2.5 and 2.7, so every
+# launch of theirs that runs a sweep 0 counts one here too.
+folded_prep_consts = SimpleNamespace(launches=0)
+
+
+def _prep_plain(geom, bases, la, lb, cin, consts_out, tile, kw):
+    """2.6's plain constants, into consts_out at the touched slots too
+    (as the kernels write it)."""
+    consts = prep_consts_plain(geom, bases, la, lb, cin, tile=tile, **kw)
+    if consts_out is not None:
+        t = touched(consts, _win_rank(bases, la, tile),
+                    _win_rank(bases, lb, tile))
+        consts_out[:, t] = consts[:, t]
     return consts
 
 
-prep_consts.launches = 0
-
-
-def banded_sweeps_plain(z0, bases, la, lb, consts, *, tile, vel_iters,
-                        pos_iters, warm_sweep, posq, integrate):
-    """Plain version of the sweep kernel. Returns (z [16, NPAD],
-    lam4 [4, Cp], posq [8, NPAD] | None)."""
+def banded_sweeps_plain(z0, bases, la, lb, geom, cin, *, tile, vel_iters,
+                        pos_iters, use_split, baum_over_dt, slop, relaxation,
+                        posq, integrate, consts_out=None):
+    """Plain version of the sweep kernel: prep_consts_plain, then the
+    sweep loop. Returns (z [16, NPAD], lam4 [4, Cp], posq [8, NPAD] |
+    None)."""
+    consts = _prep_plain(geom, bases, la, lb, cin, consts_out, tile, dict(
+        use_split=use_split, baum_over_dt=baum_over_dt, slop=slop,
+        relaxation=relaxation))
     z = z0.clone()
     lam = _sweep_loop(z, consts, _win_rank(bases, la, tile),
                       _win_rank(bases, lb, tile),
                       n_sweeps=max(vel_iters, pos_iters) + 1,
                       vel_iters=vel_iters, pos_iters=pos_iters,
-                      warm=warm_sweep)
+                      warm=use_split)
     pq = None
     if integrate is not None:
         pq = _integrate_plain(z, posq[0:3], posq[3:7], *integrate)
     return z, torch.stack(lam), pq
 
 
+def _check_cin(what: str, dev, cin: Tensor, cp: int) -> None:
+    """cin [CIN_ROWS, cp] f32 on dev, rows contiguous: a whole tensor or
+    a slice of columns of one."""
+    if (cin.device != dev or cin.dtype != torch.float32
+            or tuple(cin.shape) != (CIN_ROWS, cp) or cin.stride(1) != 1
+            or cin.stride(0) < cp):
+        raise ValueError(f"{what}: cin must be a float32 [{CIN_ROWS}, {cp}] "
+                         f"tensor (or columns of one) on {dev}")
+
+
 def banded_sweeps(z0: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
-                  consts: Tensor, *, tile: int, vel_iters: int,
-                  pos_iters: int, warm_sweep: bool,
+                  geom: Tensor, cin: Tensor, *, tile: int, vel_iters: int,
+                  pos_iters: int, use_split: bool, baum_over_dt: float,
+                  slop: float, relaxation: float,
                   posq: Tensor | None = None,
                   integrate: Tuple[float, bool] | None = None,
-                  plain: bool = False):
-    """The Jacobi sweep loop over precomputed constants: z0 [16, NPAD]
-    packed rank-space velocities, bases/la/lb as for prep_consts, consts
-    [R_PREP, Cp]. max(vel_iters, pos_iters) + 1 sweeps, sweep 0 the degree
-    (and, with warm_sweep, warm-start) pre-pass. posq [8, NPAD] (pos xyz,
-    quat wxyz) with integrate=(dt, renormalize) adds the integration
-    epilogue. Returns (z, lam4 [4, Cp], posq out | None).
+                  consts_out: Tensor | None = None, plain: bool = False):
+    """The unfused solve: each contact's constants (2.6) from its contact
+    rows cin [CIN_ROWS, Cp] (see _cin) and the geometry table geom [48,
+    NPAD] (solve rows 0:24), then the Jacobi sweep loop (2.5). z0 [16,
+    NPAD] packed rank-space velocities, bases [Cp / tile] int32 window
+    starts, la/lb [Cp] int32 window-local endpoint ranks (−1: none).
+    max(vel_iters, pos_iters) + 1 sweeps; sweep 0 builds the constants,
+    scatters the degrees and, with use_split, applies the warm start (the
+    split impulses: see prep_kw). posq [8, NPAD] (pos xyz, quat wxyz)
+    with integrate=(dt, renormalize) adds the integration epilogue.
+    consts_out [R_PREP, Cp], when given, receives every touched slot's
+    constants (2.6's output, to check the fold; the step passes none).
+    Returns (z, lam4 [4, Cp], posq out | None).
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA tensor
-    launches csrc/banded_solve.cu bs_banded_sweeps."""
+    launches csrc/banded_solve.cu bs_banded_sweeps, one launch with 2.6
+    in its sweep 0."""
     if (posq is None) != (integrate is None):
         raise ValueError("banded sweeps: posq and integrate go together")
     kw = dict(tile=tile, vel_iters=vel_iters, pos_iters=pos_iters,
-              warm_sweep=warm_sweep, posq=posq, integrate=integrate)
+              use_split=use_split, baum_over_dt=baum_over_dt, slop=slop,
+              relaxation=relaxation, posq=posq, integrate=integrate,
+              consts_out=consts_out)
     if plain or z0.device.type == "cpu":
-        return banded_sweeps_plain(z0, bases, la, lb, consts, **kw)
+        return banded_sweeps_plain(z0, bases, la, lb, geom, cin, **kw)
     if z0.device.type != "cuda":
         raise ValueError(f"banded sweeps: unsupported device {z0.device}")
     from physics_tpu_torch import _build
@@ -574,35 +590,40 @@ def banded_sweeps(z0: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
                     ("bases", bases, torch.int32, (cp // tile,)),
                     ("la", la, torch.int32, (cp,)),
                     ("lb", lb, torch.int32, (cp,)),
-                    ("consts", consts, torch.float32, (R_PREP, cp)),
+                    ("geom", geom, torch.float32, (48, npad)),
+                    ("cin", cin, torch.float32, (CIN_ROWS, cp)),
                     *([("posq", posq, torch.float32, (8, npad))]
-                      if posq is not None else []))
+                      if posq is not None else []),
+                    *([("consts_out", consts_out, torch.float32,
+                        (R_PREP, cp))] if consts_out is not None else []))
     f32 = torch.float32
     z = torch.empty((Z_ROWS, npad), dtype=f32, device=dev)
     lam4 = torch.empty((4, cp), dtype=f32, device=dev)
     pq = (torch.empty((8, npad), dtype=f32, device=dev)
           if integrate is not None else None)
-    zt, st, lst = _solve_scratch(cp, npad, dev)
-    flags = _build.FLAG_USE_SPLIT if warm_sweep else 0
+    consts, zt, st, lst = _solve_scratch(cp, npad, dev)
+    flags = _build.FLAG_USE_SPLIT if use_split else 0
     dt = 0.0
     if integrate is not None:
         dt = integrate[0]
         flags |= _build.FLAG_INTEGRATE
         flags |= _build.FLAG_RENORM if integrate[1] else 0
     ptr = ctypes.c_void_p
+
+    def addr(t):
+        return ptr(t.data_ptr() if t is not None else 0)
     with torch.cuda.device(dev):
         err = _build.library().bs_banded_sweeps(
-            ptr(z0.data_ptr()), ptr(bases.data_ptr()), ptr(la.data_ptr()),
-            ptr(lb.data_ptr()), ptr(consts.data_ptr()),
-            ptr(posq.data_ptr() if posq is not None else 0),
-            ptr(z.data_ptr()), ptr(lam4.data_ptr()),
-            ptr(pq.data_ptr() if pq is not None else 0),
-            ptr(zt.data_ptr()), ptr(st.data_ptr()), ptr(lst.data_ptr()),
+            *[addr(t) for t in (z0, bases, la, lb, geom, cin, consts,
+                                consts_out, posq, z, lam4, pq, zt, st, lst)],
             lst.numel(), cp, npad, tile, max(vel_iters, pos_iters) + 1,
-            vel_iters, pos_iters, ctypes.c_float(dt), flags,
+            vel_iters, pos_iters, ctypes.c_float(baum_over_dt),
+            ctypes.c_float(slop), ctypes.c_float(relaxation),
+            ctypes.c_float(dt), flags,
             ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "bs_banded_sweeps")
     banded_sweeps.launches += 1
+    folded_prep_consts.launches += 1
     return z, lam4, pq
 
 
@@ -628,8 +649,9 @@ def rows_of(zb: Tensor) -> Tensor:
 class SweepScratch(NamedTuple):
     """One rank's state across the sweeps of its sharded solve (2.7):
     the snapshot tables, the delta tables (the ranks all-reduce dz[s % 3]
-    after sweep s), λ by slot, the live list and its length, and the
-    endpoint ranks and the relaxation over the degrees by list entry."""
+    after sweep s), λ by slot, the live list and its length, the endpoint
+    ranks and the relaxation over the degrees by list entry, and the
+    sweep constants by slot (sweep 0 builds them: 2.6 folded in)."""
 
     zt: Tensor      # [2, NPAD, 16] f32, body-major (ZSLOT)
     dz: Tensor      # [3, NPAD, 16] f32
@@ -638,6 +660,7 @@ class SweepScratch(NamedTuple):
     count: Tensor   # [1] int32
     ends: Tensor    # [2, C] int32 endpoint ranks (−1: none)
     relax: Tensor   # [C] f32
+    consts: Tensor  # [R_SWEEP, C] f32 (R_* rows 0:42)
 
 
 def sweep_scratch(c: int, npad: int, device) -> SweepScratch:
@@ -652,7 +675,8 @@ def sweep_scratch(c: int, npad: int, device) -> SweepScratch:
         torch.empty((c,), dtype=torch.int32, device=device),
         zeroed[-4:].view(torch.int32)[:1],
         torch.empty((2, c), dtype=torch.int32, device=device),
-        torch.empty((c,), dtype=f32, device=device))
+        torch.empty((c,), dtype=f32, device=device),
+        torch.empty((R_SWEEP, c), dtype=f32, device=device))
 
 
 def sweep_result(sc: SweepScratch, sweep: int) -> Tensor:
@@ -661,22 +685,27 @@ def sweep_result(sc: SweepScratch, sweep: int) -> Tensor:
     return rows_of(sc.zt[sweep % 2] + sc.dz[sweep % 3])
 
 
-def banded_sweep_once_plain(sc, z0, bases, la, lb, consts, *, sweep, tile,
-                            vel_on, pos_on, warm):
+def banded_sweep_once_plain(sc, z0, bases, la, lb, geom, cin, *, sweep,
+                            tile, vel_on, pos_on, use_split, baum_over_dt,
+                            slop, relaxation, consts_out=None):
     """Plain version of the sharded sweep kernel, on the same scratch."""
     ra_all, rb_all = _win_rank(bases, la, tile), _win_rank(bases, lb, tile)
     zw = sc.dz[sweep % 3]
     if sweep == 0:
+        consts = _prep_plain(geom, bases, la, lb, cin, consts_out, tile, dict(
+            use_split=use_split, baum_over_dt=baum_over_dt, slop=slop,
+            relaxation=relaxation))
+        sc.consts.copy_(consts[:R_SWEEP])
         sc.zt[0] = z0[list(ZROW)].T
         acc = torch.zeros_like(z0)
         lam = _sweep_once(
             torch.zeros_like(z0), acc, consts, ra_all, rb_all,
             [torch.zeros_like(consts[0])] * 4, vel_on=0.0, pos_on=0.0,
-            warm_f=1.0 if warm else None, degf=1.0)
+            warm_f=1.0 if use_split else None, degf=1.0)
         zw += acc[list(ZROW)].T
         sc.lam.copy_(torch.stack(lam))
-        touch = (ra_all >= 0) | (rb_all >= 0) | (consts[_R_RELAX] != 0)
-        live = touch & ((consts[_R_RELAX] != 0) | (sc.lam[0:3] != 0).any(0))
+        live = touched(consts, ra_all, rb_all) & (
+            (consts[_R_RELAX] != 0) | (sc.lam[0:3] != 0).any(0))
         idx = torch.nonzero(live).flatten()
         sc.live[:idx.numel()] = idx.to(torch.int32)
         sc.count.fill_(idx.numel())
@@ -690,38 +719,46 @@ def banded_sweep_once_plain(sc, z0, bases, la, lb, consts, *, sweep, tile,
     ra, rb = sc.ends[0, :m].long(), sc.ends[1, :m].long()
     z = rows_of(snap)
     acc = torch.zeros_like(z)
-    lam = _sweep_once(z, acc, consts[:, j], ra, rb, list(sc.lam[:, j]),
+    lam = _sweep_once(z, acc, sc.consts[:, j], ra, rb, list(sc.lam[:, j]),
                       vel_on=1.0 if vel_on else 0.0,
                       pos_on=1.0 if pos_on else 0.0, warm_f=None, degf=0.0)
     sc.lam[:, j] = torch.stack(lam)
     if sweep == 1:
         deg = torch.maximum(_gather(z[14:15], ra)[0], _gather(z[14:15], rb)[0])
-        sc.relax[:m] = consts[_R_RELAX, j] / torch.clamp(deg, min=1.0)
+        sc.relax[:m] = sc.consts[_R_RELAX, j] / torch.clamp(deg, min=1.0)
     zw += acc[list(ZROW)].T
 
 
 def banded_sweep_once(sc: SweepScratch, z0: Tensor, bases: Tensor,
-                      la: Tensor, lb: Tensor, consts: Tensor, *, sweep: int,
-                      tile: int, vel_on: bool, pos_on: bool, warm: bool,
+                      la: Tensor, lb: Tensor, geom: Tensor, cin: Tensor, *,
+                      sweep: int, tile: int, vel_on: bool, pos_on: bool,
+                      use_split: bool, baum_over_dt: float, slop: float,
+                      relaxation: float, consts_out: Tensor | None = None,
                       plain: bool = False) -> None:
     """Sweep `sweep` of one rank's share of the sharded solve, on its
     scratch `sc` (sweep_scratch): z0 [16, NPAD] the velocity table at the
     start (read by sweep 0), bases [C / tile] int32 window starts and
     la/lb [C] int32 window-local endpoint ranks of the rank's contacts,
-    consts [R_PREP, C] their constants. Sweep 0 scatters the degrees and,
-    with `warm`, applies λ: 0 → λ₀, and lists the live contacts; a later
-    sweep reads the snapshot (the previous snapshot plus the previous
-    summed delta, which it also writes as the next snapshot table) and
-    updates the listed contacts, vel_on/pos_on switching the velocity and
-    position rows. The sweep's delta is added into sc.dz[sweep % 3],
-    which the ranks then all-reduce; sweep_result gives z.
+    geom [48, NPAD] the geometry table and cin [CIN_ROWS, C] their
+    contact rows (read by sweep 0; the rank's columns of the whole cin,
+    read in place). Sweep 0 builds the touched contacts' constants (2.6
+    folded in; into consts_out [R_PREP, C] too when given), scatters the
+    degrees and, with use_split, applies λ: 0 → λ₀, and lists the live
+    contacts; a later sweep reads the snapshot (the previous snapshot
+    plus the previous summed delta, which it also writes as the next
+    snapshot table) and updates the listed contacts from their constants
+    in sc.consts, vel_on/pos_on switching the velocity and position rows.
+    The sweep's delta is added into sc.dz[sweep % 3], which the ranks
+    then all-reduce; sweep_result gives z.
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA tensor
     launches csrc/banded_solve.cu bs_sharded_sweep."""
     kw = dict(sweep=sweep, tile=tile, vel_on=vel_on, pos_on=pos_on,
-              warm=warm)
+              use_split=use_split, baum_over_dt=baum_over_dt, slop=slop,
+              relaxation=relaxation, consts_out=consts_out)
     if plain or z0.device.type == "cpu":
-        return banded_sweep_once_plain(sc, z0, bases, la, lb, consts, **kw)
+        return banded_sweep_once_plain(sc, z0, bases, la, lb, geom, cin,
+                                       **kw)
     if z0.device.type != "cuda":
         raise ValueError(f"banded sweep once: unsupported device {z0.device}")
     from physics_tpu_torch import _build
@@ -737,44 +774,56 @@ def banded_sweep_once(sc: SweepScratch, z0: Tensor, bases: Tensor,
                           ("z0", z0, f32, (Z_ROWS, npad)),
                           ("bases", bases, i32, (cp // tile,)),
                           ("la", la, i32, (cp,)), ("lb", lb, i32, (cp,)),
-                          ("consts", consts, f32, (R_PREP, cp)),
+                          ("geom", geom, f32, (48, npad)),
                           ("zt", sc.zt, f32, (2, npad, Z_ROWS)),
                           ("dz", sc.dz, f32, (3, npad, Z_ROWS)),
                           ("lam", sc.lam, f32, (4, cp)),
                           ("live", sc.live, i32, (cp,)),
                           ("count", sc.count, i32, (1,)),
                           ("ends", sc.ends, i32, (2, cp)),
-                          ("relax", sc.relax, f32, (cp,)))
+                          ("relax", sc.relax, f32, (cp,)),
+                          ("consts", sc.consts, f32, (R_SWEEP, cp)),
+                          *([("consts_out", consts_out, f32, (R_PREP, cp))]
+                            if consts_out is not None else []))
+    _check_cin("banded sweep once", dev, cin, cp)
     ptr = ctypes.c_void_p
     with torch.cuda.device(dev):
         err = _build.library().bs_sharded_sweep(
-            *[ptr(t.data_ptr()) for t in (z0, bases, la, lb, consts, sc.lam,
-                                          sc.zt, sc.dz, sc.live, sc.count,
-                                          sc.ends, sc.relax)],
+            *[ptr(t.data_ptr()) for t in (z0, bases, la, lb, geom, cin)],
+            cin.stride(0),
+            *[ptr(t.data_ptr() if t is not None else 0)
+              for t in (sc.consts, consts_out, sc.lam, sc.zt, sc.dz,
+                        sc.live, sc.count, sc.ends, sc.relax)],
             cp, npad, tile, sweep, ctypes.c_float(1.0 if vel_on else 0.0),
-            ctypes.c_float(1.0 if pos_on else 0.0), int(warm),
+            ctypes.c_float(1.0 if pos_on else 0.0),
+            ctypes.c_float(baum_over_dt), ctypes.c_float(slop),
+            ctypes.c_float(relaxation), int(use_split),
             ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "bs_sharded_sweep")
     banded_sweep_once.launches += 1
+    if sweep == 0:
+        folded_prep_consts.launches += 1
 
 
 banded_sweep_once.launches = 0
 
 
 def banded_sweeps_sharded(z0: Tensor, bases: Tensor, la: Tensor,
-                          lb: Tensor, consts: Tensor, *, tile: int,
-                          vel_iters: int, pos_iters: int, warm_sweep: bool,
-                          shard: Shard, plain: bool = False
-                          ) -> Tuple[Tensor, Tensor]:
-    """The sweep loop of banded_sweeps with the contact tiles split over
-    the ranks of `shard` (parallel.collectives.Shard): rank r sweeps tiles
-    [r·T, (r+1)·T), T = ntiles / ranks, against the replicated z; after
-    each sweep the ranks all-reduce its delta, which the next sweep adds
-    to z. The same schedule as banded_sweeps: sweep 0 (degrees, warm
-    start), then max(vel_iters, pos_iters) sweeps, a launch each
-    (banded_sweep_once). Takes the whole (replicated) operands; returns
-    (z [16, NPAD], λ [4, Cp]) with λ all-gathered in rank order. Needs
-    ntiles % ranks == 0."""
+                          lb: Tensor, geom: Tensor, cin: Tensor, *,
+                          tile: int, vel_iters: int, pos_iters: int,
+                          use_split: bool, baum_over_dt: float, slop: float,
+                          relaxation: float, shard: Shard,
+                          plain: bool = False) -> Tuple[Tensor, Tensor]:
+    """banded_sweeps with the contact tiles split over the ranks of
+    `shard` (parallel.collectives.Shard): rank r builds the constants of
+    tiles [r·T, (r+1)·T), T = ntiles / ranks, and sweeps them against
+    the replicated z; after each sweep the ranks all-reduce its delta,
+    which the next sweep adds to z. The same schedule as banded_sweeps:
+    sweep 0 (constants, degrees, warm start), then max(vel_iters,
+    pos_iters) sweeps, a launch each (banded_sweep_once). Takes the whole
+    (replicated) operands, each rank its own columns of them in place;
+    returns (z [16, NPAD], λ [4, Cp]) with λ all-gathered in rank order.
+    Needs ntiles % ranks == 0."""
     cp = la.shape[0]
     ntiles = cp // tile
     if ntiles * tile != cp or ntiles % shard.size:
@@ -785,16 +834,16 @@ def banded_sweeps_sharded(z0: Tensor, bases: Tensor, la: Tensor,
     t_loc = ntiles // shard.size
     c_loc = t_loc * tile
     t0, c0 = shard.rank * t_loc, shard.rank * c_loc
-    ops = (bases[t0:t0 + t_loc].contiguous(), la[c0:c0 + c_loc].contiguous(),
-           lb[c0:c0 + c_loc].contiguous(),
-           consts[:, c0:c0 + c_loc].contiguous())
+    ops = (bases[t0:t0 + t_loc], la[c0:c0 + c_loc], lb[c0:c0 + c_loc], geom,
+           cin[:, c0:c0 + c_loc])
     sc = sweep_scratch(c_loc, z0.shape[1], z0.device)
     n_sweeps = max(vel_iters, pos_iters) + 1
     for s in range(n_sweeps):
         banded_sweep_once(sc, z0, *ops, sweep=s, tile=tile,
                           vel_on=0 <= s - 1 < vel_iters,
-                          pos_on=0 <= s - 1 < pos_iters, warm=warm_sweep,
-                          plain=plain)
+                          pos_on=0 <= s - 1 < pos_iters, use_split=use_split,
+                          baum_over_dt=baum_over_dt, slop=slop,
+                          relaxation=relaxation, plain=plain)
         all_reduce_sum(sc.dz[s % 3], shard)
     return sweep_result(sc, n_sweeps - 1), all_gather_last(sc.lam, shard)
 
@@ -852,7 +901,7 @@ class BandedOperands(NamedTuple):
     bases: Tensor          # [Cp / tile] int32 window starts
     la: Tensor             # [Cp] int32 window-local ranks (−1: none)
     lb: Tensor
-    cin: Tensor            # [CIN_ROWS, Cp] prep_consts rows
+    cin: Tensor            # [CIN_ROWS, Cp] the constants' contact rows
     tile: int
     use_split: bool        # warm-started
     band_overflow: Tensor  # [] int32 active contacts out of their band
@@ -934,8 +983,8 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
     deactivated and counted in `band_overflow`, as the TPU kernel's band
     required. `warm` = (sorted keys [Cp], λ [3, Cp]) of the previous step
     gives matching contacts their λ₀. `geom` is the step's rank-space
-    geometry table [48, NPAD] (solve_shape's npad). Then prep_consts
-    (2.6), banded_sweeps (2.5) and the un-permute; with `shard`
+    geometry table [48, NPAD] (solve_shape's npad). Then banded_sweeps
+    (2.5 with 2.6 in its sweep 0) and the un-permute; with `shard`
     (parallel.collectives.Shard, the whole contact list on every rank) the
     sweeps are banded_sweeps_sharded (2.7), and everything else runs on
     every rank.
@@ -947,17 +996,14 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
     if geom.shape != (48, npad):
         raise ValueError(f"geom must be [48, {npad}]")
     ops = banded_operands(state, contacts, cfg, warm, ranks, capacity)
-    consts = prep_consts(geom, ops.bases, ops.la, ops.lb, ops.cin, cfg,
-                         tile=ops.tile, use_split=ops.use_split, plain=plain)
     kw = dict(tile=ops.tile, vel_iters=cfg.contact_iters,
               pos_iters=cfg.position_iters if ops.use_split else 0,
-              warm_sweep=ops.use_split, plain=plain)
+              plain=plain, **prep_kw(cfg, ops.use_split))
+    args = (banded_z0(geom), ops.bases, ops.la, ops.lb, geom, ops.cin)
     if shard is not None:
-        z, lam4 = banded_sweeps_sharded(banded_z0(geom), ops.bases, ops.la,
-                                        ops.lb, consts, shard=shard, **kw)
+        z, lam4 = banded_sweeps_sharded(*args, shard=shard, **kw)
     else:
-        z, lam4, _ = banded_sweeps(banded_z0(geom), ops.bases, ops.la,
-                                   ops.lb, consts, **kw)
+        z, lam4, _ = banded_sweeps(*args, **kw)
 
     zz = _unpermute(z, order, n)
     lam3 = lam4[:3].contiguous()
@@ -1012,10 +1058,11 @@ def solve_impulses_table(state: SimState, table: Tensor, cfg: SimConfig,
     """Banded solve over the bucket-aligned contact table: one tile per
     bucket (ccap contacts), window bases the static b·128. With
     cfg.fuse_prep the fused kernel (2.3) runs the whole solve from the
-    table; without, prep_consts (2.6) then banded_sweeps (2.5). `fuse`
-    adds the integration epilogue. With `shard` (parallel.collectives.Shard,
+    table; without, banded_sweeps (2.5, 2.6 in its sweep 0). `fuse` adds
+    the integration epilogue. With `shard` (parallel.collectives.Shard,
     the whole table on every rank) the solve is always unfused and has no
-    epilogue: prep_consts on every rank, then banded_sweeps_sharded (2.7).
+    epilogue: banded_sweeps_sharded (2.7, each rank's sweep 0 building the
+    constants of its own slots).
 
     Returns (vel, omega, pvel, pomega, lam3, metrics, keys, posquat):
     body fields in body-id order; pvel/pomega are None when fused, and
@@ -1059,23 +1106,18 @@ def solve_impulses_table(state: SimState, table: Tensor, cfg: SimConfig,
 
     act, depth_act = table_depth()
     bases, la, lb, cin = table_solve_operands(table, warm_rows, n, cfg)
-    consts = prep_consts(geom, bases, la, lb, cin, cfg, tile=ccap,
-                         use_split=use_split, plain=plain)
+    args = (banded_z0(geom), bases, la, lb, geom, cin)
+    kw = dict(tile=ccap, vel_iters=cfg.contact_iters, pos_iters=pos_iters,
+              plain=plain, **prep_kw(cfg, use_split))
     if shard is not None:
-        z, lam4 = banded_sweeps_sharded(
-            banded_z0(geom), bases, la, lb, consts, tile=ccap,
-            vel_iters=cfg.contact_iters, pos_iters=pos_iters,
-            warm_sweep=use_split, shard=shard, plain=plain)
+        z, lam4 = banded_sweeps_sharded(*args, shard=shard, **kw)
         return _table_solve_outputs(z, lam4, None, depth_act, act, keys,
                                     order, n)
     posq = None
     if fuse:
         posq = torch.cat([geom[0:3], geom[19:23], torch.zeros_like(
             geom[0:1])])
-    z, lam4, pq = banded_sweeps(
-        banded_z0(geom), bases, la, lb, consts, tile=ccap,
-        vel_iters=cfg.contact_iters, pos_iters=pos_iters,
-        warm_sweep=use_split, posq=posq, integrate=integrate, plain=plain)
+    z, lam4, pq = banded_sweeps(*args, posq=posq, integrate=integrate, **kw)
     return _table_solve_outputs(z, lam4, pq, depth_act, act, keys, order, n)
 
 

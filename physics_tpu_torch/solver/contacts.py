@@ -13,10 +13,11 @@ the fused-prep solve or, with fuse_prep off, the unfused one. And the
 generic banded branch for boxes (the two-kernel pile): box ground
 corners and the banded pair manifolds give a flat contact list, which
 the banded solve sorts by rank, compacts, warm-starts by feature key and
-solves (prep_consts, banded_sweeps); the split-impulse pseudo velocities
-move the poses right after. With cfg.contact_rebuild = K > 1
-(anchored path), every K-th step REBUILDS: sweep sort, bucketed
-candidates, geometry table, contact-table kernel, full solve schedule.
+solves (banded_sweeps, whose sweep 0 builds the constants); the
+split-impulse pseudo velocities move the poses right after. With
+cfg.contact_rebuild = K > 1 (anchored path), every K-th step REBUILDS:
+sweep sort, bucketed candidates, geometry table, contact-table kernel,
+full solve schedule.
 The other steps REFRESH: the persisted table and rank order are kept,
 the solve's sweep 0 re-derives every contact from its body-frame
 anchors, and the schedule is contact_refresh_iters sweeps. With
@@ -41,7 +42,9 @@ no integration epilogue.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+import contextvars
+from typing import Dict, Iterator, Tuple
 
 import torch
 
@@ -63,10 +66,12 @@ from physics_tpu_torch.ops.contact_table import (
     table_shape,
     unified_geom,
 )
+from physics_tpu_torch.ops.forces import apply_gravity
 from physics_tpu_torch.ops.hull_table import (
     MAX_TABLE_HULL_TYPES,
     bucket_hull_contact_table,
 )
+from physics_tpu_torch.ops.integrator import integrate_velocities
 from physics_tpu_torch.ops.narrowphase import (
     Contacts,
     banded_contacts,
@@ -239,12 +244,13 @@ def warm_start_lambda_keys(keys: Tensor, active: Tensor,
     # predecessor's payload: the matching previous entry's λ
     pred = torch.cat([pl[:, :1], pl[:, :-1]], dim=1) * match.to(
         torch.float32)
-    # delivery: current entries back to their own slots
-    slot = perm[st == 1] - kp
-    out = torch.empty((3, c), dtype=torch.float32, device=dev)
-    out[:, slot] = pred[:, st == 1]
+    # delivery: current entries back to their own slots, previous ones to
+    # a spare column c (no boolean mask: its count would be read back)
+    slot = torch.where(st == 1, perm - kp, c)
+    out = torch.empty((3, c + 1), dtype=torch.float32, device=dev)
+    out[:, slot] = pred
     actf = (active & (keys != 0)).to(torch.float32)
-    return out[0] * actf, out[1] * actf, out[2] * actf
+    return out[0, :c] * actf, out[1, :c] * actf, out[2, :c] * actf
 
 
 def _field_gather(contacts: Contacts, idx: Tensor) -> Contacts:
@@ -492,9 +498,9 @@ def refresh_gate(st: SimState, cfg: SimConfig,
     dmb = torch.amax(torch.nn.functional.pad(
         disp, (0, nb * BLOCK - n)).reshape(nb, BLOCK), dim=1)
     dmb = torch.maximum(dmb, torch.cat([dmb[1:], torch.zeros_like(dmb[:1])]))
-    return dmb > torch.tensor(
-        cfg.contact_rebuild_vel_factor * cfg.penetration_slop,
-        dtype=torch.float32, device=dmb.device)
+    # a Python float compared with an f32 tensor is rounded to f32, as a
+    # tensor of it would be, with no copy to the device (capturable)
+    return dmb > cfg.contact_rebuild_vel_factor * cfg.penetration_slop
 
 
 def _gated_refresh(st: SimState, cfg: SimConfig, order: Tensor | None,
@@ -523,6 +529,44 @@ def _gated_refresh(st: SimState, cfg: SimConfig, order: Tensor | None,
     return table, warm, ovf, ref
 
 
+# The branch an anchored step takes when it is forced (forced_rebuild):
+# True rebuild, False refresh, None as _rebuild_now decides.
+_FORCED_REBUILD: contextvars.ContextVar = contextvars.ContextVar(
+    "forced_rebuild", default=None)
+
+
+@contextlib.contextmanager
+def forced_rebuild(rebuild: bool | None) -> Iterator[None]:
+    """Within the block an anchored step rebuilds iff `rebuild` (None:
+    as usual). engine.DeviceStepper picks each step's branch on the host
+    (rebuild_branch) and captures that branch's step under it, where the
+    motion guard's device read cannot run."""
+    token = _FORCED_REBUILD.set(rebuild)
+    try:
+        yield
+    finally:
+        _FORCED_REBUILD.reset(token)
+
+
+def rebuild_branch(state: SimState, cfg: SimConfig) -> bool | None:
+    """The branch the next unsharded step of `state` (the step's input)
+    takes, as _resolve_contacts_table picks it: None where every step is
+    alike (no contacts, or no anchored path), else whether it rebuilds.
+    Off the schedule, on a hull table path with vel_factor > 0, the
+    motion guard reads the velocities the step's contacts see: this
+    applies gravity and the velocity integration first and reads the
+    guard's device scalar back (see _rebuild_now)."""
+    if not (cfg.ground_plane or cfg.pair_collisions):
+        return None
+    if not (cfg.contact_rebuild > 1 and anchored_path(state, cfg)):
+        return None
+    hulls = hull_table_path(state, cfg)
+    if (state.step_count_host % cfg.contact_rebuild and hulls
+            and cfg.contact_rebuild_vel_factor > 0):
+        state = integrate_velocities(apply_gravity(state, cfg), cfg)
+    return _rebuild_now(state, cfg, hulls)
+
+
 def _rebuild_now(state: SimState, cfg: SimConfig, hulls: bool) -> bool:
     """Whether an anchored step rebuilds: every contact_rebuild-th step
     (from the host's mirror of step_count), and on a hull table path with
@@ -530,7 +574,11 @@ def _rebuild_now(state: SimState, cfg: SimConfig, hulls: bool) -> bool:
     body covers max|v|·dt·K before the next scheduled rebuild, more than
     vel_factor·slop. The guard is a device value: this reads one scalar
     back on such a step (no shipped config has it: rain_config zeroes
-    vel_factor; a captured graph per branch would remove the read)."""
+    vel_factor). A step run under forced_rebuild takes the forced branch
+    and reads nothing."""
+    forced = _FORCED_REBUILD.get()
+    if forced is not None:
+        return forced
     if state.step_count_host % cfg.contact_rebuild == 0:
         return True
     if not (hulls and cfg.contact_rebuild_vel_factor > 0):

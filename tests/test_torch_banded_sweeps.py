@@ -1,9 +1,12 @@
 """The unfused banded solve: physics_tpu_torch's plain versions (the CPU
-side of csrc/banded_solve.cu bs_prep_consts and bs_banded_sweeps) against
-the JAX package's Pallas kernels in interpret mode: `prep_consts` (kernel
-2.6) and `banded_sweeps` (kernel 2.5), cold and warm, with and without the
-integration epilogue, on the unfused table solve's inputs (a contact-rich
-two-bucket pile, static bases); and `solve_impulses_banded` in the
+side of csrc/banded_solve.cu bs_banded_sweeps, which builds 2.6's
+constants in 2.5's sweep 0) against the JAX package's Pallas kernels in
+interpret mode: `prep_consts_plain` against `prep_consts` (kernel 2.6),
+and `banded_sweeps` from the contact rows against the JAX
+`prep_consts` then `banded_sweeps` (kernel 2.5), cold and warm, with and
+without the integration epilogue, on the unfused table solve's inputs (a
+contact-rich two-bucket pile, static bases); and `solve_impulses_banded`
+in the
 `ranks=`/`capacity=` form of the generic path (rank sort, compaction,
 dynamic bases, warm match by key), on the two-kernel pile's contacts.
 
@@ -103,11 +106,11 @@ def test_prep_consts_matches(table_inputs, warm):
     _, cfg_t = configs(N)
     geom, bases, la, lb, cin, ccap = table_inputs
     jc = _jax_prep(table_inputs, warm)
-    tc = tbs.prep_consts(
+    tc = tbs.prep_consts_plain(
         torch.from_numpy(geom), torch.from_numpy(bases),
         torch.from_numpy(la), torch.from_numpy(lb),
-        torch.from_numpy(cin[warm][:tbs.CIN_ROWS]), cfg_t, tile=ccap,
-        use_split=warm).numpy()
+        torch.from_numpy(cin[warm][:tbs.CIN_ROWS]), tile=ccap,
+        **tbs.prep_kw(cfg_t, warm)).numpy()
     # the port's constants are the TPU kernel's rows 0:45; the rest of
     # those are zero, and its cin rows 14:16 are padding that no kernel
     # reads
@@ -124,7 +127,7 @@ def test_prep_consts_matches(table_inputs, warm):
                          ids=["cold", "warm", "warm-integrate"])
 def test_banded_sweeps_matches(table_inputs, warm, integrate):
     cfg_j, cfg_t = configs(N)
-    geom, bases, la, lb, _, ccap = table_inputs
+    geom, bases, la, lb, cin, ccap = table_inputs
     wtot, npad = jct.geom_pad(N, cfg_j)
     consts = _jax_prep(table_inputs, warm)
     z0 = np.zeros((16, npad), np.float32)
@@ -140,10 +143,10 @@ def test_banded_sweeps_matches(table_inputs, warm, integrate):
     jz, jl, jp = run(jnp.asarray(z0), jnp.asarray(consts), jnp.asarray(posq))
     t = torch.from_numpy
     tz, tl, tp = tbs.banded_sweeps(
-        t(z0), t(bases), t(la), t(lb), t(consts[:tbs.R_PREP]), tile=ccap,
-        vel_iters=8,
-        pos_iters=pos_iters, warm_sweep=warm,
-        posq=t(posq) if integrate else None, integrate=integ)
+        t(z0), t(bases), t(la), t(lb), t(geom), t(cin[warm][:tbs.CIN_ROWS]),
+        tile=ccap, vel_iters=8, pos_iters=pos_iters,
+        posq=t(posq) if integrate else None, integrate=integ,
+        **tbs.prep_kw(cfg_t, warm))
     jz, jl = np.asarray(jz), np.asarray(jl)
     assert jz[14, :N].max() >= 4 and np.abs(jl[0]).sum() > 10
     _rows_close("z", tz.numpy()[:, :N], jz[:, :N], SOLVE_RTOL)

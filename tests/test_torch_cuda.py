@@ -6,10 +6,13 @@ hull contact table: two buckets of bevelled cubes, one bucket of the
 bucket of axis-aligned duplicated hulls whose face and edge separations
 tie; its warm match with duplicated previous keys); on the same pile, the
 two-kernel path's contact list (ground corners and pair manifolds in one
-launch, whole and one rank's slice), solve constants and unfused sweeps,
+launch, whole and one rank's slice), unfused sweeps (2.5, with the solve
+constants, 2.6, built in their sweep 0: bit for bit prep_consts_plain),
 two of its steps, and a step of the unfused table solve; the row-sharded
-step's single-sweep kernel (2.7) in each of its switch combinations and
-its whole loop on one rank, and the table kernels' bucket-range mode. The
+step's single-sweep kernel (2.7) in each of its switch combinations (its
+sweep 0's constants bit for bit, on a whole table and on one rank's
+columns of it) and its whole loop on one rank, and the table kernels'
+bucket-range mode. The
 sweep kernel (2.1) in both modes: the masks, and the bucketed candidates
 at the pile's, the rain's and the two-kernel pile's bucket shapes and at
 the compaction's edges; a 2.1 call and a 2.7 sweep captured in a CUDA
@@ -28,7 +31,13 @@ registers). The persistent solves (2.3 and 2.5, one cooperative launch
 a call) also on the rain's and the packed envs' tables and on synthetic
 tables: no live contact, every slot live with more live contacts a block
 than its shared memory holds, one sweep, NPAD not a multiple of the
-block; and one 2.3 call captured in a CUDA graph and replayed.
+block; and one 2.3 call captured in a CUDA graph and replayed. The
+device rollout (engine.DeviceStepper, one captured graph a branch of the
+step) on the table pile, the hull rain, the two-kernel pile and the
+packed envs: each replayed step against an eager step from the same
+state, across a rebuild boundary, the launch counts a replay adds equal
+to an eager step's; the hull motion guard's branch read between replays;
+a sampled horizon; and a capture that fails raises.
 Every test skips without a card. On a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -40,19 +49,29 @@ Tolerances: the sweep masks and candidates, the contact table's integer rows, it
 counters and warm rows are compared exactly (the table kernel computes the
 plain version's f32 operations in the same order, built with
 -fmad=false); its f32 rows to 1e-5 of the scene extent, as the contact
-list's f32 fields (whose ids, keys, activity and rank rows are exact). The solve constants have
-no sums across contacts: 1e-6 of each row's largest magnitude on the
-active contacts. The solves sum impulse deltas with atomics (kernel) or
+list's f32 fields (whose ids, keys, activity and rank rows are exact). The solve constants
+(2.6, built in the sweep 0 of 2.5 and 2.7) have no sums across contacts:
+bit for bit on the touched slots. The solves sum impulse deltas with
+atomics (kernel) or
 index_add (plain) in an order that changes from run to run: 1e-4 of each
 output row's largest magnitude.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from physics_tpu_torch import scenes
-from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+from physics_tpu_torch.engine import (
+    COUNTED,
+    DeviceStepper,
+    prepare_contacts,
+    rollout,
+    step,
+    step_with_metrics,
+)
 from physics_tpu_torch.io.primitives import octahedron_verts, prism_verts
 from physics_tpu_torch.ops import contact_table as tct
 from physics_tpu_torch.ops import hull_table as tht
@@ -73,7 +92,9 @@ from physics_tpu_torch.solver.banded_solve import (
     banded_sweeps_fused,
     banded_sweeps_plain,
     banded_z0,
-    prep_consts,
+    folded_prep_consts,
+    prep_consts_plain,
+    prep_kw,
     rows_of,
     solve_plan,
     sweep_result,
@@ -84,6 +105,7 @@ from physics_tpu_torch.parallel.collectives import Shard
 from physics_tpu_torch.solver.contacts import (
     banded_contact_list,
     banded_inputs,
+    rebuild_branch,
 )
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
 
@@ -93,7 +115,6 @@ N = 192
 EXACT_ROWS = [tct.CT_ACT, tct.CT_KL, tct.CT_KH, tct.CT_KSGN, tct.CT_RA,
               tct.CT_RB1, tct.CT_KS, tct.CT_MU, tct.CT_REST]
 SOLVE_RTOL = 1e-4
-PREP_RTOL = 1e-6
 # the two-kernel pile at test sizes (tests/test_torch_pair_manifolds.py)
 NP_KW = dict(contact_table=False, contact_rebuild=1, bucket_block=8,
              bucket_cap=128, pallas_tile=128, pallas_window=256)
@@ -347,16 +368,14 @@ def test_persistent_solves_edge_cases(dev, case):
     zk, lk = _solves_match(table, warm, geom, cfg, iters)
     if case == "no_live":
         assert not lk.any() and torch.equal(zk[0:6], geom[13:19])
-    consts = prep_consts(geom, bases, la, lb, cin, cfg, tile=tile,
-                         use_split=True, plain=True)
     z0 = banded_z0(geom)
     posq = torch.cat([geom[0:3], geom[19:23], torch.zeros_like(geom[0:1])])
     out = {}
     for plain in (False, True):
-        out[plain] = banded_sweeps(z0, bases, la, lb, consts, tile=tile,
+        out[plain] = banded_sweeps(z0, bases, la, lb, geom, cin, tile=tile,
                                    vel_iters=iters, pos_iters=iters,
-                                   warm_sweep=True, posq=posq,
-                                   integrate=(cfg.dt, True), plain=plain)
+                                   posq=posq, integrate=(cfg.dt, True),
+                                   plain=plain, **prep_kw(cfg, True))
     (zk, lk, pk), (zp, lp, pp) = out[False], out[True]
     _rows_close("z", zk, zp, SOLVE_RTOL)
     _rows_close("lam", lk, lp, SOLVE_RTOL)
@@ -596,28 +615,32 @@ def test_prep_consts_and_banded_sweeps_kernels(np_pile, warm):
     ops = banded_operands(s, contacts, cfg,
                           (s.contact_key, s.contact_lam) if warm else None,
                           ranks, cp)
-    args = (geom, ops.bases, ops.la, ops.lb, ops.cin, cfg)
-    before = prep_consts.launches
-    ck = prep_consts(*args, tile=ops.tile, use_split=warm)
-    assert prep_consts.launches == before + 1
-    cpl = prep_consts(*args, tile=ops.tile, use_split=warm, plain=True)
+    pk = prep_kw(cfg, warm)
+    cpl = prep_consts_plain(geom, ops.bases, ops.la, ops.lb, ops.cin,
+                            tile=ops.tile, **pk)
     live = ops.la >= 0
     assert int(live.sum()) > 500
-    _rows_close("consts", ck[:, live], cpl[:, live], PREP_RTOL)
     posq = torch.cat([geom[0:3], geom[19:23], torch.zeros_like(geom[0:1])])
     for integrate in (None, (cfg.dt, True)):
         out = {}
         for plain in (False, True):
+            # the touched slots' constants that sweep 0 built (NaN
+            # elsewhere); 2.6 has no sums across contacts: bit for bit
+            ck = torch.full_like(cpl, float("nan"))
+            before = (banded_sweeps.launches, folded_prep_consts.launches)
             out[plain] = banded_sweeps(
-                banded_z0(geom), ops.bases, ops.la, ops.lb, cpl,
+                banded_z0(geom), ops.bases, ops.la, ops.lb, geom, ops.cin,
                 tile=ops.tile, vel_iters=8, pos_iters=8 if warm else 0,
-                warm_sweep=warm, posq=posq if integrate else None,
-                integrate=integrate, plain=plain)
-        (zk, lk, pk), (zp, lp, pp) = out[False], out[True]
+                posq=posq if integrate else None, integrate=integrate,
+                consts_out=ck, plain=plain, **pk)
+            assert (banded_sweeps.launches, folded_prep_consts.launches) == \
+                tuple(b + (not plain) for b in before)
+            assert torch.equal(ck[:, live], cpl[:, live])
+        (zk, lk, pk_), (zp, lp, pp) = out[False], out[True]
         _rows_close("z", zk[:, :N], zp[:, :N], SOLVE_RTOL)
         _rows_close("lam", lk, lp, SOLVE_RTOL)
         if integrate:
-            _rows_close("posq", pk[:, :N], pp[:, :N], SOLVE_RTOL)
+            _rows_close("posq", pk_[:, :N], pp[:, :N], SOLVE_RTOL)
 
 
 def test_two_kernel_step_kernel_path_matches_plain(np_pile):
@@ -641,16 +664,16 @@ SWEEP_CASES = {      # (vel_on, pos_on, warm, deg_pass)
 
 def _sweep_operands(pile):
     """The unfused table solve's operands on the pile: (z0, (bases, la,
-    lb, consts), tile)."""
+    lb, geom, cin), tile, the constants' keywords but use_split)."""
     s, cfg = pile
     cfg = cfg.replace(contact_rebuild=1, fuse_prep=False)
     geom, (table, _, warm) = _table(
         s, cfg, (s.contact_key, s.contact_lam), plain=True)
     bases, la, lb, cin = table_solve_operands(table, warm, N, cfg)
     ccap = tct.table_shape(N, cfg)[1]
-    consts = prep_consts(geom, bases, la, lb, cin, cfg, tile=ccap,
-                         use_split=True, plain=True)
-    return banded_z0(geom), (bases, la, lb, consts), ccap
+    kw = prep_kw(cfg, True)
+    del kw["use_split"]
+    return banded_z0(geom), (bases, la, lb, geom, cin), ccap, kw
 
 
 def _clone(sc):
@@ -664,7 +687,7 @@ def test_banded_sweep_once_kernel(pile, case):
     scratch after sweep 0 and one velocity sweep. The delta table and λ
     within SOLVE_RTOL, the live list (as a set) and the next snapshot
     table identical."""
-    z0, ops, ccap = _sweep_operands(pile)
+    z0, ops, ccap, pk = _sweep_operands(pile)
     cp = ops[1].shape[0]
     sc = sweep_scratch(cp, z0.shape[1], z0.device)
     vel_on, pos_on, warm_on, deg = SWEEP_CASES[case]
@@ -672,9 +695,9 @@ def test_banded_sweep_once_kernel(pile, case):
     if not deg:
         for s_, v in ((0, False), (1, True)):
             banded_sweep_once(sc, z0, *ops, sweep=s_, tile=ccap, vel_on=v,
-                              pos_on=False, warm=True, plain=True)
+                              pos_on=False, use_split=True, plain=True, **pk)
     kw = dict(sweep=sweep, tile=ccap, vel_on=vel_on, pos_on=pos_on,
-              warm=warm_on)
+              use_split=warm_on, **pk)
     sk, sp = _clone(sc), _clone(sc)
     before = banded_sweep_once.launches
     banded_sweep_once(sk, z0, *ops, **kw)
@@ -696,7 +719,7 @@ def test_banded_sweep_once_kernel(pile, case):
 def test_sharded_sweep_loop_kernel(pile, warm):
     """The whole sharded loop on one rank (a launch a sweep, no
     collective) against the plain loop and against banded_sweeps_plain."""
-    z0, ops, ccap = _sweep_operands(pile)
+    z0, ops, ccap, pk = _sweep_operands(pile)
     cp = ops[1].shape[0]
     vel_iters, pos_iters = 8, 8 if warm else 0
     n_sweeps = max(vel_iters, pos_iters) + 1
@@ -706,15 +729,54 @@ def test_sharded_sweep_loop_kernel(pile, warm):
         for s_ in range(n_sweeps):
             banded_sweep_once(sc, z0, *ops, sweep=s_, tile=ccap,
                               vel_on=0 <= s_ - 1 < vel_iters,
-                              pos_on=0 <= s_ - 1 < pos_iters, warm=warm,
-                              plain=plain)
+                              pos_on=0 <= s_ - 1 < pos_iters, use_split=warm,
+                              plain=plain, **pk)
         out[plain] = (sweep_result(sc, n_sweeps - 1), sc.lam)
     z_ref, lam_ref, _ = banded_sweeps_plain(
         z0, *ops, tile=ccap, vel_iters=vel_iters, pos_iters=pos_iters,
-        warm_sweep=warm, posq=None, integrate=None)
+        use_split=warm, posq=None, integrate=None, **pk)
     for z, lam in out.values():
         _rows_close("z", z[:, :N], z_ref[:, :N], SOLVE_RTOL)
         _rows_close("lam", lam, lam_ref, SOLVE_RTOL)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_sharded_sweep0_folded_consts(pile, np_pile, rank):
+    """2.7's sweep 0 on one rank's columns of the whole cin, read in place
+    (rank r of 2 on the unfused table solve; of 4 on the two-kernel
+    pile's padded contact list): the constants it builds equal
+    prep_consts_plain's on that rank's touched slots, bit for bit, and
+    one launch counts one 2.6 launch."""
+    z0, (bases, la, lb, geom, cin), tile, pk = _sweep_operands(pile)
+    s, cfg = np_pile
+    contacts, ranks, _, ngeom, _, cp = banded_contact_list(s, cfg,
+                                                          plain=True)
+    ops = banded_operands(s, contacts, cfg, (s.contact_key, s.contact_lam),
+                          ranks, cp)
+    for (z0_, b, a_, b_, g, c, t), size in (
+            ((z0, bases, la, lb, geom, cin, tile), 2),
+            ((banded_z0(ngeom), ops.bases, ops.la, ops.lb, ngeom, ops.cin,
+              ops.tile), 4)):
+        t_loc = b.shape[0] // size
+        c_loc = t_loc * t
+        cols = slice(rank * c_loc, (rank + 1) * c_loc)
+        loc = (b[rank * t_loc:(rank + 1) * t_loc], a_[cols], b_[cols], g,
+               c[:, cols])
+        assert not loc[4].is_contiguous()
+        kw = prep_kw(cfg, True)
+        ref = prep_consts_plain(g, *loc[:3], loc[4], tile=t, **kw)
+        touched = (loc[1] >= 0) | (loc[2] >= 0)
+        assert int(touched.sum()) > 50
+        got = torch.full_like(ref, float("nan"))
+        sc = sweep_scratch(c_loc, z0_.shape[1], z0_.device)
+        before = folded_prep_consts.launches
+        banded_sweep_once(sc, z0_, *loc, sweep=0, tile=t, vel_on=False,
+                          pos_on=False, consts_out=got, **kw)
+        assert folded_prep_consts.launches == before + 1
+        assert torch.equal(got[:, touched], ref[:, touched])
+        # the scratch keeps the live slots' sweep constants
+        live = sc.live[:int(sc.count[0])].long()
+        assert torch.equal(sc.consts[:, live], ref[:42, live])
 
 
 def test_sweep_kernels_graph_replay(pile):
@@ -725,12 +787,13 @@ def test_sweep_kernels_graph_replay(pile):
     cfg = cfg.replace(bucket_cap=128)          # overflow > 0
     aabbs = body_aabbs(s)
     order = sweep_order(s, aabbs)
-    z0, ops, ccap = _sweep_operands(pile)
+    z0, ops, ccap, pk = _sweep_operands(pile)
     sc = sweep_scratch(ops[1].shape[0], z0.shape[1], z0.device)
     banded_sweep_once(sc, z0, *ops, sweep=0, tile=ccap, vel_on=False,
-                      pos_on=False, warm=True)
+                      pos_on=False, use_split=True, **pk)
     eager_sc, graph_sc = _clone(sc), _clone(sc)
-    kw = dict(sweep=1, tile=ccap, vel_on=True, pos_on=True, warm=False)
+    kw = dict(sweep=1, tile=ccap, vel_on=True, pos_on=True, use_split=False,
+              **pk)
 
     def cand():
         return pair_candidates(s, cfg, aabbs, order)
@@ -1011,3 +1074,158 @@ def test_hull_table_kernel_face_sizes(dev, sides):
     assert int((tk[tct.CT_ACT] * (1 - tk[tct.CT_KSGN])).sum()) > 20
     if sides == 3:
         _steps_match(s, cfg.replace(contact_rebuild_vel_factor=2.0))
+
+
+# ---------------------------------------------------------------------------
+# the device rollout: captured CUDA graphs, one a branch of the step
+# ---------------------------------------------------------------------------
+
+def _clone_state(s):
+    return s.replace(**{f.name: getattr(s, f.name).clone()
+                        for f in dataclasses.fields(s)
+                        if isinstance(getattr(s, f.name), torch.Tensor)})
+
+
+def _counts():
+    return [c.launches for c in COUNTED]
+
+
+def _state_matches(got, ref):
+    """A replayed step against the eager step from the same state:
+    integer fields identical, f32 within the whole-step 1e-4 (the solves'
+    atomics), λ within 1e-4 of each row's largest magnitude."""
+    assert got.step_count_host == ref.step_count_host
+    for name in ("contact_key", "contact_order", "contact_meta",
+                 "step_count"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    for name in ("pos", "quat", "vel", "omega", "contact_ref"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert a.shape == b.shape and (
+            a.numel() == 0 or float((a - b).abs().max()) <= 1e-4), name
+    if got.contact_lam.numel():
+        _rows_close("lam", got.contact_lam, ref.contact_lam, SOLVE_RTOL)
+    tab, tref = got.contact_table, ref.contact_table
+    if tab.numel():
+        for r in EXACT_ROWS:
+            assert torch.equal(tab[r], tref[r]), r
+        assert float((tab - tref).abs().max()) <= 1e-4
+
+
+def _replays_match(s, cfg, n, want):
+    """n steps of a DeviceStepper from s; each step of a branch already
+    captured is compared with the eager step from a copy of the same
+    state, and the launch counts its replay adds with the eager step's.
+    `want`: the branches that must have been replayed."""
+    stepper = DeviceStepper(s, cfg)
+    replayed = set()
+    for _ in range(n):
+        branch = rebuild_branch(stepper.state, cfg)
+        if branch not in stepper.captured:
+            stepper.step()
+            continue
+        src = _clone_state(stepper.state)
+        c0 = _counts()
+        ref = step(src, cfg)
+        c1 = _counts()
+        stepper.step()
+        c2 = _counts()
+        assert [b - a for a, b in zip(c1, c2)] == \
+            [b - a for a, b in zip(c0, c1)]
+        assert any(b > a for a, b in zip(c1, c2))
+        _state_matches(stepper.state, ref)
+        replayed.add(branch)
+    assert replayed == want and stepper.captured == want
+    return stepper
+
+
+def _rollout_scene(name, dev, pile, np_pile):
+    """(state, cfg, steps, replayed branches) of each path at test size,
+    starting one step before a refresh so that both branches replay."""
+    if name == "pile":
+        s, cfg = pile
+        return s.replace(step_count_host=1), cfg, 10, {True, False}
+    if name == "two_kernel":
+        s, cfg = np_pile
+        return s, cfg, 4, {None}
+    if name == "rain":
+        cfg = scenes.rain_config(256)
+        s = prepare_contacts(scenes.mesh_rain(256, real_assets=False,
+                                              device=dev), cfg)
+        for _ in range(2):
+            s, _ = step_with_metrics(s, cfg, plain=True)
+        return s.replace(step_count_host=1), cfg, 10, {True, False}
+    cfg = scenes.packed_env_config(32, 8)
+    s = prepare_contacts(scenes.packed_envs(32, 8, device=dev), cfg)
+    for _ in range(2):
+        s, _ = step_with_metrics(s, cfg, plain=True)
+    # K = 32: a refresh, the rebuild at 32, refreshes to the one at 64
+    return s.replace(step_count_host=31), cfg, 34, {True, False}
+
+
+@pytest.mark.parametrize("name", ["pile", "rain", "two_kernel", "packed"])
+def test_rollout_replay_matches_eager(dev, pile, np_pile, name):
+    s, cfg, n, want = _rollout_scene(name, dev, pile, np_pile)
+    _replays_match(s, cfg, n, want)
+
+
+def test_rollout_replay_hull_guard(dev):
+    """24 octahedra under the motion guard (vel_factor 8, K = 4): the
+    host reads the guard between replays, and a refresh-count step that
+    the guard turns into a rebuild replays the rebuild graph."""
+    arrays = to_numpy(scenes.hull_rain(octahedron_verts(), 24,
+                                       device="cpu"))
+    arrays["pos"] *= np.float32([0.7, 0.6, 0.7])
+    arrays["pos"][:, 1] += 0.3
+    cfg = scenes.rain_config(24).replace(contact_rebuild_vel_factor=8.0)
+    s = prepare_contacts(state_from_arrays(arrays, dev), cfg)
+    stepper = DeviceStepper(s, cfg)
+    guard = 0
+    for _ in range(10):
+        branch = rebuild_branch(stepper.state, cfg)
+        off = stepper.state.step_count_host % 4 != 0
+        if branch and off and branch in stepper.captured:
+            guard += 1
+            src = _clone_state(stepper.state)
+            ref = step(src, cfg)
+            stepper.step()
+            _state_matches(stepper.state, ref)
+        else:
+            stepper.step()
+    assert guard > 0 and stepper.captured == {True, False}
+
+
+def test_rollout_sampled_horizon(pile):
+    """rollout on the card with sample_every: the samples' shapes, the
+    last one the final pose, finite, and the launch counts of the eager
+    loop over the same horizon."""
+    s, cfg = pile
+    c0 = _counts()
+    loop = s
+    for _ in range(12):
+        loop = step(loop, cfg)
+    c1 = _counts()
+    final, (pos, quat) = rollout(s, cfg, 12, sample_every=3)
+    c2 = _counts()
+    assert [b - a for a, b in zip(c1, c2)] == [b - a for a, b in zip(c0, c1)]
+    assert pos.shape == (4, N, 3) and quat.shape == (4, N, 4)
+    assert torch.equal(pos[-1], final.pos) and torch.equal(quat[-1],
+                                                           final.quat)
+    assert bool(torch.isfinite(pos).all() and torch.isfinite(quat).all())
+    assert final.step_count_host == s.step_count_host + 12
+
+
+def test_rollout_capture_failure_raises(pile, monkeypatch):
+    """A step that reads the device back cannot be captured: rollout
+    raises with the cause and does not step eagerly instead."""
+    import physics_tpu_torch.engine as engine
+
+    s, cfg = pile
+    real = engine.integrate_velocities
+
+    def reads_back(state, cfg):
+        float(state.vel.sum())
+        return real(state, cfg)
+    monkeypatch.setattr(engine, "integrate_velocities", reads_back)
+    with pytest.raises(RuntimeError, match="capturing a step"):
+        rollout(s, cfg, 3)
+    torch.cuda.synchronize()

@@ -216,16 +216,17 @@ def test_unfused_live_schedule_is_the_full_loop(table_inputs, warm):  # noqa: F8
     cin = t(cin[warm][:tbs.CIN_ROWS].copy())
     act = np.flatnonzero(la >= 0)
     cin[9, torch.from_numpy(act[::3])] = 0.0
-    consts = tbs.prep_consts(t(geom), t(bases), t(la), t(lb), cin, cfg,
-                             tile=ccap, use_split=warm)
+    pk = tbs.prep_kw(cfg, warm)
+    consts = tbs.prep_consts_plain(t(geom), t(bases), t(la), t(lb), cin,
+                                   tile=ccap, **pk)
     z0 = tbs.banded_z0(t(geom))
     posq = torch.cat([t(geom[0:3]), t(geom[19:23]),
                       torch.zeros((1, geom.shape[1]))])
     kw = dict(tile=ccap, vel_iters=8, pos_iters=8 if warm else 0,
-              warm_sweep=warm, posq=posq, integrate=(cfg.dt, True))
-    args = (z0, t(bases), t(la), t(lb), consts)
-    live = unfused_live(*args, **kw)
-    full = tbs.banded_sweeps_plain(*args, **kw)
+              posq=posq, integrate=(cfg.dt, True))
+    args = (z0, t(bases), t(la), t(lb))
+    live = unfused_live(*args, consts, warm_sweep=warm, **kw)
+    full = tbs.banded_sweeps_plain(*args, t(geom), cin, **kw, **pk)
     _assert_equal(live, full)
     n_live = int(live_slots(consts, [torch.zeros(la.shape[0])] * 3).sum())
     assert n_live == act.size - act[::3].size

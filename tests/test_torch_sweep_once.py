@@ -11,8 +11,10 @@ loop, warm and cold.
 
 Operands: the unfused table solve of a box_pile(256) (two buckets) that
 settled 24 steps on the port, warm-started; the later sweeps read the
-velocity table after sweep 0 and one velocity sweep. The port's
-constants have 45 rows; the JAX kernel takes 48, zero-padded.
+velocity table after sweep 0 and one velocity sweep. The port's sweep 0
+builds the constants from the contact rows (kernel 2.6 folded in); the
+JAX kernel takes them as an input, the port's prep_consts_plain rows (45)
+zero-padded to 48.
 
 Tolerances: 1e-5 of each output row's largest magnitude. The JAX kernel
 reads z through a hi/lo bf16 split, exact for the values of 16
@@ -58,11 +60,11 @@ def _rows_close(name, got, ref, rtol):
 
 def _z_scratch(z, lam, src):
     """A scratch whose next sweep (2) reads exactly z and λ, with the
-    live list of scratch `src`."""
+    live list and constants of scratch `src`."""
     sc = tbs.sweep_scratch(lam.shape[1], z.shape[1], "cpu")
     sc.zt[1] = z[list(tbs.ZROW)].T
     sc.lam.copy_(lam)
-    for t in ("live", "count", "ends", "relax"):
+    for t in ("live", "count", "ends", "relax", "consts"):
         getattr(sc, t).copy_(getattr(src, t))
     return sc
 
@@ -73,9 +75,11 @@ def _delta(sc, sweep):
 
 @pytest.fixture(scope="module")
 def operands():
-    """(z0, bases, la, lb, consts, tile) of the settled pile's warm
-    unfused table solve, and the one-rank loop's scratch after sweep 0
-    and one velocity sweep, with the z those sweeps end with."""
+    """(z0, bases, la, lb, geom, cin, consts, tile, the constants'
+    keywords but use_split) of the settled pile's warm unfused table
+    solve (consts: prep_consts_plain's, warm), and the one-rank loop's
+    scratch after sweep 0 and one velocity sweep, with the z those sweeps
+    end with."""
     torch.manual_seed(0)
     cfg = tscenes.pile_config(N).replace(contact_iters=8)
     s = prepare_contacts(tscenes.box_pile(N, x_aspect=4.0, device="cpu"),
@@ -87,15 +91,17 @@ def operands():
     table, _, geom, warm, _ = _rebuild(s, cfg1, True, plain=True)
     bases, la, lb, cin = tbs.table_solve_operands(table, warm, N, cfg1)
     _, ccap, _ = jct.table_shape(N, cfg1)
-    consts = tbs.prep_consts(geom, bases, la, lb, cin, cfg1, tile=ccap,
-                             use_split=True)
+    kw = tbs.prep_kw(cfg1, True)
+    consts = tbs.prep_consts_plain(geom, bases, la, lb, cin, tile=ccap,
+                                   **kw)
+    del kw["use_split"]
     z0 = tbs.banded_z0(geom)
-    ops = (bases, la, lb, consts)
+    ops = (bases, la, lb, geom, cin)
     sc = tbs.sweep_scratch(la.shape[0], z0.shape[1], "cpu")
     for sweep, vel in ((0, False), (1, True)):
         tbs.banded_sweep_once(sc, z0, *ops, sweep=sweep, tile=ccap,
-                              vel_on=vel, pos_on=False, warm=True)
-    return (z0, *ops, ccap), (sc, tbs.sweep_result(sc, 1))
+                              vel_on=vel, pos_on=False, use_split=True, **kw)
+    return (z0, *ops, consts, ccap, kw), (sc, tbs.sweep_result(sc, 1))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -103,7 +109,7 @@ def test_sweep_once_matches_jax(operands, case):
     """One sweep of the loop's plain form (sweep 0 from z0; a later sweep
     from the snapshot after sweep 0 and one velocity sweep, over the live
     list) against the JAX kernel on the same z and λ."""
-    (z0, bases, la, lb, consts, tile), (sc1, zm) = operands
+    (z0, bases, la, lb, geom, cin, consts, tile, kw), (sc1, zm) = operands
     vel_on, pos_on, warm, deg_pass = CASES[case]
     c = la.shape[0]
     if deg_pass:
@@ -114,9 +120,9 @@ def test_sweep_once_matches_jax(operands, case):
         z = torch.from_numpy(bf16_pair_exact(zm))
         lam = sc1.lam.clone()
         sc, sweep = _z_scratch(z, lam, sc1), 2
-    tbs.banded_sweep_once(sc, z, bases, la, lb, consts, sweep=sweep,
+    tbs.banded_sweep_once(sc, z, bases, la, lb, geom, cin, sweep=sweep,
                           tile=tile, vel_on=vel_on, pos_on=pos_on,
-                          warm=warm)
+                          use_split=warm, **kw)
     tdz, tlam = _delta(sc, sweep), sc.lam
     cfg_n = tscenes.pile_config(N)
     wtot, _ = jct.geom_pad(N, cfg_n)
@@ -142,13 +148,13 @@ def test_sweep_once_matches_jax(operands, case):
     _rows_close("lam", tlam.numpy(), jlam, RTOL)
 
 
-def _halves(bases, la, lb, consts, tile):
+def _halves(bases, la, lb, geom, cin, tile):
     t_half = bases.shape[0] // 2
     c_half = t_half * tile
     return [(bases[h * t_half:(h + 1) * t_half],
              la[h * c_half:(h + 1) * c_half],
-             lb[h * c_half:(h + 1) * c_half],
-             consts[:, h * c_half:(h + 1) * c_half]) for h in (0, 1)]
+             lb[h * c_half:(h + 1) * c_half], geom,
+             cin[:, h * c_half:(h + 1) * c_half]) for h in (0, 1)]
 
 
 @pytest.mark.parametrize("vel_iters,pos_iters", [(0, 0), (3, 2)],
@@ -157,11 +163,12 @@ def test_two_halves_sum_to_the_whole(operands, vel_iters, pos_iters):
     """The loop's plain form on two halves of the tiles, their delta
     tables summed after each sweep as the all-reduce sums them, against
     banded_sweeps_plain on all of them."""
-    (z0, bases, la, lb, consts, tile), _ = operands
+    (z0, bases, la, lb, geom, cin, _, tile, kw), _ = operands
     z_ref, lam_ref, _ = tbs.banded_sweeps_plain(
-        z0, bases, la, lb, consts, tile=tile, vel_iters=vel_iters,
-        pos_iters=pos_iters, warm_sweep=True, posq=None, integrate=None)
-    halves = _halves(bases, la, lb, consts, tile)
+        z0, bases, la, lb, geom, cin, tile=tile, vel_iters=vel_iters,
+        pos_iters=pos_iters, use_split=True, posq=None, integrate=None,
+        **kw)
+    halves = _halves(bases, la, lb, geom, cin, tile)
     scs = [tbs.sweep_scratch(h[1].shape[0], z0.shape[1], "cpu")
            for h in halves]
     n_sweeps = max(vel_iters, pos_iters) + 1
@@ -169,7 +176,8 @@ def test_two_halves_sum_to_the_whole(operands, vel_iters, pos_iters):
         for sc, ops in zip(scs, halves):
             tbs.banded_sweep_once(sc, z0, *ops, sweep=s, tile=tile,
                                   vel_on=0 <= s - 1 < vel_iters,
-                                  pos_on=0 <= s - 1 < pos_iters, warm=True)
+                                  pos_on=0 <= s - 1 < pos_iters,
+                                  use_split=True, **kw)
         total = scs[0].dz[s % 3] + scs[1].dz[s % 3]
         for sc in scs:
             sc.dz[s % 3] = total
@@ -186,14 +194,15 @@ def test_live_list_and_one_rank_loop(operands, warm):
     """Sweep 0 lists exactly the slots with a relaxation or an impulse;
     the one-rank loop over that list matches banded_sweeps_plain over
     every slot, the tables rotating as on the card."""
-    (z0, bases, la, lb, consts, tile), _ = operands
+    (z0, bases, la, lb, geom, cin, consts, tile, kw), _ = operands
     vel_iters, pos_iters = 4, 3 if warm else 0
     sc = tbs.sweep_scratch(la.shape[0], z0.shape[1], "cpu")
     n_sweeps = max(vel_iters, pos_iters) + 1
     for s in range(n_sweeps):
-        tbs.banded_sweep_once(sc, z0, bases, la, lb, consts, sweep=s,
+        tbs.banded_sweep_once(sc, z0, bases, la, lb, geom, cin, sweep=s,
                               tile=tile, vel_on=0 <= s - 1 < vel_iters,
-                              pos_on=0 <= s - 1 < pos_iters, warm=warm)
+                              pos_on=0 <= s - 1 < pos_iters, use_split=warm,
+                              **kw)
     live = consts[tbs._R_RELAX] != 0
     if warm:
         live = live | (consts[tbs._R_LAM0:tbs._R_LAM0 + 3] != 0).any(0)
@@ -201,8 +210,9 @@ def test_live_list_and_one_rank_loop(operands, warm):
     assert n_live == int(live.sum()) and 300 < n_live < la.shape[0]
     assert torch.equal(sc.live[:n_live].long(), torch.nonzero(live)[:, 0])
     z_ref, lam_ref, _ = tbs.banded_sweeps_plain(
-        z0, bases, la, lb, consts, tile=tile, vel_iters=vel_iters,
-        pos_iters=pos_iters, warm_sweep=warm, posq=None, integrate=None)
+        z0, bases, la, lb, geom, cin, tile=tile, vel_iters=vel_iters,
+        pos_iters=pos_iters, use_split=warm, posq=None, integrate=None,
+        **kw)
     _rows_close("z", tbs.sweep_result(sc, n_sweeps - 1).numpy(),
                 z_ref.numpy(), RTOL)
     _rows_close("lam", sc.lam.numpy(), lam_ref.numpy(), RTOL)
