@@ -2,7 +2,8 @@
 box pile (on the contact-table path and on the two-kernel path), the
 1,024-hull rain and 4,096 packed environments of 8 boxes stepping through
 the port's hand-written kernels, on one process and row-sharded over 4
-ranks.
+ranks; the reference engine's jointed demo scene and 4,096 packed
+jointed pendulums through the joint CG kernel.
 
     python3 chip_smoke.py            # needs CUDA; exits non-zero without
     python3 chip_smoke.py --solve-levers   # + the solves' design levers
@@ -110,7 +111,29 @@ Phases (any failure raises, so the run exits non-zero):
               sweep; with
               --solve-levers, each 2.3 and 2.5 call's device µs under
               each variant of LEVERS (banded_solve.cu rebuilt from a
-              patched copy), in turns: design, the variants, design.
+              patched copy), in turns: design, the variants, design;
+              the joint CG's device µs a launch at both sizes of phase
+              14, and the jointed envs' profiles, eager and replayed;
+ 14. joints   (run before phase 13's profiles) demo_scene() under
+              compat_config(dt=1/60): the joint CG kernel against its
+              plain version on its first step, then 300 eager steps
+              against the port's copy of the NumPy oracle (largest
+              position error < 1e-3, final quaternion error < 1e-2) and
+              replayed steps against eager ones; 4,096 packed pendulums
+              (tests/test_pack_envs.py's two-body env, 8,192 bodies,
+              8,192 joint slots, 24,576 CG rows) under SimConfig(dt=
+              1/120): the CG kernel against its plain version after the
+              settling steps (iterations and stop equal, λ within
+              CG_RTOL), 240 fresh eager steps (one CG launch each, CG
+              iterations a step and the stop, finite state), replayed
+              steps against eager ones and phase 12's timing and
+              rollout for this path; phase 10's octahedra under the
+              motion guard through the device stepper: GUARDED replays
+              against eager steps; then 6 steps of 24 octahedra (vel_factor
+              8) whose replays run under
+              torch.cuda.set_sync_debug_mode("error") (no host read),
+              with the eager drive's launch counts (the guard's rebuilds)
+              and final poses (GUARD_POSE_ATOL).
 The line before the last is a JSON object of per-kernel results (each
 kernel's least possible time on the card, `bound_ms`, is computed from
 this run's inputs); the last line is {"ok": true, "device": {...}}.
@@ -131,13 +154,21 @@ import numpy as np
 import torch
 
 from physics_tpu_torch import _build, scenes
+from physics_tpu_torch.config import SimConfig, compat_config
 from physics_tpu_torch.engine import (
     DeviceStepper,
+    joint_system,
     prepare_contacts,
     rollout,
     step_with_metrics,
 )
+from physics_tpu_torch.envs import offset_envs, pack_envs
+from physics_tpu_torch.io.meshes import box_inertia
 from physics_tpu_torch.io.primitives import octahedron_verts, prism_verts
+from physics_tpu_torch.ops.forces import apply_gravity
+from physics_tpu_torch.oracle import reference as oracle
+from physics_tpu_torch.scene import SceneBuilder, demo_scene
+from physics_tpu_torch.solver import cg
 from physics_tpu_torch.ops import hull_table as ht
 from physics_tpu_torch.ops.broadphase import (
     PairCandidates,
@@ -192,6 +223,7 @@ from physics_tpu_torch.solver.banded_solve import (
     table_solve_operands,
 )
 from physics_tpu_torch.solver.contacts import (
+    GUARDED,
     _rebuild,
     _rebuild_now,
     _sharded_capacity,
@@ -212,9 +244,22 @@ EXACT_ROWS = [CT_ACT, CT_KL, CT_KH, CT_KSGN, CT_RA, CT_RB1, CT_KS, CT_MU,
 # across contacts: bit for bit on the touched slots. The solves sum impulse
 # deltas with atomics in a run-dependent order: 1e-4 of each output row's
 # largest magnitude, and 1e-4 absolute for one whole step's state.
+# The joint CG (csrc/joint_cg.cu) sums its dot products in the plain
+# version's fixed order and each pendulum body takes at most two joints'
+# atomic adds (one sum in either order): iterations and stop equal, λ
+# within CG_RTOL of its largest magnitude. A guarded rain's horizon
+# amplifies the solves' run-to-run atomic differences (8 steps of phase
+# 10's squeezed octahedra: replayed and eager ends 1.4e-3 to 3.0e-2 apart,
+# though each replayed step is within 3.6e-7 of its eager step): the
+# horizon runs on a milder rain (24 octahedra, 6 steps: ends within 1e-3
+# in the GPU tests), its decisions compared exactly (the launch counts),
+# its final poses to GUARD_POSE_ATOL, each single step to STEP_ATOL.
 TABLE_TOL = 1e-5
 SOLVE_RTOL = 1e-4
 STEP_ATOL = 1e-4
+CG_RTOL = 1e-5
+GUARD_POSE_ATOL = 5e-2
+N_PEND = 4096
 N_PILE = 4096
 N_RAIN = 1024
 N_ENVS, ENV_K = 4096, 8
@@ -238,6 +283,7 @@ OPS_INTEGRATE = 60           # one body's pos/quat integration
 R_RELAX, R_LAM0 = 21, 42     # solve constant rows (csrc/banded_solve.cu R_*)
 OPS_WINDOW_AABB = 30         # a window rank's |R|·half-extent AABB
 OPS_RAW_PAIR = 12            # one raw pair's overlap, liveness and env tests
+OPS_CG_SLOT = 200            # one two-body joint slot in one CG iteration
 # device-kernel names of csrc/*.cu (2.1's is sweep_kernel<true|false>,
 # 2.2's box_table_*, 2.4's hull_*; their shared warm match is
 # warm_match_kernel<box_table_warm> or <hull_table_warm>)
@@ -245,7 +291,7 @@ PORT_KERNELS = ("sweep_kernel", "box_table_", "hull_prefilter_kernel",
                 "hull_sat_kernel", "hull_manifold_kernel", "hull_ground_kernel",
                 "hull_scan_kernel", "hull_rows_kernel", "warm_match_kernel",
                 "solve_kernel", "sharded_sweep_kernel",
-                "ground_corners_kernel", "pair_contacts_kernel")
+                "ground_corners_kernel", "pair_contacts_kernel", "cg_kernel")
 BOX_TABLE = ("box_table_",)
 KERNEL_NAME = r"\w+_kernel"      # a kernel's name in a profiler key
 PORT_GROUPS = {"2.2 contact table": BOX_TABLE,
@@ -702,7 +748,8 @@ COUNTED = {"sweep_window_masks": bucketed_candidates,
            # 2.6 runs in the sweep 0 of 2.5 and 2.7: a launch a solve
            "prep_consts": folded_prep_consts,
            "banded_sweeps": banded_sweeps,
-           "banded_sweep_once": banded_sweep_once}
+           "banded_sweep_once": banded_sweep_once,
+           "joint_cg": cg.solve}
 
 
 def zero_counts() -> None:
@@ -1578,6 +1625,9 @@ def replay_close(got, ref, what) -> None:
     if got.contact_lam.numel():
         row_check(f"{what} lam", got.contact_lam, ref.contact_lam,
                   SOLVE_RTOL)
+    if got.lam_joint.numel():
+        row_check(f"{what} joint lam", got.lam_joint[None],
+                  ref.lam_joint[None], SOLVE_RTOL)
 
 
 def replay_agreement(label, st, cfg) -> dict:
@@ -1596,8 +1646,8 @@ def replay_agreement(label, st, cfg) -> dict:
         stepper.step()
         replay_close(stepper.state, ref,
                      f"{label} replayed step {ref.step_count_host - 1}")
-        checked[{None: "step", True: "rebuild", False: "refresh"}[
-            branch]] += 1
+        checked[{None: "step", True: "rebuild", False: "refresh",
+                 GUARDED: "guarded"}[branch]] += 1
     if len(checked) != len(stepper.captured):
         raise AssertionError(f"{label}: replayed {dict(checked)} of "
                              f"{stepper.captured}")
@@ -1652,6 +1702,242 @@ def time_rollout(label, make, cfg, steps, want, gpu):
         f"(warm-up steps and captures included); launches through it "
         f"{launches}, as the eager drive's; {gpu}")
     return ms, launches, replayer
+
+
+# ---------------------------------------------------------------------------
+# phase 14: joints and compat (the demo scene, packed pendulums), and the
+# hull motion guard decided on the device
+# ---------------------------------------------------------------------------
+
+def packed_pendulums(n_envs, dev, seed=2):
+    """n_envs two-body pendulums (tests/test_pack_envs.py's: body 0 at
+    (1, 0, 0) pinned to the origin, body 1 at (1, 2, 0) on a ball joint
+    to it), each moved by uniform(-0.1, 0.1) from numpy's
+    default_rng(seed), its pin with it, packed into one scene."""
+    b = SceneBuilder()
+    i0 = b.add_body(pos=(1.0, 0.0, 0.0), inertia=box_inertia((0.5,) * 3, 1.0))
+    b.fix_to_point(i0, (0.0, 0.0, 0.0))
+    i1 = b.add_body(pos=(1.0, 2.0, 0.0), inertia=box_inertia((0.3,) * 3, 1.0))
+    b.ball_joint(i0, i1, anchor_a=(0, 1, 0), anchor_b=(0, -1, 0))
+    off = torch.from_numpy(np.random.default_rng(seed).uniform(
+        -0.1, 0.1, (n_envs, 1, 3)).astype(np.float32)).to(dev)
+    batched = offset_envs(b.build(device=dev), off)
+    params = batched.joints.params.clone()
+    params[:, 0, 0:3] += off[:, 0, :]
+    return pack_envs(batched.replace(
+        joints=batched.joints.replace(params=params)))
+
+
+def check_joint_cg(label, st, cfg):
+    """The CG kernel against its plain version on the card, from the same
+    system (the one st's next step solves): iterations and stop equal, λ
+    within CG_RTOL of its largest magnitude; CUDA-event ms of both, the
+    bound from this call's bytes and iterations. Returns a dict and the
+    kernel's call (for its device µs, after the timed windows)."""
+    rows, w, rhs = joint_system(apply_gravity(st, cfg), cfg)
+    lam0 = st.lam_joint
+    kw = dict(max_iters=cfg.cg_max_iters, rel_tol=cfg.cg_rel_tol,
+              abs_tol=cfg.cg_abs_tol)
+
+    def run(plain=False):
+        return cg.solve(rows, w, rhs, lam0, plain=plain, **kw)
+    xk, ck, ik = run()
+    xp, cp, ip = run(plain=True)
+    torch.cuda.synchronize()
+    iters = int(ip)
+    if int(ik) != iters or bool(ck) != bool(cp):
+        raise AssertionError(f"joint CG {label}: kernel {int(ik)} iterations"
+                             f" (stop {bool(ck)}), plain {iters} "
+                             f"({bool(cp)})")
+    err = float((xk - xp).abs().max())
+    scale = max(float(xp.abs().max()), 1e-3)
+    if not err <= CG_RTOL * scale:
+        raise AssertionError(f"joint CG {label}: |Δλ| {err} > "
+                             f"{CG_RTOL * scale}")
+    kms = median_ms(run, 20)
+    pms = median_ms(lambda: run(plain=True), 5)
+    nj = rows.j_a.shape[0]
+    live = int(rows.rowmask[:, 0].sum())
+    # rows, W, rhs and the warm start read once, three int32 a slot (the
+    # body ids and flags), λ and the status written once
+    nb = nbytes(rows.j_a, rows.j_b, w, rhs, lam0, xk) + 12 * nj + 8
+    bnd = bound(nb, (iters + 1) * live * OPS_CG_SLOT)
+    plan = cg.plan(nj, st.device)
+    log(f"joint CG ({label}): {nj} slots ({live} live), {iters} iterations,"
+        f" converged {bool(ck)}; kernel matches plain (iterations and stop "
+        f"equal, |Δλ| {err:.3g}, bitwise {torch.equal(xk, xp)}); "
+        f"{kms:.4f} ms kernel / {pms:.4f} ms plain (CUDA events), bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]}); launch {plan}")
+    return {"max_abs_err": err, "ms": kms, "plain_ms": pms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "iters": iters,
+            "slots": nj, "launch": plan}, run
+
+
+def drive_joints(label, make, cfg, steps, gpu):
+    """`steps` fresh eager steps with the launch counters set to 0 just
+    before and read just after (the CG's: one a step, the others none):
+    finite state, CG iterations a step and the stop over the run, ms/step
+    over steps 40..steps. Returns (launches, the last state, stats)."""
+    zero_counts()
+    st = make()
+    window0 = min(40, steps // 2)
+    its, stops = [], []
+    torch.cuda.synchronize()
+    for i in range(steps):
+        if i == window0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        st, m = step_with_metrics(st, cfg)
+        its.append(m["cg_iters"])
+        stops.append(m["cg_converged"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    want = {name: steps if name == "joint_cg" else 0 for name in launches}
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+    for name in ("pos", "quat", "vel", "omega", "lam_joint"):
+        if not bool(torch.isfinite(getattr(st, name)).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    its = sorted(torch.stack(its).tolist())
+    stats = {"iters_min": its[0], "iters_median": its[len(its) // 2],
+             "iters_max": its[-1],
+             "converged_steps": int(torch.stack(stops).sum())}
+    timed = steps - window0
+    log(f"{label}: {1e3 * secs / timed:.4f} ms/step eager, "
+        f"{st.num_bodies * timed / secs:.1f} body-steps/s over steps "
+        f"{window0}..{steps}; CG iterations a step {stats} of {steps}; "
+        f"launches {launches}; {gpu}")
+    return launches, st, stats
+
+
+def demo_phase(dev, gpu):
+    """The reference's demo scene under compat_config(dt=1/60): the CG
+    kernel on its first step, one step against the oracle copy, then 300
+    steps (eager) with the largest position and final quaternion error
+    against it, and replayed steps against eager ones."""
+    dcfg = compat_config(dt=1.0 / 60.0)
+    demo = demo_scene(device=dev)
+    cg_demo, demo_call = check_joint_cg("demo, first step", demo, dcfg)
+    zero_counts()
+    ora = oracle.demo_scene()
+    st, pos_err, step1 = demo, 0.0, None
+    t0 = time.perf_counter()
+    for i in range(300):
+        st, m = step_with_metrics(st, dcfg)
+        ora.update(1.0 / 60.0)
+        pos_err = max(pos_err, float((st.pos[0].cpu() - torch.from_numpy(
+            ora.bodies[0].position)).abs().max()))
+        if i == 0:
+            step1 = (pos_err, float((st.quat[0].cpu() - torch.from_numpy(
+                ora.bodies[0].rotation)).abs().max()))
+    ms = 1e3 * (time.perf_counter() - t0) / 300
+    launches = read_counts()
+    quat_err = float((st.quat[0].cpu() - torch.from_numpy(
+        ora.bodies[0].rotation)).abs().max())
+    log(f"demo (compat, dt 1/60): one step against the oracle: pos "
+        f"{step1[0]:.3g}, quat {step1[1]:.3g}; 300 steps: max pos error "
+        f"{pos_err:.3g}, final quat error {quat_err:.3g} (bounds 1e-3, "
+        f"1e-2); x {float(st.pos[0, 0]):.4f} at 5 s; {ms:.4f} ms/step eager"
+        f" with a read a step; launches {launches}; {gpu}")
+    if launches["joint_cg"] != 300:
+        raise AssertionError(f"demo: {launches['joint_cg']} CG launches")
+    if not (pos_err < 1e-3 and quat_err < 1e-2):
+        raise AssertionError("demo: off the oracle's trajectory")
+    checked = replay_agreement("demo", st, dcfg)
+    log(f"rollout demo: replayed steps match eager steps (atol {STEP_ATOL}"
+        f"): {checked}")
+    return launches, cg_demo, demo_call, {
+        "pos_err_1": step1[0], "quat_err_1": step1[1],
+        "max_pos_err_300": pos_err, "quat_err_300": quat_err}
+
+
+def guard_phase(dev, gpu, steps=6):
+    """The hull motion guard decided on the device, through rollout's
+    stepper. Phase 10's octahedra under rain_config's guard (vel_factor
+    2; the guard fires on every step there): each replayed GUARDED step
+    against an eager step from a copy of the same state. Then 24
+    octahedra pressed less (vel_factor 8: steps 1-2 refresh, the guard
+    rebuilds at step 3), from one start an eager drive, a second eager
+    drive and the stepper, whose replays run under
+    torch.cuda.set_sync_debug_mode("error"): launch counts (the guard's
+    rebuilds: hull table launches, the stepper's settled after the
+    horizon) equal to the eager drive's, the final poses within
+    GUARD_POSE_ATOL of it (the second eager drive's distance printed
+    beside)."""
+    st0, _ = squeezed_rain(octahedron_verts(), 128, dev)
+    gcfg = scenes.rain_config(128).replace(contact_rebuild_vel_factor=2.0)
+    stepper = DeviceStepper(st0, gcfg)
+    seen = collections.Counter()
+    step_err = 0.0
+    for _ in range(12):
+        branch = rebuild_branch(stepper.state, gcfg)
+        if branch != GUARDED or branch not in stepper.captured:
+            stepper.step()
+            continue
+        h0 = ht.bucket_hull_contact_table.launches
+        ref, _ = step_with_metrics(clone_state(stepper.state), gcfg)
+        fired = ht.bucket_hull_contact_table.launches - h0
+        stepper.step()
+        replay_close(stepper.state, ref,
+                     f"guarded replay step {ref.step_count_host - 1}")
+        step_err = max(step_err, *(float((getattr(stepper.state, f)
+                                          - getattr(ref, f)).abs().max())
+                                   for f in ("pos", "quat", "vel", "omega")))
+        seen["rebuild" if fired else "refresh"] += 1
+    stepper.settle()
+    log(f"guarded rain: replayed GUARDED steps match eager steps (atol "
+        f"{STEP_ATOL}; largest |Δ| {step_err:.3g}): {dict(seen)}")
+    arrays = to_numpy(scenes.hull_rain(octahedron_verts(), 24,
+                                       device="cpu"))
+    arrays["pos"] *= np.float32([0.7, 0.6, 0.7])
+    arrays["pos"][:, 1] += 0.3
+    hcfg = scenes.rain_config(24).replace(contact_rebuild_vel_factor=8.0)
+    st1 = prepare_contacts(state_from_arrays(arrays, dev), hcfg)
+    zero_counts()
+    eager = again = st1
+    for _ in range(steps):
+        eager, _ = step_with_metrics(eager, hcfg)
+    want = read_counts()
+    for _ in range(steps):
+        again, _ = step_with_metrics(again, hcfg)
+    zero_counts()
+    stepper = DeviceStepper(st1, hcfg)
+    warm = 0
+    while stepper.captured != {True, GUARDED}:
+        stepper.step()
+        warm += 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(steps - warm):
+            stepper.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    stepper.settle()
+    got = read_counts()
+    if got != want:
+        raise AssertionError(f"guarded rain: launches {got} != eager {want}")
+    scheduled = -(-steps // 4)
+    diffs = {}
+    for name in ("pos", "quat", "vel", "omega"):
+        field = getattr(stepper.state, name)
+        d = float((field - getattr(eager, name)).abs().max())
+        diffs[name] = (d, float((getattr(again, name)
+                                 - getattr(eager, name)).abs().max()))
+        if not bool(torch.isfinite(field).all()) or (
+                name in ("pos", "quat") and not d <= GUARD_POSE_ATOL):
+            raise AssertionError(f"guarded rain: {name} |Δ| {d}")
+    guard = want["bucket_hull_contact_table"] - scheduled
+    log(f"guarded rain (24 octahedra, vel_factor 8): {steps} steps ({warm} "
+        f"warm-up, {steps - warm} replayed under sync debug mode 'error': "
+        f"no host read); {want['bucket_hull_contact_table']} rebuilds "
+        f"({guard} by the guard) in the eager drive and the replays alike; "
+        f"final state |Δ| against the eager drive, and two eager drives' "
+        f"spread: {diffs}; launches {got}; {gpu}")
+    if guard < 1 or not seen:
+        raise AssertionError("guarded rain: the guard never fired")
+    return got
 
 
 def main() -> int:
@@ -1876,13 +2162,39 @@ def main() -> int:
         rollout_ms[name], rollout_launches[name], replayers[name] = \
             time_rollout(name, make, c, args.steps, want[name], gpu)
 
+    # ---- phase 14: joints and compat; the guard decided on the device
+    # (before phase 13's profiles, after every other timed window) ----
+    demo_launches, cg_demo, demo_call, demo_err = demo_phase(dev, gpu)
+    jcfg = SimConfig(dt=1.0 / 120.0)
+
+    def pendulums():
+        return packed_pendulums(N_PEND, dev)
+
+    st = pendulums()
+    for _ in range(args.settle):
+        st, m = step_with_metrics(st, jcfg)
+    cg_envs, envs_call = check_joint_cg(
+        f"{N_PEND} packed pendulums after {args.settle} steps", st, jcfg)
+    jointed_launches, jointed_st, cg_stats = drive_joints(
+        "jointed envs", pendulums, jcfg, args.steps, gpu)
+    checked = replay_agreement("jointed envs", jointed_st, jcfg)
+    log(f"rollout jointed envs: replayed steps match eager steps from the "
+        f"same states (atol {STEP_ATOL}, λ rtol {SOLVE_RTOL}): {checked}")
+    want["jointed_envs"] = {"joint_cg": args.steps}
+    rollout_ms["jointed_envs"], rollout_launches["jointed_envs"], \
+        replayers["jointed_envs"] = time_rollout(
+            "jointed_envs", pendulums, jcfg, args.steps,
+            want["jointed_envs"], gpu)
+    guard_launches = guard_phase(dev, gpu)
+
     # ---- phase 13: profiles, after every timed window: a finished
     # profiler session can leave the launch path slower ----
     for label, st, c, name in (
             ("pile", pile_st, cfg, "pile"),
             ("rain", rain_st, rcfg, "rain"),
             ("two-kernel pile", np_st, ncfg, "two_kernel_pile"),
-            ("packed envs", packed_st, pcfg, "packed_envs")):
+            ("packed envs", packed_st, pcfg, "packed_envs"),
+            ("jointed envs", jointed_st, jcfg, "jointed_envs")):
         log(f"{label} ({gpu}):")
         profile_steps(EagerStepper(st, c), 8)
         log(f"{label}, replayed from CUDA graphs ({gpu}):")
@@ -1921,6 +2233,14 @@ def main() -> int:
                 f"us of device a call ({parts}; {gpu})")
     if args.solve_levers:
         solve_levers(solves, gpu)
+    cg_us = {}
+    for label, call, info in (("demo", demo_call, cg_demo),
+                              ("jointed_envs", envs_call, cg_envs)):
+        cg_us[label] = kernel_device_us(call, ("cg_kernel",))
+        log(f"joint_cg ({label}): {cg_us[label]:.1f} us of device a launch "
+            f"({info['iters']} iterations), {info['ms']:.4f} ms by CUDA "
+            f"events, bound {info['bound_ms']:.5f} ms ({info['bound_by']}); "
+            f"{gpu}")
 
     sources = {
         "sweep_window_masks": ("cuda", "physics_tpu_torch/csrc/sweep.cu",
@@ -1940,13 +2260,22 @@ def main() -> int:
                                   "physics_tpu/ops/narrowphase_pallas.py:232"),
         "banded_sweep_once": ("cuda", "physics_tpu_torch/csrc/banded_solve.cu",
                               "physics_tpu/solver/contacts_pallas.py:1001"),
+        "joint_cg": ("cuda", "physics_tpu_torch/csrc/joint_cg.cu",
+                     "physics_tpu/solver/cg.py:79 (lax.while_loop; no "
+                     "Pallas kernel)"),
     }
+    results["joint_cg"] = (
+        max(cg_demo["max_abs_err"], cg_envs["max_abs_err"]), cg_envs["ms"],
+        cg_envs["plain_ms"], (cg_envs["bound_ms"], cg_envs["bound_by"]))
     kernels = []
     for name, (route, src, rep) in sources.items():
         err, kms, pms, (bms, by) = results[name]
         by_path = {"pile": pile_launches[name], "rain": rain_launches[name],
                    "two_kernel_pile": np_launches[name],
                    "packed_envs": packed_launches[name],
+                   "demo": demo_launches[name],
+                   "jointed_envs": jointed_launches[name],
+                   "guarded_rain_rollout": guard_launches[name],
                    **{path: counts[name]
                       for path, counts in sharded_launches.items()},
                    **{f"rollout_{path}": counts[name]
@@ -1969,6 +2298,12 @@ def main() -> int:
                                           "banded_sweep_once"]
         if name in solve_us:
             kernels[-1]["device_us"] = solve_us[name]
+        if name == "joint_cg":
+            # ms, plain_ms, bound: the packed pendulums' call; each size's
+            # own in `sizes`
+            kernels[-1].update(device_us=cg_us, sizes={
+                "demo": cg_demo, "jointed_envs": cg_envs},
+                iters_a_step=cg_stats, demo_trajectory=demo_err)
     log(f"rollout ms/step (host clock, steps 40..{args.steps}; {gpu}): "
         f"{json.dumps(rollout_ms)}")
     log(f"rain solve: {json.dumps(rain_solve)}")

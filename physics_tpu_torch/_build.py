@@ -120,6 +120,23 @@ SIGNATURES = {
         _I, _I, _I, _I,            # n, window, block, cap
         _P,                        # stream
     ],
+    "jcg_solve": [
+        _P, _P, _P, _P, _P,        # j_a, j_b, body a, body b, slot flags
+        _P, _P, _P,                # W blocks, rhs, warm start
+        _P, _P,                    # x out, status out (iterations, stop)
+        _P, _P, _I,                # body tables, partials and their floats
+        _I, _I, _I,                # slots, bodies, max iterations
+        _F, _F,                    # rel_tol, abs_tol
+        _P,                        # stream
+    ],
+    # the CG's launch: slots a thread, blocks, blocks an SM, registers
+    "jcg_plan": [_I, _P],
+    # one graph of a predicate's graph and two sides behind conditional
+    # nodes (csrc/graph_cond.cu): the three raw graphs, the int32 flag,
+    # [2] out (instance, graph)
+    "gc_compose": [_P, _P, _P, _P, _P],
+    "gc_launch": [_P, _P],             # instance, stream
+    "gc_destroy": [_P, _P],            # instance, graph
     "np_banded_contacts": [
         _P, _P, _P, _P,            # pos, quat, box params, inverse mass
         _P, _P, _P, _P,            # shape type, friction, restitution, rank

@@ -91,3 +91,19 @@ class SimConfig:
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)
+
+
+def compat_config(**overrides) -> SimConfig:
+    """The reference demo's semantics (physics_tpu.config.compat_config):
+    compat mode (quirks Q1–Q7), gravity as an unscaled force at the
+    offset (0, 0, 1.5), no ground plane, no renormalisation."""
+    base = dict(
+        compat=True,
+        gravity=(0.0, -9.81, 0.0),
+        gravity_offset=(0.0, 0.0, 1.5),
+        gravity_scale_by_mass=False,
+        renormalize_quat=False,
+        ground_plane=False,
+    )
+    base.update(overrides)
+    return SimConfig(**base)

@@ -1,6 +1,13 @@
 """Semi-implicit Euler, split into a velocity and a position phase
-(physics_tpu/ops/integrator.py, non-compat branch): world-frame inverse
-inertia, exponential-map rotation, optional quaternion renormalization."""
+(physics_tpu/ops/integrator.py).
+
+compat reproduces the reference engine's integrator with its quirks:
+v += (F / m)·dt; ω += I⁻¹(τ·dt) with the body-frame inertia inverted
+every step by the adjugate (Q4); the rotation step exp(ω̂·sin(|ω|dt/2))
+(Q2), applied only where ω is not exactly zero (Q6); no
+renormalisation. Otherwise: the stored inv_mass, the world-frame inverse
+inertia R·I⁻¹·Rᵀ, the exponential map exp(ω·dt), optional gyroscopic
+term, velocity clamp and quaternion renormalisation."""
 
 from __future__ import annotations
 
@@ -8,13 +15,8 @@ import torch
 
 from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import quaternion as quat
+from physics_tpu_torch.maths.linalg import inv3x3
 from physics_tpu_torch.state import SimState
-
-
-def _no_compat(cfg: SimConfig):
-    if cfg.compat:
-        raise NotImplementedError(
-            "compat integration (quirks Q2/Q4/Q6) is ROADMAP item 1.11")
 
 
 def _mv(m, v):
@@ -26,8 +28,12 @@ def _mtv(m, v):
 
 
 def integrate_velocities(state: SimState, cfg: SimConfig) -> SimState:
-    _no_compat(cfg)
     dt = cfg.dt
+    if cfg.compat:
+        # (F / m)·dt in this order (the reference's rounding)
+        vel = state.vel + state.force / state.mass[:, None] * dt
+        omega = state.omega + _mv(inv3x3(state.inertia), state.torque * dt)
+        return state.replace(vel=vel, omega=omega)
     vel = state.vel + state.force * (state.inv_mass[:, None] * dt)
     rot = quat.to_matrix(state.quat)
     torque = state.torque
@@ -43,12 +49,21 @@ def integrate_velocities(state: SimState, cfg: SimConfig) -> SimState:
 
 
 def integrate_positions(state: SimState, cfg: SimConfig) -> SimState:
-    _no_compat(cfg)
     dt = cfg.dt
     pos = state.pos + state.vel * dt
-    q = quat.mul(quat.exp_map(state.omega * dt), state.quat)
-    if cfg.renormalize_quat:
-        q = quat.normalize(q)
+    if cfg.compat:
+        nonzero = torch.any(state.omega != 0.0, dim=-1)
+        norm = torch.sqrt(torch.sum(state.omega * state.omega, dim=-1))
+        safe_norm = torch.where(nonzero, norm, torch.ones_like(norm))
+        axis = state.omega / safe_norm[:, None]
+        theta = norm * dt
+        rotvec = axis * torch.sin(theta * 0.5)[:, None]
+        q_new = quat.mul(quat.exp_map(rotvec), state.quat)
+        q = torch.where(nonzero[:, None], q_new, state.quat)
+    else:
+        q = quat.mul(quat.exp_map(state.omega * dt), state.quat)
+        if cfg.renormalize_quat:
+            q = quat.normalize(q)
     return state.replace(
         pos=pos,
         quat=q,

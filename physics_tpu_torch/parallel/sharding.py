@@ -17,7 +17,9 @@ The collectives (parallel/collectives.py) take the caller's process
 group: NCCL with a card for each rank, or gloo, which also runs several
 ranks on one card. `launch` spawns the ranks of one host. The JAX
 package's env-sharded and hybrid steps need batched environments, which
-are not ported (ROADMAP item 14).
+are not ported (ROADMAP item 1.14, then 1.15); a jointed state is
+refused under a shard, because the joints' row-sharded CG is not ported
+either (ROADMAP item 1.15; engine.step_with_metrics raises).
 """
 
 from __future__ import annotations

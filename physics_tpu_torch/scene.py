@@ -1,8 +1,10 @@
-"""Host-side scene construction (the SceneBuilder subset the box and hull
-scenes use: bodies, boxes and convex hulls; no joints or spheres).
+"""Host-side scene construction (physics_tpu/scene.py): the SceneBuilder
+with bodies, boxes, convex hulls and the four joint types (no spheres),
+and the reference engine's own scene, `demo_scene`.
 
-Bodies accumulate in numpy lists; `build` assembles the state arrays and
-sends them to the device in one copy (state.state_from_arrays).
+Bodies and joints accumulate in numpy lists; `build` assembles the state
+arrays and sends them to the device in one copy
+(state.state_from_arrays).
 """
 
 from __future__ import annotations
@@ -12,8 +14,18 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from physics_tpu_torch.state import SHAPE_BOX, SHAPE_HULL, SHAPE_NONE, SimState
-from physics_tpu_torch.state import make_arrays, state_from_arrays
+from physics_tpu_torch.state import (
+    JOINT_BALL,
+    JOINT_DISTANCE,
+    JOINT_FIX_ORIENTATION,
+    JOINT_FIX_POINT,
+    SHAPE_BOX,
+    SHAPE_HULL,
+    SHAPE_NONE,
+    SimState,
+    make_arrays,
+    state_from_arrays,
+)
 
 
 def _from_euler_np(roll, pitch, yaw) -> np.ndarray:
@@ -35,8 +47,8 @@ def _from_euler_np(roll, pitch, yaw) -> np.ndarray:
 
 
 class SceneBuilder:
-    """Accumulates bodies, box shapes and convex hulls on the host, then
-    `build()`s a SimState on a device."""
+    """Accumulates bodies, box shapes, convex hulls and joints on the
+    host, then `build()`s a SimState on a device."""
 
     def __init__(self):
         self._pos, self._quat, self._vel, self._omega = [], [], [], []
@@ -44,6 +56,7 @@ class SceneBuilder:
         self._stype, self._sparams, self._hull_index = [], [], []
         self._friction, self._restitution = [], []
         self._hulls: list = []   # (verts [V,3], normals [F,3], offsets [F], polys)
+        self._joints: list = []  # (type, a, b, params [8], ks, kd)
 
     def add_body(self, pos=(0.0, 0.0, 0.0), quat=None, euler=None,
                  vel=(0.0, 0.0, 0.0), omega=(0.0, 0.0, 0.0),
@@ -104,12 +117,65 @@ class SceneBuilder:
         self._friction[body] = friction
         self._restitution[body] = restitution
 
-    def build(self, device: torch.device | str = "cuda") -> SimState:
+    def fix_to_point(self, body: int, target, ks=10.0, kd=1.0):
+        """Pin a body's centre to a world point (the reference's
+        FixToPointConstraint)."""
+        p = np.zeros(8, np.float32)
+        p[0:3] = target
+        self._joints.append((JOINT_FIX_POINT, body, -1, p, ks, kd))
+
+    def fix_orientation(self, body: int, euler_target, ks=10.0, kd=1.0):
+        """Hold a body's euler angles (the reference's
+        FixedOrientationConstraint)."""
+        p = np.zeros(8, np.float32)
+        p[0:3] = euler_target
+        self._joints.append((JOINT_FIX_ORIENTATION, body, -1, p, ks, kd))
+
+    def ball_joint(self, body_a: int, body_b: int, anchor_a, anchor_b,
+                   ks=10.0, kd=1.0):
+        """Join two body-frame anchors at one point."""
+        p = np.zeros(8, np.float32)
+        p[0:3] = anchor_a
+        p[3:6] = anchor_b
+        self._joints.append((JOINT_BALL, body_a, body_b, p, ks, kd))
+
+    def distance_joint(self, body_a: int, body_b: int, anchor_a, anchor_b,
+                       length: float, ks=10.0, kd=1.0):
+        """Hold two body-frame anchors `length` apart (one row)."""
+        p = np.zeros(8, np.float32)
+        p[0:3] = anchor_a
+        p[3:6] = anchor_b
+        p[6] = length
+        self._joints.append((JOINT_DISTANCE, body_a, body_b, p, ks, kd))
+
+    def _joint_arrays(self, cap: int) -> Dict[str, np.ndarray]:
+        """The Joints fields of `cap` slots: the joints in the order they
+        were added, then dead slots (type NONE, body_b −1)."""
+        jt = np.zeros(cap, np.int32)
+        ja = np.zeros(cap, np.int32)
+        jb = np.full(cap, -1, np.int32)
+        jp = np.zeros((cap, 8), np.float32)
+        jks = np.zeros(cap, np.float32)
+        jkd = np.zeros(cap, np.float32)
+        for i, (t, a, b, p, ks, kd) in enumerate(self._joints):
+            jt[i], ja[i], jb[i] = t, a, b
+            jp[i] = p
+            jks[i], jkd[i] = ks, kd
+        return {"jtype": jt, "body_a": ja, "body_b": jb, "params": jp,
+                "ks": jks, "kd": jkd}
+
+    def build(self, device: torch.device | str = "cuda",
+              joint_capacity: int | None = None) -> SimState:
         """The SimState on `device` (the card unless the caller asks for
-        the CPU; state.resolve_device)."""
+        the CPU; state.resolve_device), with `joint_capacity` joint slots
+        (None: one a joint)."""
         n = len(self._pos)
         if n == 0:
             raise ValueError("scene has no bodies")
+        jn = len(self._joints)
+        cap = joint_capacity if joint_capacity is not None else jn
+        if cap < jn:
+            raise ValueError(f"joint_capacity {cap} < {jn} joints")
         stypes = np.asarray(self._stype, np.int32)
         if self._hulls and np.any(stypes == SHAPE_BOX):
             raise NotImplementedError(
@@ -126,7 +192,8 @@ class SceneBuilder:
             np.stack(self._pos), np.stack(self._quat), np.stack(self._vel),
             np.stack(self._omega), np.asarray(self._mass),
             np.stack(self._inertia), shapes,
-            _pack_hulls(self._hulls) if self._hulls else None)
+            _pack_hulls(self._hulls) if self._hulls else None,
+            self._joint_arrays(cap) if cap else None)
         return state_from_arrays(arrays, device)
 
 
@@ -203,3 +270,15 @@ def _pack_hulls(hulls: Sequence) -> Dict[str, np.ndarray]:
         "edge_dir_count": edcount, "edge_i0": ei0, "edge_i1": ei1,
         "edge_count": ecount,
     }
+
+
+def demo_scene(device: torch.device | str = "cuda") -> SimState:
+    """The reference engine's built-in scene: one cube at (1, 0, 0) with
+    orientation euler(1, 0, 0), pinned to the origin (FixToPoint) and held
+    at euler (0, 0, 0) (FixedOrientation), Baumgarte ks 10, kd 1. Step it
+    under config.compat_config()."""
+    b = SceneBuilder()
+    i = b.add_body(pos=(1.0, 0.0, 0.0), euler=(1.0, 0.0, 0.0))
+    b.fix_to_point(i, (0.0, 0.0, 0.0))
+    b.fix_orientation(i, (0.0, 0.0, 0.0))
+    return b.build(device=device)

@@ -27,7 +27,10 @@ build recompute their contacts (the table kernel's gate mode), the rest
 pass their persisted block through. The branch depends only on the step
 count, so the host picks it from its mirror of step_count — no device
 sync — except on a hull table path with vel_factor > 0, whose global
-motion guard reads one device scalar a step (see _hull_motion_guard).
+motion guard also rebuilds off the schedule: an eager step reads its
+predicate back; engine.DeviceStepper decides it on the device
+(rebuild_branch's GUARDED: a graph that holds both branches behind
+conditional nodes on the predicate).
 
 With `shard` (parallel.collectives.Shard, the row-sharded step) every rank
 holds the whole state and the contact work is split by rank: on the
@@ -66,12 +69,10 @@ from physics_tpu_torch.ops.contact_table import (
     table_shape,
     unified_geom,
 )
-from physics_tpu_torch.ops.forces import apply_gravity
 from physics_tpu_torch.ops.hull_table import (
     MAX_TABLE_HULL_TYPES,
     bucket_hull_contact_table,
 )
-from physics_tpu_torch.ops.integrator import integrate_velocities
 from physics_tpu_torch.ops.narrowphase import (
     Contacts,
     banded_contacts,
@@ -188,7 +189,9 @@ def contact_capacity(state: SimState, cfg: SimConfig) -> int:
 
 def _check_ported(state: SimState, cfg: SimConfig) -> None:
     if cfg.compat:
-        raise NotImplementedError("compat mode is ROADMAP item 1.11")
+        raise NotImplementedError(
+            "compat mode together with contacts (the JAX package integrates "
+            "it unfused there) is ROADMAP item 1.11b")
     if not (table_path(state, cfg) or hull_table_path(state, cfg)
             or banded_boxes_path(state, cfg)):
         raise _unported_generic()
@@ -534,13 +537,17 @@ def _gated_refresh(st: SimState, cfg: SimConfig, order: Tensor | None,
 _FORCED_REBUILD: contextvars.ContextVar = contextvars.ContextVar(
     "forced_rebuild", default=None)
 
+# rebuild_branch's off-schedule step of a hull table path with the motion
+# guard: rebuild or refresh as the guard decides on the device
+GUARDED = "guarded"
+
 
 @contextlib.contextmanager
 def forced_rebuild(rebuild: bool | None) -> Iterator[None]:
-    """Within the block an anchored step rebuilds iff `rebuild` (None:
-    as usual). engine.DeviceStepper picks each step's branch on the host
-    (rebuild_branch) and captures that branch's step under it, where the
-    motion guard's device read cannot run."""
+    """Within the block an anchored step rebuilds iff `rebuild` (None: as
+    usual). engine.DeviceStepper captures each branch's step under it,
+    where the motion guard's read cannot run (its GUARDED graph holds
+    both, behind the guard's predicate on the device)."""
     token = _FORCED_REBUILD.set(rebuild)
     try:
         yield
@@ -548,34 +555,47 @@ def forced_rebuild(rebuild: bool | None) -> Iterator[None]:
         _FORCED_REBUILD.reset(token)
 
 
-def rebuild_branch(state: SimState, cfg: SimConfig) -> bool | None:
-    """The branch the next unsharded step of `state` (the step's input)
-    takes, as _resolve_contacts_table picks it: None where every step is
-    alike (no contacts, or no anchored path), else whether it rebuilds.
-    Off the schedule, on a hull table path with vel_factor > 0, the
-    motion guard reads the velocities the step's contacts see: this
-    applies gravity and the velocity integration first and reads the
-    guard's device scalar back (see _rebuild_now)."""
+def rebuild_branch(state: SimState, cfg: SimConfig):
+    """The branch the next unsharded step of `state` takes, from the
+    host's mirror of the step count (nothing read back): None where every
+    step is alike (no contacts, or no anchored path); else True on a
+    scheduled rebuild (step_count_host % K == 0); off the schedule False
+    (refresh), or GUARDED on a hull table path with vel_factor > 0, whose
+    motion guard decides rebuild or refresh from the velocities the
+    step's contacts see (guard_fires)."""
     if not (cfg.ground_plane or cfg.pair_collisions):
         return None
     if not (cfg.contact_rebuild > 1 and anchored_path(state, cfg)):
         return None
-    hulls = hull_table_path(state, cfg)
-    if (state.step_count_host % cfg.contact_rebuild and hulls
-            and cfg.contact_rebuild_vel_factor > 0):
-        state = integrate_velocities(apply_gravity(state, cfg), cfg)
-    return _rebuild_now(state, cfg, hulls)
+    if state.step_count_host % cfg.contact_rebuild == 0:
+        return True
+    if hull_table_path(state, cfg) and cfg.contact_rebuild_vel_factor > 0:
+        return GUARDED
+    return False
+
+
+def guard_fires(state: SimState, cfg: SimConfig) -> Tensor:
+    """The hull table path's global motion guard on `state`'s velocities
+    (the step's, after gravity, the joints and the velocity
+    integration): the fastest body covers more than vel_factor·slop in K
+    steps, max|v|·dt·K > vel_factor·slop in f32. A bool [] on the
+    device."""
+    dev = state.device
+    f32 = torch.float32
+    vmax = torch.amax(torch.abs(state.vel))
+    return vmax * torch.full((), cfg.dt * cfg.contact_rebuild, dtype=f32,
+                             device=dev) > torch.full(
+        (), cfg.contact_rebuild_vel_factor * cfg.penetration_slop,
+        dtype=f32, device=dev)
 
 
 def _rebuild_now(state: SimState, cfg: SimConfig, hulls: bool) -> bool:
-    """Whether an anchored step rebuilds: every contact_rebuild-th step
-    (from the host's mirror of step_count), and on a hull table path with
-    vel_factor > 0 also when the global motion guard fires — the fastest
-    body covers max|v|·dt·K before the next scheduled rebuild, more than
-    vel_factor·slop. The guard is a device value: this reads one scalar
-    back on such a step (no shipped config has it: rain_config zeroes
-    vel_factor). A step run under forced_rebuild takes the forced branch
-    and reads nothing."""
+    """Whether an anchored step (`state` after the velocity integration)
+    rebuilds: every contact_rebuild-th step (from the host's mirror of
+    step_count), and on a hull table path with vel_factor > 0 also when
+    the motion guard fires (guard_fires), read back here: an eager step's
+    one read. A step run under forced_rebuild takes the forced branch and
+    reads nothing."""
     forced = _FORCED_REBUILD.get()
     if forced is not None:
         return forced
@@ -583,13 +603,7 @@ def _rebuild_now(state: SimState, cfg: SimConfig, hulls: bool) -> bool:
         return True
     if not (hulls and cfg.contact_rebuild_vel_factor > 0):
         return False
-    f32, dev = torch.float32, state.device
-    vmax = torch.amax(torch.abs(state.vel))
-    return bool(vmax * torch.tensor(cfg.dt * cfg.contact_rebuild, dtype=f32,
-                                    device=dev)
-                > torch.tensor(cfg.contact_rebuild_vel_factor
-                               * cfg.penetration_slop, dtype=f32,
-                               device=dev))
+    return bool(guard_fires(state, cfg))
 
 
 def _solve_table(state, table, cfg, order, warm, geom, plain, shard=None):

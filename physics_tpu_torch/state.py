@@ -19,7 +19,12 @@ import torch
 
 Tensor = torch.Tensor
 
+# joint types (physics_tpu/state.py): rows a slot holds in brackets
 JOINT_NONE = 0
+JOINT_FIX_POINT = 1        # C = x_a − target                (3)
+JOINT_FIX_ORIENTATION = 2  # C = euler(q_a) − target         (3)
+JOINT_BALL = 3             # C = p_a(anchor) − p_b(anchor)   (3)
+JOINT_DISTANCE = 4         # C = ‖d‖ − L                     (1)
 MAX_JOINT_ROWS = 3
 
 SHAPE_NONE = 0
@@ -34,8 +39,11 @@ def _replace(self, **kw):
 
 @dataclasses.dataclass
 class Joints:
-    """Fixed-capacity joint table ([J] / [J, 8]); the port carries it but
-    steps only scenes without joints."""
+    """Fixed-capacity joint table ([J] / [J, 8]); slot j is live iff
+    jtype[j] != JOINT_NONE. params: FIX_POINT [0:3] the world target;
+    FIX_ORIENTATION [0:3] the target euler angles; BALL and DISTANCE
+    [0:3], [3:6] the anchors in body a's and body b's frames, DISTANCE
+    [6] the rest length. body_b −1 is the world."""
 
     jtype: Tensor
     body_a: Tensor
@@ -166,12 +174,14 @@ def _empty_arrays(n: int) -> Dict[str, np.ndarray]:
 
 def make_arrays(pos, quat, vel, omega, mass, inertia,
                 shapes: Dict[str, np.ndarray],
-                hulls: Dict[str, np.ndarray] | None = None
+                hulls: Dict[str, np.ndarray] | None = None,
+                joints: Dict[str, np.ndarray] | None = None
                 ) -> Dict[str, np.ndarray]:
-    """Assemble the numpy arrays of a joint-free state (the numpy half of
+    """Assemble the numpy arrays of a state (the numpy half of
     physics_tpu.state.make_state: inv_mass and inv_inertia with statics
-    zeroed). `hulls` holds the HullSet fields (scene._pack_hulls); None
-    gives the empty one-entry library."""
+    zeroed, the CG warm start lam_joint zero). `hulls` holds the HullSet
+    fields (scene._pack_hulls), `joints` the Joints fields; None gives the
+    empty one-entry library and the empty joint table."""
     pos = np.asarray(pos, np.float32)
     n = pos.shape[0]
     mass = np.asarray(mass, np.float32)
@@ -200,6 +210,10 @@ def make_arrays(pos, quat, vel, omega, mass, inertia,
     arrays.update({f"shapes.{k}": v for k, v in shapes.items()})
     if hulls is not None:
         arrays.update({f"hulls.{k}": v for k, v in hulls.items()})
+    if joints is not None:
+        arrays.update({f"joints.{k}": v for k, v in joints.items()})
+        arrays["lam_joint"] = np.zeros(
+            (joints["jtype"].shape[0] * MAX_JOINT_ROWS,), np.float32)
     return arrays
 
 

@@ -34,10 +34,17 @@ than its shared memory holds, one sweep, NPAD not a multiple of the
 block; and one 2.3 call captured in a CUDA graph and replayed. The
 device rollout (engine.DeviceStepper, one captured graph a branch of the
 step) on the table pile, the hull rain, the two-kernel pile and the
-packed envs: each replayed step against an eager step from the same
-state, across a rebuild boundary, the launch counts a replay adds equal
-to an eager step's; the hull motion guard's branch read between replays;
-a sampled horizon; and a capture that fails raises.
+packed envs, and on the jointed paths (the reference's demo scene under
+compat_config, packed pendulums): each replayed step against an eager
+step from the same state, across a rebuild boundary, the launch counts a
+replay adds equal to an eager step's; the hull motion guard decided on
+the device inside one graph (conditional nodes): replayed guard steps
+against eager ones, and a horizon under
+torch.cuda.set_sync_debug_mode("error") with the eager drive's rebuilds;
+a sampled horizon; and a capture that fails raises. The joint CG kernel
+(csrc/joint_cg.cu) against its plain version at the demo's size, at the
+4,096 packed pendulums' and at a few more than one slot a thread
+holds.
 Every test skips without a card. On a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -54,7 +61,10 @@ list's f32 fields (whose ids, keys, activity and rank rows are exact). The solve
 bit for bit on the touched slots. The solves sum impulse deltas with
 atomics (kernel) or
 index_add (plain) in an order that changes from run to run: 1e-4 of each
-output row's largest magnitude.
+output row's largest magnitude. The joint CG sums its dot products in
+one fixed order in both versions and each pendulum body gets at most two
+joints' atomic adds (whose sum has one value in either order): its
+iterations and stop equal, its result within 1e-5 of the largest |λ|.
 """
 
 import dataclasses
@@ -64,14 +74,19 @@ import pytest
 import torch
 
 from physics_tpu_torch import scenes
+from physics_tpu_torch.config import SimConfig, compat_config
 from physics_tpu_torch.engine import (
     COUNTED,
     DeviceStepper,
+    joint_system,
     prepare_contacts,
     rollout,
     step,
     step_with_metrics,
 )
+from physics_tpu_torch.ops.forces import apply_gravity
+from physics_tpu_torch.scene import demo_scene
+from physics_tpu_torch.solver import cg
 from physics_tpu_torch.io.primitives import octahedron_verts, prism_verts
 from physics_tpu_torch.ops import contact_table as tct
 from physics_tpu_torch.ops import hull_table as tht
@@ -103,11 +118,14 @@ from physics_tpu_torch.solver.banded_solve import (
 )
 from physics_tpu_torch.parallel.collectives import Shard
 from physics_tpu_torch.solver.contacts import (
+    GUARDED,
     banded_contact_list,
     banded_inputs,
     rebuild_branch,
 )
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
+
+from test_torch_pendulums import packed_pendulums
 
 pytestmark = pytest.mark.cuda
 
@@ -1141,6 +1159,11 @@ def _replays_match(s, cfg, n, want):
 def _rollout_scene(name, dev, pile, np_pile):
     """(state, cfg, steps, replayed branches) of each path at test size,
     starting one step before a refresh so that both branches replay."""
+    if name == "demo":
+        return demo_scene(device=dev), compat_config(dt=1.0 / 60.0), 4, {None}
+    if name == "pendulums":
+        return (packed_pendulums(256, device=dev)[0],
+                SimConfig(dt=1.0 / 120.0), 4, {None})
     if name == "pile":
         s, cfg = pile
         return s.replace(step_count_host=1), cfg, 10, {True, False}
@@ -1162,36 +1185,128 @@ def _rollout_scene(name, dev, pile, np_pile):
     return s.replace(step_count_host=31), cfg, 34, {True, False}
 
 
-@pytest.mark.parametrize("name", ["pile", "rain", "two_kernel", "packed"])
+@pytest.mark.parametrize("name", ["pile", "rain", "two_kernel", "packed",
+                                  "demo", "pendulums"])
 def test_rollout_replay_matches_eager(dev, pile, np_pile, name):
     s, cfg, n, want = _rollout_scene(name, dev, pile, np_pile)
     _replays_match(s, cfg, n, want)
 
 
-def test_rollout_replay_hull_guard(dev):
-    """24 octahedra under the motion guard (vel_factor 8, K = 4): the
-    host reads the guard between replays, and a refresh-count step that
-    the guard turns into a rebuild replays the rebuild graph."""
+def _guard_rain(dev):
+    """24 octahedra pressed into contact under the motion guard
+    (vel_factor 8, K = 4): steps 1-2 refresh, step 3 the guard
+    rebuilds."""
     arrays = to_numpy(scenes.hull_rain(octahedron_verts(), 24,
                                        device="cpu"))
     arrays["pos"] *= np.float32([0.7, 0.6, 0.7])
     arrays["pos"][:, 1] += 0.3
     cfg = scenes.rain_config(24).replace(contact_rebuild_vel_factor=8.0)
-    s = prepare_contacts(state_from_arrays(arrays, dev), cfg)
+    return prepare_contacts(state_from_arrays(arrays, dev), cfg), cfg
+
+
+def test_rollout_replay_hull_guard(dev):
+    """The guard's off-schedule steps replay one GUARDED graph, which
+    decides rebuild or refresh on the device: each replayed step against
+    the eager step from the same state (which reads the guard), among
+    them a step the guard turns into a rebuild (one more hull table
+    launch, added by settle)."""
+    s, cfg = _guard_rain(dev)
     stepper = DeviceStepper(s, cfg)
-    guard = 0
+    kinds = []
     for _ in range(10):
         branch = rebuild_branch(stepper.state, cfg)
-        off = stepper.state.step_count_host % 4 != 0
-        if branch and off and branch in stepper.captured:
-            guard += 1
+        if branch == GUARDED and branch in stepper.captured:
             src = _clone_state(stepper.state)
+            h0 = tht.bucket_hull_contact_table.launches
             ref = step(src, cfg)
+            kinds.append(tht.bucket_hull_contact_table.launches - h0)
+            h1 = tht.bucket_hull_contact_table.launches
             stepper.step()
+            stepper.settle()
+            assert tht.bucket_hull_contact_table.launches - h1 == kinds[-1]
             _state_matches(stepper.state, ref)
         else:
             stepper.step()
-    assert guard > 0 and stepper.captured == {True, False}
+    assert 1 in kinds and 0 in kinds
+    assert stepper.captured == {True, GUARDED}
+
+
+def test_rollout_hull_guard_reads_nothing_back(dev):
+    """A horizon of the guarded rain's replays under
+    torch.cuda.set_sync_debug_mode("error") (a host read inside raises):
+    its rebuilds (hull table launches, settled after the horizon) those
+    of the eager drive from the same state over 6 steps (2 scheduled,
+    the guard's at step 3), its final poses within 5e-2 of the eager
+    drive's (a horizon of a contact-rich rain amplifies the run-to-run
+    differences of the solves' atomic sums: 12 steps of this rain ended
+    1.1e-3 apart, phase 10's squeezed octahedra 8 steps up to 7.3e-3;
+    each single step is held to 1e-4 above)."""
+    s, cfg = _guard_rain(dev)
+    eager = s
+    h0 = tht.bucket_hull_contact_table.launches
+    for _ in range(6):
+        eager = step(eager, cfg)
+    want = tht.bucket_hull_contact_table.launches - h0
+    stepper = DeviceStepper(s, cfg)
+    h0 = tht.bucket_hull_contact_table.launches
+    for _ in range(2):      # the rebuild's and the GUARDED warm-up
+        stepper.step()
+    assert stepper.captured == {True, GUARDED}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            stepper.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    stepper.settle()
+    assert tht.bucket_hull_contact_table.launches - h0 == want > 2
+    got = stepper.state
+    assert got.step_count_host == eager.step_count_host == 6
+    assert torch.equal(got.step_count, eager.step_count)
+    for name in ("pos", "quat"):
+        d = float((getattr(got, name) - getattr(eager, name)).abs().max())
+        assert d <= 5e-2, (name, d)
+    assert bool(torch.isfinite(got.vel).all() and torch.isfinite(
+        got.omega).all())
+
+
+def _cg_operands(state, cfg):
+    rows, w, rhs = joint_system(apply_gravity(state, cfg), cfg)
+    return rows, w, rhs, state.lam_joint, dict(
+        max_iters=cfg.cg_max_iters, rel_tol=cfg.cg_rel_tol,
+        abs_tol=cfg.cg_abs_tol)
+
+
+@pytest.mark.parametrize("case", ["demo", "pendulums", "pendulums_k2"])
+def test_joint_cg_kernel(dev, case):
+    """The CG kernel against its plain version from the same system: the
+    demo's first step, the 4,096 packed pendulums after 20 steps and just
+    more pendulums than one slot a thread holds on this card (more slots
+    a thread); iterations and stop equal, λ within 1e-5 of its largest
+    magnitude, one launch a call."""
+    one = cg.plan(1, dev)        # one slot a thread: the resident grid
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots1 = min(one["blocks_an_sm"] * sms, 1024) * 256
+    if case == "demo":
+        s, cfg = demo_scene(device=dev), compat_config(dt=1.0 / 60.0)
+    else:
+        e = 4096 if case == "pendulums" else slots1 // 2 + 128
+        s = packed_pendulums(e, device=dev)[0]
+        cfg = SimConfig(dt=1.0 / 120.0)
+        for _ in range(20):
+            s = step(s, cfg)
+    rows, w, rhs, lam0, kw = _cg_operands(s, cfg)
+    k = cg.plan(rows.j_a.shape[0], dev)["slots_a_thread"]
+    assert (k > 1) == (case == "pendulums_k2")
+    c0 = cg.solve.launches
+    xk, ck, ik = cg.solve(rows, w, rhs, lam0, **kw)
+    assert cg.solve.launches == c0 + 1
+    xp, cp, ip = cg.solve(rows, w, rhs, lam0, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert int(ik) == int(ip) >= 1 and bool(ck) == bool(cp)
+    scale = max(float(xp.abs().max()), 1e-3)
+    assert float((xk - xp).abs().max()) <= 1e-5 * scale
 
 
 def test_rollout_sampled_horizon(pile):

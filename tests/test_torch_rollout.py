@@ -7,14 +7,18 @@ eagerly, captures that branch over static state buffers and replays it
 after. Here the capture is an eager stand-in (its "replay" runs the
 recorded step on the static buffers), so the stepper's schedule, static
 buffers, branch forcing and sampling are checked against a loop of
-`step`, bit for bit, on the four paths at small sizes: the anchored
-table pile (K = 4), the two-kernel pile (one branch), a hull rain with
-the motion guard on (its refresh steps may rebuild from one device
-read), and packed envs with the gated refresh. The CPU `rollout` (a loop)
-is held to the same loop, with and without sampling. Then the branch
-the stepper picks against the branch step_with_metrics takes, and the
-refresh gate's threshold compared as a Python float against the f32
-tensor it replaced, bit for bit.
+`step`, bit for bit, on the paths at small sizes: the anchored table
+pile (K = 4), the two-kernel pile (one branch), a hull rain with the
+motion guard on (its off-schedule steps are one GUARDED branch: the
+guard's predicate, then the rebuild or the refresh step as it decides on
+the device; the stand-in for the composed graph reads the predicate's
+flag), packed envs with the gated refresh, and the jointed paths without
+contacts (one branch): the reference's demo scene under compat_config
+and packed pendulums. The CPU `rollout` (a loop) is held to the same
+loop, with and without sampling. Then the branch the stepper picks
+against the branch step_with_metrics takes, the GUARDED steps' device
+tally, and the refresh gate's threshold compared as a Python float
+against the f32 tensor it replaced, bit for bit.
 
 All comparisons are exact: the same plain operations run in the same
 order on the same inputs.
@@ -27,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from physics_tpu_torch import scenes
+from physics_tpu_torch import engine, scenes
+from physics_tpu_torch.config import SimConfig, compat_config
 from physics_tpu_torch.engine import (
     DeviceStepper,
     prepare_contacts,
@@ -36,8 +41,14 @@ from physics_tpu_torch.engine import (
     step_with_metrics,
 )
 from physics_tpu_torch.io.primitives import octahedron_verts
+from physics_tpu_torch.ops.forces import apply_gravity
+from physics_tpu_torch.ops.integrator import integrate_velocities
+from physics_tpu_torch.scene import demo_scene
+from physics_tpu_torch.solver import cg
 from physics_tpu_torch.solver import contacts as tc
 from physics_tpu_torch.state import state_from_arrays, to_numpy
+
+from tests.test_torch_pendulums import packed_pendulums
 
 
 def _pile():
@@ -75,13 +86,32 @@ def _packed():
                             cfg), cfg
 
 
+def _demo():
+    """The reference's demo scene under compat_config (no contacts)."""
+    return demo_scene(device="cpu"), compat_config(dt=1.0 / 60.0)
+
+
+def _pendulums():
+    """16 packed pendulums (2 bodies, a pin and a ball joint each)."""
+    return packed_pendulums(16)[0], SimConfig(dt=1.0 / 120.0)
+
+
 PATHS = {"pile": (_pile, 9), "two_kernel": (_two_kernel, 3),
-         "rain_guard": (_rain_guard, 5), "packed": (_packed, 6)}
+         "rain_guard": (_rain_guard, 5), "packed": (_packed, 6),
+         "demo": (_demo, 5), "pendulums": (_pendulums, 5)}
 
 
 def eager_capture(fn, pool):
     """A capture that records `fn` and runs it at each replay."""
     return SimpleNamespace(replay=fn, pool=lambda: None)
+
+
+def eager_compose(pred, flag, on_true, on_false):
+    """ConditionalGraph's stand-in: `pred`, then one side by the flag."""
+    def replay():
+        pred.replay()
+        (on_true if int(flag[0]) else on_false).replay()
+    return SimpleNamespace(replay=replay)
 
 
 def _assert_same(a, b):
@@ -117,7 +147,7 @@ def test_device_stepper_matches_step_loop(path):
     def capture(fn, pool):
         captures.append(tc.rebuild_branch(stepper.state, cfg))
         return eager_capture(fn, pool)
-    stepper = DeviceStepper(s0, cfg, capture=capture)
+    stepper = DeviceStepper(s0, cfg, capture=capture, compose=eager_compose)
     got = []
     for k in range(n):
         st = stepper.step()
@@ -128,7 +158,9 @@ def test_device_stepper_matches_step_loop(path):
         assert torch.equal(p, pr) and torch.equal(q, qr)
     for name, t in before.items():
         assert torch.equal(getattr(s0, name), t), name
-    branches = {"pile": 2, "two_kernel": 1, "rain_guard": 2, "packed": 2}
+    # the GUARDED branch is three captures: the predicate and both steps
+    branches = {"pile": 2, "two_kernel": 1, "rain_guard": 4, "packed": 2,
+                "demo": 1, "pendulums": 1}
     assert len(captures) == branches[path]
 
 
@@ -154,8 +186,10 @@ def test_rollout_matches_step_loop(every):
 def test_schedule_matches_step_branch(path, monkeypatch):
     """rebuild_branch, which the stepper reads before each step, against
     the branch step_with_metrics takes from the same state (a rebuild
-    calls solver.contacts._rebuild); forced_rebuild makes a step take the
-    branch it names."""
+    calls solver.contacts._rebuild); on the hull rain an off-schedule
+    step is GUARDED, decided by the motion guard's device predicate on
+    the velocities after gravity and the velocity integration;
+    forced_rebuild makes a step take the branch it names."""
     make, n = PATHS[path]
     s, cfg = make()
     calls = []
@@ -164,7 +198,12 @@ def test_schedule_matches_step_branch(path, monkeypatch):
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     picked, taken = [], []
     for _ in range(n):
-        picked.append(tc.rebuild_branch(s, cfg))
+        pick = tc.rebuild_branch(s, cfg)
+        if pick == tc.GUARDED:
+            assert path == "rain_guard" and s.step_count_host % 4
+            pick = bool(tc.guard_fires(integrate_velocities(
+                apply_gravity(s, cfg), cfg), cfg))
+        picked.append(pick)
         calls.clear()
         s, _ = step_with_metrics(s, cfg)
         taken.append(bool(calls))
@@ -180,6 +219,33 @@ def test_schedule_matches_step_branch(path, monkeypatch):
         assert bool(calls) == force
     s2, c2 = _two_kernel()
     assert tc.rebuild_branch(s2, c2) is None
+
+
+def test_guarded_tally_counts_the_guard_rebuilds(monkeypatch):
+    """The hull rain's GUARDED steps (the warm-up and the replays of the
+    stand-in): the device tally that settle() reads holds the steps
+    whose guard fired, as many as the loop of step rebuilds off the
+    schedule; settle() empties it."""
+    s0, cfg = _rain_guard()
+    calls = []
+    real = tc._rebuild
+    monkeypatch.setattr(tc, "_rebuild",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    s, guard = s0, 0
+    for _ in range(9):
+        calls.clear()
+        off = s.step_count_host % 4 != 0
+        s = step(s, cfg)
+        guard += off and bool(calls)
+    stepper = DeviceStepper(s0, cfg, capture=eager_capture,
+                            compose=eager_compose)
+    for _ in range(9):
+        stepper.step()
+    assert guard > 0 and stepper.captured == {True, tc.GUARDED}
+    assert stepper._pending == 6 and int(stepper._tally) == guard
+    stepper.settle()
+    assert stepper._pending == 0 and int(stepper._tally) == 0
+    assert engine.COUNTED[-1] is cg.solve
 
 
 def test_refresh_gate_threshold_is_the_f32_tensors():

@@ -13,7 +13,9 @@ synchronize, as chip_smoke.py phases 4, 5 and 7 do: `pile` is
 `box_pile(4096, x_aspect=16)` under `pile_config(4096)` with
 contact_iters=8 (the table path), `two_kernel_pile` the same with
 contact_table=False, `rain` `mesh_rain(1024)` under `rain_config(1024)`.
-With `--profile`, each process then runs 8 steps of the first path under
+With `--replayed` the steps are those engine.rollout runs on the card,
+replays of captured CUDA graphs (engine.DeviceStepper), as chip_smoke.py
+phase 12 times them. With `--profile`, each process then runs 8 steps of the first path under
 torch.profiler and times `--reps` more of its scenes, to show whether a
 finished profiler session changes the rate. With `--cprofile`, each
 process also prints the host functions that take the most of 40 steps of
@@ -50,12 +52,16 @@ PATHS = ("pile", "rain", "two_kernel_pile")
 
 
 def worker(root: str, paths, reps: int, profile: bool,
-           cprofile: bool) -> dict:
+           cprofile: bool, replayed: bool) -> dict:
     sys.path.insert(0, root)
     import torch
 
     from physics_tpu_torch import scenes
-    from physics_tpu_torch.engine import prepare_contacts, step_with_metrics
+    from physics_tpu_torch.engine import (
+        DeviceStepper,
+        prepare_contacts,
+        step_with_metrics,
+    )
     from physics_tpu_torch.solver.contacts import anchored_path
 
     dev = torch.device("cuda", 0)
@@ -77,11 +83,15 @@ def worker(root: str, paths, reps: int, profile: bool,
         make, cfg = setups[path]
         st = prepare_contacts(make(), cfg)
         k = cfg.contact_rebuild if anchored_path(st, cfg) else 1
+        stepper = DeviceStepper(st, cfg) if replayed else None
         torch.cuda.synchronize()
         for i in range(steps):
             if i == window0:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
+            if stepper is not None:
+                stepper.step()
+                continue
             kind = "refresh" if st.step_count_host % k else "rebuild"
             ts = time.perf_counter()
             st, _ = step_with_metrics(st, cfg)
@@ -135,7 +145,7 @@ def worker(root: str, paths, reps: int, profile: bool,
 
 
 def compare(old: str, new: str, paths, rounds: int, reps: int,
-            profile: bool, cprofile: bool):
+            profile: bool, cprofile: bool, replayed: bool):
     gpu = card()
     print(gpu, flush=True)
     runs = {old: [], new: []}
@@ -147,6 +157,8 @@ def compare(old: str, new: str, paths, rounds: int, reps: int,
                 cmd.append("--profile")
             if cprofile:
                 cmd.append("--cprofile")
+            if replayed:
+                cmd.append("--replayed")
             res = subprocess.run(cmd, capture_output=True, text=True,
                                  cwd=HERE)
             if res.returncode != 0:
@@ -207,14 +219,15 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--cprofile", action="store_true")
+    ap.add_argument("--replayed", action="store_true")
     ap.add_argument("--build-times", action="store_true")
     args = ap.parse_args()
     if args.worker:
         print(json.dumps(worker(args.worker, args.paths, args.reps,
-                                args.profile, args.cprofile)))
+                                args.profile, args.cprofile, args.replayed)))
     elif args.compare:
         compare(*args.compare, args.paths, args.rounds, args.reps,
-                args.profile, args.cprofile)
+                args.profile, args.cprofile, args.replayed)
     elif args.build_times:
         build_times()
     else:
