@@ -1,6 +1,7 @@
 """GPU smoke run of physics_tpu_torch on one NVIDIA card: the 4,096-body
 box pile (on the contact-table path and on the two-kernel path), the
-1,024-hull rain and 4,096 packed environments of 8 boxes stepping through
+1,024-hull rain (on the hull table and on the generic hull path) and
+4,096 packed environments of 8 boxes stepping through
 the port's hand-written kernels, on one process and row-sharded over 4
 ranks; the reference engine's jointed demo scene and 4,096 packed
 jointed pendulums through the joint CG kernel.
@@ -133,7 +134,21 @@ Phases (any failure raises, so the run exits non-zero):
               8) whose replays run under
               torch.cuda.set_sync_debug_mode("error") (no host read),
               with the eager drive's launch counts (the guard's rebuilds)
-              and final poses (GUARD_POSE_ATOL).
+              and final poses (GUARD_POSE_ATOL);
+ 15. xla rain (run before phase 13's profiles, which include it)
+              mesh_rain(1024) under rain_xla_config(1024), the generic
+              hull path, settled 60 steps: 2.1's masks mode against its
+              plain version (identical), the contact list (flat sweep,
+              compaction, OBB prefilter, ground and pair contacts) of the
+              kernel path against the plain path (keys, ranks and
+              counters identical, f32 within TABLE_TOL), 2.5 with 2.6 in
+              its sweep 0 against the plain sweeps; 240 fresh steps as
+              phase 4 drives them, replayed steps against eager ones and
+              phase 12's timing and rollout; the contact set against the
+              hull table's (2.4) on the 128-hull rain after 2 steps; 60
+              replayed steps of mesh_rain_mixed(128, n_types=3), then
+              its segmented prefilter and contact list against the
+              plain path.
 The line before the last is a JSON object of per-kernel results (each
 kernel's least possible time on the card, `bound_ms`, is computed from
 this run's inputs); the last line is {"ok": true, "device": {...}}.
@@ -179,6 +194,7 @@ from physics_tpu_torch.ops.broadphase import (
 )
 from physics_tpu_torch.ops.contact_table import (
     BLOCK,
+    table_keys_scalar,
     table_shape,
     CT_ACT,
     CT_KH,
@@ -196,7 +212,13 @@ from physics_tpu_torch.ops.contact_table import (
     table_operands,
     unified_geom,
 )
-from physics_tpu_torch.ops.narrowphase import banded_contacts
+from physics_tpu_torch.ops.hullhull_batched import shared_hull_manifolds_sm
+from physics_tpu_torch.ops.narrowphase import (
+    banded_contacts,
+    ground_contacts,
+    hull_obb_prefilter,
+    pair_contacts,
+)
 from physics_tpu_torch.ops.narrowphase_banded import pair_operands
 from physics_tpu_torch.ops.sweep_kernel import (
     bucketed_candidates,
@@ -224,12 +246,14 @@ from physics_tpu_torch.solver.banded_solve import (
 )
 from physics_tpu_torch.solver.contacts import (
     GUARDED,
+    _overflow,
     _rebuild,
     _rebuild_now,
     _sharded_capacity,
     anchored_path,
     banded_contact_list,
     banded_inputs,
+    hull_contact_list,
     rebuild_branch,
     refresh_gate,
 )
@@ -548,16 +572,7 @@ def check_pile_kernels(state, cfg):
     out = {}
     aabbs = body_aabbs(state)
     order = sweep_order(state, aabbs)
-    oi = order.long()
-    aabb_s = aabbs[oi].contiguous()
-    coll_s = (state.shapes.stype != SHAPE_NONE)[oi].contiguous()
-    k = min(cfg.sweep_window, n - 1)
-    mk, lk = sweep_window_masks(aabb_s, coll_s, k)
-    mp, lp = sweep_window_masks(aabb_s, coll_s, k, plain=True)
-    if not (torch.equal(mk, mp) and torch.equal(lk, lp)):
-        raise AssertionError("sweep masks differ from the plain version")
-    log(f"2.1 sweep masks mode: identical ({int(mk.sum())} overlaps, "
-        f"{int(lk.sum())} window-edge ranks)")
+    check_masks("pile", state, cfg)
     out["sweep_window_masks"] = check_candidates("pile", state, cfg)
 
     cand = pair_candidates(state, cfg, aabbs, order)
@@ -740,25 +755,29 @@ def profile_steps(stepper, steps: int) -> None:
 
 # kernel (named after the TPU function it replaces) → its wrapper, whose
 # `launches` counts the kernel's launches
-COUNTED = {"sweep_window_masks": bucketed_candidates,
-           "bucket_contact_table": bucket_contact_table,
-           "bucket_hull_contact_table": ht.bucket_hull_contact_table,
-           "banded_sweeps_fused": banded_sweeps_fused,
-           "pair_manifolds_banded": banded_contacts,
+# (2.1's two modes: the bucketed candidates and the window masks, which
+# the flat sweep of the generic hull path launches)
+COUNTED = {"sweep_window_masks": (bucketed_candidates, sweep_window_masks),
+           "bucket_contact_table": (bucket_contact_table,),
+           "bucket_hull_contact_table": (ht.bucket_hull_contact_table,),
+           "banded_sweeps_fused": (banded_sweeps_fused,),
+           "pair_manifolds_banded": (banded_contacts,),
            # 2.6 runs in the sweep 0 of 2.5 and 2.7: a launch a solve
-           "prep_consts": folded_prep_consts,
-           "banded_sweeps": banded_sweeps,
-           "banded_sweep_once": banded_sweep_once,
-           "joint_cg": cg.solve}
+           "prep_consts": (folded_prep_consts,),
+           "banded_sweeps": (banded_sweeps,),
+           "banded_sweep_once": (banded_sweep_once,),
+           "joint_cg": (cg.solve,)}
 
 
 def zero_counts() -> None:
-    for fn in COUNTED.values():
-        fn.launches = 0
+    for fns in COUNTED.values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    return {name: sum(fn.launches for fn in fns)
+            for name, fns in COUNTED.items()}
 
 
 def touched_columns(bases, tile, *locs) -> int:
@@ -840,12 +859,24 @@ def check_np_kernels(state, cfg):
     """Phase 7: the two-kernel path's kernels (2.8; 2.5 with 2.6 in its
     sweep 0) against their plain versions at the path's shapes. Returns
     ({name: (max_abs_err, ms, plain_ms, bound)}, [Solve])."""
-    n = state.num_bodies
     out = {}
     out["pair_manifolds_banded"] = check_banded_contacts(
         "2.8 banded contacts", state, cfg)
-    contacts, ranks, _, geom, cand, cp = banded_contact_list(state, cfg)
+    contacts, ranks, _, geom, _, cp, _ = banded_contact_list(state, cfg)
+    solve_out, solve = check_generic_solve("two-kernel pile", state, cfg,
+                                           contacts, ranks, geom, cp)
+    out.update(solve_out)
+    return out, [solve]
 
+
+def check_generic_solve(label, state, cfg, contacts, ranks, geom, cp):
+    """2.5 with 2.6 in its sweep 0 on a generic path's contact list (warm
+    from the state's buffers) against their plain versions: the
+    constants bit for bit, the sweeps within SOLVE_RTOL. Returns
+    ({"banded_sweeps", "prep_consts": (max_abs_err, ms, plain_ms,
+    bound)}, Solve)."""
+    n = state.num_bodies
+    out = {}
     ops = banded_operands(state, contacts, cfg,
                           (state.contact_key, state.contact_lam), ranks, cp)
     pk = prep_kw(cfg, ops.use_split)
@@ -864,8 +895,7 @@ def check_np_kernels(state, cfg):
                              plain=plain, **pk)
     ck = torch.full_like(cpl, float("nan"))
     (zk, lk, _), (zp, lp, _) = sw_run(False, ck), sw_run(True)
-    err_c = folded_consts_check("2.5's sweep 0 (two-kernel pile)", ck, cpl,
-                                touch)
+    err_c = folded_consts_check(f"2.5's sweep 0 ({label})", ck, cpl, touch)
     err = max(row_check("sweeps z", zk[:, :n], zp[:, :n], SOLVE_RTOL),
               row_check("sweeps lam", lk, lp, SOLVE_RTOL))
     # what 2.6 + 2.5 must move: z0's (v, ω), the lane operands, every
@@ -882,12 +912,12 @@ def check_np_kernels(state, cfg):
                 + OPS_SOLVE_CONTACT * (n_touch + (sweeps - 1) * live))
     kms, pms = median_ms(lambda: sw_run(False), 20), median_ms(
         lambda: sw_run(True), 3)
-    log(f"2.5 banded sweeps with 2.6 in sweep 0 ({sweeps} sweeps, tile "
-        f"{ops.tile}, warm {ops.use_split}): constants of the {n_touch} "
-        f"touched slots bit for bit prep_consts_plain's; max |Δ| {err}; "
-        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.5f} ms "
-        f"({bnd[1]}); {live} live of {cp} slots (band overflow "
-        f"{int(ops.band_overflow)}, capacity overflow "
+    log(f"2.5 banded sweeps with 2.6 in sweep 0 ({label}; {sweeps} sweeps, "
+        f"tile {ops.tile}, warm {ops.use_split}): constants of the "
+        f"{n_touch} touched slots bit for bit prep_consts_plain's; max |Δ| "
+        f"{err}; kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]}); {live} live of {cp} slots (band "
+        f"overflow {int(ops.band_overflow)}, capacity overflow "
         f"{int(ops.cap_overflow)}); grid "
         f"{solve_plan(False, cp, geom.device)}")
     out["banded_sweeps"] = (err, kms, pms, bnd)
@@ -900,8 +930,8 @@ def check_np_kernels(state, cfg):
                  + 4 * (CIN_ROWS - 1) * n_touch + 4 * 24 * cols
                  + 4 * R_PREP * n_touch, OPS_SOLVE_PREP * n_touch)
     out["prep_consts"] = (err_c, kms, pms6, bnd6)
-    return out, [Solve("banded_sweeps", "two-kernel pile",
-                       lambda: sw_run(False), kms, bnd, live)]
+    return out, Solve("banded_sweeps", label, lambda: sw_run(False), kms,
+                      bnd, live)
 
 
 def drive(label, make, cfg, steps, want, gpu, zero_overflow=False):
@@ -939,8 +969,10 @@ def drive(label, make, cfg, steps, want, gpu, zero_overflow=False):
             raise AssertionError(f"{label}: non-finite {name} after the run")
     n = st.num_bodies
     timed = steps - window0
+    pre = (f"prefilter_overflow {int(m['prefilter_overflow'])}, "
+           if "prefilter_overflow" in m else "")
     log(f"{label}: state finite; pair_overflow {int(m['pair_overflow'])}, "
-        f"contact_overflow {int(m['contact_overflow'])}, band_overflow "
+        f"{pre}contact_overflow {int(m['contact_overflow'])}, band_overflow "
         f"{int(m['band_overflow'])}, max_penetration "
         f"{float(m['max_penetration']):.4f}, contacts "
         f"{int(m['contact_count'])}")
@@ -1289,7 +1321,7 @@ def np_sharded_operands(state, cfg):
     capacity the ranks round up to: (z0, bases, la, lb, geom, cin, tile,
     the constants' keywords but use_split)."""
     n = state.num_bodies
-    contacts, ranks, _, geom, _, _ = banded_contact_list(state, cfg)
+    contacts, ranks, _, geom, *_ = banded_contact_list(state, cfg)
     cp = _sharded_capacity(n, contacts.body_a.shape[0], cfg,
                            Shard(None, 0, RANKS))
     warm = ((state.contact_key, state.contact_lam)
@@ -1940,6 +1972,242 @@ def guard_phase(dev, gpu, steps=6):
     return got
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the generic hull path (rain_xla_config)
+# ---------------------------------------------------------------------------
+
+def check_masks(label, state, cfg):
+    """2.1's masks mode at the flat sweep's shapes against its plain
+    version: masks and window-edge flags identical. Returns (0.0, kernel
+    ms, plain ms, bound, the kernel call)."""
+    n = state.num_bodies
+    aabbs = body_aabbs(state)
+    oi = sweep_order(state, aabbs).long()
+    aabb_s = aabbs[oi].contiguous()
+    coll_s = (state.shapes.stype != SHAPE_NONE)[oi].contiguous()
+    k = min(cfg.sweep_window, n - 1)
+
+    def run(plain):
+        return sweep_window_masks(aabb_s, coll_s, k, plain=plain)
+    (mk, lk), (mp, lp) = run(False), run(True)
+    if not (torch.equal(mk, mp) and torch.equal(lk, lp)):
+        raise AssertionError(f"2.1 masks ({label}): differ from the plain "
+                             f"version")
+    # the sorted AABBs and flags read once, the masks and the window-edge
+    # flags written; eight compares a (rank, offset)
+    bnd = bound(nbytes(aabb_s, coll_s, mk, lk), 8 * n * k)
+    kms = median_ms(lambda: run(False), 50)
+    pms = median_ms(lambda: run(True), 5)
+    log(f"2.1 masks mode ({label}, N {n}, k {k}): identical "
+        f"({int(mk.sum())} overlaps, {int(lk.sum())} window-edge ranks); "
+        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.5f} ms "
+        f"({bnd[1]})")
+    return 0.0, kms, pms, bnd, lambda: run(False)
+
+
+def check_hull_list(label, state, cfg):
+    """The generic hull path's contact list, kernel path (2.1's masks
+    mode) against plain path: the flat sweep's compacted candidates, the
+    prefiltered lanes, the counters, ids, keys, activity and rank rows
+    identical, the f32 fields within 1e-5. Returns (max err, the
+    kernel path's list)."""
+    ck, cp = pair_candidates(state, cfg), pair_candidates(state, cfg,
+                                                          plain=True)
+    for f, a, b in zip(ck._fields, ck, cp):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: candidates' {f} differs")
+    got = hull_contact_list(state, cfg)
+    ref = hull_contact_list(state, cfg, plain=True)
+    (lk, (lok, rbk), _, _, candk, cpk, ck_), (lp, (lop, rbp), _, _, candp,
+                                              cpp, cp_) = got, ref
+    ovk = ck_["prefilter_overflow"]
+    if cpk != cpp or {k: int(v) for k, v in ck_.items()} != \
+            {k: int(v) for k, v in cp_.items()}:
+        raise AssertionError(f"{label}: capacity or counters differ")
+    for f, a, b in zip(candk._fields, candk, candp):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: prefiltered {f} differs")
+    if not (torch.equal(lok, lop) and torch.equal(rbk, rbp)):
+        raise AssertionError(f"{label}: rank rows differ")
+    for f in ("body_a", "body_b", "key", "active"):
+        if not torch.equal(getattr(lk, f), getattr(lp, f)):
+            raise AssertionError(f"{label}: {f} differs")
+    err = max(float((getattr(lk, f) - getattr(lp, f)).abs().max())
+              for f in ("point", "normal", "depth", "friction",
+                        "restitution"))
+    if not err <= TABLE_TOL:
+        raise AssertionError(f"{label}: f32 fields |Δ| {err}")
+    kms = median_ms(lambda: hull_contact_list(state, cfg), 10)
+    pms = median_ms(lambda: hull_contact_list(state, cfg, plain=True), 3)
+    log(f"{label} contact list (flat sweep, compaction, prefilter, ground "
+        f"and pair contacts): kernel path = plain path (candidates, "
+        f"prefilter lanes, keys, ranks, counters identical; f32 max |Δ| "
+        f"{err}); {ck.mask.numel()} compacted lanes ({int(ck.mask.sum())} "
+        f"live, pair_overflow {int(ck.overflow)}), {candk.mask.numel()} "
+        f"prefiltered lanes ({int(candk.mask.sum())} live, "
+        f"prefilter_overflow {int(ovk)}), {lk.key.numel()} slots "
+        f"({int(lk.active.sum())} active) for {cpk} solve slots; eager "
+        f"list {kms:.4f} ms kernel path, {pms:.4f} ms plain path")
+    return err, got
+
+
+def window_edge(st, cfg) -> int:
+    """The sweep ranks whose 32-rank window ends on an x-overlap (2.1's
+    last_overlap): the pairs the flat sweep may miss, pair_overflow."""
+    aabbs = body_aabbs(st)
+    oi = sweep_order(st, aabbs).long()
+    _, last = sweep_window_masks(
+        aabbs[oi].contiguous(), (st.shapes.stype != SHAPE_NONE)[oi]
+        .contiguous(), min(cfg.sweep_window, st.num_bodies - 1))
+    return int(last.sum())
+
+
+def check_against_table(dev, n, strict):
+    """This path's contact set against the hull table's (2.4 kernel) on
+    the n-hull rain after 2 steps: the active keys equal, depths within
+    1e-4, with no contact and no prefilter survivor dropped by either
+    path. `strict`: every counter of both paths reads 0. Otherwise the
+    two pair_overflow counts must equal the window-edge ranks (pairs the
+    32-rank window may miss, the same windows on both paths), which are
+    logged at steps 0, 1 and 2."""
+    xcfg = scenes.rain_xla_config(n)
+    tcfg = scenes.rain_config(n).replace(
+        contact_rebuild=1, contact_refresh_iters=0, fuse_prep=False,
+        fuse_integrate=False)
+    st = prepare_contacts(scenes.mesh_rain(n, real_assets=False,
+                                           device=dev), xcfg)
+    edges = [window_edge(st, xcfg)]
+    for _ in range(2):
+        st, _ = step_with_metrics(st, xcfg)
+        edges.append(window_edge(st, xcfg))
+    ca, _, order, _, _, cp, xc = hull_contact_list(st, xcfg)
+    cand_t = pair_candidates(st, tcfg)
+    table, meta, _ = ht.bucket_hull_contact_table(
+        st, cand_t, tcfg, geom=unified_geom(st, tcfg, order, hulls=True))
+    t_pair, t_contact = _overflow(meta, cand_t).tolist()
+    counters = {"xla pair_overflow": int(xc["pair_overflow"]),
+                "xla prefilter_overflow": int(xc["prefilter_overflow"]),
+                "xla contact_overflow": max(int(ca.active.sum()) - cp, 0),
+                "table pair_overflow": t_pair,
+                "table contact_overflow": t_contact,
+                "table prefilter drops":
+                    int(meta[0].reshape(-1, BLOCK)[:, 2].sum())}
+    dropped = [v for k, v in counters.items()
+               if strict or "pair_overflow" not in k]
+    if any(dropped) or not (edges[-1] == counters["xla pair_overflow"]
+                            == t_pair):
+        raise AssertionError(f"xla rain {n}: counters {counters}, "
+                             f"window-edge ranks {edges}")
+    kt = table_keys_scalar(table, n, ht.hull_slots(st.hulls),
+                           st.hulls.verts.shape[1])
+    act_a = ca.active & (ca.key != 0)
+    ka, da = ca.key[act_a], ca.depth[act_a]
+    act_t = kt != 0
+    kb, db = kt[act_t], table[6][act_t]
+    sa, ia = torch.sort(ka)
+    sb, ib = torch.sort(kb)
+    if not torch.equal(sa, sb) or ka.numel() == 0:
+        raise AssertionError(f"xla rain {n}: contact keys differ from the "
+                             f"hull table's ({ka.numel()} vs {kb.numel()})")
+    err = float((da[ia] - db[ib]).abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"xla rain {n}: depths |Δ| {err} against 2.4")
+    log(f"xla rain {n} after 2 steps: the {ka.numel()} active contact keys "
+        f"equal the hull table's (2.4 kernel), depths max |Δ| {err}; "
+        f"counters {counters}, window-edge ranks at steps 0, 1, 2 {edges}"
+        f"{' (every counter 0)' if strict else ''}")
+
+
+def xla_stages(st, cfg) -> dict:
+    """The generic hull path's contact list by stage, each an eager call
+    on the state: {stage: call}. The pair contacts are the manifolds plus
+    the kk slot selections."""
+    cand = pair_candidates(st, cfg)
+    pre, _ = hull_obb_prefilter(st, cand, cfg.hull_prefilter_cap)
+    return {
+        "candidates (2.1 masks, flat sweep, compact_pairs)":
+            lambda: pair_candidates(st, cfg),
+        "OBB prefilter": lambda: hull_obb_prefilter(
+            st, cand, cfg.hull_prefilter_cap),
+        "ground contacts": lambda: ground_contacts(st, cfg),
+        "hull manifolds": lambda: shared_hull_manifolds_sm(st, pre),
+        "pair contacts (manifolds + selection)":
+            lambda: pair_contacts(st, pre, cfg),
+        "whole contact list": lambda: hull_contact_list(st, cfg),
+    }
+
+
+def xla_phase(dev, gpu, settle, steps):
+    """Phase 15: the generic hull path, 1,024 hulls under
+    rain_xla_config: settled `settle` steps, 2.1's masks mode, the
+    contact list and 2.5 (with 2.6) against their plain versions; a
+    drive of `steps` fresh steps, replayed steps against eager ones, the
+    eager and replayed rates; the contact set against the hull table's
+    at 128; 60 replayed steps of the 3-type rain and its contact list
+    against the plain one. Returns {"masks": 2.1's masks-mode row, "solve":
+    2.5/2.6 rows, "solves": [Solve], "launches", "rollout_launches",
+    "rollout_ms", "replayer", "state", "mixed_launches"}."""
+    out = {}
+    n = N_RAIN
+    xcfg = scenes.rain_xla_config(n)
+
+    def xla_rain():
+        return scenes.mesh_rain(n, real_assets=False, device=dev)
+
+    st = prepare_contacts(xla_rain(), xcfg)
+    for _ in range(settle):
+        st, m = step_with_metrics(st, xcfg)
+    torch.cuda.synchronize()
+    log(f"xla rain settled {settle} steps: contacts "
+        f"{int(m['contact_count'])}, overflow counters "
+        f"{ {k: int(v) for k, v in m.items() if k.endswith('overflow')} }")
+    *masks, masks_call = check_masks("xla rain", st, xcfg)
+    out["masks"], out["masks_call"] = tuple(masks), masks_call
+    _, (contacts, ranks, _, geom, _, cp, _) = check_hull_list(
+        "xla rain", st, xcfg)
+    out["solve"], solve = check_generic_solve("xla rain", st, xcfg,
+                                              contacts, ranks, geom, cp)
+    out["solves"] = [solve]
+    want = {"sweep_window_masks": steps, "prep_consts": steps,
+            "banded_sweeps": steps}
+    out["launches"], end_st = drive("xla rain", xla_rain, xcfg, steps, want,
+                                    gpu)
+    checked = replay_agreement("xla_rain", end_st, xcfg)
+    log(f"rollout xla_rain: replayed steps match eager steps from the same "
+        f"states (atol {STEP_ATOL}, integer fields identical): {checked}")
+    out["rollout_ms"], out["rollout_launches"], out["replayer"] = \
+        time_rollout("xla_rain", xla_rain, xcfg, steps, want, gpu)
+    out["state"] = (end_st, xcfg)
+    check_against_table(dev, 32, strict=True)
+    check_against_table(dev, 128, strict=False)
+
+    # the 3-type library: 60 replayed steps, then the segmented
+    # prefilter and the contact list on the state they end with
+    mcfg = scenes.rain_xla_config(128)
+    zero_counts()
+    stepper = DeviceStepper(prepare_contacts(scenes.mesh_rain_mixed(
+        128, n_types=3, real_assets=False, device=dev), mcfg), mcfg)
+    for _ in range(61):               # the warm-up step, 60 replays
+        stepper.step()
+    out["mixed_launches"] = read_counts()
+    want = {k: 61 if k in ("sweep_window_masks", "prep_consts",
+                           "banded_sweeps") else 0
+            for k in out["mixed_launches"]}
+    if out["mixed_launches"] != want:
+        raise AssertionError(f"mixed xla rain: launches "
+                             f"{out['mixed_launches']} != {want}")
+    for name in ("pos", "quat", "vel", "omega"):
+        if not bool(torch.isfinite(getattr(stepper.state, name)).all()):
+            raise AssertionError(f"mixed xla rain: non-finite {name}")
+    check_hull_list("mixed xla rain 128 x 3 types", stepper.state, mcfg)
+    _, m = step_with_metrics(clone_state(stepper.state), mcfg)
+    log(f"mixed xla rain 128 x 3 types: 60 replayed steps after the "
+        f"warm-up, state finite; next step's contacts "
+        f"{int(m['contact_count'])}, overflow counters "
+        f"{ {k: int(v) for k, v in m.items() if k.endswith('overflow')} }")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--settle", type=int, default=60)
@@ -2187,6 +2455,14 @@ def main() -> int:
             want["jointed_envs"], gpu)
     guard_launches = guard_phase(dev, gpu)
 
+    # ---- phase 15: the generic hull path (before phase 13's profiles) --
+    xla = xla_phase(dev, gpu, args.settle, args.steps)
+    solves += xla["solves"]
+    replayers["xla_rain"] = xla["replayer"]
+    rollout_ms["xla_rain"] = xla["rollout_ms"]
+    for name, row in xla["solve"].items():
+        results[name] = (max(results[name][0], row[0]),) + results[name][1:]
+
     # ---- phase 13: profiles, after every timed window: a finished
     # profiler session can leave the launch path slower ----
     for label, st, c, name in (
@@ -2194,11 +2470,18 @@ def main() -> int:
             ("rain", rain_st, rcfg, "rain"),
             ("two-kernel pile", np_st, ncfg, "two_kernel_pile"),
             ("packed envs", packed_st, pcfg, "packed_envs"),
-            ("jointed envs", jointed_st, jcfg, "jointed_envs")):
+            ("jointed envs", jointed_st, jcfg, "jointed_envs"),
+            ("xla rain", *xla["state"], "xla_rain")):
         log(f"{label} ({gpu}):")
         profile_steps(EagerStepper(st, c), 8)
         log(f"{label}, replayed from CUDA graphs ({gpu}):")
         profile_steps(replayers[name], 8)
+    # the generic hull path's contact list by stage, eager calls on the
+    # settled state: the glue's device operations and µs
+    for label, call in xla_stages(*xla["state"]).items():
+        n_ops, us, _ = device_ops(call)
+        log(f"xla rain {label}: {n_ops:g} device operations, {us:.1f} us of "
+            f"device a call ({gpu})")
     mode_lines = {}
     for case, (err, kms, pms, (bms, by), fired, call) in modes.items():
         split = kernel_device_split(call, BOX_TABLE)
@@ -2220,6 +2503,10 @@ def main() -> int:
         log(f"{name} ({label}): {us:.1f} us of device a launch, "
             f"{kms:.4f} ms by CUDA events, bound {bms:.5f} ms ({by}), "
             f"{live} live contacts ({gpu})")
+    masks_us = kernel_device_us(xla["masks_call"], ("sweep_kernel",))
+    log(f"2.1 masks mode (xla rain, N {N_RAIN}, k 32): {masks_us:.1f} us of "
+        f"device a launch, {xla['masks'][1]:.4f} ms by CUDA events, bound "
+        f"{xla['masks'][3][0]:.5f} ms ({xla['masks'][3][1]}); {gpu}")
     # the device operations a call puts on the card: 2.1's pair_candidates
     # at each path's shapes, a 2.7 sweep
     for label, call in CANDIDATE_CALLS.items():
@@ -2276,6 +2563,9 @@ def main() -> int:
                    "demo": demo_launches[name],
                    "jointed_envs": jointed_launches[name],
                    "guarded_rain_rollout": guard_launches[name],
+                   "xla_rain": xla["launches"][name],
+                   "rollout_xla_rain": xla["rollout_launches"][name],
+                   "mixed_xla_rain_replayed": xla["mixed_launches"][name],
                    **{path: counts[name]
                       for path, counts in sharded_launches.items()},
                    **{f"rollout_{path}": counts[name]
@@ -2290,6 +2580,13 @@ def main() -> int:
                         "library_ms": None})
         if name == "bucket_contact_table":
             kernels[-1]["modes"] = mode_lines
+        if name == "sweep_window_masks":
+            # ms, plain_ms, bound: the pile's candidates mode; the generic
+            # hull path's masks mode at N 1,024, k 32 here
+            err_m, kms_m, pms_m, (bms_m, by_m) = xla["masks"]
+            kernels[-1]["masks_mode"] = {
+                "max_abs_err": err_m, "ms": kms_m, "plain_ms": pms_m,
+                "bound_ms": bms_m, "bound_by": by_m, "device_us": masks_us}
         if name == "prep_consts":
             # no launch of its own: sweep 0 of 2.5 and of 2.7 computes it
             # (ms: the 2.5 launch it runs in; max_abs_err: its bit-for-bit

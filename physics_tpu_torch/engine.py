@@ -457,6 +457,9 @@ class DeviceStepper:
         if self._pool is None:
             self._pool = graph.pool()
         self._held.extend(scratch_buffers())
+        # the hull tables it read: a later edit of the library builds new
+        # ones (HullSet.derived), and the graph keeps these addresses
+        self._held.append(dict(vars(self.state.hulls).get("_derived", {})))
         return graph, counts
 
     def _guarded_warm_up(self) -> SimState:

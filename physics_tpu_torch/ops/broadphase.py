@@ -1,14 +1,17 @@
-"""Sweep broad phase with rank-block bucketed candidates
-(physics_tpu/ops/broadphase.py: `body_aabbs`, `sweep_order`,
-`_sweep_masks`, `band_window`, `bucket_shape`,
-`sweep_candidates_bucketed`, `pair_candidates`).
+"""Sweep broad phase (physics_tpu/ops/broadphase.py: `body_aabbs`,
+`sweep_order`, `_sweep_masks`, `sweep_candidates`, `band_window`,
+`bucket_shape`, `sweep_candidates_bucketed`, `compact_pairs`,
+`pair_candidates`).
 
 Bodies are sorted by AABB min-x; each rank is tested against its next
-`sweep_window` ranks, and the hits of each block of `bucket_block`
-consecutive ranks are compacted, in rank-major order, into that bucket's
-`cap` candidate lanes: one launch of the kernel in ops/sweep_kernel.py.
-Pairs a window or a bucket cannot hold are counted in `overflow`, never
-dropped silently.
+`sweep_window` ranks. The bucketed form compacts the hits of each block
+of `bucket_block` consecutive ranks, in rank-major order, into that
+bucket's `cap` candidate lanes: one launch of the kernel in
+ops/sweep_kernel.py. The flat form (pair_buckets off) emits every
+(rank, offset) test as a lane from the window masks (the kernel's masks
+mode), and `compact_pairs` keeps the first `max_pair_candidates` hits in
+emission order. Pairs a window, a bucket or the compaction cannot hold
+are counted in `overflow`, never dropped silently.
 """
 
 from __future__ import annotations
@@ -77,6 +80,47 @@ def _sweep_masks(state: SimState, aabbs: Tensor, k: int,
     return order, mask, last
 
 
+def sweep_candidates(state: SimState, aabbs: Tensor, window: int,
+                     order: Tensor | None = None,
+                     plain: bool = False) -> PairCandidates:
+    """The flat sweep's [N·k] candidate lanes, k = min(window, N − 1),
+    rank-major: lane i·k + d − 1 tests sorted ranks (i, i + d), body_a =
+    order[i], body_b = order[i + d] (0 past the last rank, as the JAX
+    package's zero-padded shift leaves it), rank_b = min(i + d, N − 1).
+    overflow counts the ranks whose window may be too short."""
+    n = state.num_bodies
+    k = min(window, n - 1)
+    order, mask, last = _sweep_masks(state, aabbs, k, order, plain)
+    dev = order.device
+    pad_order = torch.cat([order, order.new_zeros((k,))])
+    nb_order = torch.stack([pad_order[d:d + n] for d in range(1, k + 1)],
+                           dim=1)                            # [N, k]
+    ranks = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    offs = torch.arange(1, k + 1, dtype=torch.int32, device=dev)[None, :]
+    return PairCandidates(
+        order[:, None].expand(n, k).reshape(-1), nb_order.reshape(-1),
+        mask.reshape(-1), torch.sum(last.to(torch.int32)).to(torch.int32),
+        ranks.expand(n, k).reshape(-1),
+        torch.clamp(ranks + offs, max=n - 1).reshape(-1))
+
+
+def compact_pairs(cand: PairCandidates, max_pairs: int) -> PairCandidates:
+    """The first `max_pairs` active candidates in emission order, then the
+    inactive ones in theirs (the JAX package's one uint32 sort with the
+    mask in bit 31: a stable sort on the inverted mask); the actives
+    dropped are added to `overflow`. Unchanged when max_pairs ≤ 0 or no
+    larger than the lane count."""
+    p = cand.body_a.shape[0]
+    if max_pairs <= 0 or p <= max_pairs:
+        return cand
+    idx = torch.sort((~cand.mask).to(torch.uint8), stable=True)[1][:max_pairs]
+    dropped = torch.clamp(torch.sum(cand.mask.to(torch.int32)) - max_pairs,
+                          min=0)
+    return PairCandidates(cand.body_a[idx], cand.body_b[idx], cand.mask[idx],
+                          (cand.overflow + dropped).to(torch.int32),
+                          cand.rank_a[idx], cand.rank_b[idx])
+
+
 def band_window(cfg: SimConfig) -> int:
     """Rank-band half-width the broad phase guarantees: candidates connect
     ranks (r, r+d), 1 ≤ d ≤ band_window. The sweep: sweep_window (min-x
@@ -129,14 +173,18 @@ def pair_candidates(state: SimState, cfg: SimConfig,
                     aabbs: Tensor | None = None,
                     order: Tensor | None = None,
                     plain: bool = False) -> PairCandidates:
-    """Bucketed sweep candidates (the broad phase the table paths take
-    outside the in-kernel one). `aabbs`/`order` may be passed when the
-    caller already has them."""
-    if cfg.broadphase != "sweep" or not cfg.pair_buckets:
+    """The sweep's candidates: bucketed (the broad phase the table paths
+    take outside the in-kernel one), or with pair_buckets off the flat
+    sweep compacted to max_pair_candidates lanes. `aabbs`/`order` may be
+    passed when the caller already has them."""
+    if cfg.broadphase != "sweep":
         raise NotImplementedError(
-            "only the bucketed sweep candidates are ported (env_blocks runs "
-            "in the contact-table kernel); allpairs, the flat sweep and "
-            "env_block_candidates are ROADMAP item 1.13")
+            "allpairs and env_block_candidates (env_blocks runs in the "
+            "contact-table kernel) are ROADMAP item 1.13.5")
     if aabbs is None:
         aabbs = body_aabbs(state)
-    return sweep_candidates_bucketed(state, aabbs, cfg, order, plain)
+    if cfg.pair_buckets:
+        return sweep_candidates_bucketed(state, aabbs, cfg, order, plain)
+    return compact_pairs(sweep_candidates(state, aabbs, cfg.sweep_window,
+                                          order, plain),
+                         cfg.max_pair_candidates)

@@ -189,6 +189,20 @@ def table_keys(table: Tensor) -> Tensor:
     return torch.stack([torch.where(act, row0, z), torch.where(act, row1, z)])
 
 
+def table_keys_scalar(table: Tensor, n: int, pair_stride: int,
+                      ground_stride: int) -> Tensor:
+    """The generic paths' packed int32 key of each slot — pair: (min·n +
+    max)·pair_stride + slot, ground: −(body·ground_stride + slot + 1), 0
+    inactive — to compare a table's contact set with theirs (valid while
+    the pair key fits int32)."""
+    act = table[CT_ACT] > 0.0
+    ks = table[CT_KS].to(torch.int32)
+    kl = table[CT_KL].to(torch.int32)
+    pair = (table[CT_KH].to(torch.int32) * n + kl) * pair_stride + ks
+    gnd = -(kl * ground_stride + ks + 1)
+    return torch.where(act, torch.where(table[CT_KSGN] > 0.0, gnd, pair), 0)
+
+
 def prev_key_cols(pkey: Tensor, plam: Tensor) -> Tensor:
     """(keys [2, C] int32, λ [3, C]) of the previous step → the [C, 8]
     columns the warm match reads: ck (−1 inactive), KH (−1 inactive), 0,

@@ -58,7 +58,7 @@ from physics_tpu_torch.ops.contact_table import (
     obb_prefilter,
     table_operands,
 )
-from physics_tpu_torch.ops.hullhull_batched import build_hull_tables
+from physics_tpu_torch.ops.hullhull_batched import hull_tables
 from physics_tpu_torch.state import SimState
 
 Tensor = torch.Tensor
@@ -162,7 +162,7 @@ def build_hull_coef(state: SimState, ia: int = 0, ib: int = 0
     """The coefficient tables of hull type pair (ia, ib), in the kernel's
     vertex-major / component-major padded layouts (the JAX package's
     build_hull_coef). Every block is SIDED (A = type ia, B = type ib)."""
-    ht = build_hull_tables(state.hulls, ia, ib)
+    ht = hull_tables(state.hulls, ia, ib)
     dm = hull_dims(state.hulls)
     f, fp, vcap = dm.f, dm.fp, dm.vcap
     d2, d2p, e, e2p = dm.d2, dm.d2p, dm.e, dm.e2p
@@ -302,13 +302,16 @@ class HullTableCoef(NamedTuple):
 
 
 def hull_table_coef(state: SimState) -> HullTableCoef:
-    """The hull library's table inputs, built on first use and kept on
-    the HullSet object (not a field: derived from the fields), so states
-    stepped from one scene, which share their HullSet, build them once."""
+    """The hull library's table inputs, kept on the HullSet
+    (HullSet.derived), so states stepped from one scene, which share
+    their HullSet, build them once, and an edited library builds them
+    again."""
+    return state.hulls.derived("hull_table_coef",
+                               lambda: _hull_table_coef(state))
+
+
+def _hull_table_coef(state: SimState) -> HullTableCoef:
     hulls = state.hulls
-    tc = getattr(hulls, "_table_coef", None)
-    if tc is not None:
-        return tc
     coef, dm, h = build_hull_coef_multi(state)
     c48 = coef.c48[:, :4 * dm.e2p].reshape(h * h, 4, dm.e2p, dm.vcap)
     eidx = torch.where(c48.amax(dim=3) > 0, torch.argmax(c48, dim=3),
@@ -317,10 +320,8 @@ def hull_table_coef(state: SimState) -> HullTableCoef:
     vbias = torch.where(
         torch.arange(vs, device=hulls.verts.device)[None, :]
         < hulls.vert_count[:, None], 0.0, -BIG).reshape(h * vs)
-    tc = HullTableCoef(coef, dm, h, eidx.to(torch.int32).contiguous(),
-                       vbias.to(torch.float32).contiguous())
-    hulls._table_coef = tc
-    return tc
+    return HullTableCoef(coef, dm, h, eidx.to(torch.int32).contiguous(),
+                         vbias.to(torch.float32).contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -3,26 +3,32 @@
 (`_ground_contacts_boxes`), the banded pair manifolds' slot-major
 contacts (`_pair_contacts_boxes_pallas`), their boxes-only dispatch, the
 generic banded branch's whole contact list in one kernel launch
-(`banded_contacts`, csrc/narrowphase_banded.cu), and the hull fast-layout
-predicate (`hulls_fast_path`).
+(`banded_contacts`, csrc/narrowphase_banded.cu), the hull fast-layout
+predicate (`hulls_fast_path`) and the generic hull path's narrow phase
+on it: the OBB face-axis prefilter (`hull_obb_prefilter`), the hull
+vertices against the ground (`_ground_contacts_hulls_fast`) and the
+slot-major pair contacts (`_pair_contacts_hulls_fast`) from the
+manifolds of ops/hullhull_batched.py.
 
-The JAX package picks the ground path by backend: on the TPU the
+The JAX package picks the box ground path by backend: on the TPU the
 slot-major `_ground_contacts_boxes` ([k·N], slot s of every body, then
 slot s+1), elsewhere the generic body-major `ground_contacts` over
 `convex_data`. The port follows the TPU route on every device, so its
-contact order within a rank differs from the JAX package's on the CPU; the
-generic convex narrow phases themselves are ROADMAP item 1.13.
+contact order within a rank differs from the JAX package's on the CPU.
+The hull fast paths are the same on every backend there. The generic
+convex narrow phases (`convex_data`, spheres) are ROADMAP item 1.13.2.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import vec3c as v3
+from physics_tpu_torch.ops import hullhull_batched
 from physics_tpu_torch.ops.boxbox_batched import (
     _CAP,
     _argmax_unrolled,
@@ -38,7 +44,7 @@ from physics_tpu_torch.ops.narrowphase_banded import (
     pair_manifolds_banded,
 )
 from physics_tpu_torch.parallel.collectives import Shard, chunk, chunk_contacts
-from physics_tpu_torch.state import SHAPE_BOX, SimState
+from physics_tpu_torch.state import SHAPE_BOX, SHAPE_HULL, SimState
 
 Tensor = torch.Tensor
 
@@ -198,31 +204,319 @@ def _pair_contacts_boxes_pallas(state: SimState, cand: PairCandidates,
     )
 
 
-def _check_ported(cfg: SimConfig, ground: bool, pairs: bool) -> None:
-    if ground and not cfg.boxes_only:
+def hull_obb_prefilter(state: SimState, cand: PairCandidates, cap2: int
+                       ) -> Tuple[PairCandidates, Tensor]:
+    """The generic hull path's OBB face-axis prefilter: each hull is
+    bounded by its type's local AABB (padded vertices repeat vertex 0, so
+    the min/max over the capacity is exact); a pair separated on one of
+    the 6 face axes of the two boxes is dropped, and the survivors are
+    compacted in lane order. One hull type: the first `cap2`. H > 1
+    types: segmented by ordered type pair, segment s = type_a·H + type_b
+    holding its first cap2 // H² survivors in lanes [s·seg, (s+1)·seg).
+    The rank rows ride the compaction; lanes past the survivors are 0.
+    Returns (candidates, survivors dropped [] int32)."""
+    hulls = state.hulls
+    n_hulls = hulls.verts.shape[0]
+    lo = torch.amin(hulls.verts, dim=1)                    # [H, 3]
+    hi = torch.amax(hulls.verts, dim=1)
+    co_t = (lo + hi) * 0.5
+    h_t = (hi - lo) * 0.5
+
+    ia, ib = cand.body_a.long(), cand.body_b.long()
+    tidx = torch.clamp(state.shapes.hull_index, 0, n_hulls - 1).long()
+    ta_t = tidx[ia]
+    tb_t = tidx[ib]
+    if n_hulls == 1:
+        co_a = co_b = tuple(co_t[0, c] for c in range(3))
+        h_a = h_b = tuple(h_t[0, c] for c in range(3))
+    else:
+        co_a = tuple(co_t[ta_t, c] for c in range(3))      # [P] rows
+        co_b = tuple(co_t[tb_t, c] for c in range(3))
+        h_a = tuple(h_t[ta_t, c] for c in range(3))
+        h_b = tuple(h_t[tb_t, c] for c in range(3))
+    ra9 = v3.quat_to_mat(state.quat[ia])
+    rb9 = v3.quat_to_mat(state.quat[ib])
+
+    def obb_center(r9, pos, co):
+        return tuple(pos[:, c] + r9[3 * c] * co[0] + r9[3 * c + 1] * co[1]
+                     + r9[3 * c + 2] * co[2] for c in range(3))
+
+    ca = obb_center(ra9, state.pos[ia], co_a)
+    cb = obb_center(rb9, state.pos[ib], co_b)
+    t = v3.sub(cb, ca)
+    # |column_i(Ra) · column_j(Rb)|: the face-axis radius terms
+    cabs = [[torch.abs(ra9[i] * rb9[j] + ra9[3 + i] * rb9[3 + j]
+                       + ra9[6 + i] * rb9[6 + j]) for j in range(3)]
+            for i in range(3)]
+    sep = None
+    for i in range(3):
+        ut = ra9[i] * t[0] + ra9[3 + i] * t[1] + ra9[6 + i] * t[2]
+        rad = (h_a[i] + h_b[0] * cabs[i][0] + h_b[1] * cabs[i][1]
+               + h_b[2] * cabs[i][2])
+        s = torch.abs(ut) - rad
+        sep = s if sep is None else torch.maximum(sep, s)
+    for j in range(3):
+        wt = rb9[j] * t[0] + rb9[3 + j] * t[1] + rb9[6 + j] * t[2]
+        rad = (h_b[j] + h_a[0] * cabs[0][j] + h_a[1] * cabs[1][j]
+               + h_a[2] * cabs[2][j])
+        sep = torch.maximum(sep, torch.abs(wt) - rad)
+
+    keep = cand.mask & (sep < 0.0)
+    p = keep.shape[0]
+    idx_p = torch.arange(p, dtype=torch.int32, device=keep.device)
+    if n_hulls == 1:
+        # unique keys: the kept lanes keep their index, the others shift
+        # past P, so the sort keeps lane order
+        key = torch.where(keep, 0, p) + idx_p
+        idx = torch.argsort(key, stable=True)[:cap2]
+        kept = keep[idx]
+        overflow = torch.clamp(torch.sum(keep.to(torch.int32)) - cap2, min=0)
+    else:
+        n_seg = n_hulls * n_hulls
+        seg_cap = max(cap2 // n_seg, 1)
+        sid = ta_t * n_hulls + tb_t                        # [P]
+        seg = torch.arange(n_seg, device=keep.device)[:, None]
+        keym = torch.where(keep[None, :] & (sid[None, :] == seg),
+                           idx_p[None, :], p)              # [n_seg, P]
+        keym_s = torch.sort(keym, dim=1, stable=True)[0][:, :seg_cap]
+        idx = torch.clamp(keym_s, max=p - 1).reshape(-1)
+        kept = (keym_s < p).reshape(-1)
+        counts = torch.sum((keym < p).to(torch.int32), dim=1)
+        overflow = torch.sum(torch.clamp(counts - seg_cap, min=0))
+    packed = torch.stack([cand.body_a, cand.body_b, cand.rank_a,
+                          cand.rank_b])[:, idx.long()]
+    packed = torch.where(kept[None, :], packed, 0)
+    return PairCandidates(packed[0], packed[1], kept, cand.overflow,
+                          packed[2], packed[3]), overflow.to(torch.int32)
+
+
+def _ground_contacts_hulls_fast(state: SimState, cfg: SimConfig
+                                ) -> Contacts:
+    """Hull vertices against y = ground_height, slot-major [k·N], k =
+    min(max_contacts_per_pair, 8, V): the world heights of every body's
+    vertices as one [V, N] table, the deepest k per body by k argmax
+    passes (ties to the lowest vertex), world points built only for the
+    picked vertices. Keys are −(body·V + vertex + 1)."""
+    n = state.num_bodies
+    dev = state.device
+    n_hulls = state.hulls.verts.shape[0]
+    vcap = state.hulls.verts.shape[1]
+    r9 = v3.quat_to_mat(state.quat)                        # 9 × [N]
+    if n_hulls == 1:
+        t_oh = None
+    else:
+        tidx = torch.clamp(state.shapes.hull_index, 0, n_hulls - 1)
+        t_oh = [(tidx == t)[None, :].to(torch.float32)
+                for t in range(n_hulls)]
+
+    def typed(fn):
+        """Σ_t mask_t · fn(type t's vertex table): [V, N] (or [V, 1])."""
+        if t_oh is None:
+            return fn(0)
+        acc = None
+        for t in range(n_hulls):
+            term = fn(t) * t_oh[t]
+            acc = term if acc is None else acc + term
+        return acc
+
+    def vcol(t, c):
+        return state.hulls.verts[t][:, c:c + 1]            # [V, 1]
+
+    wy = typed(lambda t: (vcol(t, 0) * r9[3][None, :]
+                          + vcol(t, 1) * r9[4][None, :]
+                          + vcol(t, 2) * r9[5][None, :]))
+    wy = wy + state.pos[:, 1][None, :]                     # [V, N]
+    vmask = typed(lambda t: (
+        torch.arange(vcap, device=dev) < state.hulls.vert_count[t]
+    )[:, None].to(torch.float32)) > 0.0
+    depth = cfg.ground_height - wy
+    valid = (depth > 0.0) & (state.inv_mass > 0.0)[None, :] & vmask
+    big_neg = torch.full((), -1e30, dtype=torch.float32, device=dev)
+    score = torch.where(valid, depth, big_neg)
+
+    k = min(cfg.max_contacts_per_pair, 8, vcap)
+    body = torch.arange(n, dtype=torch.int32, device=dev)
+    v_iota = torch.arange(vcap, device=dev)[:, None]
+    local = [typed(lambda t, c=c: vcol(t, c)) for c in range(3)]
+    pt_c, d_c, act_c, key_c = [[], [], []], [], [], []
+    for _ in range(k):
+        best = torch.amax(score, dim=0)                    # [N]
+        bidx = torch.argmax(score, dim=0)
+        oh = (v_iota == bidx[None, :]).to(torch.float32)
+        act = best > 0.0
+        lx, ly, lz = (torch.sum(oh * local[c], dim=0) for c in range(3))
+        for c in range(3):
+            pt_c[c].append(state.pos[:, c] + r9[3 * c] * lx
+                           + r9[3 * c + 1] * ly + r9[3 * c + 2] * lz)
+        d_c.append(torch.where(act, best, 0.0))
+        act_c.append(act)
+        key_c.append(torch.where(act, -(body * vcap + bidx.to(torch.int32)
+                                        + 1), 0).to(torch.int32))
+        score = torch.where(oh > 0.0, big_neg, score)
+
+    ck = n * k
+    zeros = torch.zeros((ck,), dtype=torch.float32, device=dev)
+    return Contacts(
+        body_a=body.repeat(k),
+        body_b=torch.full((ck,), -1, dtype=torch.int32, device=dev),
+        point=torch.stack([torch.cat(c) for c in pt_c]),
+        normal=torch.stack([zeros, torch.ones_like(zeros), zeros]),
+        depth=torch.cat(d_c),
+        active=torch.cat(act_c),
+        friction=state.shapes.friction.repeat(k),
+        restitution=state.shapes.restitution.repeat(k),
+        key=torch.cat(key_c),
+    )
+
+
+def _hull_fast_select_rows(state: SimState, cand: PairCandidates,
+                           cfg: SimConfig, types) -> dict:
+    """One type-pair segment of the hull pair contacts: its slot-major
+    manifolds and kk argmax passes over the S = 2E + 1 slot depths (ties
+    to the lowest slot). Returns {field: [P] row, or kk rows for the
+    slot-major fields}."""
+    ia, ib = cand.body_a, cand.body_b
+    p = ia.shape[0]
+    sm = hullhull_batched.shared_hull_manifolds_sm(state, cand, types)
+    cap = sm.pu.shape[0]
+    ns = cap + 1                                           # slots + edge
+
+    btab = torch.stack([
+        (state.inv_mass > 0).to(torch.float32),
+        (state.shapes.stype == SHAPE_HULL).to(torch.float32),
+        state.shapes.friction,
+        state.shapes.restitution,
+    ])
+    ta = btab[:, ia.long()]                                # [4, P]
+    tb = btab[:, ib.long()]
+    movable = (ta[0] > 0) | (tb[0] > 0)
+    base_valid = cand.mask & movable & (ta[1] > 0) & (tb[1] > 0)
+
+    big_neg = torch.full((), -1e30, dtype=torch.float32, device=ia.device)
+    score = [torch.where(base_valid & (sm.depth[s] > 0.0), sm.depth[s],
+                         big_neg) for s in range(ns)]
+
+    n = state.num_bodies
+    has_key = n * n * ns < 2**31 - 1
+    base_key = ((torch.minimum(ia, ib) * n + torch.maximum(ia, ib)) * ns
+                if has_key else None)
+    kk = min(cfg.max_contacts_per_pair, ns)
+    out = {"ia": ia, "ib": ib, "mu": torch.sqrt(ta[2] * tb[2]),
+           "rest": torch.maximum(ta[3], tb[3]), "kk": kk,
+           "d": [], "act": [], "key": [],
+           **{f"{f}{c}": [] for f in ("pt", "nm") for c in range(3)}}
+    zero_p = torch.zeros((p,), dtype=torch.float32, device=ia.device)
+    pu_rows = list(sm.pu.unbind(0)) + [zero_p]
+    pv_rows = list(sm.pv.unbind(0)) + [zero_p]
+    ps_rows = list(sm.ps.unbind(0)) + [zero_p]
+    for _ in range(kk):
+        best, bidx = _argmax_unrolled(score)
+        act = best > 0.0
+        is_edge = bidx == cap
+        u_sel = _select(bidx, pu_rows)
+        v_sel = _select(bidx, pv_rows)
+        s_sel = _select(bidx, ps_rows)
+        for c in range(3):
+            pt_face = (sm.p0[c] + u_sel * sm.t1[c] + v_sel * sm.t2[c]
+                       + s_sel * sm.n_ref[c])
+            out[f"pt{c}"].append(torch.where(is_edge, sm.edge_point[c],
+                                             pt_face))
+            out[f"nm{c}"].append(torch.where(is_edge, sm.n_edge[c],
+                                             sm.n_face[c]))
+        out["d"].append(torch.where(act, best, zero_p))
+        out["act"].append(act)
+        out["key"].append(torch.where(act, base_key + bidx, 0)
+                          if has_key else torch.zeros_like(ia))
+        score = [torch.where(bidx == s, big_neg, score[s])
+                 for s in range(ns)]
+    return out
+
+
+def _pair_contacts_hulls_fast(state: SimState, cand: PairCandidates,
+                              cfg: SimConfig) -> Contacts:
+    """Slot-major [kk·P] pair contacts of the generic hull path: one hull
+    type, or the type-pair segments hull_obb_prefilter lays out (segment
+    s = type_a·H + type_b, equal widths), each from its own coefficient
+    tables. Slot row k is every segment's k-th row, in segment order,
+    mirroring the rank rows cat([rank] · kk). Keys are (min·n + max)·S +
+    slot while n²·S < 2³¹ − 1, else 0."""
+    n_hulls = state.hulls.verts.shape[0]
+    if n_hulls == 1:
+        segs = [(cand, (0, 0))]
+    else:
+        n_seg = n_hulls * n_hulls
+        p_tot = cand.body_a.shape[0]
+        seg_cap = p_tot // n_seg
+        if seg_cap * n_seg != p_tot:
+            raise ValueError(
+                "the multi-type hull fast path needs type-pair-segmented "
+                "candidates (hull_obb_prefilter: cfg.hull_prefilter_cap > 0)")
+        segs = []
+        for s in range(n_seg):
+            sl = slice(s * seg_cap, (s + 1) * seg_cap)
+            segs.append((PairCandidates(
+                cand.body_a[sl], cand.body_b[sl], cand.mask[sl],
+                cand.overflow, cand.rank_a[sl], cand.rank_b[sl]),
+                (s // n_hulls, s % n_hulls)))
+    parts = [_hull_fast_select_rows(state, c_s, cfg, types)
+             for c_s, types in segs]
+    kk = parts[0]["kk"]
+
+    def slotcat(field):
+        return torch.cat([pt[field][k] for k in range(kk) for pt in parts])
+
+    def repcat(field):
+        return torch.cat([pt[field] for pt in parts]).repeat(kk)
+
+    return Contacts(
+        body_a=repcat("ia"),
+        body_b=repcat("ib"),
+        point=torch.stack([slotcat(f"pt{c}") for c in range(3)]),
+        normal=torch.stack([slotcat(f"nm{c}") for c in range(3)]),
+        depth=slotcat("d"),
+        active=slotcat("act"),
+        friction=repcat("mu"),
+        restitution=repcat("rest"),
+        key=slotcat("key"),
+    )
+
+
+def _check_ported(cfg: SimConfig, ground: bool, pairs: bool,
+                  hulls: bool = False) -> None:
+    """`hulls`: the scene takes the hull fast layout (hulls_fast_path)."""
+    if ground and not (cfg.boxes_only or hulls):
         raise NotImplementedError(
-            "ground contacts of hulls and spheres (convex_data) are ROADMAP "
-            "item 1.13")
-    if pairs and not banded_pairs(cfg):
+            "ground contacts of spheres, and of hulls outside the fast "
+            "layout (convex_data), are ROADMAP item 1.13.2")
+    if pairs and not (banded_pairs(cfg) or hulls):
         raise NotImplementedError(
             "only the banded box narrow phase (boxes_only, "
-            "narrowphase_pallas, bucketed sweep) is ported; the generic "
-            "narrow phases are ROADMAP item 1.13")
+            "narrowphase_pallas, bucketed sweep) and the hull fast layout "
+            "are ported; the generic narrow phases are ROADMAP items "
+            "1.13.2-1.13.3")
 
 
 def ground_contacts(state: SimState, cfg: SimConfig) -> Contacts:
-    """Ground contacts of a boxes-only scene (the TPU route of the JAX
-    dispatch); other shapes are ROADMAP item 1.13."""
-    _check_ported(cfg, ground=True, pairs=False)
+    """Ground contacts: the hull fast layout's vertices, else a boxes-only
+    scene's corners (the TPU route of the JAX dispatch)."""
+    hulls = hulls_fast_path(state, cfg)
+    _check_ported(cfg, ground=True, pairs=False, hulls=hulls)
+    if hulls:
+        return _ground_contacts_hulls_fast(state, cfg)
     return _ground_contacts_boxes(state, cfg)
 
 
 def pair_contacts(state: SimState, cand: PairCandidates, cfg: SimConfig,
-                  geom: Tensor, chunked: bool = False) -> Contacts:
-    """Pair contacts of the bucketed candidates (`chunked`: one rank's
-    slice of them) from the banded pair manifolds' plain rows; the other
-    narrow phases are ROADMAP item 1.13."""
-    _check_ported(cfg, ground=False, pairs=True)
+                  geom: Tensor | None = None,
+                  chunked: bool = False) -> Contacts:
+    """Pair contacts of the candidates: the hull fast layout's slot-major
+    manifolds, else the banded box manifolds' plain rows of the bucketed
+    candidates (`chunked`: one rank's slice of them), which read the
+    rank-space geometry table `geom`."""
+    hulls = hulls_fast_path(state, cfg)
+    _check_ported(cfg, ground=False, pairs=True, hulls=hulls)
+    if hulls:
+        return _pair_contacts_hulls_fast(state, cand, cfg)
     return _pair_contacts_boxes_pallas(state, cand, cfg, geom,
                                        chunked=chunked)
 

@@ -1,6 +1,7 @@
 """The box pile, the hull rains and the packed environments with their
 production configs (physics_tpu/scenes.py `box_pile`, `pile_config`,
-`mesh_rain`, `mesh_rain_mixed`, `rain_config`, `random_env`; the packed
+`mesh_rain`, `mesh_rain_mixed`, `rain_config`, `rain_xla_config`,
+`random_env`; the packed
 4096×8 configuration and scene of bench.py `bench_batched_envs`). The
 same numpy draws in the same order give the same scenes as the JAX
 package. Every scene is built on the card unless the caller passes
@@ -229,6 +230,20 @@ def rain_config(n_bodies: int, dt: float = 1.0 / 60.0) -> SimConfig:
         contact_iters=8,
         z_bf16=True,
         dt=dt,
+    )
+
+
+def rain_xla_config(n_bodies: int, dt: float = 1.0 / 60.0) -> SimConfig:
+    """The pre-adoption generic-path rain config: XLA shared-hull fast
+    paths (slot-major SAT contractions + OBB prefilter) feeding the
+    banded solve, no fused table/anchoring. Kept as the parity/A-B
+    partner for the production hull-table pipeline (rain_config) — the
+    table tests assert the two produce the same contact sets."""
+    return rain_config(n_bodies, dt).replace(
+        pair_buckets=False, bucket_block=64, bucket_cap2=0,
+        contact_table=False, hull_table=False,
+        fuse_prep=False, fuse_integrate=False,
+        contact_rebuild=1, contact_refresh_iters=0,
     )
 
 

@@ -2,9 +2,10 @@
 (physics_tpu/solver/contacts.py: `table_path`, `hull_table_path`,
 `anchored_path`, `fused_integration`, `contact_capacity`,
 `warm_start_lambda_keys`, `_field_gather`, `resolve_contacts`,
-`_resolve_contacts_table`).
+`_resolve_contacts_table`; the generic resolve's contact list for the
+hull fast path).
 
-Three paths are ported. The two bucket-aligned contact-table paths:
+Four paths are ported. The two bucket-aligned contact-table paths:
 boxes (box contact table: candidates from the bucketed sweep, from the
 table kernel's own broad phase with bp_inkernel, or, for packed
 environments, broadphase="env_blocks", from its same-env pairs under the
@@ -14,7 +15,11 @@ generic banded branch for boxes (the two-kernel pile): box ground
 corners and the banded pair manifolds give a flat contact list, which
 the banded solve sorts by rank, compacts, warm-starts by feature key and
 solves (banded_sweeps, whose sweep 0 builds the constants); the
-split-impulse pseudo velocities move the poses right after. With
+split-impulse pseudo velocities move the poses right after. And the
+generic hull path (scenes.rain_xla_config, banded_hulls_path) into the same
+solve: the flat sweep's candidates compacted to max_pair_candidates, the
+OBB prefilter, the hull vertices on the ground and the slot-major hull
+manifolds (hull_contact_list; plain PyTorch apart from 2.1). With
 cfg.contact_rebuild = K > 1 (anchored path), every K-th step REBUILDS:
 sweep sort, bucketed candidates, geometry table, contact-table kernel,
 full solve schedule.
@@ -40,14 +45,15 @@ corners and pair manifolds of its slice of the contact slots and the
 ranks all-gather the contacts back into the one-process order. The
 solve's sweeps are split by rank too (banded_sweeps_sharded); the rest
 runs on every rank. Under `shard` contact_rebuild is 1 and the solve has
-no integration epilogue.
+no integration epilogue; the generic hull path refuses `shard` (ROADMAP
+item 1.15).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
@@ -78,7 +84,10 @@ from physics_tpu_torch.ops.narrowphase import (
     banded_contacts,
     banded_pairs,
     concat_contacts,
+    ground_contacts,
+    hull_obb_prefilter,
     hulls_fast_path,
+    pair_contacts,
 )
 from physics_tpu_torch.parallel.collectives import Shard, all_gather_last
 from physics_tpu_torch.solver.banded_solve import (
@@ -160,38 +169,93 @@ def banded_boxes_path(state: SimState, cfg: SimConfig) -> bool:
         banded_pairs(cfg)
 
 
+def banded_hulls_path(state: SimState, cfg: SimConfig) -> bool:
+    """True when the step takes the generic hull path the port carries
+    (scenes.rain_xla_config): the banded solve without a contact table,
+    the hull fast layout (hulls_fast_path), and pairs (if any) from the
+    sweep, flat or bucketed. Depends on cfg and shapes only."""
+    if table_path(state, cfg) or hull_table_path(state, cfg):
+        return False
+    if not (cfg.contact_solver == "pallas_banded"
+            and hulls_fast_path(state, cfg)):
+        return False
+    return not (cfg.pair_collisions and state.num_bodies > 1) or \
+        cfg.broadphase == "sweep"
+
+
 def _unported_generic():
     return NotImplementedError(
-        "only the contact-table paths and the generic banded box path are "
-        "ported; the other generic contact paths are ROADMAP item 1.13")
+        "only the contact-table paths, the generic banded box path and the "
+        "generic hull fast path are ported; the other generic contact "
+        "paths are ROADMAP items 1.13.2-1.13.6")
+
+
+def _hull_pair_lanes(n: int, cfg: SimConfig, n_hulls: int) -> int:
+    """The candidate lanes the hull fast path's pair contacts run on: the
+    flat sweep's N·k compacted to max_pair_candidates (or the bucketed
+    lanes), then the prefilter's cap2 (H > 1: H² segments of cap2 // H²),
+    no more than it was given."""
+    if cfg.pair_buckets:
+        _, cap, n_blocks = bucket_shape(n, cfg)
+        p = n_blocks * cap
+    else:
+        p = n * min(cfg.sweep_window, n - 1)
+        if cfg.max_pair_candidates > 0:
+            p = min(p, cfg.max_pair_candidates)
+    if cfg.hull_prefilter_cap > 0:
+        if n_hulls == 1:
+            p = min(p, cfg.hull_prefilter_cap)
+        else:
+            n_seg = n_hulls * n_hulls
+            p = n_seg * min(max(cfg.hull_prefilter_cap // n_seg, 1), p)
+    return p
 
 
 def contact_capacity(state: SimState, cfg: SimConfig) -> int:
     """Contact-slot count of one step: the table width on the table
-    paths; on the generic banded path the ground corners (k·N) plus the
+    paths; on the generic banded paths the ground slots (k·N) plus the
     pair slots (kk·P), capped at max_contacts and padded to the solve
-    tile."""
+    tile: box corners and banded manifolds (k, kk ≤ 8), or the hull
+    vertices (k ≤ min(8, V)) and slot-major hull manifolds (kk ≤ 2E + 1)
+    of the prefiltered lanes."""
     n = state.num_bodies
     if table_path(state, cfg) or hull_table_path(state, cfg):
         return table_shape(n, cfg)[2]
-    if not banded_boxes_path(state, cfg):
+    hulls = banded_hulls_path(state, cfg)
+    if not (hulls or banded_boxes_path(state, cfg)):
         raise _unported_generic()
     c = 0
-    if cfg.ground_plane:
-        c += min(cfg.max_contacts_per_pair, len(_BOX_SIGNS)) * n
-    if cfg.pair_collisions and n > 1:
-        block, cap, n_blocks = bucket_shape(n, cfg)
-        c += min(cfg.max_contacts_per_pair, _CAP) * n_blocks * cap
+    if hulls:
+        hs = state.hulls
+        n_slots = 2 * hs.face_verts.shape[2] + 1
+        if cfg.ground_plane:
+            c += min(cfg.max_contacts_per_pair, 8, hs.verts.shape[1]) * n
+        if cfg.pair_collisions and n > 1:
+            c += min(cfg.max_contacts_per_pair, n_slots) * _hull_pair_lanes(
+                n, cfg, hs.verts.shape[0])
+    else:
+        if cfg.ground_plane:
+            c += min(cfg.max_contacts_per_pair, len(_BOX_SIGNS)) * n
+        if cfg.pair_collisions and n > 1:
+            block, cap, n_blocks = bucket_shape(n, cfg)
+            c += min(cfg.max_contacts_per_pair, _CAP) * n_blocks * cap
     if cfg.max_contacts > 0:
         c = min(c, cfg.max_contacts)
     return padded_contact_count(n, c, cfg)
 
 
-def _check_ported(state: SimState, cfg: SimConfig) -> None:
+def _check_ported(state: SimState, cfg: SimConfig,
+                  shard: Shard | None = None) -> None:
     if cfg.compat:
         raise NotImplementedError(
             "compat mode together with contacts (the JAX package integrates "
             "it unfused there) is ROADMAP item 1.11b")
+    if banded_hulls_path(state, cfg):
+        if shard is not None:
+            raise NotImplementedError(
+                "the generic hull path under shard= (the JAX package skips "
+                "the OBB prefilter there) is ROADMAP item 1.15")
+        return
     if not (table_path(state, cfg) or hull_table_path(state, cfg)
             or banded_boxes_path(state, cfg)):
         raise _unported_generic()
@@ -208,7 +272,7 @@ def resolve_contacts(state: SimState, cfg: SimConfig,
                                     or not anchored_path(state, cfg)):
         # the anchored pipeline engages on the unsharded table paths only
         cfg = cfg.replace(contact_rebuild=1)
-    _check_ported(state, cfg)
+    _check_ported(state, cfg, shard)
     if table_path(state, cfg) or hull_table_path(state, cfg):
         return _resolve_contacts_table(state, cfg, plain, shard)
     return _resolve_contacts_banded(state, cfg, plain, shard)
@@ -308,11 +372,13 @@ def _sharded_capacity(n: int, c_total: int, cfg: SimConfig,
     return cp
 
 
-def banded_inputs(state: SimState, cfg: SimConfig, plain: bool = False):
+def banded_inputs(state: SimState, cfg: SimConfig, plain: bool = False,
+                  hulls: bool = False):
     """What the generic banded branch's contact list is made from: (sweep
     order | None, each body's sweep rank [N] int32, candidates | None,
-    the rank-space geometry table at the solve's width, the contact
-    capacity). Without pairs the ranks are the body indices."""
+    the rank-space geometry table at the solve's width (`hulls`: in hull
+    mode), the contact capacity). Without pairs the ranks are the body
+    indices."""
     n = state.num_bodies
     dev = state.device
     pairs = cfg.pair_collisions and n > 1
@@ -325,35 +391,50 @@ def banded_inputs(state: SimState, cfg: SimConfig, plain: bool = False):
         rank[order.long()] = torch.arange(n, dtype=torch.int32, device=dev)
     cp = contact_capacity(state, cfg)
     geom = unified_geom(state, cfg, order if order is not None else rank,
-                        npad=solve_shape(n, cp, cfg)[2])
+                        hulls=hulls, npad=solve_shape(n, cp, cfg)[2])
     if pairs:
         cand = pair_candidates(state, cfg, aabbs=aabbs, order=order,
                                plain=plain)
     return order, rank, cand, geom, cp
 
 
+class ContactList(NamedTuple):
+    """What a generic banded contact list builder returns."""
+
+    contacts: Contacts | None   # the flat list ([C] rows), None if empty
+    ranks: Tuple | None         # (lo, rank_b) [C] int32: endpoint ranks
+    order: Tensor | None        # the sweep order (None without pairs)
+    geom: Tensor                # rank-space geometry at the solve's width
+    cand: PairCandidates | None  # the candidates the pair contacts ran on
+    capacity: int               # the solve's contact slots
+    counters: Dict              # drop counters for the step's metrics
+
+
 def banded_contact_list(state: SimState, cfg: SimConfig,
-                        plain: bool = False, shard: Shard | None = None):
+                        plain: bool = False, shard: Shard | None = None
+                        ) -> ContactList:
     """The contact list of the generic banded branch for boxes: ground
     corners (slot-major [k·N], the TPU route) and banded pair manifolds
     (slot-major [kk·P]), each contact with its endpoint ranks, from one
-    launch (ops/narrowphase.banded_contacts). Returns (contacts | None,
-    (lo, rank_b), order | None, geom, candidates | None, capacity):
-    `geom` is the rank-space geometry table at the solve's width, whose
-    narrow-phase block the pair manifolds read and whose solve block the
-    solve reads. With `shard` each rank computes its slice of the ground
-    slots and of the candidate lanes (the manifolds in chunked mode), and
-    each group is all-gathered back into the one-process order."""
+    launch (ops/narrowphase.banded_contacts). `geom` is the rank-space
+    geometry table at the solve's width, whose narrow-phase block the
+    pair manifolds read and whose solve block the solve reads; the
+    counters hold pair_overflow. With `shard` each rank computes its
+    slice of the ground slots and of the candidate lanes (the manifolds
+    in chunked mode), and each group is all-gathered back into the
+    one-process order."""
     n = state.num_bodies
     order, rank, cand, geom, cp = banded_inputs(state, cfg, plain)
     pairs = cand is not None
+    counters = {"pair_overflow": cand.overflow} if pairs else {}
     if not (cfg.ground_plane or pairs):
-        return None, None, order, geom, cand, cp
+        return ContactList(None, None, order, geom, cand, cp, counters)
     contacts, lo, rb, n_ground = banded_contacts(state, cfg, rank, cand,
                                                  geom, plain=plain,
                                                  shard=shard)
     if shard is None:
-        return contacts, (lo, rb), order, geom, cand, cp
+        return ContactList(contacts, (lo, rb), order, geom, cand, cp,
+                           counters)
     # each group gathered on its own, back into the one-process order (the
     # JAX package gathers each rank's concatenation: the same contacts, in
     # another order among contacts of equal rank)
@@ -371,7 +452,47 @@ def banded_contact_list(state: SimState, cfg: SimConfig,
     lo = torch.cat([g[1] for g in groups])
     rb = torch.cat([g[2] for g in groups])
     cp = _sharded_capacity(n, contacts.body_a.shape[0], cfg, shard)
-    return contacts, (lo, rb), order, geom, cand, cp
+    return ContactList(contacts, (lo, rb), order, geom, cand, cp, counters)
+
+
+def hull_contact_list(state: SimState, cfg: SimConfig,
+                      plain: bool = False) -> ContactList:
+    """The contact list of the generic hull path (scenes.rain_xla_config):
+    the hull vertices on the ground (slot-major [k·N], rank rows
+    cat([rank] · k)), then, after the OBB prefilter when
+    hull_prefilter_cap > 0 (the candidates' rank rows ride its
+    compaction), the slot-major hull pair contacts, rank rows
+    cat([rank_a] · kk) and cat([rank_b] · kk). `cand` is the prefiltered
+    candidates; the counters hold pair_overflow and, after the
+    prefilter, prefilter_overflow (its dropped survivors). `geom` is the
+    rank-space geometry table (hull mode) at the solve's width. `plain`
+    reaches 2.1 only: the rest is plain PyTorch."""
+    n = state.num_bodies
+    order, rank, cand, geom, cp = banded_inputs(state, cfg, plain,
+                                                hulls=True)
+    groups, lo, rb, counters = [], [], [], {}
+    if cfg.ground_plane:
+        gc = ground_contacts(state, cfg)
+        kg = gc.body_a.shape[0] // n
+        groups.append(gc)
+        lo.append(rank.repeat(kg))
+        rb.append(torch.full((kg * n,), -1, dtype=torch.int32,
+                             device=rank.device))
+    if cand is not None:
+        counters["pair_overflow"] = cand.overflow
+        if cfg.hull_prefilter_cap > 0:
+            cand, counters["prefilter_overflow"] = hull_obb_prefilter(
+                state, cand, cfg.hull_prefilter_cap)
+        pc = pair_contacts(state, cand, cfg)
+        kk = pc.body_a.shape[0] // cand.body_a.shape[0]
+        groups.append(pc)
+        lo.append(cand.rank_a.repeat(kk))
+        rb.append(cand.rank_b.repeat(kk))
+    if not groups:
+        return ContactList(None, None, order, geom, cand, cp, counters)
+    return ContactList(concat_contacts(*groups),
+                       (torch.cat(lo), torch.cat(rb)), order, geom, cand,
+                       cp, counters)
 
 
 def _slice_contacts(contacts: Contacts, a: int, b: int) -> Contacts:
@@ -384,14 +505,14 @@ def _slice_contacts(contacts: Contacts, a: int, b: int) -> Contacts:
 def _resolve_contacts_banded(state: SimState, cfg: SimConfig,
                              plain: bool, shard: Shard | None
                              ) -> Tuple[SimState, Dict]:
-    """The generic banded branch for boxes: the contact list, the banded
-    solve, the split-impulse pose update, the warm keys sorted with
-    their λ."""
-    contacts, ranks, order, geom, cand, cp = banded_contact_list(
-        state, cfg, plain, shard)
-    metrics: Dict = {}
-    if cand is not None:
-        metrics["pair_overflow"] = cand.overflow
+    """The generic banded branch, for boxes or on the hull fast path: the
+    contact list, the banded solve, the split-impulse pose update, the
+    warm keys sorted with their λ."""
+    if banded_hulls_path(state, cfg):
+        cl = hull_contact_list(state, cfg, plain)
+    else:
+        cl = banded_contact_list(state, cfg, plain, shard)
+    contacts, ranks, order, geom, _, cp, metrics = cl
     if contacts is None:
         return state, metrics
     use_warm = tuple(state.contact_key.shape) == (cp,)

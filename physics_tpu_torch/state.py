@@ -75,7 +75,8 @@ class Shapes:
 @dataclasses.dataclass
 class HullSet:
     """Convex-hull library [H, ...], padded to shared capacities (see
-    scene._pack_hulls); the hull contact table reads it."""
+    scene._pack_hulls); the hull contact table reads it. Tables derived
+    from it are kept on the object (`derived`)."""
 
     verts: Tensor
     vert_count: Tensor
@@ -91,6 +92,22 @@ class HullSet:
     edge_count: Tensor
 
     replace = _replace
+
+    def derived(self, key, build):
+        """build(), kept on this object under `key` with the field tensors
+        it was built from and their version counters. Each call checks
+        both on the host (no device work) and builds again when a field
+        was replaced or edited in place: the steps of one scene build the
+        tables once, a captured step reads the kept tensors, and an
+        edited library never reads stale ones (`replace` gives a new
+        object, which keeps nothing)."""
+        src = tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+        stamp = tuple(t._version for t in src)
+        kept = self.__dict__.setdefault("_derived", {}).get(key)
+        if kept is None or kept[1] != stamp or any(
+                a is not b for a, b in zip(kept[0], src)):
+            kept = self.__dict__["_derived"][key] = (src, stamp, build())
+        return kept[2]
 
 
 @dataclasses.dataclass

@@ -41,7 +41,12 @@ replay adds equal to an eager step's; the hull motion guard decided on
 the device inside one graph (conditional nodes): replayed guard steps
 against eager ones, and a horizon under
 torch.cuda.set_sync_debug_mode("error") with the eager drive's rebuilds;
-a sampled horizon; and a capture that fails raises. The joint CG kernel
+a sampled horizon; and a capture that fails raises. The generic hull
+path (rain_xla_config, 256 bevelled cubes and 128 of the 3-type
+library): its contact list with 2.1's masks mode against the plain
+list, two steps of the kernel path against the plain path, the TF32
+refusal of its support products, replayed steps against eager ones and
+replays under set_sync_debug_mode("error"). The joint CG kernel
 (csrc/joint_cg.cu) against its plain version at the demo's size, at the
 4,096 packed pendulums' and at a few more than one slot a thread
 holds.
@@ -121,6 +126,7 @@ from physics_tpu_torch.solver.contacts import (
     GUARDED,
     banded_contact_list,
     banded_inputs,
+    hull_contact_list,
     rebuild_branch,
 )
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
@@ -495,6 +501,74 @@ def test_rain_step_kernel_path_matches_plain(rain):
     _steps_match(*rain)
 
 
+@pytest.fixture(scope="module", params=[(256, 1), (128, 3)],
+                ids=["rain256", "mixed128x3"])
+def xla_rain(dev, request):
+    """A hull rain under rain_xla_config (the generic hull path: the
+    flat sweep through 2.1's masks mode, the OBB prefilter, the hull
+    fast contacts, 2.5 with 2.6 in its sweep 0), stepped twice along the
+    plain path."""
+    n, types = request.param
+    if types == 1:
+        s = scenes.mesh_rain(n, real_assets=False, device=dev)
+    else:
+        s = scenes.mesh_rain_mixed(n, n_types=types, real_assets=False,
+                                   device=dev)
+    cfg = scenes.rain_xla_config(n)
+    s = prepare_contacts(s, cfg)
+    for _ in range(2):
+        s, _ = step_with_metrics(s, cfg, plain=True)
+    return s, cfg
+
+
+def test_xla_rain_contact_list_kernel_path_matches_plain(xla_rain):
+    """The contact list with 2.1's masks mode against its plain version:
+    candidates, prefilter, keys, ranks and counters identical, f32
+    fields within 1e-5 of the scene extent; one masks launch a list."""
+    s, cfg = xla_rain
+    before = sweep_window_masks.launches
+    got = hull_contact_list(s, cfg)
+    assert sweep_window_masks.launches == before + 1
+    ref = hull_contact_list(s, cfg, plain=True)
+    (ck, (lok, rbk), _, gk, candk, cp, ovk) = got
+    (cpl, (lop, rbp), _, gp, candp, cpp, ovp) = ref
+    assert cp == cpp and torch.equal(gk, gp)
+    for f in candk._fields:
+        assert torch.equal(getattr(candk, f), getattr(candp, f)), f
+    assert ovk.keys() == ovp.keys() == {"pair_overflow", "prefilter_overflow"}
+    assert all(int(ovk[k]) == int(ovp[k]) for k in ovk)
+    assert torch.equal(lok, lop) and torch.equal(rbk, rbp)
+    for f in ("body_a", "body_b", "key", "active"):
+        assert torch.equal(getattr(ck, f), getattr(cpl, f)), f
+    extent = float(s.pos.abs().max())
+    for f in ("point", "normal", "depth", "friction", "restitution"):
+        assert float((getattr(ck, f) - getattr(cpl, f)).abs().max()) <= \
+            1e-5 * extent, f
+    assert int(ck.active.sum()) > 50
+
+
+def test_xla_rain_step_kernel_path_matches_plain(xla_rain):
+    s, cfg = xla_rain
+    m0, b0 = sweep_window_masks.launches, banded_sweeps.launches
+    step_with_metrics(s, cfg)
+    assert sweep_window_masks.launches == m0 + 1
+    assert banded_sweeps.launches == b0 + 1
+    _steps_match(s, cfg)
+
+
+def test_xla_rain_refuses_tf32_supports(xla_rain):
+    """The hull SAT's support products refuse TF32 matmuls on the card
+    rather than decide contacts from 10-bit mantissas."""
+    s, cfg = xla_rain
+    prev = torch.backends.cuda.matmul.fp32_precision
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
+    try:
+        with pytest.raises(RuntimeError, match="full-f32"):
+            step_with_metrics(s, cfg)
+    finally:
+        torch.backends.cuda.matmul.fp32_precision = prev
+
+
 def test_hull_table_sat_block_holds_several_type_pairs(dev):
     """The 3-type library's first SAT block (128 lanes) holds lanes of
     several ordered type pairs, each pass masked to its own lanes."""
@@ -628,8 +702,8 @@ def test_banded_contacts_kernel_sharded(np_pile, rank):
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
 def test_prep_consts_and_banded_sweeps_kernels(np_pile, warm):
     s, cfg = np_pile
-    contacts, ranks, _, geom, _, cp = banded_contact_list(s, cfg,
-                                                         plain=True)
+    contacts, ranks, _, geom, _, cp, _ = banded_contact_list(s, cfg,
+                                                            plain=True)
     ops = banded_operands(s, contacts, cfg,
                           (s.contact_key, s.contact_lam) if warm else None,
                           ranks, cp)
@@ -767,8 +841,8 @@ def test_sharded_sweep0_folded_consts(pile, np_pile, rank):
     one launch counts one 2.6 launch."""
     z0, (bases, la, lb, geom, cin), tile, pk = _sweep_operands(pile)
     s, cfg = np_pile
-    contacts, ranks, _, ngeom, _, cp = banded_contact_list(s, cfg,
-                                                          plain=True)
+    contacts, ranks, _, ngeom, _, cp, _ = banded_contact_list(s, cfg,
+                                                             plain=True)
     ops = banded_operands(s, contacts, cfg, (s.contact_key, s.contact_lam),
                           ranks, cp)
     for (z0_, b, a_, b_, g, c, t), size in (
@@ -1170,6 +1244,13 @@ def _rollout_scene(name, dev, pile, np_pile):
     if name == "two_kernel":
         s, cfg = np_pile
         return s, cfg, 4, {None}
+    if name == "xla_rain":
+        cfg = scenes.rain_xla_config(256)
+        s = prepare_contacts(scenes.mesh_rain(256, real_assets=False,
+                                              device=dev), cfg)
+        for _ in range(2):
+            s, _ = step_with_metrics(s, cfg, plain=True)
+        return s, cfg, 4, {None}
     if name == "rain":
         cfg = scenes.rain_config(256)
         s = prepare_contacts(scenes.mesh_rain(256, real_assets=False,
@@ -1186,10 +1267,30 @@ def _rollout_scene(name, dev, pile, np_pile):
 
 
 @pytest.mark.parametrize("name", ["pile", "rain", "two_kernel", "packed",
-                                  "demo", "pendulums"])
+                                  "demo", "pendulums", "xla_rain"])
 def test_rollout_replay_matches_eager(dev, pile, np_pile, name):
     s, cfg, n, want = _rollout_scene(name, dev, pile, np_pile)
     _replays_match(s, cfg, n, want)
+
+
+def test_rollout_xla_rain_reads_nothing_back(dev, pile, np_pile):
+    """The generic hull path's replays under
+    torch.cuda.set_sync_debug_mode("error") (a host read inside raises),
+    one 2.1 masks launch and one 2.5 launch each."""
+    s, cfg, _, _ = _rollout_scene("xla_rain", dev, pile, np_pile)
+    stepper = DeviceStepper(s, cfg)
+    stepper.step()                      # the warm-up step and capture
+    m0, b0 = sweep_window_masks.launches, banded_sweeps.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            stepper.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sweep_window_masks.launches - m0 == 4
+    assert banded_sweeps.launches - b0 == 4
+    assert bool(torch.isfinite(stepper.state.pos).all())
 
 
 def _guard_rain(dev):

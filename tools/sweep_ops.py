@@ -174,7 +174,7 @@ def two_kernel(st, cfg, bs, measure, emit) -> None:
     2.5 (or 2.5 with 2.6 in its sweep 0)."""
     from physics_tpu_torch.solver.contacts import banded_contact_list
 
-    contacts, ranks, _, geom, _, cp = banded_contact_list(st, cfg)
+    contacts, ranks, _, geom, _, cp, _ = banded_contact_list(st, cfg)
     ops = bs.banded_operands(st, contacts, cfg,
                              (st.contact_key, st.contact_lam), ranks, cp)
     z0 = bs.banded_z0(geom)
