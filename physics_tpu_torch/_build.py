@@ -137,6 +137,8 @@ SIGNATURES = {
     "gc_compose": [_P, _P, _P, _P, _P],
     "gc_launch": [_P, _P],             # instance, stream
     "gc_destroy": [_P, _P],            # instance, graph
+    # a stage marker of the step (csrc/trace.cu, tracing.py): stage, stream
+    "tr_stage_mark": [_I, _P],
     "np_banded_contacts": [
         _P, _P, _P, _P,            # pos, quat, box params, inverse mass
         _P, _P, _P, _P,            # shape type, friction, restitution, rank

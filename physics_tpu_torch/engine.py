@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 import warnings
 from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from physics_tpu_torch import tracing
 from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import quaternion as quat
 from physics_tpu_torch.ops.contact_table import (
@@ -46,6 +48,8 @@ from physics_tpu_torch.solver.banded_solve import (
     banded_sweeps,
     banded_sweeps_fused,
     folded_prep_consts,
+    metrics_off,
+    metrics_wanted,
 )
 from physics_tpu_torch.solver.contacts import (
     GUARDED,
@@ -117,9 +121,11 @@ def solve_joints(state: SimState, cfg: SimConfig, plain: bool = False
     the previous step's (quirk Q7); in compat only body 0 receives the
     constraint force (quirk Q1). `plain=True` runs the CG's plain version
     on any device. Returns the metrics cg_iters (int32) and cg_converged
-    (bool) as device tensors."""
+    (bool) as device tensors (none without joints under metrics_off)."""
     dev = state.device
     if state.joints.capacity == 0:
+        if not metrics_wanted():
+            return state, {}
         return state, {
             "cg_iters": torch.zeros((), dtype=torch.int32, device=dev),
             "cg_converged": torch.ones((), dtype=torch.bool, device=dev)}
@@ -159,6 +165,7 @@ def step_with_metrics(state: SimState, cfg: SimConfig,
                 "the row-sharded joint CG (a jointed state under shard=) is "
                 "ROADMAP item 1.15")
         shard.check_device(dev)
+    tracing.stage("forces", dev)
     state = apply_gravity(state, cfg)
     state, joint_metrics = solve_joints(state, cfg, plain=plain)
     state = integrate_velocities(state, cfg)
@@ -167,6 +174,7 @@ def step_with_metrics(state: SimState, cfg: SimConfig,
     if contacts_on:
         state, contact_metrics = resolve_contacts(state, cfg, plain=plain,
                                                   shard=shard)
+    tracing.stage("writeback", dev)
     if contacts_on and fused_integration(state, cfg, shard):
         # pos/quat were integrated by the solve's epilogue
         state = state.replace(
@@ -177,12 +185,15 @@ def step_with_metrics(state: SimState, cfg: SimConfig,
         )
     else:
         state = integrate_positions(state, cfg)
+    tracing.stage("end", dev)
     return state, {**joint_metrics, **contact_metrics}
 
 
 def step(state: SimState, cfg: SimConfig) -> SimState:
-    """One simulation step."""
-    return step_with_metrics(state, cfg)[0]
+    """One simulation step (step_with_metrics without its metrics, which
+    it does not compute)."""
+    with metrics_off():
+        return step_with_metrics(state, cfg)[0]
 
 
 def prepare_contacts(state: SimState, cfg: SimConfig) -> SimState:
@@ -332,9 +343,19 @@ def _guard(state: SimState, cfg: SimConfig) -> torch.Tensor:
     """The motion guard's predicate for the step of `state`: on the
     velocities its contacts see (gravity, the joints, the velocity
     integration)."""
-    st = apply_gravity(state, cfg)
-    st, _ = solve_joints(st, cfg)
-    return guard_fires(integrate_velocities(st, cfg), cfg)
+    tracing.stage("forces", state.device)
+    with metrics_off():
+        st = apply_gravity(state, cfg)
+        st, _ = solve_joints(st, cfg)
+        return guard_fires(integrate_velocities(st, cfg), cfg)
+
+
+def _branch_step(state: SimState, cfg: SimConfig, rebuild) -> SimState:
+    """`step` of `state` on the branch `rebuild` (forced_rebuild), its end
+    of stage held: the stepper marks it after its copy into its static
+    buffers."""
+    with forced_rebuild(rebuild), tracing.end_held():
+        return step(state, cfg)
 
 
 def _pick(fire: torch.Tensor, a: SimState, b: SimState) -> SimState:
@@ -375,7 +396,14 @@ class DeviceStepper:
     the launches its graph captured; the host cannot see which side a
     GUARDED step took, so the rebuild side adds 1 to a device tally and
     settle() (which rollout calls after its last step) reads it once and
-    adds each side's launches.
+    adds each side's launches. The tally is the `guarded_rebuilds` slot of
+    the stepper's device counters (tracing.COUNTERS): with tracing on
+    when a branch is captured, its gated refreshes add their fired and
+    evaluated buckets to the others (counters(), reset_counters()), and
+    the graphs hold the stage markers (tracing.stage); recapture() drops
+    the graphs, so that the next steps capture them again as tracing now
+    is. `capture_log` holds the host ms of each branch's warm-up step and
+    of its capture, in the order they ran.
 
     `capture` (capture_graph's signature) records a step and `compose`
     (ConditionalGraph's) joins the GUARDED graphs; the tests put eager
@@ -392,10 +420,16 @@ class DeviceStepper:
         self._graphs: Dict = {}    # branch → (graph, [(counter, launches)])
         self._pool = None
         self._held: list = []
-        # GUARDED: the predicate's flag, the rebuilds taken since settle(),
-        # the steps decided since, each side's launches
+        self._counters = torch.zeros((len(tracing.COUNTERS),),
+                                     dtype=torch.int64, device=state.device)
+        # [(branch, warm-up ms, capture ms)]
+        self.capture_log: List[Tuple] = []
+        # GUARDED: the predicate's flag, the rebuilds taken since settle()
+        # (a view of the counters), the steps decided since, each side's
+        # launches
         self._flag = None
-        self._tally = None
+        self._tally = self._counters[
+            tracing.COUNTERS.index("guarded_rebuilds")]
         self._pending = 0
         self._sides = ([], [])
 
@@ -410,34 +444,52 @@ class DeviceStepper:
         branch = rebuild_branch(self.state, self.cfg)
         if branch in self._graphs:
             graph, counts = self._graphs[branch]
-            graph.replay()
+            with tracing.span("replay", branch):
+                graph.replay()
             _add(counts)
             self._pending += branch == GUARDED
             self.state.step_count_host += 1
             return self.state
-        if branch == GUARDED:
-            new = self._guarded_warm_up()
-        else:
-            with forced_rebuild(branch):
-                new = step(self.state, self.cfg)
-        if self._owned:
-            _copy_into(self.state, new)
-            self.state.step_count_host = new.step_count_host
-        else:
-            self.state = _own(new, self.state)
-            self._owned = True
+        t0 = self._clock()
+        with tracing.span("warmup", branch), tracing.counting(self._counters):
+            if branch == GUARDED:
+                new = self._guarded_warm_up()
+            else:
+                new = _branch_step(self.state, self.cfg, branch)
+            if self._owned:
+                _copy_into(self.state, new)
+                self.state.step_count_host = new.step_count_host
+            else:
+                self.state = _own(new, self.state)
+                self._owned = True
+            tracing.stage("end", new.device)
+        t1 = self._clock()
+        with tracing.span("capture", branch):
+            self._capture_branch(branch)
+        self.capture_log.append((branch, 1e3 * (t1 - t0),
+                                 1e3 * (self._clock() - t1)))
+        return self.state
+
+    def _clock(self) -> float:
+        """The host's clock once the device has caught up."""
+        if self.state.device.type == "cuda":
+            torch.cuda.synchronize(self.state.device)
+        return time.perf_counter()
+
+    def _capture_branch(self, branch) -> None:
         static, cfg = self.state, self.cfg
 
         def one_step(rebuild):
             def run():
-                with forced_rebuild(rebuild):
-                    _copy_into(static, step(static, cfg))
+                with tracing.counting(self._counters):
+                    _copy_into(static, _branch_step(static, cfg, rebuild))
                 if rebuild and branch == GUARDED:
                     self._tally.add_(1)
+                tracing.stage("end", static.device)
             return run
         if branch != GUARDED:
             self._graphs[branch] = self._captured(one_step(branch))
-            return self.state
+            return
         pred, counts = self._captured(
             lambda: self._flag.copy_(_guard(static, cfg)))
         on_true, true_counts = self._captured(one_step(True))
@@ -445,7 +497,6 @@ class DeviceStepper:
         self._sides = (true_counts, false_counts)
         self._graphs[GUARDED] = (self._compose(pred, self._flag, on_true,
                                                on_false), counts)
-        return self.state
 
     def _captured(self, fn):
         """(fn's graph, the launches it captured): a capture launches
@@ -471,17 +522,13 @@ class DeviceStepper:
         if self._flag is None:
             self._flag = torch.zeros((1,), dtype=torch.int32,
                                      device=st.device)
-            self._tally = torch.zeros((), dtype=torch.int32,
-                                      device=st.device)
         before = _counts()
-        with forced_rebuild(True):
-            a = step(st, cfg)
+        a = _branch_step(st, cfg, True)
         mid = _counts()
-        with forced_rebuild(False):
-            b = step(st, cfg)
+        b = _branch_step(st, cfg, False)
         self._sides = (_launched(mid, before), _launched(_counts(), mid))
         _restore(before)
-        self._tally.add_(fire.to(torch.int32))
+        self._tally.add_(fire.to(torch.int64))
         self._pending += 1
         return _pick(fire, a, b)
 
@@ -491,11 +538,33 @@ class DeviceStepper:
         (one read of the device tally: call it after the horizon)."""
         if not self._pending:
             return
-        fired = int(self._tally)
-        _add(self._sides[0], fired)
-        _add(self._sides[1], self._pending - fired)
-        self._tally.zero_()
-        self._pending = 0
+        with tracing.span("settle"):
+            fired = int(self._tally)
+            _add(self._sides[0], fired)
+            _add(self._sides[1], self._pending - fired)
+            self._tally.zero_()
+            self._pending = 0
+
+    def counters(self) -> Dict[str, int]:
+        """The device counters by name (tracing.COUNTERS), after one
+        synchronize: the GUARDED rebuilds since the last settle(), and,
+        from the steps of branches captured with tracing on, the buckets
+        their gated refreshes fired and evaluated."""
+        return dict(zip(tracing.COUNTERS, self._counters.tolist()))
+
+    def reset_counters(self) -> None:
+        """settle(), then every counter to zero."""
+        self.settle()
+        self._counters.zero_()
+
+    def recapture(self) -> None:
+        """settle(), then drop every captured graph and their memory pool:
+        each branch's next step warms up and captures it again (with the
+        stage markers and counters if tracing is on by then)."""
+        self.settle()
+        self._graphs = {}
+        self._pool = None
+        self._held = []
 
 
 def rollout(state: SimState, cfg: SimConfig, num_steps: int,

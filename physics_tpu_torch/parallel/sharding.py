@@ -33,6 +33,7 @@ import torch.distributed as dist
 
 from physics_tpu_torch.engine import step_with_metrics
 from physics_tpu_torch.parallel.collectives import shard_of
+from physics_tpu_torch.solver.banded_solve import metrics_off
 
 
 def row_sharded_step(cfg, group=None) -> Callable:
@@ -41,7 +42,7 @@ def row_sharded_step(cfg, group=None) -> Callable:
     work and solve tiles split by rank. Returns state → state for the
     calling rank's copy of the state, which every rank passes identical;
     engine.step_with_metrics(state, cfg, shard=shard_of(group)) is the
-    same step with its metrics.
+    same step with its metrics, which this one does not compute.
 
     The step runs on the state's device and never moves it: under NCCL
     the state must lie on this rank's card. The table paths need
@@ -51,7 +52,8 @@ def row_sharded_step(cfg, group=None) -> Callable:
     shard = shard_of(group)
 
     def stepped(state):
-        return step_with_metrics(state, cfg, shard=shard)[0]
+        with metrics_off():
+            return step_with_metrics(state, cfg, shard=shard)[0]
 
     return stepped
 

@@ -36,12 +36,15 @@ an order that is not the TPU's — so results agree to a tolerance.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 from types import SimpleNamespace
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
+from physics_tpu_torch import tracing
 from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import vec3c as v3
 from physics_tpu_torch.ops.contact_table import (
@@ -79,6 +82,28 @@ R_PREP = 45      # rows the constants math fills (2.6's output)
 R_CONST = 48     # + depth and endpoint ranks in the fused solve's scratch
 CIN_ROWS = 14
 Z_ROWS = 16
+
+# Whether a step computes its metrics (the solves' contact_count,
+# max_penetration, normal_impulse_sum and band_overflow; the CG's
+# iterations and convergence in engine.solve_joints): yes unless within
+# metrics_off, which engine.step (and so every captured graph) runs under
+_METRICS: contextvars.ContextVar = contextvars.ContextVar(
+    "step_metrics", default=True)
+
+
+@contextlib.contextmanager
+def metrics_off() -> Iterator[None]:
+    """Within the block the step computes no metrics: the metric dicts
+    come back without them."""
+    token = _METRICS.set(False)
+    try:
+        yield
+    finally:
+        _METRICS.reset(token)
+
+
+def metrics_wanted() -> bool:
+    return _METRICS.get()
 
 
 def _prep_consts_math(ga, gb, p, nrm, depth, fric, rest, actf, lam0,
@@ -995,6 +1020,7 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
     _, _, npad = solve_shape(n, capacity, cfg)
     if geom.shape != (48, npad):
         raise ValueError(f"geom must be [48, {npad}]")
+    tracing.stage("solve", geom.device)
     ops = banded_operands(state, contacts, cfg, warm, ranks, capacity)
     kw = dict(tile=ops.tile, vel_iters=cfg.contact_iters,
               pos_iters=cfg.position_iters if ops.use_split else 0,
@@ -1005,18 +1031,21 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
     else:
         z, lam4, _ = banded_sweeps(*args, **kw)
 
+    tracing.stage("writeback", geom.device)
     zz = _unpermute(z, order, n)
     lam3 = lam4[:3].contiguous()
-    act = ops.contacts.active
-    depth = ops.contacts.depth
-    metrics: Dict[str, Tensor] = {
-        "contact_count": act.sum().to(torch.int32),
-        "max_penetration": torch.clamp(torch.max(torch.where(
-            act, depth, torch.zeros_like(depth))), min=0.0),
-        "normal_impulse_sum": torch.sum(lam3[0]),
-        "band_overflow": ops.band_overflow,
-        "contact_overflow": ops.cap_overflow,
-    }
+    metrics: Dict[str, Tensor] = {}
+    if metrics_wanted():
+        act = ops.contacts.active
+        depth = ops.contacts.depth
+        metrics = {
+            "contact_count": act.sum().to(torch.int32),
+            "max_penetration": torch.clamp(torch.max(torch.where(
+                act, depth, torch.zeros_like(depth))), min=0.0),
+            "normal_impulse_sum": torch.sum(lam3[0]),
+            "band_overflow": ops.band_overflow,
+            "contact_overflow": ops.cap_overflow,
+        }
     return (zz[0:3].T.contiguous(), zz[3:6].T.contiguous(),
             zz[8:11].T.contiguous(), zz[11:14].T.contiguous(), lam3,
             metrics, ops.contacts)
@@ -1075,12 +1104,17 @@ def solve_impulses_table(state: SimState, table: Tensor, cfg: SimConfig,
     _, npad = geom_pad(n, cfg)
     if geom.shape != (48, npad):
         raise ValueError(f"geom must be [48, {npad}]")
+    tracing.stage("solve", table.device)
     keys = table_keys(table)
     use_split = warm_rows is not None
     integrate = (cfg.dt, cfg.renormalize_quat) if fuse else None
     pos_iters = cfg.position_iters if use_split else 0
 
     def table_depth():
+        """The activity and depth·activity of the table's slots: for the
+        metrics only (None, None without them)."""
+        if not metrics_wanted():
+            return None, None
         act = table[CT_ACT] > 0.0
         return act, torch.where(act, table[CT_D],
                                 torch.zeros_like(table[CT_D]))
@@ -1096,7 +1130,7 @@ def solve_impulses_table(state: SimState, table: Tensor, cfg: SimConfig,
             table, warm8, geom, cfg, vel_iters=cfg.contact_iters,
             pos_iters=pos_iters, use_split=use_split, integrate=integrate,
             plain=plain)
-        if cfg.contact_rebuild > 1:
+        if cfg.contact_rebuild > 1 and metrics_wanted():
             # anchored refresh: depth·activity re-derived in the kernel
             act, depth_act = lam4[3] > 0.0, lam4[3]
         else:
@@ -1123,17 +1157,20 @@ def solve_impulses_table(state: SimState, table: Tensor, cfg: SimConfig,
 
 def _table_solve_outputs(z, lam4, pq, depth_act, act, keys, order, n):
     """Un-permute the solved rank-space rows to body order, plus the
-    solve's metrics."""
+    solve's metrics (none under metrics_off)."""
+    tracing.stage("writeback", z.device)
     fused = pq is not None
     zz = _unpermute(torch.cat([z[0:6], pq[0:7]]) if fused else z, order, n)
     lam3 = lam4[:3].contiguous()
-    metrics: Dict[str, Tensor] = {
-        "contact_count": torch.sum(act.to(torch.int32)).to(torch.int32),
-        "max_penetration": torch.clamp(torch.max(depth_act), min=0.0),
-        "normal_impulse_sum": torch.sum(lam3[0]),
-        "band_overflow": torch.zeros((), dtype=torch.int32,
-                                     device=z.device),
-    }
+    metrics: Dict[str, Tensor] = {}
+    if metrics_wanted():
+        metrics = {
+            "contact_count": torch.sum(act.to(torch.int32)).to(torch.int32),
+            "max_penetration": torch.clamp(torch.max(depth_act), min=0.0),
+            "normal_impulse_sum": torch.sum(lam3[0]),
+            "band_overflow": torch.zeros((), dtype=torch.int32,
+                                         device=z.device),
+        }
     vel = zz[0:3].T.contiguous()
     omega = zz[3:6].T.contiguous()
     if fused:

@@ -57,6 +57,7 @@ from typing import Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
+from physics_tpu_torch import tracing
 from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import quaternion as quat
 from physics_tpu_torch.ops.boxbox_batched import _CAP
@@ -381,6 +382,7 @@ def banded_inputs(state: SimState, cfg: SimConfig, plain: bool = False,
     indices."""
     n = state.num_bodies
     dev = state.device
+    tracing.stage("pairs", dev)
     pairs = cfg.pair_collisions and n > 1
     order = cand = None
     rank = torch.arange(n, dtype=torch.int32, device=dev)
@@ -429,6 +431,7 @@ def banded_contact_list(state: SimState, cfg: SimConfig,
     counters = {"pair_overflow": cand.overflow} if pairs else {}
     if not (cfg.ground_plane or pairs):
         return ContactList(None, None, order, geom, cand, cp, counters)
+    tracing.stage("table", state.device)
     contacts, lo, rb, n_ground = banded_contacts(state, cfg, rank, cand,
                                                  geom, plain=plain,
                                                  shard=shard)
@@ -470,6 +473,7 @@ def hull_contact_list(state: SimState, cfg: SimConfig,
     n = state.num_bodies
     order, rank, cand, geom, cp = banded_inputs(state, cfg, plain,
                                                 hulls=True)
+    tracing.stage("table", state.device)
     groups, lo, rb, counters = [], [], [], {}
     if cfg.ground_plane:
         gc = ground_contacts(state, cfg)
@@ -581,6 +585,7 @@ def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool,
     """Broad phase, geometry table and contact table of one rebuild.
     Returns (table, rank order or None for the packed envs' identity,
     geom, warm rows, overflow counters)."""
+    tracing.stage("pairs", st.device)
     order = cand = None
     if cfg.broadphase != "env_blocks":
         aabbs = body_aabbs(st)
@@ -592,6 +597,7 @@ def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool,
     geom = unified_geom(st, cfg, order, hulls=hulls)
     prev = (st.contact_key, st.contact_lam) if use_warm else None
     table_fn = bucket_hull_contact_table if hulls else bucket_contact_table
+    tracing.stage("table", st.device)
     if shard is not None:
         table, meta, warm = _sharded_table(table_fn, st, cand, cfg, prev,
                                            geom, plain, shard)
@@ -635,9 +641,12 @@ def _gated_refresh(st: SimState, cfg: SimConfig, order: Tensor | None,
     block through, and every slot warm-matches (a passed-through bucket
     carries its λ). Returns (table, warm rows, worst-of overflow counters
     — the persisted rebuild's and this step's — and contact_ref reset for
-    the bodies of fired buckets)."""
+    the bodies of fired buckets). While tracing is on it also counts the
+    buckets the gate fired and those it evaluated (tracing.count)."""
     n = st.num_bodies
     gate = refresh_gate(st, cfg, order)
+    tracing.count("gate_fired", gate)
+    tracing.count("gate_buckets", gate.numel())
     table, meta, warm = bucket_contact_table(
         st, None, cfg, prev=(st.contact_key, st.contact_lam), geom=geom,
         plain=plain, gate=(gate, st.contact_table))
@@ -765,7 +774,9 @@ def _resolve_contacts_table(state: SimState, cfg: SimConfig,
             ref = torch.cat([state.pos, state.quat], dim=1)
         else:
             order = None if env else state.contact_order
+            tracing.stage("pairs", state.device)
             geom = unified_geom(state, cfg, order, hulls=hulls)
+            tracing.stage("table", state.device)
             if not hulls and cfg.contact_rebuild_vel_factor > 0:
                 table, warm, ovf, ref = _gated_refresh(state, cfg, order,
                                                        geom, plain)

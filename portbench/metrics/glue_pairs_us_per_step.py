@@ -1,0 +1,12 @@
+"""glue_pairs_us_per_step (layer: step glue): device µs a traced step of
+the glue (the operations that are not the port's own kernels) in the
+program's `pairs` stage: the AABBs, the sweep's argsort, the candidates
+(2.1) and the geometry table. The stage is read from the program's stage
+markers, in graphs captured with tracing on (core/spans.py); None on a
+program without them."""
+
+from portbench.core import spans
+
+
+def read(ctx):
+    return spans.stage_us(ctx, "pairs")

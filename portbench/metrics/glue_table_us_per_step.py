@@ -1,0 +1,13 @@
+"""glue_table_us_per_step (layer: step glue): device µs a traced step of
+the glue (the operations that are not the port's own kernels) in the
+program's `table` stage: the refresh gate, the contact table's operands
+and outputs (2.2) or the persisted table's warm rows, the overflow
+counters. The stage is read from the program's stage markers, in graphs
+captured with tracing on (core/spans.py); None on a program without
+them."""
+
+from portbench.core import spans
+
+
+def read(ctx):
+    return spans.stage_us(ctx, "table")

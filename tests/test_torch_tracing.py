@@ -1,0 +1,260 @@
+"""The step's stage spans and device counters (physics_tpu_torch.tracing)
+on the CPU, on a small table pile (K = 4) and 16 packed envs with the
+gated refresh (K = 4), their rebuild and refresh steps.
+
+Under a TorchDispatchMode, each aten op of a step is logged beside the
+stage boundaries that would launch a marker (tracing._launch, which
+launches nothing off the card): with tracing on every op falls after a
+boundary and before the step's `end`, so inside exactly one stage, and
+the stages come in tracing.STAGES' order; with tracing off no boundary
+launches and no op touches the stepper's counters. `step` dispatches
+fewer ops than `step_with_metrics` (it computes no metrics) and gives the
+same state, and step_with_metrics' keys are as before. Through the
+stepper with an eager stand-in for its graphs, the gate's counters equal
+a count of refresh_gate over the same refresh steps. On the card
+(marked cuda) a profiled replay of a graph captured with tracing on runs
+the stage markers in order, and one captured with tracing off none."""
+
+import dataclasses
+from types import SimpleNamespace
+
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from physics_tpu_torch import scenes, tracing
+from physics_tpu_torch.engine import (
+    DeviceStepper,
+    prepare_contacts,
+    step,
+    step_with_metrics,
+)
+from physics_tpu_torch.solver import contacts as tc
+
+
+def _pile(device="cpu"):
+    cfg = scenes.pile_config(256)
+    return prepare_contacts(scenes.box_pile(256, x_aspect=4.0,
+                                            device=device), cfg), cfg
+
+
+def _packed(device="cpu"):
+    cfg = scenes.packed_env_config(16, 8).replace(contact_rebuild=4)
+    return prepare_contacts(scenes.packed_envs(16, 8, device=device),
+                            cfg), cfg
+
+
+SCENES = {"pile": _pile, "packed": _packed}
+METRIC_KEYS = {"cg_iters", "cg_converged", "pair_overflow",
+               "contact_overflow", "contact_count", "max_penetration",
+               "normal_impulse_sum", "band_overflow"}
+
+
+def eager_capture(fn, pool):
+    return SimpleNamespace(replay=fn, pool=lambda: None)
+
+
+class OpLog(TorchDispatchMode):
+    """Every aten op dispatched, as ("op", name, its tensor arguments);
+    not the profiler's ops that open and close the pt.* ranges."""
+
+    def __init__(self, log):
+        super().__init__()
+        self.log = log
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        tensors = [a for a in (*args, *kwargs.values())
+                   if isinstance(a, torch.Tensor)]
+        if not str(func).startswith("profiler."):
+            self.log.append(("op", str(func), tensors))
+        return func(*args, **kwargs)
+
+
+@pytest.fixture
+def log(monkeypatch):
+    """The ops and marker launches of the block, in order; tracing off
+    again after the test."""
+    out = []
+    real = tracing._launch
+
+    def spy(idx, device):
+        out.append(("mark", tracing.STAGES[idx], ()))
+        real(idx, device)
+    monkeypatch.setattr(tracing, "_launch", spy)
+    yield out
+    tracing.enable(False)
+
+
+def _stages_of(log):
+    """The stage of each op of one step's log: the last marker before it
+    (None before the first and after `end`)."""
+    cur, got = None, []
+    for kind, name, _ in log:
+        if kind == "mark":
+            cur = None if name == "end" else name
+        else:
+            got.append((name, cur))
+    return got
+
+
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_every_op_falls_in_one_stage_in_order(scene, log):
+    s, cfg = SCENES[scene]()
+    tracing.enable(True)
+    for k in range(2):                        # a rebuild, then a refresh
+        log.clear()
+        with OpLog(log):
+            s = step(s, cfg)
+        marks = [name for kind, name, _ in log if kind == "mark"]
+        assert marks == list(tracing.STAGES), (k, marks)
+        assert log[0][0] == "mark" and log[-1] == ("mark", "end", ())
+        ops = _stages_of(log)
+        assert len(ops) > 50
+        assert all(st is not None for _, st in ops)
+
+
+def test_gated_refresh_counts_in_table_stage(log):
+    """The gate's counter ops on a gated refresh through the stepper lie
+    in the table stage, and write the counters' vector."""
+    s, cfg = _packed()
+    tracing.enable(True)
+    stepper = DeviceStepper(s, cfg, capture=eager_capture)
+    stepper.step()                            # the rebuild branch
+    log.clear()
+    with OpLog(log):
+        stepper.step()                        # the refresh's warm-up
+    ptr = stepper._counters.untyped_storage().data_ptr()
+    touched = [st for (kind, name, ts), (_, st) in zip(
+        [e for e in log if e[0] == "op"], _stages_of(log))
+        if any(t.untyped_storage().data_ptr() == ptr for t in ts)]
+    assert touched and set(touched) == {"table"}
+
+
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_tracing_off_launches_and_counts_nothing(scene, log):
+    s, cfg = SCENES[scene]()
+    stepper = DeviceStepper(s, cfg, capture=eager_capture)
+    with OpLog(log):
+        for _ in range(6):
+            stepper.step()
+    assert not [e for e in log if e[0] == "mark"]
+    ptr = stepper._counters.untyped_storage().data_ptr()
+    assert not [name for kind, name, ts in log
+                if any(t.untyped_storage().data_ptr() == ptr for t in ts)]
+    assert stepper.counters() == dict.fromkeys(tracing.COUNTERS, 0)
+
+
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_step_dispatches_no_metrics(scene):
+    s, cfg = SCENES[scene]()
+    for _ in range(2):                        # a rebuild, then a refresh
+        a, b = [], []
+        with OpLog(a):
+            new = step(s, cfg)
+        with OpLog(b):
+            ref, m = step_with_metrics(s, cfg)
+        assert len(a) < len(b) - 5, (len(a), len(b))
+        assert set(m) == METRIC_KEYS
+        for f in dataclasses.fields(new):
+            x = getattr(new, f.name)
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, getattr(ref, f.name)), f.name
+        s = new
+
+
+def test_gate_counters_equal_refresh_gate(monkeypatch):
+    """48 packed envs (3 buckets), the bodies of the first two static, so
+    that the gate fires buckets 1 and 2 only (a bucket folds in the
+    next), 10 steps (7 gated refreshes): gate_fired and gate_buckets
+    through the stepper, its graphs captured with tracing on, against a
+    loop of step counting refresh_gate's output."""
+    cfg = scenes.packed_env_config(48, 8).replace(contact_rebuild=4)
+    s0 = prepare_contacts(scenes.packed_envs(48, 8, device="cpu"), cfg)
+    im, ii = s0.inv_mass.clone(), s0.inv_inertia.clone()
+    im[:256], ii[:256] = 0.0, 0.0
+    s0 = s0.replace(inv_mass=im, inv_inertia=ii)
+    fired = buckets = 0
+    real = tc.refresh_gate
+
+    def spy(*a, **k):
+        nonlocal fired, buckets
+        g = real(*a, **k)
+        fired += int(g.sum())
+        buckets += g.numel()
+        return g
+    monkeypatch.setattr(tc, "refresh_gate", spy)
+    s = s0
+    for _ in range(10):
+        s = step(s, cfg)
+    monkeypatch.setattr(tc, "refresh_gate", real)
+    assert (fired, buckets) == (14, 21)
+    tracing.enable(True)
+    try:
+        stepper = DeviceStepper(s0, cfg, capture=eager_capture)
+        for _ in range(10):
+            stepper.step()
+    finally:
+        tracing.enable(False)
+    got = stepper.counters()
+    assert got == {"guarded_rebuilds": 0, "gate_fired": fired,
+                   "gate_buckets": buckets}
+    stepper.reset_counters()
+    assert stepper.counters() == dict.fromkeys(tracing.COUNTERS, 0)
+
+
+def test_recapture_drops_the_graphs_and_logs_each_capture():
+    s, cfg = _pile()
+    captures = []
+
+    def capture(fn, pool):
+        captures.append(fn)
+        return eager_capture(fn, pool)
+    stepper = DeviceStepper(s, cfg, capture=capture)
+    for _ in range(3):                        # rebuild, refresh, refresh
+        stepper.step()
+    assert len(captures) == 2 and stepper.captured == {True, False}
+    stepper.recapture()
+    assert stepper.captured == set()
+    for _ in range(2):                        # refresh, rebuild
+        stepper.step()
+    assert len(captures) == 4 and stepper.captured == {True, False}
+    assert [b for b, _, _ in stepper.capture_log] == [True, False, False,
+                                                      True]
+    assert all(w >= 0 and c >= 0 for _, w, c in stepper.capture_log)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("on", [True, False])
+def test_replayed_markers_on_the_card(on):
+    """A replayed refresh step of the pile, profiled: stage_mark<0..5> in
+    order when its graph was captured with tracing on, none when off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    s, cfg = _pile("cuda")
+    tracing.enable(on)
+    try:
+        stepper = DeviceStepper(s, cfg)
+        for _ in range(3):
+            stepper.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            stepper.step()                    # a refresh, replayed
+            torch.cuda.synchronize()
+    finally:
+        tracing.enable(False)
+    dev = sorted((e.time_range.start, e.name) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    marks = [name for _, name in dev if "stage_mark" in name]
+    if not on:
+        assert marks == []
+        return
+    assert [int(m.split("stage_mark<")[1][0]) for m in marks] == \
+        list(range(len(tracing.STAGES)))
+    host = {e.name for e in prof.events()
+            if e.device_type != DeviceType.CUDA}
+    assert "pt.replay.False" in host
