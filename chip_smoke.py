@@ -18,7 +18,10 @@ Phases (any failure raises, so the run exits non-zero):
               card, at the pile's shapes (a pile settled by 60 steps),
               with median times from CUDA events and the live contacts of
               the solve: 2.1 in its masks mode and in its candidates
-              mode (pair_candidates, every field identical);
+              mode (pair_candidates, every field identical); the
+              geometry table (csrc/geom_table.cu, also in phases 5 and 8:
+              hull mode, the identity order) bit for bit, with its device
+              operations and µs a call against the plain version's;
   4. pile     prepare_contacts + 240 steps of pile_config(4096) with
               contact_iters=8 through step_with_metrics: launch counts,
               finite state, overflow counters, one rebuild and one refresh
@@ -308,6 +311,7 @@ R_RELAX, R_LAM0 = 21, 42     # solve constant rows (csrc/banded_solve.cu R_*)
 OPS_WINDOW_AABB = 30         # a window rank's |R|·half-extent AABB
 OPS_RAW_PAIR = 12            # one raw pair's overlap, liveness and env tests
 OPS_CG_SLOT = 200            # one two-body joint slot in one CG iteration
+OPS_GEOM_BODY = 139          # a body's rotation (31) and R·I⁻¹·Rᵀ (108)
 # device-kernel names of csrc/*.cu (2.1's is sweep_kernel<true|false>,
 # 2.2's box_table_*, 2.4's hull_*; their shared warm match is
 # warm_match_kernel<box_table_warm> or <hull_table_warm>)
@@ -564,6 +568,39 @@ def check_candidates(label, state, cfg):
     return 0.0, kms, pms, bnd
 
 
+def check_geom(label, state, cfg, order, hulls=False):
+    """The geometry table kernel against its plain version, bit for bit
+    (int32 views: torch.equal counts −0 equal to +0), one launch a call;
+    its CUDA-event ms and device operations and µs a call against the
+    plain version's. Returns (0.0, kernel ms, plain ms, bound)."""
+    def run(plain):
+        return unified_geom(state, cfg, order, hulls=hulls, plain=plain)
+    n0 = unified_geom.launches
+    gk = run(False)
+    gp = run(True)
+    if unified_geom.launches != n0 + 1:
+        raise AssertionError(f"geometry table ({label}): not one launch")
+    if not torch.equal(gk.view(torch.int32), gp.view(torch.int32)):
+        raise AssertionError(f"geometry table ({label}): bits differ")
+    n = state.num_bodies
+    sh = state.shapes
+    # each body's fields read once, the order, the table written
+    read = nbytes(state.pos, state.quat, state.vel, state.omega,
+                  state.inv_mass, state.inv_inertia, sh.stype, sh.friction,
+                  sh.restitution, order,
+                  *((sh.hull_index,) if hulls else (sh.params,)))
+    bnd = bound(read + nbytes(gk), OPS_GEOM_BODY * n)
+    kms = median_ms(lambda: run(False), 50)
+    pms = median_ms(lambda: run(True), 5)
+    k_ops, k_us, _ = device_ops(lambda: run(False))
+    p_ops, p_us, _ = device_ops(lambda: run(True))
+    log(f"geometry table ({label}, N {n}, NPAD {gk.shape[1]}): bits "
+        f"identical; kernel {k_us:.1f} us of device a call ({k_ops:g} "
+        f"operations), {kms:.4f} ms; plain {p_us:.1f} us ({p_ops:g} "
+        f"operations), {pms:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return 0.0, kms, pms, bnd
+
+
 def check_pile_kernels(state, cfg):
     """Phase 3: each pile kernel against its plain version at the pile's
     shapes. Returns ({name: (max_abs_err, ms, plain_ms, bound)},
@@ -576,6 +613,7 @@ def check_pile_kernels(state, cfg):
     out["sweep_window_masks"] = check_candidates("pile", state, cfg)
 
     cand = pair_candidates(state, cfg, aabbs, order)
+    check_geom("pile", state, cfg, order)
     geom = unified_geom(state, cfg, order)
     prev = (state.contact_key, state.contact_lam)
     (tk, mk, wk), err, kms, pms, act = check_table(
@@ -2275,6 +2313,7 @@ def main() -> int:
     (tk, _, wk), geom, _, err, kms, pms, bnd = check_hull_table(
         st, rcfg, "rain 1024")
     results["bucket_hull_contact_table"] = (err, kms, pms, bnd)
+    check_geom("rain", st, rcfg, sweep_order(st, body_aabbs(st)), hulls=True)
     check_candidates("rain", st, rcfg)
     _, rain_solve, rain_solves = check_solve(st, rcfg, tk, wk, geom, "rain")
     solves += rain_solves
@@ -2342,6 +2381,7 @@ def main() -> int:
     log(f"packed envs settled {args.settle} steps: contacts "
         f"{int(m['contact_count'])}; the refresh gate would fire "
         f"{int(refresh_gate(st, pcfg, None).sum())} of {nbp} buckets")
+    check_geom("packed", st, pcfg, None)
     every = torch.arange(nbp, device=dev)
     modes = check_table_modes("packed", st, pcfg, None, {
         "rebuild": None,

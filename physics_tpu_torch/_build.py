@@ -139,6 +139,16 @@ SIGNATURES = {
     "gc_destroy": [_P, _P],            # instance, graph
     # a stage marker of the step (csrc/trace.cu, tracing.py): stage, stream
     "tr_stage_mark": [_I, _P],
+    "gt_geom_table": [
+        _P, _P, _P, _P,            # pos, quat, vel, omega
+        _P, _P, _P, _P,            # inv mass, inv inertia, shape type, params
+        _P, _P, _P, _P,            # hull index, friction, restitution,
+                                   # order (or NULL)
+        _P, _P,                    # hull centre, half [H, 3] (or NULL)
+        _P,                        # geom [48, npad] out
+        _I, _I, _I,                # n, hull types, npad
+        _P,                        # stream
+    ],
     "np_banded_contacts": [
         _P, _P, _P, _P,            # pos, quat, box params, inverse mass
         _P, _P, _P, _P,            # shape type, friction, restitution, rank

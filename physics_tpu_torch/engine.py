@@ -26,6 +26,7 @@ from physics_tpu_torch.maths import quaternion as quat
 from physics_tpu_torch.ops.contact_table import (
     CT2_ROWS,
     bucket_contact_table,
+    unified_geom,
 )
 from physics_tpu_torch.ops.forces import apply_gravity
 from physics_tpu_torch.ops.hull_table import (
@@ -73,9 +74,10 @@ from physics_tpu_torch.solver.joints import (
 from physics_tpu_torch.state import SimState
 
 # every kernel wrapper's launch counter (`launches`, a host integer)
-COUNTED = (sweep_window_masks, bucketed_candidates, bucket_contact_table,
-           bucket_hull_contact_table, banded_contacts, banded_sweeps_fused,
-           banded_sweeps, folded_prep_consts, banded_sweep_once, cg.solve)
+COUNTED = (sweep_window_masks, bucketed_candidates, unified_geom,
+           bucket_contact_table, bucket_hull_contact_table, banded_contacts,
+           banded_sweeps_fused, banded_sweeps, folded_prep_consts,
+           banded_sweep_once, cg.solve)
 
 
 def _w_blocks(state: SimState, cfg: SimConfig) -> torch.Tensor:

@@ -98,7 +98,8 @@ def geom_pad(n: int, cfg: SimConfig) -> Tuple[int, int]:
 
 
 def unified_geom(state: SimState, cfg: SimConfig, order: Tensor | None,
-                 hulls: bool = False, npad: int | None = None) -> Tensor:
+                 hulls: bool = False, npad: int | None = None,
+                 plain: bool = False) -> Tensor:
     """The rank-space geometry table [48, NPAD] shared by the contact
     table and the solve (NPAD from geom_pad unless `npad` is given: the
     generic banded path sizes it to its solve window, and its pair
@@ -114,27 +115,51 @@ def unified_geom(state: SimState, cfg: SimConfig, order: Tensor | None,
     carries is_hull·(1 + hull type) so each candidate lane reads its
     ordered type pair, and rows 44:47 hold the world OBB centre
     pos + R·(local-AABB centre), then 0.
-    Column r is the body of rank r (`order[r]`; body r when `order` is
-    None, the packed envs' identity order); columns ≥ N are zero."""
+    Column r is the body of rank r (`order[r]`, int32; body r when
+    `order` is None, the packed envs' identity order); columns ≥ N are
+    zero.
+
+    A CPU tensor (or `plain=True`) runs the plain version; a CUDA
+    tensor launches csrc/geom_table.cu, bit for bit the same."""
     n = state.num_bodies
     if npad is None:
         _, npad = geom_pad(n, cfg)
+    if plain or state.device.type == "cpu":
+        return unified_geom_plain(state, order, hulls, npad)
+    if state.device.type != "cuda":
+        raise ValueError(f"geometry table: unsupported device {state.device}")
+    return _launch_geom(state, order, hulls, npad)
+
+
+unified_geom.launches = 0
+
+
+def _hull_boxes(hs) -> Tuple[Tensor, Tensor]:
+    """(centre, half extents) [H, 3] of each hull type's local AABB."""
+    vcap = hs.verts.shape[1]
+    vmask = (torch.arange(vcap, device=hs.verts.device)[None, :]
+             < hs.vert_count[:, None])[..., None]           # [H, V, 1]
+    big = torch.full_like(hs.verts, 1e30)
+    lo_t = torch.amin(torch.where(vmask, hs.verts, big), dim=1)
+    hi_t = torch.amax(torch.where(vmask, hs.verts, -big), dim=1)
+    return (lo_t + hi_t) * 0.5, (hi_t - lo_t) * 0.5
+
+
+def unified_geom_plain(state: SimState, order: Tensor | None, hulls: bool,
+                       npad: int) -> Tensor:
+    """unified_geom in PyTorch operations."""
+    n = state.num_bodies
     movable = (state.inv_mass > 0.0).to(torch.float32)
     r9 = v3.quat_to_mat(state.quat)
     iw9 = v3.sandwich(r9, v3.mat_unpack(state.inv_inertia))
     zero = torch.zeros((n,), dtype=torch.float32, device=state.device)
     pos3 = [state.pos[:, 0], state.pos[:, 1], state.pos[:, 2]]
     if hulls:
-        hs = state.hulls
-        nh, vcap = hs.verts.shape[0], hs.verts.shape[1]
-        vmask = (torch.arange(vcap, device=state.device)[None, :]
-                 < hs.vert_count[:, None])[..., None]       # [H, V, 1]
-        big = torch.full_like(hs.verts, 1e30)
-        lo_t = torch.amin(torch.where(vmask, hs.verts, big), dim=1)
-        hi_t = torch.amax(torch.where(vmask, hs.verts, -big), dim=1)
+        nh = state.hulls.verts.shape[0]
+        co_t, hh_t = _hull_boxes(state.hulls)
         hidx = torch.clamp(state.shapes.hull_index, 0, nh - 1).long()
-        co_b = ((lo_t + hi_t) * 0.5)[hidx]                  # [n, 3]
-        hh_b = ((hi_t - lo_t) * 0.5)[hidx]
+        co_b = co_t[hidx]                                   # [n, 3]
+        hh_b = hh_t[hidx]
         half3 = [hh_b[:, 0], hh_b[:, 1], hh_b[:, 2]]
         tail = [pos3[c] + r9[3 * c] * co_b[:, 0]
                 + r9[3 * c + 1] * co_b[:, 1]
@@ -163,6 +188,53 @@ def unified_geom(state: SimState, cfg: SimConfig, order: Tensor | None,
         rows = rows[:, order.long()]
     geom = torch.zeros((48, npad), dtype=torch.float32, device=state.device)
     geom[:, :n] = rows
+    return geom
+
+
+def _launch_geom(state: SimState, order: Tensor | None, hulls: bool,
+                 npad: int) -> Tensor:
+    from physics_tpu_torch import _build
+
+    n, dev = state.num_bodies, state.device
+    if npad < n:
+        raise ValueError(f"geometry table: NPAD {npad} < {n} bodies")
+    f32, i32 = torch.float32, torch.int32
+    sh = state.shapes
+    ops = [("pos", state.pos.contiguous(), f32, (n, 3)),
+           ("quat", state.quat.contiguous(), f32, (n, 4)),
+           ("vel", state.vel.contiguous(), f32, (n, 3)),
+           ("omega", state.omega.contiguous(), f32, (n, 3)),
+           ("inv_mass", state.inv_mass.contiguous(), f32, (n,)),
+           ("inv_inertia", state.inv_inertia.contiguous(), f32, (n, 3, 3)),
+           ("stype", sh.stype.contiguous(), i32, (n,)),
+           ("params", sh.params.contiguous(), f32, (n, 3)),
+           ("hull_index", sh.hull_index.contiguous(), i32, (n,)),
+           ("friction", sh.friction.contiguous(), f32, (n,)),
+           ("restitution", sh.restitution.contiguous(), f32, (n,))]
+    if order is not None:
+        ops.append(("order", order, i32, (n,)))
+    nh = 0
+    if hulls:
+        nh = state.hulls.verts.shape[0]
+        co_t, hh_t = _hull_boxes(state.hulls)
+        ops += [("hull centre", co_t.contiguous(), f32, (nh, 3)),
+                ("hull half", hh_t.contiguous(), f32, (nh, 3))]
+    _build.check_operands("geometry table", dev, *ops)
+    t = {name: x for name, x, _, _ in ops}
+    geom = torch.empty((48, npad), dtype=f32, device=dev)
+
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
+    with torch.cuda.device(dev):
+        err = _build.library().gt_geom_table(
+            *[ptr(t.get(k)) for k in (
+                "pos", "quat", "vel", "omega", "inv_mass", "inv_inertia",
+                "stype", "params", "hull_index", "friction", "restitution",
+                "order", "hull centre", "hull half")],
+            ptr(geom), n, nh, npad,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, "gt_geom_table")
+    unified_geom.launches += 1
     return geom
 
 

@@ -393,7 +393,8 @@ def banded_inputs(state: SimState, cfg: SimConfig, plain: bool = False,
         rank[order.long()] = torch.arange(n, dtype=torch.int32, device=dev)
     cp = contact_capacity(state, cfg)
     geom = unified_geom(state, cfg, order if order is not None else rank,
-                        hulls=hulls, npad=solve_shape(n, cp, cfg)[2])
+                        hulls=hulls, npad=solve_shape(n, cp, cfg)[2],
+                        plain=plain)
     if pairs:
         cand = pair_candidates(state, cfg, aabbs=aabbs, order=order,
                                plain=plain)
@@ -469,7 +470,7 @@ def hull_contact_list(state: SimState, cfg: SimConfig,
     candidates; the counters hold pair_overflow and, after the
     prefilter, prefilter_overflow (its dropped survivors). `geom` is the
     rank-space geometry table (hull mode) at the solve's width. `plain`
-    reaches 2.1 only: the rest is plain PyTorch."""
+    reaches 2.1 and the geometry table only: the rest is plain PyTorch."""
     n = state.num_bodies
     order, rank, cand, geom, cp = banded_inputs(state, cfg, plain,
                                                 hulls=True)
@@ -594,7 +595,7 @@ def _rebuild(st: SimState, cfg: SimConfig, use_warm: bool, plain: bool,
             cand = pair_candidates(st, cfg, aabbs=aabbs, order=order,
                                    plain=plain)
     hulls = hull_table_path(st, cfg)
-    geom = unified_geom(st, cfg, order, hulls=hulls)
+    geom = unified_geom(st, cfg, order, hulls=hulls, plain=plain)
     prev = (st.contact_key, st.contact_lam) if use_warm else None
     table_fn = bucket_hull_contact_table if hulls else bucket_contact_table
     tracing.stage("table", st.device)
@@ -775,7 +776,8 @@ def _resolve_contacts_table(state: SimState, cfg: SimConfig,
         else:
             order = None if env else state.contact_order
             tracing.stage("pairs", state.device)
-            geom = unified_geom(state, cfg, order, hulls=hulls)
+            geom = unified_geom(state, cfg, order, hulls=hulls,
+                                plain=plain)
             tracing.stage("table", state.device)
             if not hulls and cfg.contact_rebuild_vel_factor > 0:
                 table, warm, ovf, ref = _gated_refresh(state, cfg, order,

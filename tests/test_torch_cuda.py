@@ -24,7 +24,11 @@ rebuild and a gated refresh step of the packed path, the gated pile and
 the hull rain's motion guard; saturated buckets (contacts beyond ccap,
 lanes beyond the prefilter's or the in-kernel broad phase's cap),
 duplicated previous keys, a call captured in a CUDA graph (candidates,
-gated) and 2,048 lanes of 8 picks a bucket;
+gated) and 2,048 lanes of 8 picks a bucket. The geometry table
+(csrc/geom_table.cu) bit for bit against its plain version, as int32
+views: the 4k pile, 8,008 packed bodies in the identity order, turned and
+static bodies, hull mode, the generic banded path's width, and a call
+captured in a CUDA graph and replayed on new poses;
 and the hull table on libraries whose largest face has 3, 5, 6, 8, 12,
 20 or 63 vertices (the last two above what the manifold kernel holds in
 registers). The persistent solves (2.3 and 2.5, one cooperative launch
@@ -101,6 +105,7 @@ from physics_tpu_torch.ops.broadphase import (
     sweep_order,
 )
 from physics_tpu_torch.ops.narrowphase import banded_contacts
+from physics_tpu_torch.ops.narrowphase_banded import body_table_width
 from physics_tpu_torch.ops.sweep_kernel import (
     bucketed_candidates,
     sweep_window_masks,
@@ -131,6 +136,7 @@ from physics_tpu_torch.solver.contacts import (
 )
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
 
+from test_torch_geom_table import flipped, statics
 from test_torch_pendulums import packed_pendulums
 
 pytestmark = pytest.mark.cuda
@@ -1135,6 +1141,79 @@ def test_contact_table_kernel_beyond_the_old_shared_memory_ceiling(pile):
         s, cand, cfg, prev=_live_prev(s, cfg, 13), geom=geom, plain=plain),
         geom, N)
     assert int(tk[tct.CT_ACT].sum()) > 500
+
+
+def _geom_case(dev, case):
+    """(state, cfg, order, unified_geom keywords) of a geometry-table
+    case."""
+    if case == "packed":            # 8,008 bodies: not a multiple of 128
+        return (scenes.packed_envs(1001, 8, device=dev),
+                scenes.packed_env_config(1001, 8), None, {})
+    kw = {}
+    if case in ("pile4k", "npad"):
+        s = scenes.box_pile(4096, x_aspect=16.0, device=dev)
+        cfg = scenes.pile_config(4096)
+        if case == "npad":          # the generic banded path's width
+            cfg = cfg.replace(contact_table=False)
+            kw["npad"] = body_table_width(4096, cfg)
+    elif case in ("flipped", "statics"):
+        turn = flipped if case == "flipped" else statics
+        s = turn(scenes.box_pile(N, x_aspect=4.0, layers=3, device=dev))
+        cfg = scenes.pile_config(N)
+    else:                           # hull mode: one type, then three
+        s = (scenes.mesh_rain(1024, real_assets=False, device=dev)
+             if case == "rain1024" else scenes.mesh_rain_mixed(
+                 128, n_types=3, real_assets=False, device=dev))
+        cfg = scenes.rain_config(s.num_bodies)
+        kw["hulls"] = True
+    return s, cfg, sweep_order(s, body_aabbs(s)), kw
+
+
+@pytest.mark.parametrize("case", ["pile4k", "packed", "flipped", "statics",
+                                  "rain1024", "mixed128x3", "npad"])
+def test_geom_table_kernel_bitwise(dev, case):
+    """csrc/geom_table.cu against unified_geom_plain, bit for bit: the 4k
+    pile in its sweep order, packed envs in the identity order, bodies
+    turned by 90° and 180° (−0 products in the sandwich), static bodies,
+    hull mode on the 1,024-hull rain and on the 3-type library, and the
+    generic banded path's explicit width. Compared as int32 bits
+    (torch.equal counts −0 equal to +0); one launch a call."""
+    s, cfg, order, kw = _geom_case(dev, case)
+    n0 = tct.unified_geom.launches
+    got = tct.unified_geom(s, cfg, order, **kw)
+    ref = tct.unified_geom(s, cfg, order, plain=True, **kw)
+    assert tct.unified_geom.launches == n0 + 1
+    assert got.shape == ref.shape
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_geom_table_kernel_graph_replay(dev):
+    """One unified_geom call captured in a CUDA graph (a host read would
+    fail the capture), replayed after the poses and velocities changed in
+    place: bit for bit the plain table of the new state."""
+    s = scenes.box_pile(N, x_aspect=4.0, layers=3, device=dev)
+    cfg = scenes.pile_config(N)
+    order = sweep_order(s, body_aabbs(s))
+
+    def call():
+        return tct.unified_geom(s, cfg, order)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    moved = statics(s, seed=5)
+    s.quat.copy_(moved.quat)
+    s.pos.add_(0.25)
+    s.vel.mul_(-2.0)
+    s.omega.add_(1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = tct.unified_geom(s, cfg, order, plain=True)
+    assert torch.equal(captured.view(torch.int32), ref.view(torch.int32))
 
 
 def test_packed_step_kernel_path_matches_plain(packed):
