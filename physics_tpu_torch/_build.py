@@ -64,6 +64,7 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I,    # fp, vcap, e, d2, d2p, e2p
         _I, _I, _I,                # rows of c16, c32, cb per type pair
         _F,                        # ground height
+        _P,                        # int64 [2] SAT lanes, overlaps (or NULL)
         _P,                        # stream
     ],
     # the hull table's scratch words: nb, SAT lanes, kk, kg, ccap, fp, d2

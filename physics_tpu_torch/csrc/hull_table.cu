@@ -25,6 +25,8 @@
 //      reference-face clip (each thread, redundantly), the edge-edge
 //      closest point (vertex supports and edges over the 8 threads) and
 //      the kk deepest slots, written to a per-emission scratch record;
+//      given a counter pair (tracing on), it also adds each SAT lane and
+//      each lane whose SAT found overlap;
 //   4. ground (one warp per rank): the kg lowest hull vertices below the
 //      plane, vertices over the warp;
 //   5. scan (one block per bucket): the stable block scan over the bucket's
@@ -508,7 +510,8 @@ __global__ void __launch_bounds__(kManThreads)
 hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c16_all,
                      const float* __restrict__ c32_all, const float* __restrict__ c88_all,
                      const float* __restrict__ c80_all, const float* __restrict__ cb_all,
-                     const int* __restrict__ eidx_all, Scratch sc, Dims d) {
+                     const int* __restrict__ eidx_all, unsigned long long* __restrict__ counts, Scratch sc,
+                     Dims d) {
   extern __shared__ __align__(16) char smem_raw[];
   // kGroup threads per lane: every thread of the group follows the lane's
   // control flow and computes its scalars (the clip), the split, incident
@@ -581,6 +584,10 @@ hull_manifold_kernel(const float* __restrict__ geom, const float* __restrict__ c
   const int edge_idx = d.ns_edge ? sc.part_i[((size_t)edge_split * d.nb + b) * d.sat_cap + lane] : 0;
 
   const bool separated = fmaxf(face_sep, edge_sep) > 0.f;
+  if (counts != nullptr && t == 0) {
+    atomicAdd(counts, 1ull);
+    if (!separated) atomicAdd(counts + 1, 1ull);
+  }
   const bool edge_wins = !separated && (edge_sep > face_sep + 1e-4f + 0.05f * fabsf(face_sep));
   const bool ref_is_a = face_idx < fp;
   const int fr = ref_is_a ? face_idx : face_idx - fp;
@@ -1056,7 +1063,7 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
                                             int* scratch, int scratch_words, int nb,
                                             int bucket0, int cap, int cap2, int ccap, int kk, int kg, int npad, int rows, int h, int fp,
                                             int vcap, int e, int d2, int d2p, int e2p, int r16, int r32, int rcb,
-                                            float gh, void* stream) {
+                                            float gh, long long* counts, void* stream) {
   if (e < 1 || e > kMaxFaceVerts || 2 * e + 1 > 128 || kk > 2 * e + 1 || kg > 8 || kg > vcap || vcap > 128 || rows > 32 || (cap2 && cap2 > cap) || h < 1 || h * h > 31 ||
       ((uintptr_t)c16 & 15) || bucket0 < 0 || (size_t)(bucket0 + nb + 2) * kBlock > (size_t)npad ||
       ccap % 128)
@@ -1106,7 +1113,8 @@ extern "C" int ht_bucket_hull_contact_table(const float* geom, const int* la, co
                   : e <= 16 ? hull_manifold_kernel<16>
                   : e <= 32 ? hull_manifold_kernel<32>
                             : hull_manifold_kernel<kMaxFaceVerts>;
-  manifold<<<lane_grid, kManThreads, sup_smem, st>>>(geom, c16, c32, c88, c80, cb, eidx, sc, d);
+  manifold<<<lane_grid, kManThreads, sup_smem, st>>>(geom, c16, c32, c88, c80, cb, eidx,
+                                                     reinterpret_cast<unsigned long long*>(counts), sc, d);
 
   if (kg > 0)
     hull_ground_kernel<<<dim3(kBlock / kWarps, nb), kWarps * 32, 0, st>>>(geom, gv, vbias, sc, d);

@@ -401,7 +401,8 @@ class DeviceStepper:
     adds each side's launches. The tally is the `guarded_rebuilds` slot of
     the stepper's device counters (tracing.COUNTERS): with tracing on
     when a branch is captured, its gated refreshes add their fired and
-    evaluated buckets to the others (counters(), reset_counters()), and
+    evaluated buckets and its hull table calls their SAT lanes and
+    overlapping lanes to the others (counters(), reset_counters()), and
     the graphs hold the stage markers (tracing.stage); recapture() drops
     the graphs, so that the next steps capture them again as tracing now
     is. `capture_log` holds the host ms of each branch's warm-up step and
@@ -551,7 +552,8 @@ class DeviceStepper:
         """The device counters by name (tracing.COUNTERS), after one
         synchronize: the GUARDED rebuilds since the last settle(), and,
         from the steps of branches captured with tracing on, the buckets
-        their gated refreshes fired and evaluated."""
+        their gated refreshes fired and evaluated and the hull table's
+        SAT lanes and those that overlap."""
         return dict(zip(tracing.COUNTERS, self._counters.tolist()))
 
     def reset_counters(self) -> None:

@@ -28,9 +28,12 @@ Counters: DeviceStepper keeps an int64 vector on the device, one slot a
 name of COUNTERS. Its `guarded_rebuilds` slot is always on (the GUARDED
 steps' rebuild tally that settle() reads); `count(name, value)` adds to
 the others only while tracing is on and a stepper has put its vector in
-place (`counting`), so a graph captured with tracing off holds none of
-their operations. DeviceStepper also opens host ranges around its
-replays, warm-up steps and captures, and settle() (`span`).
+place (`counting`), and `slots(name, n)` hands a kernel that counts on
+the device itself a view of them under the same condition (None
+otherwise, and the kernel counts nothing), so a graph captured with
+tracing off holds none of their operations. DeviceStepper also opens
+host ranges around its replays, warm-up steps and captures, and
+settle() (`span`).
 
 Enable tracing before a stepper captures its branches (or call its
 recapture() after): the graphs hold what was on when they were
@@ -46,8 +49,10 @@ import torch
 
 STAGES = ("forces", "pairs", "table", "solve", "writeback", "end")
 # the stepper's device counters: the GUARDED rebuild tally; the buckets
-# a gated refresh fired, and those it evaluated
-COUNTERS = ("guarded_rebuilds", "gate_fired", "gate_buckets")
+# a gated refresh fired, and those it evaluated; the hull table's SAT
+# lanes (2.4), and those whose SAT found the hulls overlapping
+COUNTERS = ("guarded_rebuilds", "gate_fired", "gate_buckets",
+            "hull_sat_lanes", "hull_sat_pass")
 
 _on = False
 _open = None          # the open pt.<stage> range
@@ -138,12 +143,23 @@ def counting(counters: torch.Tensor) -> Iterator[None]:
         _COUNTERS.reset(token)
 
 
+def slots(name: str, n: int = 1) -> torch.Tensor | None:
+    """The `n` counters from `name` on (in COUNTERS' order) of the vector
+    in place, a view, while tracing is on; None otherwise."""
+    if not _on:
+        return None
+    sink = _COUNTERS.get()
+    if sink is None:
+        return None
+    i = COUNTERS.index(name)
+    return sink[i:i + n]
+
+
 def count(name: str, value) -> None:
     """Add `value` (a tensor's sum, or an int) to the counter `name` of
     the vector in place, while tracing is on."""
-    if _on:
-        sink = _COUNTERS.get()
-        if sink is not None:
-            if isinstance(value, torch.Tensor):
-                value = value.sum()
-            sink[COUNTERS.index(name)].add_(value)
+    sink = slots(name)
+    if sink is not None:
+        if isinstance(value, torch.Tensor):
+            value = value.sum()
+        sink[0].add_(value)

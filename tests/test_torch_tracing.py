@@ -1,6 +1,7 @@
 """The step's stage spans and device counters (physics_tpu_torch.tracing)
-on the CPU, on a small table pile (K = 4) and 16 packed envs with the
-gated refresh (K = 4), their rebuild and refresh steps.
+on the CPU, on a small table pile (K = 4), 16 packed envs with the
+gated refresh (K = 4) and a 64-hull rain on the hull table (K = 4),
+their rebuild and refresh steps.
 
 Under a TorchDispatchMode, each aten op of a step is logged beside the
 stage boundaries that would launch a marker (tracing._launch, which
@@ -11,9 +12,12 @@ launches and no op touches the stepper's counters. `step` dispatches
 fewer ops than `step_with_metrics` (it computes no metrics) and gives the
 same state, and step_with_metrics' keys are as before. Through the
 stepper with an eager stand-in for its graphs, the gate's counters equal
-a count of refresh_gate over the same refresh steps. On the card
-(marked cuda) a profiled replay of a graph captured with tracing on runs
-the stage markers in order, and one captured with tracing off none."""
+a count of refresh_gate over the same refresh steps, and the hull
+table's counters a count of the plain table's SAT lanes and of those
+its SAT did not separate. On the card (marked cuda) a profiled replay of
+a graph captured with tracing on runs the stage markers in order, and
+one captured with tracing off none; the hull table kernel's counts
+equal its plain version's."""
 
 import dataclasses
 from types import SimpleNamespace
@@ -44,7 +48,15 @@ def _packed(device="cpu"):
                             cfg), cfg
 
 
+def _rain(device="cpu"):
+    cfg = scenes.rain_config(64)
+    return prepare_contacts(scenes.mesh_rain(64, device=device), cfg), cfg
+
+
 SCENES = {"pile": _pile, "packed": _packed}
+# the scenes of the stage and tracing-off checks: the box tables' and the
+# hull table's
+ALL_SCENES = {**SCENES, "rain": _rain}
 METRIC_KEYS = {"cg_iters", "cg_converged", "pair_overflow",
                "contact_overflow", "contact_count", "max_penetration",
                "normal_impulse_sum", "band_overflow"}
@@ -98,9 +110,9 @@ def _stages_of(log):
     return got
 
 
-@pytest.mark.parametrize("scene", list(SCENES))
+@pytest.mark.parametrize("scene", list(ALL_SCENES))
 def test_every_op_falls_in_one_stage_in_order(scene, log):
-    s, cfg = SCENES[scene]()
+    s, cfg = ALL_SCENES[scene]()
     tracing.enable(True)
     for k in range(2):                        # a rebuild, then a refresh
         log.clear()
@@ -131,9 +143,9 @@ def test_gated_refresh_counts_in_table_stage(log):
     assert touched and set(touched) == {"table"}
 
 
-@pytest.mark.parametrize("scene", list(SCENES))
+@pytest.mark.parametrize("scene", list(ALL_SCENES))
 def test_tracing_off_launches_and_counts_nothing(scene, log):
-    s, cfg = SCENES[scene]()
+    s, cfg = ALL_SCENES[scene]()
     stepper = DeviceStepper(s, cfg, capture=eager_capture)
     with OpLog(log):
         for _ in range(6):
@@ -198,8 +210,59 @@ def test_gate_counters_equal_refresh_gate(monkeypatch):
         tracing.enable(False)
     got = stepper.counters()
     assert got == {"guarded_rebuilds": 0, "gate_fired": fired,
-                   "gate_buckets": buckets}
+                   "gate_buckets": buckets, "hull_sat_lanes": 0,
+                   "hull_sat_pass": 0}
     stepper.reset_counters()
+    assert stepper.counters() == dict.fromkeys(tracing.COUNTERS, 0)
+
+
+def _plain_sat_counts(monkeypatch):
+    """[SAT lanes, lanes not separated] of the plain hull table's calls
+    from now on: the prefilter's surviving lanes (every hull of the rain
+    is movable, so each survivor is a SAT lane) and the SAT's verdict on
+    them."""
+    from physics_tpu_torch.ops import hull_table as ht
+
+    got, lanes = [0, 0], []
+    real_filter, real_select = ht.obb_prefilter, ht._select_pass
+
+    def prefilter(*a, **k):
+        out = real_filter(*a, **k)
+        lanes.append(out[0] >= 0)
+        return out
+
+    def select(*a, **k):
+        sp = real_select(*a, **k)
+        live = lanes.pop()
+        got[0] += int(live.sum())
+        got[1] += int((live & ~sp["separated"]).sum())
+        return sp
+    monkeypatch.setattr(ht, "obb_prefilter", prefilter)
+    monkeypatch.setattr(ht, "_select_pass", select)
+    return got
+
+
+def test_hull_counters_equal_the_plain_lanes(monkeypatch):
+    """A 64-hull rain through the stepper, 10 steps (3 rebuilds through
+    the hull table) with tracing on, against the plain table's SAT lanes
+    and overlaps counted as it runs; with tracing off the same steps
+    count nothing."""
+    s0, cfg = _rain()
+    want = _plain_sat_counts(monkeypatch)
+    tracing.enable(True)
+    try:
+        stepper = DeviceStepper(s0, cfg, capture=eager_capture)
+        for _ in range(10):
+            stepper.step()
+    finally:
+        tracing.enable(False)
+    got = stepper.counters()
+    assert got["hull_sat_lanes"] == want[0] > 0
+    assert got["hull_sat_pass"] == want[1]
+    assert 0 < want[1] < want[0]
+    stepper = DeviceStepper(s0, cfg, capture=eager_capture)
+    for _ in range(10):
+        stepper.step()
     assert stepper.counters() == dict.fromkeys(tracing.COUNTERS, 0)
 
 
@@ -258,3 +321,50 @@ def test_replayed_markers_on_the_card(on):
     host = {e.name for e in prof.events()
             if e.device_type != DeviceType.CUDA}
     assert "pt.replay.False" in host
+
+
+@pytest.mark.cuda
+def test_hull_kernel_counts_as_the_plain_table():
+    """The hull table kernel's SAT lane and overlap counts on the card
+    equal the plain version's from the same operands, on a 1,024-hull
+    rain settled 40 steps, and a call outside tracing counts nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from physics_tpu_torch.ops import hull_table as ht
+    from physics_tpu_torch.ops.broadphase import (
+        body_aabbs,
+        pair_candidates,
+        sweep_order,
+    )
+    from physics_tpu_torch.ops.contact_table import unified_geom
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = scenes.rain_config(1024)
+    s = prepare_contacts(scenes.mesh_rain(1024, device="cuda"), cfg)
+    for _ in range(40):
+        s = step(s, cfg)
+    aabbs = body_aabbs(s)
+    order = sweep_order(s, aabbs)
+    cand = pair_candidates(s, cfg, aabbs, order)
+    geom = unified_geom(s, cfg, order, hulls=True)
+    prev = (s.contact_key, s.contact_lam)
+    counts = {}
+    for plain in (False, True):
+        sink = torch.zeros((len(tracing.COUNTERS),), dtype=torch.int64,
+                           device="cuda")
+        tracing.enable(True)
+        try:
+            with tracing.counting(sink):
+                ht.bucket_hull_contact_table(s, cand, cfg, prev=prev,
+                                             geom=geom, plain=plain)
+        finally:
+            tracing.enable(False)
+        counts[plain] = sink.tolist()
+    i = tracing.COUNTERS.index("hull_sat_lanes")
+    assert counts[False] == counts[True]
+    assert counts[False][i] > counts[False][i + 1] > 0
+    sink = torch.zeros((len(tracing.COUNTERS),), dtype=torch.int64,
+                       device="cuda")
+    with tracing.counting(sink):
+        ht.bucket_hull_contact_table(s, cand, cfg, prev=prev, geom=geom)
+    assert sink.tolist() == [0] * len(tracing.COUNTERS)
