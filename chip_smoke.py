@@ -21,7 +21,9 @@ Phases (any failure raises, so the run exits non-zero):
               mode (pair_candidates, every field identical); the
               geometry table (csrc/geom_table.cu, also in phases 5 and 8:
               hull mode, the identity order) bit for bit, with its device
-              operations and µs a call against the plain version's;
+              operations and µs a call against the plain version's; and
+              so gravity and the velocity integration (csrc/body_forces.cu,
+              also in phases 5 and 8);
   4. pile     prepare_contacts + 240 steps of pile_config(4096) with
               contact_iters=8 through step_with_metrics: launch counts,
               finite state, overflow counters, one rebuild and one refresh
@@ -184,6 +186,7 @@ from physics_tpu_torch.envs import offset_envs, pack_envs
 from physics_tpu_torch.io.meshes import box_inertia
 from physics_tpu_torch.io.primitives import octahedron_verts, prism_verts
 from physics_tpu_torch.ops.forces import apply_gravity
+from physics_tpu_torch.ops.integrator import gravity_and_velocities
 from physics_tpu_torch.oracle import reference as oracle
 from physics_tpu_torch.scene import SceneBuilder, demo_scene
 from physics_tpu_torch.solver import cg
@@ -312,6 +315,8 @@ OPS_WINDOW_AABB = 30         # a window rank's |R|·half-extent AABB
 OPS_RAW_PAIR = 12            # one raw pair's overlap, liveness and env tests
 OPS_CG_SLOT = 200            # one two-body joint slot in one CG iteration
 OPS_GEOM_BODY = 139          # a body's rotation (31) and R·I⁻¹·Rᵀ (108)
+OPS_FORCES_BODY = 95         # a body's gravity (6), v (7), rotation (31),
+                             # τ·dt (3), R·(I⁻¹·(Rᵀ·)) (45) and ω (3)
 # device-kernel names of csrc/*.cu (2.1's is sweep_kernel<true|false>,
 # 2.2's box_table_*, 2.4's hull_*; their shared warm match is
 # warm_match_kernel<box_table_warm> or <hull_table_warm>)
@@ -601,6 +606,42 @@ def check_geom(label, state, cfg, order, hulls=False):
     return 0.0, kms, pms, bnd
 
 
+def check_body_forces(label, state, cfg):
+    """Gravity and the velocity integration's kernel against its plain
+    version (apply_gravity, integrate_velocities), bit for bit on force,
+    torque, vel and omega (int32 views), one launch a call; its CUDA-event
+    ms and device operations and µs a call against the plain version's.
+    Returns (0.0, kernel ms, plain ms, bound)."""
+    def run(plain):
+        return gravity_and_velocities(state, cfg, plain=plain)
+    n0 = gravity_and_velocities.launches
+    gk = run(False)
+    gp = run(True)
+    if gravity_and_velocities.launches != n0 + 1:
+        raise AssertionError(f"body forces ({label}): not one launch")
+    for f in ("force", "torque", "vel", "omega"):
+        if not torch.equal(getattr(gk, f).view(torch.int32),
+                           getattr(gp, f).view(torch.int32)):
+            raise AssertionError(f"body forces ({label}): {f} bits differ")
+    n = state.num_bodies
+    # each body's fields read once; the fields the kernel writes
+    read = nbytes(state.mass, state.inv_mass, state.force, state.torque,
+                  state.vel, state.omega, state.quat, state.inv_inertia)
+    wrote = nbytes(*(getattr(gk, f) for f in ("force", "torque", "vel",
+                                              "omega")
+                     if getattr(gk, f) is not getattr(state, f)))
+    bnd = bound(read + wrote, OPS_FORCES_BODY * n)
+    kms = median_ms(lambda: run(False), 50)
+    pms = median_ms(lambda: run(True), 5)
+    k_ops, k_us, _ = device_ops(lambda: run(False))
+    p_ops, p_us, _ = device_ops(lambda: run(True))
+    log(f"body forces ({label}, N {n}): bits identical; kernel {k_us:.2f} "
+        f"us of device a call ({k_ops:g} operations), {kms:.4f} ms; plain "
+        f"{p_us:.1f} us ({p_ops:g} operations), {pms:.4f} ms; bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]}; {read + wrote} bytes)")
+    return 0.0, kms, pms, bnd
+
+
 def check_pile_kernels(state, cfg):
     """Phase 3: each pile kernel against its plain version at the pile's
     shapes. Returns ({name: (max_abs_err, ms, plain_ms, bound)},
@@ -614,6 +655,7 @@ def check_pile_kernels(state, cfg):
 
     cand = pair_candidates(state, cfg, aabbs, order)
     check_geom("pile", state, cfg, order)
+    check_body_forces("pile", state, cfg)
     geom = unified_geom(state, cfg, order)
     prev = (state.contact_key, state.contact_lam)
     (tk, mk, wk), err, kms, pms, act = check_table(
@@ -2314,6 +2356,7 @@ def main() -> int:
         st, rcfg, "rain 1024")
     results["bucket_hull_contact_table"] = (err, kms, pms, bnd)
     check_geom("rain", st, rcfg, sweep_order(st, body_aabbs(st)), hulls=True)
+    check_body_forces("rain", st, rcfg)
     check_candidates("rain", st, rcfg)
     _, rain_solve, rain_solves = check_solve(st, rcfg, tk, wk, geom, "rain")
     solves += rain_solves
@@ -2382,6 +2425,7 @@ def main() -> int:
         f"{int(m['contact_count'])}; the refresh gate would fire "
         f"{int(refresh_gate(st, pcfg, None).sum())} of {nbp} buckets")
     check_geom("packed", st, pcfg, None)
+    check_body_forces("packed", st, pcfg)
     every = torch.arange(nbp, device=dev)
     modes = check_table_modes("packed", st, pcfg, None, {
         "rebuild": None,

@@ -150,6 +150,16 @@ SIGNATURES = {
         _I, _I, _I,                # n, hull types, npad
         _P,                        # stream
     ],
+    "bf_body_forces": [
+        _P, _P, _P, _P,            # mass, inv mass, force, torque
+        _P, _P, _P, _P,            # vel, omega, quat, inv inertia
+        _P,                        # inertia (or NULL)
+        _P, _P, _P, _P,            # force, torque, vel, omega out (or NULL)
+        _F, _F, _F, _F, _F, _F,    # gravity, gravity offset
+        _F, _F,                    # dt, max velocity
+        _I, _I,                    # n, flags (BF_*)
+        _P,                        # stream
+    ],
     "np_banded_contacts": [
         _P, _P, _P, _P,            # pos, quat, box params, inverse mass
         _P, _P, _P, _P,            # shape type, friction, restitution, rank
@@ -169,6 +179,14 @@ FLAG_USE_SPLIT = 1
 FLAG_ANCHORED = 2
 FLAG_INTEGRATE = 4
 FLAG_RENORM = 8
+
+# bf_body_forces flags
+BF_GRAVITY = 1
+BF_INTEGRATE = 2
+BF_SCALE_BY_MASS = 4
+BF_OFFSET = 8
+BF_GYROSCOPIC = 16
+BF_CLAMP = 32
 
 
 def _nvcc() -> str:

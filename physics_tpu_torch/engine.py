@@ -1,7 +1,8 @@
 """The simulation step (physics_tpu/engine.py): gravity → joints (the
 constraint rows and their CG solve, csrc/joint_cg.cu on the card) →
-velocity integration → contacts → position integration, on tensors that
-stay on the state's device; the step reads nothing back from the device,
+velocity integration (gravity and this phase: csrc/body_forces.cu on the
+card) → contacts → position integration, on tensors that stay on the
+state's device; the step reads nothing back from the device,
 except that an eager step on a hull table path with the motion guard
 (contact_rebuild_vel_factor > 0) reads the guard's predicate to pick
 rebuild or refresh. PyTorch runs eagerly: on a CUDA state `rollout`
@@ -34,6 +35,7 @@ from physics_tpu_torch.ops.hull_table import (
     scratch_buffers,
 )
 from physics_tpu_torch.ops.integrator import (
+    gravity_and_velocities,
     integrate_positions,
     integrate_velocities,
 )
@@ -74,10 +76,10 @@ from physics_tpu_torch.solver.joints import (
 from physics_tpu_torch.state import SimState
 
 # every kernel wrapper's launch counter (`launches`, a host integer)
-COUNTED = (sweep_window_masks, bucketed_candidates, unified_geom,
-           bucket_contact_table, bucket_hull_contact_table, banded_contacts,
-           banded_sweeps_fused, banded_sweeps, folded_prep_consts,
-           banded_sweep_once, cg.solve)
+COUNTED = (gravity_and_velocities, sweep_window_masks, bucketed_candidates,
+           unified_geom, bucket_contact_table, bucket_hull_contact_table,
+           banded_contacts, banded_sweeps_fused, banded_sweeps,
+           folded_prep_consts, banded_sweep_once, cg.solve)
 
 
 def _w_blocks(state: SimState, cfg: SimConfig) -> torch.Tensor:
@@ -150,6 +152,26 @@ def solve_joints(state: SimState, cfg: SimConfig, plain: bool = False
     return state, {"cg_iters": iters, "cg_converged": converged}
 
 
+def _forces(state: SimState, cfg: SimConfig, plain: bool = False
+            ) -> Tuple[SimState, Dict]:
+    """Gravity, the joints and the velocity integration (solve_joints'
+    metrics): one gravity_and_velocities launch without joints, two
+    around solve_joints with them. compat keeps the plain functions,
+    the route of its quirks Q4/Q5."""
+    if cfg.compat:
+        state = apply_gravity(state, cfg)
+        state, metrics = solve_joints(state, cfg, plain=plain)
+        return integrate_velocities(state, cfg), metrics
+    if state.joints.capacity == 0:
+        # solve_joints changes nothing here: it only makes its metrics
+        return solve_joints(gravity_and_velocities(state, cfg, plain=plain),
+                            cfg, plain=plain)
+    state = gravity_and_velocities(state, cfg, integrate=False, plain=plain)
+    state, metrics = solve_joints(state, cfg, plain=plain)
+    return gravity_and_velocities(state, cfg, gravity=False,
+                                  plain=plain), metrics
+
+
 def step_with_metrics(state: SimState, cfg: SimConfig,
                       plain: bool = False,
                       shard: Shard | None = None) -> Tuple[SimState, Dict]:
@@ -168,9 +190,7 @@ def step_with_metrics(state: SimState, cfg: SimConfig,
                 "ROADMAP item 1.15")
         shard.check_device(dev)
     tracing.stage("forces", dev)
-    state = apply_gravity(state, cfg)
-    state, joint_metrics = solve_joints(state, cfg, plain=plain)
-    state = integrate_velocities(state, cfg)
+    state, joint_metrics = _forces(state, cfg, plain)
     contact_metrics: Dict = {}
     contacts_on = cfg.ground_plane or cfg.pair_collisions
     if contacts_on:
@@ -347,9 +367,7 @@ def _guard(state: SimState, cfg: SimConfig) -> torch.Tensor:
     integration)."""
     tracing.stage("forces", state.device)
     with metrics_off():
-        st = apply_gravity(state, cfg)
-        st, _ = solve_joints(st, cfg)
-        return guard_fires(integrate_velocities(st, cfg), cfg)
+        return guard_fires(_forces(state, cfg)[0], cfg)
 
 
 def _branch_step(state: SimState, cfg: SimConfig, rebuild) -> SimState:

@@ -1515,12 +1515,12 @@ def test_rollout_capture_failure_raises(pile, monkeypatch):
     import physics_tpu_torch.engine as engine
 
     s, cfg = pile
-    real = engine.integrate_velocities
+    real = engine.gravity_and_velocities
 
-    def reads_back(state, cfg):
+    def reads_back(state, cfg, **kw):
         float(state.vel.sum())
-        return real(state, cfg)
-    monkeypatch.setattr(engine, "integrate_velocities", reads_back)
+        return real(state, cfg, **kw)
+    monkeypatch.setattr(engine, "gravity_and_velocities", reads_back)
     with pytest.raises(RuntimeError, match="capturing a step"):
         rollout(s, cfg, 3)
     torch.cuda.synchronize()
