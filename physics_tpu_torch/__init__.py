@@ -6,9 +6,11 @@ under scenes.pile_config, with or without the contact table), the hull
 rains' step (scenes.mesh_rain and mesh_rain_mixed under
 scenes.rain_config) and packed envs, on one process or row-sharded over
 the ranks of a torch.distributed group (parallel/sharding.py), through
-eight hand-written Hopper kernels: the sweep broad phase's masks and
-bucketed candidates (csrc/sweep.cu), the box and hull contact tables
-(csrc/contact_table.cu, csrc/hull_table.cu), the banded pair manifolds
+ten hand-written Hopper kernels: gravity and the velocity integration
+(csrc/body_forces.cu), the sweep broad phase's masks and bucketed
+candidates (csrc/sweep.cu), the geometry table (csrc/geom_table.cu),
+the box and hull contact tables (csrc/contact_table.cu,
+csrc/hull_table.cu), the banded pair manifolds
 (csrc/narrowphase_banded.cu) and four banded solve kernels
 (csrc/banded_solve.cu); and joints (the four joint types, their CG in
 one hand-written kernel, csrc/joint_cg.cu) with the reference's compat

@@ -24,36 +24,16 @@ import torch
 from physics_tpu_torch import tracing
 from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import quaternion as quat
-from physics_tpu_torch.ops.contact_table import (
-    CT2_ROWS,
-    bucket_contact_table,
-    unified_geom,
-)
+from physics_tpu_torch.ops.contact_table import CT2_ROWS
 from physics_tpu_torch.ops.forces import apply_gravity
-from physics_tpu_torch.ops.hull_table import (
-    bucket_hull_contact_table,
-    scratch_buffers,
-)
 from physics_tpu_torch.ops.integrator import (
     gravity_and_velocities,
     integrate_positions,
     integrate_velocities,
 )
-from physics_tpu_torch.ops.narrowphase import banded_contacts
-from physics_tpu_torch.ops.sweep_kernel import (
-    bucketed_candidates,
-    sweep_window_masks,
-)
 from physics_tpu_torch.parallel.collectives import Shard
 from physics_tpu_torch.solver import cg
-from physics_tpu_torch.solver.banded_solve import (
-    banded_sweep_once,
-    banded_sweeps,
-    banded_sweeps_fused,
-    folded_prep_consts,
-    metrics_off,
-    metrics_wanted,
-)
+from physics_tpu_torch.solver.banded_solve import metrics_off, metrics_wanted
 from physics_tpu_torch.solver.contacts import (
     GUARDED,
     anchored_path,
@@ -74,13 +54,6 @@ from physics_tpu_torch.solver.joints import (
     jt_matvec,
 )
 from physics_tpu_torch.state import SimState
-
-# every kernel wrapper's launch counter (`launches`, a host integer)
-COUNTED = (gravity_and_velocities, sweep_window_masks, bucketed_candidates,
-           unified_geom, bucket_contact_table, bucket_hull_contact_table,
-           banded_contacts, banded_sweeps_fused, banded_sweeps,
-           folded_prep_consts, banded_sweep_once, cg.solve)
-
 
 def _w_blocks(state: SimState, cfg: SimConfig) -> torch.Tensor:
     """The inverse generalised mass W of each body as [N, 10]: a linear
@@ -342,25 +315,6 @@ class ConditionalGraph:
                                  ctypes.c_void_p(self._graph))
 
 
-def _counts() -> List[int]:
-    return [c.launches for c in COUNTED]
-
-
-def _launched(after: List[int], before: List[int]) -> list:
-    """[(counter, launches)] between two readings of the counters."""
-    return [(c, a - b) for c, a, b in zip(COUNTED, after, before) if a != b]
-
-
-def _restore(counts: List[int]) -> None:
-    for c, n in zip(COUNTED, counts):
-        c.launches = n
-
-
-def _add(launched: list, times: int = 1) -> None:
-    for c, n in launched:
-        c.launches += times * n
-
-
 def _guard(state: SimState, cfg: SimConfig) -> torch.Tensor:
     """The motion guard's predicate for the step of `state`: on the
     velocities its contacts see (gravity, the joints, the velocity
@@ -406,25 +360,26 @@ class DeviceStepper:
     among them). Before a branch is captured, one real eager step of that
     branch runs (the GUARDED one runs both steps and picks by the
     predicate on the device): it builds the kernels, fills the caches
-    (hull_table_coef, the static window bases, 2.4's scratch) and is a
-    step of the horizon. The graphs share one memory pool: each reads
-    only the static buffers and what it writes itself, and they never run
-    at once. The stepper keeps every cached buffer a graph captured that
-    a later call could free (2.4's scratch, which a larger call replaces;
-    the window bases are never evicted). The wrappers' `launches`
-    counters count real launches: a capture adds nothing, a replay adds
-    the launches its graph captured; the host cannot see which side a
-    GUARDED step took, so the rebuild side adds 1 to a device tally and
-    settle() (which rollout calls after its last step) reads it once and
-    adds each side's launches. The tally is the `guarded_rebuilds` slot of
-    the stepper's device counters (tracing.COUNTERS): with tracing on
-    when a branch is captured, its gated refreshes add their fired and
-    evaluated buckets and its hull table calls their SAT lanes and
-    overlapping lanes to the others (counters(), reset_counters()), and
-    the graphs hold the stage markers (tracing.stage); recapture() drops
-    the graphs, so that the next steps capture them again as tracing now
-    is. `capture_log` holds the host ms of each branch's warm-up step and
-    of its capture, in the order they ran.
+    (hull_table_coef, the static window bases) and is a step of the
+    horizon. The graphs share one memory pool: each reads only the static
+    buffers and what it writes itself, and they never run at once. At
+    each capture the stepper holds the hull set's tables (HullSet.tables),
+    which a later edit of the library replaces while the graph keeps
+    their addresses; the window bases are never evicted. A kernel
+    wrapper's `launches` counts the calls that launched its kernel or
+    recorded it into a graph being captured: a warm-up step and a capture
+    each count, a replay adds nothing.
+
+    The stepper's device counters (tracing.COUNTERS, counters(),
+    reset_counters()) count since the last reset_counters(): the rebuild
+    side of a GUARDED step adds 1 to `guarded_rebuilds` (the warm-up step
+    adds the predicate), always; with tracing on when a branch is
+    captured, its gated refreshes add their fired and evaluated buckets
+    and its hull table calls their SAT lanes and overlapping lanes to the
+    others, and the graphs hold the stage markers (tracing.stage).
+    recapture() drops the graphs, so that the next steps capture them
+    again as tracing now is. `capture_log` holds the host ms of each
+    branch's warm-up step and of its capture, in the order they ran.
 
     `capture` (capture_graph's signature) records a step and `compose`
     (ConditionalGraph's) joins the GUARDED graphs; the tests put eager
@@ -438,21 +393,18 @@ class DeviceStepper:
         self._owned = False
         self._capture = capture
         self._compose = compose
-        self._graphs: Dict = {}    # branch → (graph, [(counter, launches)])
+        self._graphs: Dict = {}    # branch → its graph
         self._pool = None
         self._held: list = []
         self._counters = torch.zeros((len(tracing.COUNTERS),),
                                      dtype=torch.int64, device=state.device)
         # [(branch, warm-up ms, capture ms)]
         self.capture_log: List[Tuple] = []
-        # GUARDED: the predicate's flag, the rebuilds taken since settle()
-        # (a view of the counters), the steps decided since, each side's
-        # launches
+        # GUARDED: the predicate's flag; the rebuild tally, a view of the
+        # counters
         self._flag = None
         self._tally = self._counters[
             tracing.COUNTERS.index("guarded_rebuilds")]
-        self._pending = 0
-        self._sides = ([], [])
 
     @property
     def captured(self) -> set:
@@ -464,11 +416,8 @@ class DeviceStepper:
         capture. Returns the static state (valid until the next step)."""
         branch = rebuild_branch(self.state, self.cfg)
         if branch in self._graphs:
-            graph, counts = self._graphs[branch]
             with tracing.span("replay", branch):
-                graph.replay()
-            _add(counts)
-            self._pending += branch == GUARDED
+                self._graphs[branch].replay()
             self.state.step_count_host += 1
             return self.state
         t0 = self._clock()
@@ -511,79 +460,47 @@ class DeviceStepper:
         if branch != GUARDED:
             self._graphs[branch] = self._captured(one_step(branch))
             return
-        pred, counts = self._captured(
-            lambda: self._flag.copy_(_guard(static, cfg)))
-        on_true, true_counts = self._captured(one_step(True))
-        on_false, false_counts = self._captured(one_step(False))
-        self._sides = (true_counts, false_counts)
-        self._graphs[GUARDED] = (self._compose(pred, self._flag, on_true,
-                                               on_false), counts)
+        pred = self._captured(lambda: self._flag.copy_(_guard(static, cfg)))
+        on_true = self._captured(one_step(True))
+        on_false = self._captured(one_step(False))
+        self._graphs[GUARDED] = self._compose(pred, self._flag, on_true,
+                                              on_false)
 
     def _captured(self, fn):
-        """(fn's graph, the launches it captured): a capture launches
-        nothing, so its counts move to the replays."""
-        before = _counts()
+        """fn's graph, on the stepper's memory pool."""
         graph = self._capture(fn, self._pool)
-        counts = _launched(_counts(), before)
-        _restore(before)
         if self._pool is None:
             self._pool = graph.pool()
-        self._held.extend(scratch_buffers())
-        # the hull tables it read: a later edit of the library builds new
-        # ones (HullSet.derived), and the graph keeps these addresses
-        self._held.append(dict(vars(self.state.hulls).get("_derived", {})))
-        return graph, counts
+        self._held.append(self.state.hulls.tables())
+        return graph
 
     def _guarded_warm_up(self) -> SimState:
         """The first GUARDED step, eagerly: the rebuild step and the
         refresh step from the same state, each field picked by the guard's
-        predicate on the device, counted as settle() counts a replay."""
+        predicate on the device, which the tally adds."""
         st, cfg = self.state, self.cfg
         fire = _guard(st, cfg)
         if self._flag is None:
             self._flag = torch.zeros((1,), dtype=torch.int32,
                                      device=st.device)
-        before = _counts()
         a = _branch_step(st, cfg, True)
-        mid = _counts()
         b = _branch_step(st, cfg, False)
-        self._sides = (_launched(mid, before), _launched(_counts(), mid))
-        _restore(before)
         self._tally.add_(fire.to(torch.int64))
-        self._pending += 1
         return _pick(fire, a, b)
 
-    def settle(self) -> None:
-        """Add the launches of the GUARDED steps since the last settle to
-        the counters: the tally's rebuild sides, the rest refresh sides
-        (one read of the device tally: call it after the horizon)."""
-        if not self._pending:
-            return
-        with tracing.span("settle"):
-            fired = int(self._tally)
-            _add(self._sides[0], fired)
-            _add(self._sides[1], self._pending - fired)
-            self._tally.zero_()
-            self._pending = 0
-
     def counters(self) -> Dict[str, int]:
-        """The device counters by name (tracing.COUNTERS), after one
-        synchronize: the GUARDED rebuilds since the last settle(), and,
-        from the steps of branches captured with tracing on, the buckets
-        their gated refreshes fired and evaluated and the hull table's
-        SAT lanes and those that overlap."""
+        """The device counters by name (tracing.COUNTERS) since the last
+        reset_counters(), after one synchronize."""
         return dict(zip(tracing.COUNTERS, self._counters.tolist()))
 
     def reset_counters(self) -> None:
-        """settle(), then every counter to zero."""
-        self.settle()
+        """Every counter to zero."""
         self._counters.zero_()
 
     def recapture(self) -> None:
-        """settle(), then drop every captured graph and their memory pool:
-        each branch's next step warms up and captures it again (with the
-        stage markers and counters if tracing is on by then)."""
-        self.settle()
+        """Drop every captured graph and their memory pool: each branch's
+        next step warms up and captures it again (with the stage markers
+        and counters if tracing is on by then)."""
         self._graphs = {}
         self._pool = None
         self._held = []
@@ -598,16 +515,13 @@ def rollout(state: SimState, cfg: SimConfig, num_steps: int,
     On a CUDA state the steps are replays of captured CUDA graphs
     (DeviceStepper; the first step of each branch runs eagerly before its
     capture), with no host↔device sync inside the horizon: the hull
-    motion guard is decided on the device too, and its launch counts are
-    settled after the last step. The samples are copied on the device. A
-    capture that fails raises. On the CPU it is a loop of `step`. Both
-    give what the loop gives."""
+    motion guard is decided on the device too. The samples are copied on
+    the device. A capture that fails raises. On the CPU it is a loop of
+    `step`. Both give what the loop gives."""
     if sample_every > 0 and num_steps % sample_every:
         raise ValueError("num_steps must be a multiple of sample_every")
-    stepper = None
     if state.device.type == "cuda":
-        stepper = DeviceStepper(state, cfg)
-        advance = stepper.step
+        advance = DeviceStepper(state, cfg).step
     else:
         def advance():
             nonlocal state
@@ -619,8 +533,6 @@ def rollout(state: SimState, cfg: SimConfig, num_steps: int,
         if sample_every > 0 and (k + 1) % sample_every == 0:
             pos.append(state.pos.clone())
             quats.append(state.quat.clone())
-    if stepper is not None:
-        stepper.settle()
     if sample_every > 0:
         return state, (torch.stack(pos), torch.stack(quats))
     return state, None

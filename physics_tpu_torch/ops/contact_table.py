@@ -120,7 +120,9 @@ def unified_geom(state: SimState, cfg: SimConfig, order: Tensor | None,
     zero.
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA
-    tensor launches csrc/geom_table.cu, bit for bit the same."""
+    tensor launches csrc/geom_table.cu, bit for bit the same.
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
     n = state.num_bodies
     if npad is None:
         _, npad = geom_pad(n, cfg)
@@ -770,7 +772,9 @@ def bucket_contact_table(
     geometry table (unified_geom).
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA
-    tensor launches csrc/contact_table.cu."""
+    tensor launches csrc/contact_table.cu.
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
     la, lb, pcols, kw = table_operands(state, cand, cfg, prev, geom,
                                        "contact table", buckets)
     kw["kk"] = min(cfg.max_contacts_per_pair, _CAP)

@@ -66,7 +66,9 @@ def gravity_and_velocities(state: SimState, cfg: SimConfig,
     the same: it writes force and torque (gravity; torque only under a
     non-zero gravity_offset, else the state keeps its tensor) and vel and
     omega (integrate). compat raises: its quirks Q4/Q5 are the plain
-    functions' own route, which the kernel does not take."""
+    functions' own route, which the kernel does not take.
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
     if cfg.compat:
         raise ValueError("gravity_and_velocities: a compat config takes "
                          "apply_gravity and integrate_velocities")

@@ -654,7 +654,9 @@ def banded_contacts(state: SimState, cfg: SimConfig, rank: Tensor,
 
     A CPU tensor (or `plain=True`) runs the plain composition; a CUDA
     tensor launches csrc/narrowphase_banded.cu, which writes every field
-    in place of the composition's element-wise glue."""
+    in place of the composition's element-wise glue.
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
     _check_ported(cfg, cfg.ground_plane, cand is not None)
     if plain or geom.device.type == "cpu":
         return banded_contacts_plain(state, cfg, rank, cand, geom, shard)

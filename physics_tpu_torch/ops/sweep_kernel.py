@@ -93,7 +93,9 @@ def sweep_window_masks(aabb_sorted: Tensor, coll_sorted: Tensor, k: int,
 
     A CPU tensor (or `plain=True`, used to hold the kernel against its
     plain version on the card) runs `sweep_window_masks_plain`; a CUDA
-    tensor launches csrc/sweep.cu's masks mode."""
+    tensor launches csrc/sweep.cu's masks mode.
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
     n = aabb_sorted.shape[0]
     if aabb_sorted.shape != (n, 2, 3) or aabb_sorted.dtype != torch.float32:
         raise ValueError(f"aabb_sorted must be [N, 2, 3] f32, got "
@@ -172,7 +174,9 @@ def bucketed_candidates(order: Tensor, aabbs: Tensor, stype: Tensor, *,
 
     A CPU tensor (or `plain=True`) runs `bucketed_candidates_plain`; a
     CUDA tensor launches csrc/sweep.cu's candidates mode (one launch, one
-    call at a time a card: the blocks share one overflow counter)."""
+    call at a time a card: the blocks share one overflow counter).
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
     n = order.shape[0]
     _check_window(n, k)
     if block < 1 or cap < 1:

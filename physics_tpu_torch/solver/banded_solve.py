@@ -39,7 +39,6 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
-from types import SimpleNamespace
 from typing import Dict, Iterator, NamedTuple, Tuple
 
 import torch
@@ -383,7 +382,9 @@ def banded_sweeps_fused(table: Tensor, warm8: Tensor, geom: Tensor,
     max(vel_iters, pos_iters) + 1 sweeps.
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA tensor
-    launches csrc/banded_solve.cu."""
+    launches csrc/banded_solve.cu.
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
     anchored = cfg.contact_rebuild > 1
     kw = dict(vel_iters=vel_iters, pos_iters=pos_iters, use_split=use_split,
               anchored=anchored, integrate=integrate,
@@ -523,11 +524,6 @@ def touched(consts: Tensor, ra: Tensor, rb: Tensor) -> Tensor:
     return (ra >= 0) | (rb >= 0) | (consts[_R_RELAX] != 0)
 
 
-# Kernel 2.6's launches: it runs inside sweep 0 of 2.5 and 2.7, so every
-# launch of theirs that runs a sweep 0 counts one here too.
-folded_prep_consts = SimpleNamespace(launches=0)
-
-
 def _prep_plain(geom, bases, la, lb, cin, consts_out, tile, kw):
     """2.6's plain constants, into consts_out at the touched slots too
     (as the kernels write it)."""
@@ -592,7 +588,9 @@ def banded_sweeps(z0: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA tensor
     launches csrc/banded_solve.cu bs_banded_sweeps, one launch with 2.6
-    in its sweep 0."""
+    in its sweep 0.
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
     if (posq is None) != (integrate is None):
         raise ValueError("banded sweeps: posq and integrate go together")
     kw = dict(tile=tile, vel_iters=vel_iters, pos_iters=pos_iters,
@@ -648,7 +646,6 @@ def banded_sweeps(z0: Tensor, bases: Tensor, la: Tensor, lb: Tensor,
             ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "bs_banded_sweeps")
     banded_sweeps.launches += 1
-    folded_prep_consts.launches += 1
     return z, lam4, pq
 
 
@@ -777,7 +774,9 @@ def banded_sweep_once(sc: SweepScratch, z0: Tensor, bases: Tensor,
     then all-reduce; sweep_result gives z.
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA tensor
-    launches csrc/banded_solve.cu bs_sharded_sweep."""
+    launches csrc/banded_solve.cu bs_sharded_sweep.
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
     kw = dict(sweep=sweep, tile=tile, vel_on=vel_on, pos_on=pos_on,
               use_split=use_split, baum_over_dt=baum_over_dt, slop=slop,
               relaxation=relaxation, consts_out=consts_out)
@@ -826,8 +825,6 @@ def banded_sweep_once(sc: SweepScratch, z0: Tensor, bases: Tensor,
             ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "bs_sharded_sweep")
     banded_sweep_once.launches += 1
-    if sweep == 0:
-        folded_prep_consts.launches += 1
 
 
 banded_sweep_once.launches = 0

@@ -105,7 +105,9 @@ def solve(rows: JointRows, w: Tensor, rhs: Tensor, x0: Tensor, *,
     """CG on the operator J·W·Jᵀ of `rows` (W: w [N, 10], see
     joints.apply_w) from the warm start x0 [J·3]. A CPU tensor (or
     plain=True) runs solve_plain; a CUDA tensor launches
-    csrc/joint_cg.cu once."""
+    csrc/joint_cg.cu once.
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
     n = w.shape[0]
     kw = dict(max_iters=max_iters, rel_tol=rel_tol, abs_tol=abs_tol)
     if plain or rhs.device.type == "cpu":

@@ -109,6 +109,12 @@ class HullSet:
             kept = self.__dict__["_derived"][key] = (src, stamp, build())
         return kept[2]
 
+    def tables(self) -> list:
+        """What derived() keeps now, a table a key. A captured CUDA graph
+        keeps their addresses: whoever replays one holds these, since an
+        edit of the library builds new tables and frees the old."""
+        return [kept[2] for kept in self.__dict__.get("_derived", {}).values()]
+
 
 @dataclasses.dataclass
 class SimState:

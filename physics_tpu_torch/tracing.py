@@ -26,14 +26,13 @@ profiler and share its clock.
 
 Counters: DeviceStepper keeps an int64 vector on the device, one slot a
 name of COUNTERS. Its `guarded_rebuilds` slot is always on (the GUARDED
-steps' rebuild tally that settle() reads); `count(name, value)` adds to
-the others only while tracing is on and a stepper has put its vector in
-place (`counting`), and `slots(name, n)` hands a kernel that counts on
-the device itself a view of them under the same condition (None
-otherwise, and the kernel counts nothing), so a graph captured with
-tracing off holds none of their operations. DeviceStepper also opens
-host ranges around its replays, warm-up steps and captures, and
-settle() (`span`).
+steps whose rebuild side ran); `count(name, value)` adds to the others
+only while tracing is on and a stepper has put its vector in place
+(`counting`), and `slots(name, n)` hands a kernel that counts on the
+device itself a view of them under the same condition (None otherwise,
+and the kernel counts nothing), so a graph captured with tracing off
+holds none of their operations. DeviceStepper also opens host ranges
+around its replays, warm-up steps and captures (`span`).
 
 Enable tracing before a stepper captures its branches (or call its
 recapture() after): the graphs hold what was on when they were

@@ -40,8 +40,9 @@ device rollout (engine.DeviceStepper, one captured graph a branch of the
 step) on the table pile, the hull rain, the two-kernel pile and the
 packed envs, and on the jointed paths (the reference's demo scene under
 compat_config, packed pendulums): each replayed step against an eager
-step from the same state, across a rebuild boundary, the launch counts a
-replay adds equal to an eager step's; the hull motion guard decided on
+step from the same state, across a rebuild boundary, a branch's warm-up
+step and capture each counting an eager step's launches and a replay
+none; the hull motion guard decided on
 the device inside one graph (conditional nodes): replayed guard steps
 against eager ones, and a horizon under
 torch.cuda.set_sync_debug_mode("error") with the eager drive's rebuilds;
@@ -85,8 +86,8 @@ import torch
 from physics_tpu_torch import scenes
 from physics_tpu_torch.config import SimConfig, compat_config
 from physics_tpu_torch.engine import (
-    COUNTED,
     DeviceStepper,
+    capture_graph,
     joint_system,
     prepare_contacts,
     rollout,
@@ -94,6 +95,7 @@ from physics_tpu_torch.engine import (
     step_with_metrics,
 )
 from physics_tpu_torch.ops.forces import apply_gravity
+from physics_tpu_torch.ops.integrator import gravity_and_velocities
 from physics_tpu_torch.scene import demo_scene
 from physics_tpu_torch.solver import cg
 from physics_tpu_torch.io.primitives import octahedron_verts, prism_verts
@@ -117,7 +119,6 @@ from physics_tpu_torch.solver.banded_solve import (
     banded_sweeps_fused,
     banded_sweeps_plain,
     banded_z0,
-    folded_prep_consts,
     prep_consts_plain,
     prep_kw,
     rows_of,
@@ -725,14 +726,13 @@ def test_prep_consts_and_banded_sweeps_kernels(np_pile, warm):
             # the touched slots' constants that sweep 0 built (NaN
             # elsewhere); 2.6 has no sums across contacts: bit for bit
             ck = torch.full_like(cpl, float("nan"))
-            before = (banded_sweeps.launches, folded_prep_consts.launches)
+            before = banded_sweeps.launches
             out[plain] = banded_sweeps(
                 banded_z0(geom), ops.bases, ops.la, ops.lb, geom, ops.cin,
                 tile=ops.tile, vel_iters=8, pos_iters=8 if warm else 0,
                 posq=posq if integrate else None, integrate=integrate,
                 consts_out=ck, plain=plain, **pk)
-            assert (banded_sweeps.launches, folded_prep_consts.launches) == \
-                tuple(b + (not plain) for b in before)
+            assert banded_sweeps.launches == before + (not plain)
             assert torch.equal(ck[:, live], cpl[:, live])
         (zk, lk, pk_), (zp, lp, pp) = out[False], out[True]
         _rows_close("z", zk[:, :N], zp[:, :N], SOLVE_RTOL)
@@ -867,10 +867,10 @@ def test_sharded_sweep0_folded_consts(pile, np_pile, rank):
         assert int(touched.sum()) > 50
         got = torch.full_like(ref, float("nan"))
         sc = sweep_scratch(c_loc, z0_.shape[1], z0_.device)
-        before = folded_prep_consts.launches
+        before = banded_sweep_once.launches
         banded_sweep_once(sc, z0_, *loc, sweep=0, tile=t, vel_on=False,
                           pos_on=False, consts_out=got, **kw)
-        assert folded_prep_consts.launches == before + 1
+        assert banded_sweep_once.launches == before + 1
         assert torch.equal(got[:, touched], ref[:, touched])
         # the scratch keeps the live slots' sweep constants
         live = sc.live[:int(sc.count[0])].long()
@@ -1257,8 +1257,31 @@ def _clone_state(s):
                         if isinstance(getattr(s, f.name), torch.Tensor)})
 
 
+# every kernel wrapper (its `launches`: the calls that launched the kernel
+# or recorded it into a graph being captured)
+WRAPPERS = (gravity_and_velocities, sweep_window_masks, bucketed_candidates,
+            tct.unified_geom, tct.bucket_contact_table,
+            tht.bucket_hull_contact_table, banded_contacts,
+            banded_sweeps_fused, banded_sweeps, banded_sweep_once, cg.solve)
+
+
 def _counts():
-    return [c.launches for c in COUNTED]
+    return [c.launches for c in WRAPPERS]
+
+
+def _diff(before, after):
+    return [b - a for a, b in zip(before, after)]
+
+
+def _counting_capture(marks, read=_counts):
+    """capture_graph, appending read() to `marks` just before and just
+    after each capture."""
+    def capture(fn, pool):
+        marks.append(read())
+        graph = capture_graph(fn, pool)
+        marks.append(read())
+        return graph
+    return capture
 
 
 def _state_matches(got, ref):
@@ -1283,26 +1306,30 @@ def _state_matches(got, ref):
 
 
 def _replays_match(s, cfg, n, want):
-    """n steps of a DeviceStepper from s; each step of a branch already
-    captured is compared with the eager step from a copy of the same
-    state, and the launch counts its replay adds with the eager step's.
-    `want`: the branches that must have been replayed."""
-    stepper = DeviceStepper(s, cfg)
+    """n steps of a DeviceStepper from s, each beside the eager step from
+    a copy of the same state: a branch's warm-up step and its capture
+    each count the eager step's launches, a replay counts none, and each
+    replayed step's state is compared with the eager step's. `want`: the
+    branches that must have been replayed."""
+    marks = []
+    stepper = DeviceStepper(s, cfg, capture=_counting_capture(marks))
     replayed = set()
     for _ in range(n):
         branch = rebuild_branch(stepper.state, cfg)
-        if branch not in stepper.captured:
-            stepper.step()
-            continue
         src = _clone_state(stepper.state)
         c0 = _counts()
         ref = step(src, cfg)
         c1 = _counts()
+        eager = _diff(c0, c1)
+        assert any(eager)
+        captured = branch in stepper.captured
         stepper.step()
-        c2 = _counts()
-        assert [b - a for a, b in zip(c1, c2)] == \
-            [b - a for a, b in zip(c0, c1)]
-        assert any(b > a for a, b in zip(c1, c2))
+        if not captured:
+            assert _diff(c1, marks[-2]) == eager        # the warm-up step
+            assert _diff(marks[-2], marks[-1]) == eager  # the capture
+            assert _counts() == marks[-1]
+            continue
+        assert _counts() == c1
         _state_matches(stepper.state, ref)
         replayed.add(branch)
     assert replayed == want and stepper.captured == want
@@ -1354,12 +1381,18 @@ def test_rollout_replay_matches_eager(dev, pile, np_pile, name):
 
 def test_rollout_xla_rain_reads_nothing_back(dev, pile, np_pile):
     """The generic hull path's replays under
-    torch.cuda.set_sync_debug_mode("error") (a host read inside raises),
-    one 2.1 masks launch and one 2.5 launch each."""
+    torch.cuda.set_sync_debug_mode("error") (a host read inside raises):
+    one 2.1 masks launch and one 2.5 launch at the warm-up step and one
+    each at the capture, none over the replays."""
+    def both():
+        return sweep_window_masks.launches, banded_sweeps.launches
     s, cfg, _, _ = _rollout_scene("xla_rain", dev, pile, np_pile)
-    stepper = DeviceStepper(s, cfg)
+    marks = []
+    stepper = DeviceStepper(s, cfg, capture=_counting_capture(marks, both))
+    c0 = both()
     stepper.step()                      # the warm-up step and capture
-    m0, b0 = sweep_window_masks.launches, banded_sweeps.launches
+    assert _diff(c0, marks[0]) == _diff(marks[0], marks[1]) == [1, 1]
+    assert both() == marks[1]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1367,8 +1400,7 @@ def test_rollout_xla_rain_reads_nothing_back(dev, pile, np_pile):
             stepper.step()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert sweep_window_masks.launches - m0 == 4
-    assert banded_sweeps.launches - b0 == 4
+    assert both() == marks[1]
     assert bool(torch.isfinite(stepper.state.pos).all())
 
 
@@ -1388,8 +1420,8 @@ def test_rollout_replay_hull_guard(dev):
     """The guard's off-schedule steps replay one GUARDED graph, which
     decides rebuild or refresh on the device: each replayed step against
     the eager step from the same state (which reads the guard), among
-    them a step the guard turns into a rebuild (one more hull table
-    launch, added by settle)."""
+    them a step the guard turns into a rebuild (a hull table launch in
+    the eager step, one more `guarded_rebuilds` in the replay)."""
     s, cfg = _guard_rain(dev)
     stepper = DeviceStepper(s, cfg)
     kinds = []
@@ -1400,10 +1432,9 @@ def test_rollout_replay_hull_guard(dev):
             h0 = tht.bucket_hull_contact_table.launches
             ref = step(src, cfg)
             kinds.append(tht.bucket_hull_contact_table.launches - h0)
-            h1 = tht.bucket_hull_contact_table.launches
+            g0 = stepper.counters()["guarded_rebuilds"]
             stepper.step()
-            stepper.settle()
-            assert tht.bucket_hull_contact_table.launches - h1 == kinds[-1]
+            assert stepper.counters()["guarded_rebuilds"] - g0 == kinds[-1]
             _state_matches(stepper.state, ref)
         else:
             stepper.step()
@@ -1414,21 +1445,21 @@ def test_rollout_replay_hull_guard(dev):
 def test_rollout_hull_guard_reads_nothing_back(dev):
     """A horizon of the guarded rain's replays under
     torch.cuda.set_sync_debug_mode("error") (a host read inside raises):
-    its rebuilds (hull table launches, settled after the horizon) those
-    of the eager drive from the same state over 6 steps (2 scheduled,
-    the guard's at step 3), its final poses within 5e-2 of the eager
+    its rebuilds off the schedule (`guarded_rebuilds`, read after the
+    horizon) those of the eager drive from the same state over 6 steps
+    (the guard's at step 3), its final poses within 5e-2 of the eager
     drive's (a horizon of a contact-rich rain amplifies the run-to-run
     differences of the solves' atomic sums: 12 steps of this rain ended
     1.1e-3 apart, phase 10's squeezed octahedra 8 steps up to 7.3e-3;
     each single step is held to 1e-4 above)."""
     s, cfg = _guard_rain(dev)
-    eager = s
-    h0 = tht.bucket_hull_contact_table.launches
+    eager, want = s, 0
     for _ in range(6):
+        off = rebuild_branch(eager, cfg) == GUARDED
+        h0 = tht.bucket_hull_contact_table.launches
         eager = step(eager, cfg)
-    want = tht.bucket_hull_contact_table.launches - h0
+        want += off and tht.bucket_hull_contact_table.launches > h0
     stepper = DeviceStepper(s, cfg)
-    h0 = tht.bucket_hull_contact_table.launches
     for _ in range(2):      # the rebuild's and the GUARDED warm-up
         stepper.step()
     assert stepper.captured == {True, GUARDED}
@@ -1439,8 +1470,7 @@ def test_rollout_hull_guard_reads_nothing_back(dev):
             stepper.step()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    stepper.settle()
-    assert tht.bucket_hull_contact_table.launches - h0 == want > 2
+    assert stepper.counters()["guarded_rebuilds"] == want >= 1
     got = stepper.state
     assert got.step_count_host == eager.step_count_host == 6
     assert torch.equal(got.step_count, eager.step_count)
@@ -1491,17 +1521,22 @@ def test_joint_cg_kernel(dev, case):
 
 def test_rollout_sampled_horizon(pile):
     """rollout on the card with sample_every: the samples' shapes, the
-    last one the final pose, finite, and the launch counts of the eager
-    loop over the same horizon."""
+    last one the final pose, finite, and the launch counts of each
+    branch's warm-up step and capture, each its eager step's (the
+    replays add none)."""
     s, cfg = pile
-    c0 = _counts()
+    eager = {}
     loop = s
     for _ in range(12):
+        branch = rebuild_branch(loop, cfg)
+        c0 = _counts()
         loop = step(loop, cfg)
+        eager.setdefault(branch, _diff(c0, _counts()))
+    assert set(eager) == {True, False}
     c1 = _counts()
     final, (pos, quat) = rollout(s, cfg, 12, sample_every=3)
-    c2 = _counts()
-    assert [b - a for a, b in zip(c1, c2)] == [b - a for a, b in zip(c0, c1)]
+    assert _diff(c1, _counts()) == [2 * sum(n) for n in
+                                    zip(*eager.values())]
     assert pos.shape == (4, N, 3) and quat.shape == (4, N, 4)
     assert torch.equal(pos[-1], final.pos) and torch.equal(quat[-1],
                                                            final.quat)

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from physics_tpu_torch import engine, scenes
+from physics_tpu_torch import scenes
 from physics_tpu_torch.config import SimConfig, compat_config
 from physics_tpu_torch.engine import (
     DeviceStepper,
@@ -44,7 +44,6 @@ from physics_tpu_torch.io.primitives import octahedron_verts
 from physics_tpu_torch.ops.forces import apply_gravity
 from physics_tpu_torch.ops.integrator import integrate_velocities
 from physics_tpu_torch.scene import demo_scene
-from physics_tpu_torch.solver import cg
 from physics_tpu_torch.solver import contacts as tc
 from physics_tpu_torch.state import state_from_arrays, to_numpy
 
@@ -223,9 +222,9 @@ def test_schedule_matches_step_branch(path, monkeypatch):
 
 def test_guarded_tally_counts_the_guard_rebuilds(monkeypatch):
     """The hull rain's GUARDED steps (the warm-up and the replays of the
-    stand-in): the device tally that settle() reads holds the steps
+    stand-in): the device counter `guarded_rebuilds` holds the steps
     whose guard fired, as many as the loop of step rebuilds off the
-    schedule; settle() empties it."""
+    schedule; reset_counters() empties it."""
     s0, cfg = _rain_guard()
     calls = []
     real = tc._rebuild
@@ -242,10 +241,9 @@ def test_guarded_tally_counts_the_guard_rebuilds(monkeypatch):
     for _ in range(9):
         stepper.step()
     assert guard > 0 and stepper.captured == {True, tc.GUARDED}
-    assert stepper._pending == 6 and int(stepper._tally) == guard
-    stepper.settle()
-    assert stepper._pending == 0 and int(stepper._tally) == 0
-    assert engine.COUNTED[-1] is cg.solve
+    assert stepper.counters()["guarded_rebuilds"] == guard
+    stepper.reset_counters()
+    assert stepper.counters()["guarded_rebuilds"] == 0
 
 
 def test_refresh_gate_threshold_is_the_f32_tensors():

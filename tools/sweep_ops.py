@@ -9,14 +9,11 @@ two-kernel 4k pile, settled 20 steps: `pair_candidates` from a given sort
 order, profiled over 10 calls (torch.profiler: every kernel, copy and
 memset it puts on the card). Then a later sweep of the sharded solve on
 rank 0's quarter of the 4k pile's unfused table solve, without the
-collective: before the single-sweep redesign, `banded_sweep_once` and the
-add of its delta to z; after it, `banded_sweep_once` on the rank's
-scratch. Then what a solve's constants cost: on that rank, its sweep 0
-with the constants it reads (before the fold of kernel 2.6: 2.6 over the
-whole table, the copy of the rank's columns and sweep 0; after it, sweep
-0 alone), and the two-kernel pile's unfused solve (before: 2.6, then
-2.5; after: 2.5 alone). One JSON line per measurement, with the card's
-name and power limit.
+collective (`banded_sweep_once` on the rank's scratch), what a solve's
+constants cost on that rank (its sweep 0, which builds them), and the
+two-kernel pile's unfused solve (2.5 with 2.6 in its sweep 0). A
+CHECKOUT must have the folded 2.6 (`banded_solve.prep_kw`). One JSON
+line per measurement, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -105,73 +102,34 @@ def main() -> int:
     z0 = bs.banded_z0(geom)
     t_loc = bases.shape[0] // 4
     c_loc = t_loc * ccap
-    folded = hasattr(bs, "prep_kw")
-    if folded:
-        pk = bs.prep_kw(ucfg, True)
-        ops = (bases[:t_loc], la[:c_loc], lb[:c_loc], geom, cin[:, :c_loc])
+    pk = bs.prep_kw(ucfg, True)
+    ops = (bases[:t_loc], la[:c_loc], lb[:c_loc], geom, cin[:, :c_loc])
 
-        def sweep0():
-            sc = bs.sweep_scratch(c_loc, z0.shape[1], dev)
-            bs.banded_sweep_once(sc, z0, *ops, sweep=0, tile=ccap,
-                                 vel_on=False, pos_on=False, **pk)
-            return sc
-        sc = sweep0()
-        bs.banded_sweep_once(sc, z0, *ops, sweep=1, tile=ccap, vel_on=True,
-                             pos_on=False, **pk)
-        pk = dict(pk, use_split=False)
-
-        def sweep():
-            bs.banded_sweep_once(sc, z0, *ops, sweep=2, tile=ccap,
-                                 vel_on=True, pos_on=True, **pk)
-        emit("sharded sweep, rank 0 of 4 (pile), without the collective",
-             **measure(sweep))
-        emit("sharded solve's constants and sweep 0, rank 0 of 4 (pile)",
-             **measure(sweep0))
-        two_kernel(settled["two-kernel pile"],
-                   paths["two-kernel pile"][1], bs, measure, emit)
-        return 0
-    consts = bs.prep_consts(geom, bases, la, lb, cin, ucfg, tile=ccap,
-                            use_split=True)
-    ops = (bases[:t_loc].contiguous(), la[:c_loc].contiguous(),
-           lb[:c_loc].contiguous(), consts[:, :c_loc].contiguous())
-    if hasattr(bs, "sweep_scratch"):
+    def sweep0():
         sc = bs.sweep_scratch(c_loc, z0.shape[1], dev)
-        for s, v in ((0, False), (1, True)):
-            bs.banded_sweep_once(sc, z0, *ops, sweep=s, tile=ccap,
-                                 vel_on=v, pos_on=False, warm=True)
+        bs.banded_sweep_once(sc, z0, *ops, sweep=0, tile=ccap, vel_on=False,
+                             pos_on=False, **pk)
+        return sc
+    sc = sweep0()
+    bs.banded_sweep_once(sc, z0, *ops, sweep=1, tile=ccap, vel_on=True,
+                         pos_on=False, **pk)
+    pk = dict(pk, use_split=False)
 
-        def sweep():
-            bs.banded_sweep_once(sc, z0, *ops, sweep=2, tile=ccap,
-                                 vel_on=True, pos_on=True, warm=False)
-    else:
-        lam = torch.zeros((4, c_loc), device=dev)
-
-        def sweep():
-            dz, _ = bs.banded_sweep_once(z0, *ops, lam, tile=ccap,
-                                         vel_on=True, pos_on=True,
-                                         warm=False, deg_pass=False)
-            return z0 + dz
+    def sweep():
+        bs.banded_sweep_once(sc, z0, *ops, sweep=2, tile=ccap, vel_on=True,
+                             pos_on=True, **pk)
     emit("sharded sweep, rank 0 of 4 (pile), without the collective",
          **measure(sweep))
-    if hasattr(bs, "sweep_scratch"):
-        def sweep0():
-            full = bs.prep_consts(geom, bases, la, lb, cin, ucfg,
-                                  tile=ccap, use_split=True)
-            sc = bs.sweep_scratch(c_loc, z0.shape[1], dev)
-            bs.banded_sweep_once(sc, z0, *ops[:3],
-                                 full[:, :c_loc].contiguous(), sweep=0,
-                                 tile=ccap, vel_on=False, pos_on=False,
-                                 warm=True)
-        emit("sharded solve's constants and sweep 0, rank 0 of 4 (pile)",
-             **measure(sweep0))
-        two_kernel(settled["two-kernel pile"], paths["two-kernel pile"][1],
-                   bs, measure, emit)
+    emit("sharded solve's constants and sweep 0, rank 0 of 4 (pile)",
+         **measure(sweep0))
+    two_kernel(settled["two-kernel pile"], paths["two-kernel pile"][1], bs,
+               measure, emit)
     return 0
 
 
 def two_kernel(st, cfg, bs, measure, emit) -> None:
-    """The two-kernel pile's unfused solve on its settled state: 2.6 and
-    2.5 (or 2.5 with 2.6 in its sweep 0)."""
+    """The two-kernel pile's unfused solve on its settled state: 2.5 with
+    2.6 in its sweep 0."""
     from physics_tpu_torch.solver.contacts import banded_contact_list
 
     contacts, ranks, _, geom, _, cp, _ = banded_contact_list(st, cfg)
@@ -180,18 +138,10 @@ def two_kernel(st, cfg, bs, measure, emit) -> None:
     z0 = bs.banded_z0(geom)
     kw = dict(tile=ops.tile, vel_iters=cfg.contact_iters,
               pos_iters=cfg.position_iters if ops.use_split else 0)
-    if hasattr(bs, "prep_kw"):
-        def solve():
-            return bs.banded_sweeps(z0, ops.bases, ops.la, ops.lb, geom,
-                                    ops.cin, **kw,
-                                    **bs.prep_kw(cfg, ops.use_split))
-    else:
-        def solve():
-            consts = bs.prep_consts(geom, ops.bases, ops.la, ops.lb,
-                                    ops.cin, cfg, tile=ops.tile,
-                                    use_split=ops.use_split)
-            return bs.banded_sweeps(z0, ops.bases, ops.la, ops.lb, consts,
-                                    warm_sweep=ops.use_split, **kw)
+
+    def solve():
+        return bs.banded_sweeps(z0, ops.bases, ops.la, ops.lb, geom, ops.cin,
+                                **kw, **bs.prep_kw(cfg, ops.use_split))
     emit("two-kernel pile's unfused solve (2.6 + 2.5)", **measure(solve))
 
 
