@@ -23,7 +23,10 @@ Phases (any failure raises, so the run exits non-zero):
               hull mode, the identity order) bit for bit, with its device
               operations and µs a call against the plain version's; and
               so gravity and the velocity integration (csrc/body_forces.cu,
-              also in phases 5 and 8);
+              also in phases 5 and 8); and the table operands
+              (csrc/table_prep.cu: the previous keys' columns, and the
+              refresh gate with contact_ref on the pile's sweep order and,
+              in phase 8, on the packed envs; the columns in phase 5);
   4. pile     prepare_contacts + 240 steps of pile_config(4096) with
               contact_iters=8 through step_with_metrics: launch counts,
               finite state, overflow counters, one rebuild and one refresh
@@ -215,7 +218,9 @@ from physics_tpu_torch.ops.contact_table import (
     inkernel_candidates,
     lane_geometry,
     obb_prefilter,
+    prev_key_cols,
     table_operands,
+    table_prep,
     unified_geom,
 )
 from physics_tpu_torch.ops.hullhull_batched import shared_hull_manifolds_sm
@@ -261,6 +266,7 @@ from physics_tpu_torch.solver.contacts import (
     hull_contact_list,
     rebuild_branch,
     refresh_gate,
+    refresh_prep,
 )
 from physics_tpu_torch.state import SHAPE_NONE, state_from_arrays, to_numpy
 from portbench.core.yardstick import (
@@ -320,6 +326,7 @@ OPS_CG_SLOT = 200            # one two-body joint slot in one CG iteration
 OPS_GEOM_BODY = 139          # a body's rotation (31) and R·I⁻¹·Rᵀ (108)
 OPS_FORCES_BODY = 95         # a body's gravity (6), v (7), rotation (31),
                              # τ·dt (3), R·(I⁻¹·(Rᵀ·)) (45) and ω (3)
+OPS_GATE_BODY = 42           # a body's displacement (41) and its max
 # PORT_KERNELS: the device-kernel names of csrc/*.cu (2.1's is
 # sweep_kernel<true|false>, 2.2's box_table_*, 2.4's hull_*; their shared
 # warm match is warm_match_kernel<box_table_warm> or <hull_table_warm>)
@@ -615,6 +622,57 @@ def check_body_forces(label, state, cfg):
     return 0.0, kms, pms, bnd
 
 
+def check_table_prep(label, state, cfg, order, gated):
+    """The table operands' kernel (csrc/table_prep.cu) against its plain
+    versions, bit for bit (int32 views), one launch a call: the previous
+    keys' columns (prev_key_cols), and with `gated` the refresh gate and
+    contact_ref (refresh_gate, fired_ref; cfg's vel_factor, 2 if it has
+    none). Its CUDA-event ms and device operations and µs a call against
+    the plain versions'. Returns (0.0, kernel ms, plain ms, bound)."""
+    keys, lam = state.contact_key, state.contact_lam
+    if gated:
+        if cfg.contact_rebuild_vel_factor <= 0:
+            cfg = cfg.replace(contact_rebuild_vel_factor=2.0)
+
+        def run(plain):
+            return refresh_prep(state, cfg, order, plain=plain)
+    else:
+        def run(plain):
+            return ((prev_key_cols(keys, lam),) if plain
+                    else table_prep(keys, lam)[:1])
+    n0 = table_prep.launches
+    got, ref = run(False), run(True)
+    if table_prep.launches != n0 + 1:
+        raise AssertionError(f"table prep ({label}): not one launch")
+    if gated and got[0].tolist() != ref[0].to(torch.int32).tolist():
+        raise AssertionError(f"table prep ({label}): the gate differs")
+    for a, b in zip(got[-2:] if gated else got, ref[-2:] if gated else ref):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"table prep ({label}): bits differ")
+    cols = got[1] if gated else got[0]
+    n = state.num_bodies
+    # keys and λ read, the columns written; with the gate each body's
+    # pose, contact_ref, half extents (and rank) read once, the gate and
+    # the new contact_ref written
+    moved = nbytes(keys, lam, cols)
+    if gated:
+        moved += nbytes(state.pos, state.quat, state.contact_ref,
+                        state.shapes.params, order, got[0], got[2])
+    bnd = bound(moved, OPS_GATE_BODY * n if gated else 0)
+    kms = median_ms(lambda: run(False), 50)
+    pms = median_ms(lambda: run(True), 5)
+    k_ops, k_us, _ = device_ops(lambda: run(False))
+    p_ops, p_us, _ = device_ops(lambda: run(True))
+    what = (f"gate fired {int(got[0].sum())} of {got[0].numel()} buckets"
+            if gated else "columns only")
+    log(f"table prep ({label}, N {n}, C {cols.shape[0]}, {what}): bits "
+        f"identical; kernel {k_us:.2f} us of device a call ({k_ops:g} "
+        f"operations), {kms:.4f} ms; plain {p_us:.1f} us ({p_ops:g} "
+        f"operations), {pms:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}; "
+        f"{moved} bytes)")
+    return 0.0, kms, pms, bnd
+
+
 def check_pile_kernels(state, cfg):
     """Phase 3: each pile kernel against its plain version at the pile's
     shapes. Returns ({name: (max_abs_err, ms, plain_ms, bound)},
@@ -629,6 +687,8 @@ def check_pile_kernels(state, cfg):
     cand = pair_candidates(state, cfg, aabbs, order)
     check_geom("pile", state, cfg, order)
     check_body_forces("pile", state, cfg)
+    check_table_prep("pile", state, cfg, order, gated=False)
+    check_table_prep("pile, gated", state, cfg, order, gated=True)
     geom = unified_geom(state, cfg, order)
     prev = (state.contact_key, state.contact_lam)
     (tk, mk, wk), err, kms, pms, act = check_table(
@@ -2323,6 +2383,7 @@ def main() -> int:
     results["bucket_hull_contact_table"] = (err, kms, pms, bnd)
     check_geom("rain", st, rcfg, sweep_order(st, body_aabbs(st)), hulls=True)
     check_body_forces("rain", st, rcfg)
+    check_table_prep("rain", st, rcfg, None, gated=False)
     check_candidates("rain", st, rcfg)
     _, rain_solve, rain_solves = check_solve(st, rcfg, tk, wk, geom, "rain")
     solves += rain_solves
@@ -2391,6 +2452,8 @@ def main() -> int:
         f"{int(refresh_gate(st, pcfg, None).sum())} of {nbp} buckets")
     check_geom("packed", st, pcfg, None)
     check_body_forces("packed", st, pcfg)
+    check_table_prep("packed", st, pcfg, None, gated=False)
+    check_table_prep("packed, gated", st, pcfg, None, gated=True)
     every = torch.arange(nbp, device=dev)
     modes = check_table_modes("packed", st, pcfg, None, {
         "rebuild": None,

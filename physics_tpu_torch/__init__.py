@@ -6,10 +6,12 @@ under scenes.pile_config, with or without the contact table), the hull
 rains' step (scenes.mesh_rain and mesh_rain_mixed under
 scenes.rain_config) and packed envs, on one process or row-sharded over
 the ranks of a torch.distributed group (parallel/sharding.py), through
-ten hand-written Hopper kernels: gravity and the velocity integration
-(csrc/body_forces.cu), the sweep broad phase's masks and bucketed
-candidates (csrc/sweep.cu), the geometry table (csrc/geom_table.cu),
-the box and hull contact tables (csrc/contact_table.cu,
+eleven hand-written Hopper kernels: gravity and the velocity
+integration (csrc/body_forces.cu), the sweep broad phase's masks and
+bucketed candidates (csrc/sweep.cu), the geometry table
+(csrc/geom_table.cu), the contact tables' operands (the previous keys'
+columns, and a gated refresh's gate; csrc/table_prep.cu), the box and
+hull contact tables (csrc/contact_table.cu,
 csrc/hull_table.cu), the banded pair manifolds
 (csrc/narrowphase_banded.cu) and four banded solve kernels
 (csrc/banded_solve.cu); and joints (the four joint types, their CG in

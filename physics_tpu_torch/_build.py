@@ -160,6 +160,16 @@ SIGNATURES = {
         _I, _I,                    # n, flags (BF_*)
         _P,                        # stream
     ],
+    "tp_table_prep": [
+        _P, _I, _P, _I,            # keys [2, *], its row stride, λ, its
+                                   # row stride
+        _P, _I,                    # key columns [C, 8] out, C
+        _P, _P, _P, _P, _P,        # pos, quat, contact_ref, half extents,
+                                   # order (or NULL); all NULL ungated
+        _P, _P,                    # gate [NB] int32, ref [N, 7] out (or NULL)
+        _I, _I, _F,                # n, nb, threshold
+        _P,                        # stream
+    ],
     "np_banded_contacts": [
         _P, _P, _P, _P,            # pos, quat, box params, inverse mass
         _P, _P, _P, _P,            # shape type, friction, restitution, rank

@@ -32,7 +32,7 @@ are identical.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -292,6 +292,85 @@ def prev_key_cols(pkey: Tensor, plam: Tensor) -> Tensor:
         plam[0], plam[1], plam[2],
         zero,
     ], dim=1).contiguous()
+
+
+class GateOperands(NamedTuple):
+    """What the displacement gate of a refresh reads
+    (solver/contacts.py refresh_gate): the poses, contact_ref [n, 7], the
+    half extents, the rank order (None: the identity), the number of
+    buckets and the threshold vel_factor·slop (compared in f32)."""
+    pos: Tensor
+    quat: Tensor
+    ref: Tensor
+    params: Tensor
+    order: Tensor | None
+    nb: int
+    thr: float
+
+
+def table_prep(pkey: Tensor, plam: Tensor, gate: GateOperands | None = None
+               ) -> Tuple[Tensor, Tensor | None, Tensor | None]:
+    """The operands a contact table reads that are built before it, in
+    one launch of csrc/table_prep.cu: the previous step's key columns
+    [C, 8] (prev_key_cols' bytes) from keys [2, C] int32 and λ [3, C]
+    (views whose rows are strided, as the sharded table's bucket range,
+    are read in place); with `gate`, also the refresh gate [NB] int32
+    (refresh_gate's decisions) and contact_ref with the fired buckets'
+    bodies reset to their poses, [n, 7] (fired_ref's). Returns (columns,
+    gate or None, ref or None).
+
+    CUDA tensors only: for CPU tensors the callers take the plain
+    versions, prev_key_cols here and solver/contacts.py refresh_gate and
+    fired_ref (table_operands, refresh_prep).
+    `launches` counts the calls that launched the kernel or recorded it
+    into a CUDA graph being captured; a replay adds nothing."""
+    from physics_tpu_torch import _build
+
+    dev = pkey.device
+    if dev.type != "cuda":
+        raise ValueError(f"table prep: unsupported device {dev}")
+    c = pkey.shape[1]
+    if pkey.stride(1) != 1:
+        pkey = pkey.contiguous()
+    if plam.stride(1) != 1:
+        plam = plam.contiguous()
+    f32, i32 = torch.float32, torch.int32
+    if not (pkey.dtype == i32 and pkey.shape == (2, c) and plam.dtype == f32
+            and plam.shape == (3, c) and plam.device == dev):
+        raise ValueError(f"table prep: keys must be int32 [2, C] and λ f32 "
+                         f"[3, C] on {dev}")
+    cols = torch.empty((c, 8), dtype=f32, device=dev)
+    bodies = [None] * 5      # pos, quat, contact_ref, params, order
+    gate_out = ref_out = None
+    n = nb = 0
+    thr = 0.0
+    if gate is not None:
+        n, nb, thr = gate.pos.shape[0], gate.nb, gate.thr
+        ops = [("pos", gate.pos.contiguous(), f32, (n, 3)),
+               ("quat", gate.quat.contiguous(), f32, (n, 4)),
+               ("contact_ref", gate.ref.contiguous(), f32, (n, 7)),
+               ("params", gate.params.contiguous(), f32, (n, 3))]
+        if gate.order is not None:
+            ops.append(("order", gate.order.contiguous(), i32, (n,)))
+        _build.check_operands("table prep", dev, *ops)
+        bodies[:len(ops)] = [x for _, x, _, _ in ops]
+        gate_out = torch.empty((nb,), dtype=i32, device=dev)
+        ref_out = torch.empty((n, 7), dtype=f32, device=dev)
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    with torch.cuda.device(dev):
+        err = _build.library().tp_table_prep(
+            ptr(pkey), pkey.stride(0), ptr(plam), plam.stride(0), ptr(cols),
+            c, *[ptr(t) for t in bodies], ptr(gate_out), ptr(ref_out), n, nb,
+            ctypes.c_float(thr),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, "tp_table_prep")
+    table_prep.launches += 1
+    return cols, gate_out, ref_out
+
+
+table_prep.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -663,15 +742,20 @@ def _launch_kernel(geom, la, lb, pcols, *, ccap, kk, kg, cap2,
 
 
 def table_operands(state: SimState, cand: PairCandidates | None,
-                   cfg: SimConfig, prev: Tuple[Tensor, Tensor] | None,
+                   cfg: SimConfig,
+                   prev: Tuple[Tensor, Tensor] | Tensor | None,
                    geom: Tensor | None, what: str,
-                   buckets: Tuple[int, int] | None = None):
+                   buckets: Tuple[int, int] | None = None,
+                   plain: bool = False):
     """The checks and operands both table kernels share: la/lb [NB, cap]
     int32 window-local candidate ranks (−1 = empty lane), the previous
     step's key columns (or None), and the keywords ccap, cap2 (0 when the
     prefilter cap does not cut), ground_height, anchors, bucket0, nb and
     bp. `buckets = (bucket0, NB)` takes the candidates and previous keys
-    of those NB buckets only (None: all buckets).
+    of those NB buckets only (None: all buckets). `prev` is (keys, λ) of
+    the previous step, whose columns prev_key_cols builds for CPU tensors
+    (or `plain=True`) and table_prep's launch for CUDA tensors, or those
+    columns already built (a gated refresh's refresh_prep).
 
     cand=None is the in-kernel broad phase: la = lb = None and bp =
     (bp_k, cap, env_k) with bp_k = min(band_window, 128, N − 1) and cap =
@@ -732,7 +816,12 @@ def table_operands(state: SimState, cand: PairCandidates | None,
                          -1).contiguous()
         lb = torch.where(mask, cand.rank_b.reshape(nb_l, cap) - base,
                          -1).contiguous()
-    pcols = prev_key_cols(*prev) if prev is not None else None
+    if prev is None or isinstance(prev, Tensor):
+        pcols = prev
+    elif plain or geom.device.type == "cpu":
+        pcols = prev_key_cols(*prev)
+    else:
+        pcols = table_prep(*prev)[0]
     kw = dict(ccap=ccap, cap2=cap2, ground_height=float(cfg.ground_height),
               anchors=cfg.contact_rebuild > 1, bucket0=bucket0, nb=nb_l,
               bp=bp)
@@ -743,7 +832,7 @@ def bucket_contact_table(
     state: SimState,
     cand: PairCandidates | None,
     cfg: SimConfig,
-    prev: Tuple[Tensor, Tensor] | None = None,
+    prev: Tuple[Tensor, Tensor] | Tensor | None = None,
     geom: Tensor | None = None,
     plain: bool = False,
     buckets: Tuple[int, int] | None = None,
@@ -768,15 +857,16 @@ def bucket_contact_table(
     whose x-interval still overlaps at the in-kernel window's edge (0
     with candidates or packed envs). `prev = (keys [2, cp] int32, λ [3,
     cp])` of the previous step gives each slot its warm λ₀ (warm rows
-    0:3) by matching keys within the same bucket. `geom` is the unified
-    geometry table (unified_geom).
+    0:3) by matching keys within the same bucket; `prev` may also be their
+    key columns [cp, 8], already built (table_operands). `geom` is the
+    unified geometry table (unified_geom).
 
     A CPU tensor (or `plain=True`) runs the plain version; a CUDA
     tensor launches csrc/contact_table.cu.
     `launches` counts the calls that launched the kernel or recorded it
     into a CUDA graph being captured; a replay adds nothing."""
     la, lb, pcols, kw = table_operands(state, cand, cfg, prev, geom,
-                                       "contact table", buckets)
+                                       "contact table", buckets, plain)
     kw["kk"] = min(cfg.max_contacts_per_pair, _CAP)
     kw["kg"] = min(cfg.max_contacts_per_pair, 8) if cfg.ground_plane else 0
     kw["gate"] = None if gate is None else (

@@ -767,7 +767,7 @@ def _launch_kernel(geom, la, lb, pcols, tc: HullTableCoef, *, ccap, kk, kg,
 
 
 def _prepare(state: SimState, cand: PairCandidates, cfg: SimConfig,
-             prev, geom, buckets=None):
+             prev, geom, buckets=None, plain=False):
     """The wrapper's and the plain version's operands: (la, lb, pcols,
     coefficient tables, keywords)."""
     if state.hulls.verts.shape[0] > MAX_TABLE_HULL_TYPES:
@@ -778,7 +778,7 @@ def _prepare(state: SimState, cand: PairCandidates, cfg: SimConfig,
         raise ValueError("hull table: needs the bucketed sweep's candidates "
                          "(the in-kernel broad phase is the box table's)")
     la, lb, pcols, kw = table_operands(state, cand, cfg, prev, geom,
-                                       "hull table", buckets)
+                                       "hull table", buckets, plain)
     del kw["nb"], kw["bp"]
     tc = hull_table_coef(state)
     dm = tc.dims
@@ -819,7 +819,8 @@ def bucket_hull_contact_table(
     launches csrc/hull_table.cu.
     `launches` counts the calls that launched the kernel or recorded it
     into a CUDA graph being captured; a replay adds nothing."""
-    la, lb, pcols, tc, kw = _prepare(state, cand, cfg, prev, geom, buckets)
+    la, lb, pcols, tc, kw = _prepare(state, cand, cfg, prev, geom, buckets,
+                                     plain)
     if plain or geom.device.type == "cpu":
         return bucket_hull_contact_table_plain(geom, la, lb, pcols, tc, **kw)
     if geom.device.type != "cuda":

@@ -29,7 +29,9 @@ anchors, and the schedule is contact_refresh_iters sweeps. With
 contact_rebuild_vel_factor > 0 a box table's refresh is GATED: the
 buckets whose bodies moved more than vel_factor·slop since their last
 build recompute their contacts (the table kernel's gate mode), the rest
-pass their persisted block through. The branch depends only on the step
+pass their persisted block through; on the card the gate, the reset of
+contact_ref and the previous keys' columns are one launch before the
+table (refresh_prep). The branch depends only on the step
 count, so the host picks it from its mirror of step_count — no device
 sync — except on a hull table path with vel_factor > 0, whose global
 motion guard also rebuilds off the schedule: an eager step reads its
@@ -72,7 +74,10 @@ from physics_tpu_torch.ops.contact_table import (
     CT2_ROWS,
     BLOCK,
     _BOX_SIGNS,
+    GateOperands,
     bucket_contact_table,
+    prev_key_cols,
+    table_prep,
     table_shape,
     unified_geom,
 )
@@ -634,6 +639,40 @@ def refresh_gate(st: SimState, cfg: SimConfig,
     return dmb > cfg.contact_rebuild_vel_factor * cfg.penetration_slop
 
 
+def fired_ref(st: SimState, gate: Tensor, order: Tensor | None) -> Tensor:
+    """contact_ref with the bodies of the buckets `gate` fired (ranks
+    [128·b, 128·b + 128) of `order`, the identity when None) reset to
+    their current poses: [n, 7]."""
+    n = st.num_bodies
+    if order is None:
+        fired = gate.repeat_interleave(BLOCK)[:n]
+    else:
+        rank_of = torch.empty((n,), dtype=torch.int64, device=st.device)
+        rank_of[order.long()] = torch.arange(n, device=st.device)
+        fired = gate[rank_of // BLOCK]
+    return torch.where(fired[:, None], torch.cat([st.pos, st.quat], dim=1),
+                       st.contact_ref)
+
+
+def refresh_prep(st: SimState, cfg: SimConfig, order: Tensor | None,
+                 plain: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    """What a gated refresh builds before its table: (the gate [NB], the
+    previous keys' columns [C, 8], contact_ref reset for the fired
+    buckets' bodies [n, 7]). A CPU tensor (or `plain=True`) takes
+    refresh_gate (a bool gate), prev_key_cols and fired_ref; a CUDA
+    tensor one launch of table_prep (csrc/table_prep.cu): the same
+    decisions as an int32 gate, the same bytes."""
+    if plain or st.device.type == "cpu":
+        gate = refresh_gate(st, cfg, order)
+        return (gate, prev_key_cols(st.contact_key, st.contact_lam),
+                fired_ref(st, gate, order))
+    cols, gate, ref = table_prep(st.contact_key, st.contact_lam, GateOperands(
+        st.pos, st.quat, st.contact_ref, st.shapes.params, order,
+        table_shape(st.num_bodies, cfg)[0],
+        cfg.contact_rebuild_vel_factor * cfg.penetration_slop))
+    return gate, cols, ref
+
+
 def _gated_refresh(st: SimState, cfg: SimConfig, order: Tensor | None,
                    geom: Tensor, plain: bool):
     """The table of a gated refresh step: the buckets refresh_gate fires
@@ -644,22 +683,13 @@ def _gated_refresh(st: SimState, cfg: SimConfig, order: Tensor | None,
     — the persisted rebuild's and this step's — and contact_ref reset for
     the bodies of fired buckets). While tracing is on it also counts the
     buckets the gate fired and those it evaluated (tracing.count)."""
-    n = st.num_bodies
-    gate = refresh_gate(st, cfg, order)
+    gate, pcols, ref = refresh_prep(st, cfg, order, plain)
     tracing.count("gate_fired", gate)
     tracing.count("gate_buckets", gate.numel())
     table, meta, warm = bucket_contact_table(
-        st, None, cfg, prev=(st.contact_key, st.contact_lam), geom=geom,
-        plain=plain, gate=(gate, st.contact_table))
+        st, None, cfg, prev=pcols, geom=geom, plain=plain,
+        gate=(gate, st.contact_table))
     ovf = torch.maximum(st.contact_meta, _overflow(meta, None))
-    if order is None:
-        fired = gate.repeat_interleave(BLOCK)[:n]
-    else:
-        rank_of = torch.empty((n,), dtype=torch.int64, device=st.device)
-        rank_of[order.long()] = torch.arange(n, device=st.device)
-        fired = gate[rank_of // BLOCK]
-    ref = torch.where(fired[:, None], torch.cat([st.pos, st.quat], dim=1),
-                      st.contact_ref)
     return table, warm, ovf, ref
 
 

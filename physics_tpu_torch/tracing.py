@@ -5,7 +5,7 @@ each until the next boundary (`stage(name, device)`):
 
     forces     gravity, the joints and their CG, the velocity integration
     pairs      body_aabbs, sweep_order, pair_candidates (2.1), unified_geom
-    table      refresh_gate, the contact table (2.2 / 2.4) or the persisted
+    table      refresh_prep, the contact table (2.2 / 2.4) or the persisted
                table's warm rows, the overflow counters (the generic
                branch: its contact list)
     solve      table_keys and the solve (2.3; 2.5 / 2.7)

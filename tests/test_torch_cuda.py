@@ -1260,7 +1260,7 @@ def _clone_state(s):
 # every kernel wrapper (its `launches`: the calls that launched the kernel
 # or recorded it into a graph being captured)
 WRAPPERS = (gravity_and_velocities, sweep_window_masks, bucketed_candidates,
-            tct.unified_geom, tct.bucket_contact_table,
+            tct.unified_geom, tct.table_prep, tct.bucket_contact_table,
             tht.bucket_hull_contact_table, banded_contacts,
             banded_sweeps_fused, banded_sweeps, banded_sweep_once, cg.solve)
 
