@@ -140,6 +140,8 @@ SIGNATURES = {
     "gc_destroy": [_P, _P],            # instance, graph
     # a stage marker of the step (csrc/trace.cu, tracing.py): stage, stream
     "tr_stage_mark": [_I, _P],
+    # the nodes of a captured graph (csrc/trace.cu): graph, [1] u64 out
+    "tr_graph_nodes": [_P, _P],
     "gt_geom_table": [
         _P, _P, _P, _P,            # pos, quat, vel, omega
         _P, _P, _P, _P,            # inv mass, inv inertia, shape type, params

@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from physics_tpu_torch import tracing
 from physics_tpu_torch.config import SimConfig
 from physics_tpu_torch.maths import vec3c as v3
 from physics_tpu_torch.ops import hullhull_batched
@@ -374,10 +375,13 @@ def _hull_fast_select_rows(state: SimState, cand: PairCandidates,
     """One type-pair segment of the hull pair contacts: its slot-major
     manifolds and kk argmax passes over the S = 2E + 1 slot depths (ties
     to the lowest slot). Returns {field: [P] row, or kk rows for the
-    slot-major fields}."""
+    slot-major fields}. The manifolds run in tracing's list_manifolds
+    stage, the picks in list_select."""
     ia, ib = cand.body_a, cand.body_b
     p = ia.shape[0]
+    tracing.stage("list_manifolds", ia.device)
     sm = hullhull_batched.shared_hull_manifolds_sm(state, cand, types)
+    tracing.stage("list_select", ia.device)
     cap = sm.pu.shape[0]
     ns = cap + 1                                           # slots + edge
 

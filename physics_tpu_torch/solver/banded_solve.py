@@ -991,7 +991,8 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
                           order: Tensor | None, geom: Tensor,
                           warm: Tuple[Tensor, Tensor] | None,
                           ranks: Tuple[Tensor, Tensor], capacity: int,
-                          plain: bool = False, shard: Shard | None = None):
+                          plain: bool = False, shard: Shard | None = None,
+                          count_band: bool = False):
     """The banded solve of a flat contact list, in the `ranks=` /
     `capacity=` form the generic resolve uses.
 
@@ -1009,7 +1010,8 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
     (2.5 with 2.6 in its sweep 0) and the un-permute; with `shard`
     (parallel.collectives.Shard, the whole contact list on every rank) the
     sweeps are banded_sweeps_sharded (2.7), and everything else runs on
-    every rank.
+    every rank. `count_band` adds band_overflow to tracing's counter
+    band_dropped (the generic hull path; nothing while tracing is off).
 
     Returns (vel, omega, pvel, pomega, lam3, metrics, contacts): the
     sorted, padded contacts whose slots lam3 follows."""
@@ -1019,6 +1021,8 @@ def solve_impulses_banded(state: SimState, contacts, cfg: SimConfig,
         raise ValueError(f"geom must be [48, {npad}]")
     tracing.stage("solve", geom.device)
     ops = banded_operands(state, contacts, cfg, warm, ranks, capacity)
+    if count_band:
+        tracing.count("band_dropped", ops.band_overflow)
     kw = dict(tile=ops.tile, vel_iters=cfg.contact_iters,
               pos_iters=cfg.position_iters if ops.use_split else 0,
               plain=plain, **prep_kw(cfg, ops.use_split))

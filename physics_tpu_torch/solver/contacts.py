@@ -475,13 +475,16 @@ def hull_contact_list(state: SimState, cfg: SimConfig,
     candidates; the counters hold pair_overflow and, after the
     prefilter, prefilter_overflow (its dropped survivors). `geom` is the
     rank-space geometry table (hull mode) at the solve's width. `plain`
-    reaches 2.1 and the geometry table only: the rest is plain PyTorch."""
+    reaches 2.1 and the geometry table only: the rest is plain PyTorch.
+    The list runs tracing's list_* stages (no `table`), and counts
+    prefilter_dropped, list_slots and list_live (tracing.count)."""
     n = state.num_bodies
+    dev = state.device
     order, rank, cand, geom, cp = banded_inputs(state, cfg, plain,
                                                 hulls=True)
-    tracing.stage("table", state.device)
     groups, lo, rb, counters = [], [], [], {}
     if cfg.ground_plane:
+        tracing.stage("list_ground", dev)
         gc = ground_contacts(state, cfg)
         kg = gc.body_a.shape[0] // n
         groups.append(gc)
@@ -491,8 +494,11 @@ def hull_contact_list(state: SimState, cfg: SimConfig,
     if cand is not None:
         counters["pair_overflow"] = cand.overflow
         if cfg.hull_prefilter_cap > 0:
+            tracing.stage("list_prefilter", dev)
             cand, counters["prefilter_overflow"] = hull_obb_prefilter(
                 state, cand, cfg.hull_prefilter_cap)
+            tracing.count("prefilter_dropped",
+                          counters["prefilter_overflow"])
         pc = pair_contacts(state, cand, cfg)
         kk = pc.body_a.shape[0] // cand.body_a.shape[0]
         groups.append(pc)
@@ -500,9 +506,12 @@ def hull_contact_list(state: SimState, cfg: SimConfig,
         rb.append(cand.rank_b.repeat(kk))
     if not groups:
         return ContactList(None, None, order, geom, cand, cp, counters)
-    return ContactList(concat_contacts(*groups),
-                       (torch.cat(lo), torch.cat(rb)), order, geom, cand,
-                       cp, counters)
+    tracing.stage("list_select", dev)
+    contacts = concat_contacts(*groups)
+    tracing.count("list_slots", contacts.body_a.shape[0])
+    tracing.count("list_live", contacts.active)
+    return ContactList(contacts, (torch.cat(lo), torch.cat(rb)), order,
+                       geom, cand, cp, counters)
 
 
 def _slice_contacts(contacts: Contacts, a: int, b: int) -> Contacts:
@@ -518,7 +527,8 @@ def _resolve_contacts_banded(state: SimState, cfg: SimConfig,
     """The generic banded branch, for boxes or on the hull fast path: the
     contact list, the banded solve, the split-impulse pose update, the
     warm keys sorted with their λ."""
-    if banded_hulls_path(state, cfg):
+    hulls = banded_hulls_path(state, cfg)
+    if hulls:
         cl = hull_contact_list(state, cfg, plain)
     else:
         cl = banded_contact_list(state, cfg, plain, shard)
@@ -529,7 +539,8 @@ def _resolve_contacts_banded(state: SimState, cfg: SimConfig,
     warm = (state.contact_key, state.contact_lam) if use_warm else None
     vel, omega, pvel, pomega, lam3, solve_metrics, contacts = \
         solve_impulses_banded(state, contacts, cfg, order, geom, warm,
-                              ranks, cp, plain=plain, shard=shard)
+                              ranks, cp, plain=plain, shard=shard,
+                              count_band=hulls)
     pos, q = _split_impulse_pose(state, cfg, pvel, pomega)
     state = state.replace(vel=vel, omega=omega, pos=pos, quat=q)
     if use_warm:

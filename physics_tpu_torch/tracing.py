@@ -7,12 +7,28 @@ each until the next boundary (`stage(name, device)`):
     pairs      body_aabbs, sweep_order, pair_candidates (2.1), unified_geom
     table      refresh_prep, the contact table (2.2 / 2.4) or the persisted
                table's warm rows, the overflow counters (the generic
-               branch: its contact list)
+               box branch: its contact list)
     solve      table_keys and the solve (2.3; 2.5 / 2.7)
     writeback  the solve's outputs in body order, the step's last fields,
                DeviceStepper's copy into its static buffers
     end        after the step (DeviceStepper: after that copy, the step's
                own end held by `end_held`)
+
+The generic hull path (solver.contacts.hull_contact_list, under
+scenes.rain_xla_config) opens no `table` stage: its contact list, between
+`pairs` and `solve`, runs four sub-stages, appended to STAGES after `end`
+so that the IDs above stay as they are:
+
+    list_ground     the hull vertices on the ground (ground_contacts)
+    list_prefilter  the OBB prefilter and its compaction
+    list_manifolds  a type-pair segment's slot-major SAT manifolds
+                    (hullhull_batched.shared_hull_manifolds_sm)
+    list_select     that segment's kk argmax picks
+                    (narrowphase._hull_fast_select_rows), then the list's
+                    assembly (the slot and rank rows, concat_contacts)
+
+With several hull types list_manifolds and list_select alternate, once a
+segment.
 
 Off, a boundary is one check of a module-level boolean. On, it closes
 the open `torch.profiler.record_function` range and opens `pt.<stage>`
@@ -28,7 +44,11 @@ Counters: DeviceStepper keeps an int64 vector on the device, one slot a
 name of COUNTERS. Its `guarded_rebuilds` slot is always on (the GUARDED
 steps whose rebuild side ran); `count(name, value)` adds to the others
 only while tracing is on and a stepper has put its vector in place
-(`counting`), and `slots(name, n)` hands a kernel that counts on the
+(`counting`): on the generic hull path `list_slots` (the contact list's
+length C), `list_live` (its active contacts), `prefilter_dropped` (the
+OBB prefilter's survivors it had no lane for) and `band_dropped` (the
+banded solve's band_overflow: active contacts out of their window), as
+well as the gate's and the hull table's. `slots(name, n)` hands a kernel that counts on the
 device itself a view of them under the same condition (None otherwise,
 and the kernel counts nothing), so a graph captured with tracing off
 holds none of their operations. DeviceStepper also opens host ranges
@@ -46,12 +66,16 @@ from typing import Iterator
 
 import torch
 
-STAGES = ("forces", "pairs", "table", "solve", "writeback", "end")
+STAGES = ("forces", "pairs", "table", "solve", "writeback", "end",
+          "list_ground", "list_prefilter", "list_manifolds", "list_select")
 # the stepper's device counters: the GUARDED rebuild tally; the buckets
 # a gated refresh fired, and those it evaluated; the hull table's SAT
-# lanes (2.4), and those whose SAT found the hulls overlapping
+# lanes (2.4), and those whose SAT found the hulls overlapping; the
+# generic hull path's contact slots, live contacts, prefilter drops and
+# band drops
 COUNTERS = ("guarded_rebuilds", "gate_fired", "gate_buckets",
-            "hull_sat_lanes", "hull_sat_pass")
+            "hull_sat_lanes", "hull_sat_pass", "list_slots", "list_live",
+            "prefilter_dropped", "band_dropped")
 
 _on = False
 _open = None          # the open pt.<stage> range

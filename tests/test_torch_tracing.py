@@ -1,7 +1,9 @@
 """The step's stage spans and device counters (physics_tpu_torch.tracing)
 on the CPU, on a small table pile (K = 4), 16 packed envs with the
-gated refresh (K = 4) and a 64-hull rain on the hull table (K = 4),
-their rebuild and refresh steps.
+gated refresh (K = 4), a 64-hull rain on the hull table (K = 4), their
+rebuild and refresh steps, and a 64-hull rain on the generic hull path
+(rain_xla_config: a rebuild every step, the contact list's four list_*
+stages in place of `table`).
 
 Under a TorchDispatchMode, each aten op of a step is logged beside the
 stage boundaries that would launch a marker (tracing._launch, which
@@ -14,10 +16,15 @@ same state, and step_with_metrics' keys are as before. Through the
 stepper with an eager stand-in for its graphs, the gate's counters equal
 a count of refresh_gate over the same refresh steps, and the hull
 table's counters a count of the plain table's SAT lanes and of those
-its SAT did not separate. On the card (marked cuda) a profiled replay of
-a graph captured with tracing on runs the stage markers in order, and
-one captured with tracing off none; the hull table kernel's counts
-equal its plain version's."""
+its SAT did not separate; the generic hull path's counters a count of
+its plain contact list's slots and live contacts and of the step's
+band_overflow and prefilter_overflow. On the card (marked cuda) a
+profiled replay of a graph captured with tracing on runs the stage
+markers in order, and one captured with tracing off none; the hull
+table kernel's counts equal its plain version's; a generic hull step's
+graph captured with tracing off has as many nodes as one captured with
+the tracing calls taken out, and a replay of one captured with tracing
+on puts every device operation in one stage."""
 
 import dataclasses
 from types import SimpleNamespace
@@ -53,10 +60,19 @@ def _rain(device="cpu"):
     return prepare_contacts(scenes.mesh_rain(64, device=device), cfg), cfg
 
 
+def _rain_xla(device="cpu", n=64, **kw):
+    cfg = scenes.rain_xla_config(n).replace(**kw)
+    return prepare_contacts(scenes.mesh_rain(n, device=device), cfg), cfg
+
+
 SCENES = {"pile": _pile, "packed": _packed}
-# the scenes of the stage and tracing-off checks: the box tables' and the
-# hull table's
-ALL_SCENES = {**SCENES, "rain": _rain}
+# the scenes of the stage and tracing-off checks: the box tables', the
+# hull table's and the generic hull path's
+ALL_SCENES = {**SCENES, "rain": _rain, "rain_xla": _rain_xla}
+# the stages a step of each path runs, in order
+TABLE_STAGES = list(tracing.STAGES[:tracing.STAGES.index("end") + 1])
+LIST_STAGES = ["forces", "pairs", "list_ground", "list_prefilter",
+               "list_manifolds", "list_select", "solve", "writeback", "end"]
 METRIC_KEYS = {"cg_iters", "cg_converged", "pair_overflow",
                "contact_overflow", "contact_count", "max_penetration",
                "normal_impulse_sum", "band_overflow"}
@@ -119,7 +135,8 @@ def test_every_op_falls_in_one_stage_in_order(scene, log):
         with OpLog(log):
             s = step(s, cfg)
         marks = [name for kind, name, _ in log if kind == "mark"]
-        assert marks == list(tracing.STAGES), (k, marks)
+        want = LIST_STAGES if scene == "rain_xla" else TABLE_STAGES
+        assert marks == want, (k, marks)
         assert log[0][0] == "mark" and log[-1] == ("mark", "end", ())
         ops = _stages_of(log)
         assert len(ops) > 50
@@ -209,9 +226,8 @@ def test_gate_counters_equal_refresh_gate(monkeypatch):
     finally:
         tracing.enable(False)
     got = stepper.counters()
-    assert got == {"guarded_rebuilds": 0, "gate_fired": fired,
-                   "gate_buckets": buckets, "hull_sat_lanes": 0,
-                   "hull_sat_pass": 0}
+    assert got == {**dict.fromkeys(tracing.COUNTERS, 0),
+                   "gate_fired": fired, "gate_buckets": buckets}
     stepper.reset_counters()
     assert stepper.counters() == dict.fromkeys(tracing.COUNTERS, 0)
 
@@ -262,6 +278,46 @@ def test_hull_counters_equal_the_plain_lanes(monkeypatch):
     assert 0 < want[1] < want[0]
     stepper = DeviceStepper(s0, cfg, capture=eager_capture)
     for _ in range(10):
+        stepper.step()
+    assert stepper.counters() == dict.fromkeys(tracing.COUNTERS, 0)
+
+
+def test_list_counters_equal_the_plain_list(monkeypatch):
+    """A 192-hull rain on the generic hull path, its prefilter cut to 128
+    lanes and its solve window to 128 ranks so that both drop, 8 steps
+    through the stepper with tracing on, against a loop of
+    step_with_metrics: list_slots and list_live the plain contact list's
+    length and active contacts, prefilter_dropped and band_dropped the
+    step's prefilter_overflow and band_overflow; with tracing off the
+    same steps count nothing."""
+    s0, cfg = _rain_xla(n=192, hull_prefilter_cap=128, pallas_window=128)
+    want = dict.fromkeys(tracing.COUNTERS, 0)
+    real = tc.hull_contact_list
+
+    def spy(*a, **k):
+        cl = real(*a, **k)
+        want["list_slots"] += cl.contacts.body_a.shape[0]
+        want["list_live"] += int(cl.contacts.active.sum())
+        return cl
+    monkeypatch.setattr(tc, "hull_contact_list", spy)
+    s = s0
+    for _ in range(8):
+        s, m = step_with_metrics(s, cfg)
+        want["prefilter_dropped"] += int(m["prefilter_overflow"])
+        want["band_dropped"] += int(m["band_overflow"])
+    monkeypatch.setattr(tc, "hull_contact_list", real)
+    assert want["prefilter_dropped"] > 0 and want["band_dropped"] > 0
+    assert 0 < want["list_live"] < want["list_slots"]
+    tracing.enable(True)
+    try:
+        stepper = DeviceStepper(s0, cfg, capture=eager_capture)
+        for _ in range(8):
+            stepper.step()
+    finally:
+        tracing.enable(False)
+    assert stepper.counters() == want
+    stepper = DeviceStepper(s0, cfg, capture=eager_capture)
+    for _ in range(8):
         stepper.step()
     assert stepper.counters() == dict.fromkeys(tracing.COUNTERS, 0)
 
@@ -317,7 +373,7 @@ def test_replayed_markers_on_the_card(on):
         assert marks == []
         return
     assert [int(m.split("stage_mark<")[1][0]) for m in marks] == \
-        list(range(len(tracing.STAGES)))
+        [tracing.STAGES.index(k) for k in TABLE_STAGES]
     host = {e.name for e in prof.events()
             if e.device_type != DeviceType.CUDA}
     assert "pt.replay.False" in host
@@ -368,3 +424,65 @@ def test_hull_kernel_counts_as_the_plain_table():
     with tracing.counting(sink):
         ht.bucket_hull_contact_table(s, cand, cfg, prev=prev, geom=geom)
     assert sink.tolist() == [0] * len(tracing.COUNTERS)
+
+
+def _graph_nodes(graph) -> int:
+    """The nodes of a captured graph (csrc/trace.cu tr_graph_nodes)."""
+    import ctypes
+
+    from physics_tpu_torch import _build
+
+    out = ctypes.c_ulonglong(0)
+    _build.check(_build.library().tr_graph_nodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.byref(out)),
+        "tr_graph_nodes")
+    return out.value
+
+
+@pytest.mark.cuda
+def test_generic_hull_graph_nodes_and_replayed_stages(monkeypatch):
+    """A 1,024-hull rain on the generic hull path, settled 40 steps: the
+    stepper's graph captured with tracing off has as many nodes as one
+    captured with tracing.stage and tracing.count taken out (the step
+    before its spans and counters); a replay of one captured with
+    tracing on runs the markers of LIST_STAGES in order, with every
+    device operation between the first and the `end` marker."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s, cfg = _rain_xla("cuda", n=1024)
+    for _ in range(40):
+        s = step(s, cfg)
+
+    def nodes():
+        stepper = DeviceStepper(s, cfg)
+        stepper.step()
+        (graph,) = stepper._graphs.values()
+        return _graph_nodes(graph)
+    off = nodes()
+    with monkeypatch.context() as m:
+        m.setattr(tracing, "stage", lambda name, device: None)
+        m.setattr(tracing, "count", lambda name, value: None)
+        bare = nodes()
+    assert off == bare > 100
+    tracing.enable(True)
+    try:
+        stepper = DeviceStepper(s, cfg)
+        stepper.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            stepper.step()
+            torch.cuda.synchronize()
+    finally:
+        tracing.enable(False)
+    dev = sorted((e.time_range.start, e.name) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith("pt."))
+    marks = [(i, int(n.split("stage_mark<")[1].split(">")[0]))
+             for i, (_, n) in enumerate(dev) if "stage_mark" in n]
+    assert [tracing.STAGES[k] for _, k in marks] == LIST_STAGES
+    assert marks[0][0] == 0 and marks[-1][0] == len(dev) - 1
