@@ -149,7 +149,9 @@ Phases (any failure raises, so the run exits non-zero):
               plain version (identical), the contact list (flat sweep,
               compaction, OBB prefilter, ground and pair contacts) of the
               kernel path against the plain path (keys, ranks and
-              counters identical, f32 within TABLE_TOL), 2.5 with 2.6 in
+              counters identical, f32 within TABLE_TOL), the pair
+              contacts' two launches a segment (csrc/hull_list.cu): their
+              device µs beside the bound and the plain version's, 2.5 with 2.6 in
               its sweep 0 against the plain sweeps; 240 fresh steps as
               phase 4 drives them, replayed steps against eager ones and
               phase 12's timing and rollout; the contact set against the
@@ -223,12 +225,12 @@ from physics_tpu_torch.ops.contact_table import (
     table_prep,
     unified_geom,
 )
-from physics_tpu_torch.ops.hullhull_batched import shared_hull_manifolds_sm
+from physics_tpu_torch.ops.hull_list import hull_pair_contacts, list_tables
 from physics_tpu_torch.ops.narrowphase import (
     banded_contacts,
     ground_contacts,
     hull_obb_prefilter,
-    pair_contacts,
+    hull_segments,
 )
 from physics_tpu_torch.ops.narrowphase_banded import pair_operands
 from physics_tpu_torch.ops.sweep_kernel import (
@@ -327,6 +329,7 @@ OPS_GEOM_BODY = 139          # a body's rotation (31) and R·I⁻¹·Rᵀ (108)
 OPS_FORCES_BODY = 95         # a body's gravity (6), v (7), rotation (31),
                              # τ·dt (3), R·(I⁻¹·(Rᵀ·)) (45) and ω (3)
 OPS_GATE_BODY = 42           # a body's displacement (41) and its max
+OPS_DOT9 = 17                # a 9-term dot: 9 multiplies, 8 adds
 # PORT_KERNELS: the device-kernel names of csrc/*.cu (2.1's is
 # sweep_kernel<true|false>, 2.2's box_table_*, 2.4's hull_*; their shared
 # warm match is warm_match_kernel<box_table_warm> or <hull_table_warm>)
@@ -2144,6 +2147,7 @@ def check_hull_list(label, state, cfg):
                         "restitution"))
     if not err <= TABLE_TOL:
         raise AssertionError(f"{label}: f32 fields |Δ| {err}")
+    check_pair_kernel(label, state, cfg, candk)
     kms = median_ms(lambda: hull_contact_list(state, cfg), 10)
     pms = median_ms(lambda: hull_contact_list(state, cfg, plain=True), 3)
     log(f"{label} contact list (flat sweep, compaction, prefilter, ground "
@@ -2156,6 +2160,51 @@ def check_hull_list(label, state, cfg):
         f"({int(lk.active.sum())} active) for {cpk} solve slots; eager "
         f"list {kms:.4f} ms kernel path, {pms:.4f} ms plain path")
     return err, got
+
+
+def pair_kernel_bound(state, cand, cfg):
+    """The pair contacts' least time (csrc/hull_list.cu): the larger of
+    the SAT's 9-term dots (2F faces of V vertex rows, D² axes of 2V + 3
+    rows, a lane) over the f32 peak and of the bytes over HBM's (each
+    segment's tables and lanes' bodies read once, the slot rows
+    written)."""
+    ops = moved = 0
+    kk = 0
+    for _, p, types in hull_segments(state, cand):
+        ftab, itab, (f, v, d2, e, _) = list_tables(state.hulls, *types)
+        kk = min(cfg.max_contacts_per_pair, 2 * e + 1)
+        ops += OPS_DOT9 * p * (2 * f * v + d2 * (2 * v + 3))
+        # a lane's ids and mask, both bodies' pose, mass, type, μ, e
+        moved += nbytes(ftab, itab) + p * (9 + 2 * 4 * 11)
+    # point, normal (3 each), depth, friction, restitution, key, ids, active
+    moved += kk * cand.mask.numel() * (4 * 12 + 1)
+    return bound(moved, ops)
+
+
+def check_pair_kernel(label, state, cfg, cand):
+    """The pair contacts' two launches a segment (list_sat_kernel,
+    list_picks_kernel) at these lanes: their device µs a call beside
+    the bound, and the plain version's device µs and operations."""
+    n0 = hull_pair_contacts.launches
+    hull_pair_contacts(state, cand, cfg)
+    launches = hull_pair_contacts.launches - n0
+    split = kernel_device_split(lambda: hull_pair_contacts(state, cand, cfg),
+                                ("list_sat_kernel", "list_picks_kernel"))
+    k_ops, k_us, _ = device_ops(lambda: hull_pair_contacts(state, cand, cfg))
+    p_ops, p_us, _ = device_ops(
+        lambda: hull_pair_contacts(state, cand, cfg, plain=True), reps=2)
+    kms = median_ms(lambda: hull_pair_contacts(state, cand, cfg), 20)
+    pms = median_ms(lambda: hull_pair_contacts(state, cand, cfg, plain=True),
+                    3)
+    bnd = pair_kernel_bound(state, cand, cfg)
+    parts = ", ".join(f"{k.split('(')[0][-40:]} {u:.2f}"
+                      for k, u in split.items())
+    log(f"{label} pair contacts (csrc/hull_list.cu, {cand.mask.numel()} "
+        f"lanes, {launches} launches): {sum(split.values()):.2f} us of "
+        f"device a call ({parts}; {k_ops:g} operations, {k_us:.2f} us with "
+        f"the allocator's), {kms:.4f} ms by CUDA events; plain {p_us:.1f} "
+        f"us ({p_ops:g} operations), {pms:.4f} ms; bound {bnd[0]:.5f} ms "
+        f"({bnd[1]})")
 
 
 def window_edge(st, cfg) -> int:
@@ -2227,8 +2276,8 @@ def check_against_table(dev, n, strict):
 
 def xla_stages(st, cfg) -> dict:
     """The generic hull path's contact list by stage, each an eager call
-    on the state: {stage: call}. The pair contacts are the manifolds plus
-    the kk slot selections."""
+    on the state: {stage: call}. The pair contacts (the manifolds plus the
+    kk slot selections) by csrc/hull_list.cu and by its plain version."""
     cand = pair_candidates(st, cfg)
     pre, _ = hull_obb_prefilter(st, cand, cfg.hull_prefilter_cap)
     return {
@@ -2237,9 +2286,10 @@ def xla_stages(st, cfg) -> dict:
         "OBB prefilter": lambda: hull_obb_prefilter(
             st, cand, cfg.hull_prefilter_cap),
         "ground contacts": lambda: ground_contacts(st, cfg),
-        "hull manifolds": lambda: shared_hull_manifolds_sm(st, pre),
-        "pair contacts (manifolds + selection)":
-            lambda: pair_contacts(st, pre, cfg),
+        "pair contacts (csrc/hull_list.cu)":
+            lambda: hull_pair_contacts(st, pre, cfg),
+        "pair contacts, plain (manifolds + selection)":
+            lambda: hull_pair_contacts(st, pre, cfg, plain=True),
         "whole contact list": lambda: hull_contact_list(st, cfg),
     }
 

@@ -172,6 +172,20 @@ SIGNATURES = {
         _I, _I, _F,                # n, nb, threshold
         _P,                        # stream
     ],
+    "hl_pair_contacts": [
+        _P, _P, _P, _P, _P, _P,    # pos, quat, inverse mass, shape type,
+                                   # friction, restitution
+        _P, _P, _P,                # candidates: body a/b, mask
+        _P, _I, _P, _I, _P,        # f32 table and its floats, int32 table
+                                   # and its ints, sep scratch
+        _P, _P, _P, _P, _P,        # point, normal, depth, active, friction,
+        _P, _P, _P, _P,            # restitution, key, body a/b out
+        _P,                        # int64 [2] SAT lanes, overlaps (or NULL)
+        _I, _I, _I, _I,            # n, first lane, lanes, row stride
+        _I, _I, _I, _I, _I,        # F, V, D², E, E2
+        _I, _I, _I,                # kk, keys, the products' sum orders
+        _P,                        # stream
+    ],
     "np_banded_contacts": [
         _P, _P, _P, _P,            # pos, quat, box params, inverse mass
         _P, _P, _P, _P,            # shape type, friction, restitution, rank

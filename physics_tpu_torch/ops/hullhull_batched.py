@@ -204,14 +204,15 @@ class SharedManifoldSM(NamedTuple):
     n_edge: Tuple     # v3 — world edge-contact normal, B → A
 
 
-def shared_hull_manifolds_sm(state, cand, types: Tuple[int, int] = (0, 0)
-                             ) -> SharedManifoldSM:
+def shared_hull_manifolds_sm(state, cand, types: Tuple[int, int] = (0, 0),
+                             with_separated: bool = False):
     """Slot-major manifolds of every candidate pair of one hull TYPE PAIR
     (endpoint a of type types[0], b of types[1]): the face and edge SAT
     from the coefficient tables, the reference face (ties to the lowest
     index), the most anti-parallel incident face, its polygon clipped
     against the reference face's edges, and the closest points of the
-    best edge pair."""
+    best edge pair. `with_separated`: (manifolds, [P] bool: the SAT found
+    a separating axis)."""
     ht = hull_tables(state.hulls, *types)
     ia, ib = cand.body_a.long(), cand.body_b.long()
     p = ia.shape[0]
@@ -479,7 +480,8 @@ def shared_hull_manifolds_sm(state, cand, types: Tuple[int, int] = (0, 0)
         depth_rows.append(torch.where(ok, d_row, zero))
     depth_rows.append(torch.where(edge_wins & (edge_depth > 0.0),
                                   edge_depth, zero))
-    return SharedManifoldSM(
+    sm = SharedManifoldSM(
         depth=tuple(depth_rows), pu=pu, pv=pv, ps=ps,
         p0=p0, t1=t1, t2=t2, n_ref=n_ref, n_face=n_face,
         edge_point=edge_point, n_edge=n_edge)
+    return (sm, separated) if with_separated else sm

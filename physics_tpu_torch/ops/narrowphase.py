@@ -380,7 +380,12 @@ def _hull_fast_select_rows(state: SimState, cand: PairCandidates,
     ia, ib = cand.body_a, cand.body_b
     p = ia.shape[0]
     tracing.stage("list_manifolds", ia.device)
-    sm = hullhull_batched.shared_hull_manifolds_sm(state, cand, types)
+    sm, separated = hullhull_batched.shared_hull_manifolds_sm(
+        state, cand, types, with_separated=True)
+    sink = tracing.slots("list_sat_lanes", 2)
+    if sink is not None:
+        sink.add_(torch.stack([cand.mask.sum(),
+                               (cand.mask & ~separated).sum()]))
     tracing.stage("list_select", ia.device)
     cap = sm.pu.shape[0]
     ns = cap + 1                                           # slots + edge
@@ -436,32 +441,39 @@ def _hull_fast_select_rows(state: SimState, cand: PairCandidates,
     return out
 
 
+def hull_segments(state: SimState, cand: PairCandidates):
+    """The type-pair segments of the generic hull path's candidates:
+    [(first lane, lanes, (type_a, type_b))], one for one hull type, else
+    hull_obb_prefilter's H² segments of equal widths, segment s = type_a·H
+    + type_b."""
+    n_hulls = state.hulls.verts.shape[0]
+    p_tot = cand.body_a.shape[0]
+    if n_hulls == 1:
+        return [(0, p_tot, (0, 0))]
+    n_seg = n_hulls * n_hulls
+    seg_cap = p_tot // n_seg
+    if seg_cap * n_seg != p_tot:
+        raise ValueError(
+            "the multi-type hull fast path needs type-pair-segmented "
+            "candidates (hull_obb_prefilter: cfg.hull_prefilter_cap > 0)")
+    return [(s * seg_cap, seg_cap, (s // n_hulls, s % n_hulls))
+            for s in range(n_seg)]
+
+
 def _pair_contacts_hulls_fast(state: SimState, cand: PairCandidates,
                               cfg: SimConfig) -> Contacts:
     """Slot-major [kk·P] pair contacts of the generic hull path: one hull
-    type, or the type-pair segments hull_obb_prefilter lays out (segment
-    s = type_a·H + type_b, equal widths), each from its own coefficient
-    tables. Slot row k is every segment's k-th row, in segment order,
-    mirroring the rank rows cat([rank] · kk). Keys are (min·n + max)·S +
-    slot while n²·S < 2³¹ − 1, else 0."""
-    n_hulls = state.hulls.verts.shape[0]
-    if n_hulls == 1:
-        segs = [(cand, (0, 0))]
-    else:
-        n_seg = n_hulls * n_hulls
-        p_tot = cand.body_a.shape[0]
-        seg_cap = p_tot // n_seg
-        if seg_cap * n_seg != p_tot:
-            raise ValueError(
-                "the multi-type hull fast path needs type-pair-segmented "
-                "candidates (hull_obb_prefilter: cfg.hull_prefilter_cap > 0)")
-        segs = []
-        for s in range(n_seg):
-            sl = slice(s * seg_cap, (s + 1) * seg_cap)
-            segs.append((PairCandidates(
-                cand.body_a[sl], cand.body_b[sl], cand.mask[sl],
-                cand.overflow, cand.rank_a[sl], cand.rank_b[sl]),
-                (s // n_hulls, s % n_hulls)))
+    type, or the type-pair segments hull_obb_prefilter lays out
+    (hull_segments), each from its own coefficient tables. Slot row k is
+    every segment's k-th row, in segment order, mirroring the rank rows
+    cat([rank] · kk). Keys are (min·n + max)·S + slot while n²·S < 2³¹ −
+    1, else 0. The plain version of ops/hull_list.hull_pair_contacts."""
+    segs = []
+    for lane0, p, types in hull_segments(state, cand):
+        sl = slice(lane0, lane0 + p)
+        segs.append((PairCandidates(
+            cand.body_a[sl], cand.body_b[sl], cand.mask[sl], cand.overflow,
+            cand.rank_a[sl], cand.rank_b[sl]), types))
     parts = [_hull_fast_select_rows(state, c_s, cfg, types)
              for c_s, types in segs]
     kk = parts[0]["kk"]

@@ -19,7 +19,8 @@ split-impulse pseudo velocities move the poses right after. And the
 generic hull path (scenes.rain_xla_config, banded_hulls_path) into the same
 solve: the flat sweep's candidates compacted to max_pair_candidates, the
 OBB prefilter, the hull vertices on the ground and the slot-major hull
-manifolds (hull_contact_list; plain PyTorch apart from 2.1). With
+manifolds (hull_contact_list; on the card 2.1's masks, the geometry
+table and the pair contacts in csrc/hull_list.cu, the rest PyTorch). With
 cfg.contact_rebuild = K > 1 (anchored path), every K-th step REBUILDS:
 sweep sort, bucketed candidates, geometry table, contact-table kernel,
 full solve schedule.
@@ -81,6 +82,7 @@ from physics_tpu_torch.ops.contact_table import (
     table_shape,
     unified_geom,
 )
+from physics_tpu_torch.ops.hull_list import hull_pair_contacts
 from physics_tpu_torch.ops.hull_table import (
     MAX_TABLE_HULL_TYPES,
     bucket_hull_contact_table,
@@ -93,7 +95,6 @@ from physics_tpu_torch.ops.narrowphase import (
     ground_contacts,
     hull_obb_prefilter,
     hulls_fast_path,
-    pair_contacts,
 )
 from physics_tpu_torch.parallel.collectives import Shard, all_gather_last
 from physics_tpu_torch.solver.banded_solve import (
@@ -475,9 +476,12 @@ def hull_contact_list(state: SimState, cfg: SimConfig,
     candidates; the counters hold pair_overflow and, after the
     prefilter, prefilter_overflow (its dropped survivors). `geom` is the
     rank-space geometry table (hull mode) at the solve's width. `plain`
-    reaches 2.1 and the geometry table only: the rest is plain PyTorch.
+    reaches 2.1, the geometry table and the pair contacts
+    (ops/hull_list.hull_pair_contacts: the SAT, manifolds and slot picks
+    in csrc/hull_list.cu on the card): the rest is plain PyTorch.
     The list runs tracing's list_* stages (no `table`), and counts
-    prefilter_dropped, list_slots and list_live (tracing.count)."""
+    prefilter_dropped, list_slots and list_live (tracing.count), and the
+    pair contacts list_sat_lanes and list_sat_pass."""
     n = state.num_bodies
     dev = state.device
     order, rank, cand, geom, cp = banded_inputs(state, cfg, plain,
@@ -499,7 +503,7 @@ def hull_contact_list(state: SimState, cfg: SimConfig,
                 state, cand, cfg.hull_prefilter_cap)
             tracing.count("prefilter_dropped",
                           counters["prefilter_overflow"])
-        pc = pair_contacts(state, cand, cfg)
+        pc = hull_pair_contacts(state, cand, cfg, plain=plain)
         kk = pc.body_a.shape[0] // cand.body_a.shape[0]
         groups.append(pc)
         lo.append(cand.rank_a.repeat(kk))

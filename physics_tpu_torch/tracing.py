@@ -22,13 +22,16 @@ so that the IDs above stay as they are:
     list_ground     the hull vertices on the ground (ground_contacts)
     list_prefilter  the OBB prefilter and its compaction
     list_manifolds  a type-pair segment's slot-major SAT manifolds
-                    (hullhull_batched.shared_hull_manifolds_sm)
+                    (hullhull_batched.shared_hull_manifolds_sm); on the
+                    card every segment's SAT, manifolds and picks
+                    (ops/hull_list.py, csrc/hull_list.cu)
     list_select     that segment's kk argmax picks
                     (narrowphase._hull_fast_select_rows), then the list's
                     assembly (the slot and rank rows, concat_contacts)
 
 With several hull types list_manifolds and list_select alternate, once a
-segment.
+segment, in the plain version; the kernel path opens list_manifolds once
+and list_select for the assembly.
 
 Off, a boundary is one check of a module-level boolean. On, it closes
 the open `torch.profiler.record_function` range and opens `pt.<stage>`
@@ -48,7 +51,8 @@ only while tracing is on and a stepper has put its vector in place
 length C), `list_live` (its active contacts), `prefilter_dropped` (the
 OBB prefilter's survivors it had no lane for) and `band_dropped` (the
 banded solve's band_overflow: active contacts out of their window), as
-well as the gate's and the hull table's. `slots(name, n)` hands a kernel that counts on the
+well as the gate's, the hull table's and the generic hull path's pair
+contacts' (list_sat_lanes, list_sat_pass: ops/hull_list.py). `slots(name, n)` hands a kernel that counts on the
 device itself a view of them under the same condition (None otherwise,
 and the kernel counts nothing), so a graph captured with tracing off
 holds none of their operations. DeviceStepper also opens host ranges
@@ -72,10 +76,12 @@ STAGES = ("forces", "pairs", "table", "solve", "writeback", "end",
 # a gated refresh fired, and those it evaluated; the hull table's SAT
 # lanes (2.4), and those whose SAT found the hulls overlapping; the
 # generic hull path's contact slots, live contacts, prefilter drops and
-# band drops
+# band drops, and its pair contacts' SAT lanes (cand.mask) and those whose
+# SAT found the hulls overlapping
 COUNTERS = ("guarded_rebuilds", "gate_fired", "gate_buckets",
             "hull_sat_lanes", "hull_sat_pass", "list_slots", "list_live",
-            "prefilter_dropped", "band_dropped")
+            "prefilter_dropped", "band_dropped", "list_sat_lanes",
+            "list_sat_pass")
 
 _on = False
 _open = None          # the open pt.<stage> range

@@ -48,10 +48,12 @@ against eager ones, and a horizon under
 torch.cuda.set_sync_debug_mode("error") with the eager drive's rebuilds;
 a sampled horizon; and a capture that fails raises. The generic hull
 path (rain_xla_config, 256 bevelled cubes and 128 of the 3-type
-library): its contact list with 2.1's masks mode against the plain
-list, two steps of the kernel path against the plain path, the TF32
-refusal of its support products, replayed steps against eager ones and
-replays under set_sync_debug_mode("error"). The joint CG kernel
+library): its contact list with 2.1's masks mode and the pair contacts'
+kernel (csrc/hull_list.cu) against the plain list, two steps of the
+kernel path against the plain path, the TF32 refusal of the plain
+version's support products (the kernel path takes none), replayed steps
+against eager ones (on both libraries) and replays under
+set_sync_debug_mode("error"). The joint CG kernel
 (csrc/joint_cg.cu) against its plain version at the demo's size, at the
 4,096 packed pendulums' and at a few more than one slot a thread
 holds.
@@ -106,7 +108,8 @@ from physics_tpu_torch.ops.broadphase import (
     pair_candidates,
     sweep_order,
 )
-from physics_tpu_torch.ops.narrowphase import banded_contacts
+from physics_tpu_torch.ops.hull_list import hull_pair_contacts
+from physics_tpu_torch.ops.narrowphase import banded_contacts, hull_segments
 from physics_tpu_torch.ops.narrowphase_banded import body_table_width
 from physics_tpu_torch.ops.sweep_kernel import (
     bucketed_candidates,
@@ -529,14 +532,21 @@ def xla_rain(dev, request):
 
 
 def test_xla_rain_contact_list_kernel_path_matches_plain(xla_rain):
-    """The contact list with 2.1's masks mode against its plain version:
-    candidates, prefilter, keys, ranks and counters identical, f32
-    fields within 1e-5 of the scene extent; one masks launch a list."""
+    """The contact list with 2.1's masks mode and the pair contacts'
+    kernel (csrc/hull_list.cu) against its plain version: candidates,
+    prefilter, keys, ranks and counters identical, f32 fields within 1e-5
+    of the scene extent; one masks launch a list, two pair-contact
+    launches a type-pair segment."""
     s, cfg = xla_rain
     before = sweep_window_masks.launches
+    pairs = hull_pair_contacts.launches
     got = hull_contact_list(s, cfg)
     assert sweep_window_masks.launches == before + 1
+    assert hull_pair_contacts.launches == pairs + 2 * len(
+        hull_segments(s, got.cand))
     ref = hull_contact_list(s, cfg, plain=True)
+    assert hull_pair_contacts.launches == pairs + 2 * len(
+        hull_segments(s, got.cand))
     (ck, (lok, rbk), _, gk, candk, cp, ovk) = got
     (cpl, (lop, rbp), _, gp, candp, cpp, ovp) = ref
     assert cp == cpp and torch.equal(gk, gp)
@@ -564,16 +574,21 @@ def test_xla_rain_step_kernel_path_matches_plain(xla_rain):
 
 
 def test_xla_rain_refuses_tf32_supports(xla_rain):
-    """The hull SAT's support products refuse TF32 matmuls on the card
-    rather than decide contacts from 10-bit mantissas."""
+    """The plain version's hull SAT support products refuse TF32 matmuls
+    on the card rather than decide contacts from 10-bit mantissas; the
+    kernel path takes no matmul, so TF32 leaves its step as it is."""
     s, cfg = xla_rain
+    want, _ = step_with_metrics(s, cfg)
     prev = torch.backends.cuda.matmul.fp32_precision
     torch.backends.cuda.matmul.fp32_precision = "tf32"
     try:
         with pytest.raises(RuntimeError, match="full-f32"):
-            step_with_metrics(s, cfg)
+            step_with_metrics(s, cfg, plain=True)
+        got, _ = step_with_metrics(s, cfg)
     finally:
         torch.backends.cuda.matmul.fp32_precision = prev
+    assert torch.equal(got.contact_key, want.contact_key)
+    assert float((got.pos - want.pos).abs().max()) <= 1e-4
 
 
 def test_hull_table_sat_block_holds_several_type_pairs(dev):
@@ -1262,6 +1277,7 @@ def _clone_state(s):
 WRAPPERS = (gravity_and_velocities, sweep_window_masks, bucketed_candidates,
             tct.unified_geom, tct.table_prep, tct.bucket_contact_table,
             tht.bucket_hull_contact_table, banded_contacts,
+            hull_pair_contacts,
             banded_sweeps_fused, banded_sweeps, banded_sweep_once, cg.solve)
 
 
@@ -1350,10 +1366,12 @@ def _rollout_scene(name, dev, pile, np_pile):
     if name == "two_kernel":
         s, cfg = np_pile
         return s, cfg, 4, {None}
-    if name == "xla_rain":
-        cfg = scenes.rain_xla_config(256)
-        s = prepare_contacts(scenes.mesh_rain(256, real_assets=False,
-                                              device=dev), cfg)
+    if name in ("xla_rain", "xla_rain_mixed"):
+        cfg = scenes.rain_xla_config(256 if name == "xla_rain" else 128)
+        s = prepare_contacts(
+            scenes.mesh_rain(256, real_assets=False, device=dev)
+            if name == "xla_rain" else scenes.mesh_rain_mixed(
+                128, n_types=3, real_assets=False, device=dev), cfg)
         for _ in range(2):
             s, _ = step_with_metrics(s, cfg, plain=True)
         return s, cfg, 4, {None}
@@ -1373,7 +1391,8 @@ def _rollout_scene(name, dev, pile, np_pile):
 
 
 @pytest.mark.parametrize("name", ["pile", "rain", "two_kernel", "packed",
-                                  "demo", "pendulums", "xla_rain"])
+                                  "demo", "pendulums", "xla_rain",
+                                  "xla_rain_mixed"])
 def test_rollout_replay_matches_eager(dev, pile, np_pile, name):
     s, cfg, n, want = _rollout_scene(name, dev, pile, np_pile)
     _replays_match(s, cfg, n, want)
@@ -1382,16 +1401,18 @@ def test_rollout_replay_matches_eager(dev, pile, np_pile, name):
 def test_rollout_xla_rain_reads_nothing_back(dev, pile, np_pile):
     """The generic hull path's replays under
     torch.cuda.set_sync_debug_mode("error") (a host read inside raises):
-    one 2.1 masks launch and one 2.5 launch at the warm-up step and one
-    each at the capture, none over the replays."""
+    one 2.1 masks launch, one 2.5 launch and the pair contacts' two at
+    the warm-up step and as many at the capture, none over the
+    replays."""
     def both():
-        return sweep_window_masks.launches, banded_sweeps.launches
+        return (sweep_window_masks.launches, banded_sweeps.launches,
+                hull_pair_contacts.launches)
     s, cfg, _, _ = _rollout_scene("xla_rain", dev, pile, np_pile)
     marks = []
     stepper = DeviceStepper(s, cfg, capture=_counting_capture(marks, both))
     c0 = both()
     stepper.step()                      # the warm-up step and capture
-    assert _diff(c0, marks[0]) == _diff(marks[0], marks[1]) == [1, 1]
+    assert _diff(c0, marks[0]) == _diff(marks[0], marks[1]) == [1, 1, 2]
     assert both() == marks[1]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

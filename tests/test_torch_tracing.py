@@ -18,10 +18,13 @@ a count of refresh_gate over the same refresh steps, and the hull
 table's counters a count of the plain table's SAT lanes and of those
 its SAT did not separate; the generic hull path's counters a count of
 its plain contact list's slots and live contacts and of the step's
-band_overflow and prefilter_overflow. On the card (marked cuda) a
+band_overflow and prefilter_overflow, and of its pair contacts' SAT
+lanes and overlaps (list_sat_lanes, list_sat_pass: counted only with
+tracing on and a counter vector in place). On the card (marked cuda) a
 profiled replay of a graph captured with tracing on runs the stage
 markers in order, and one captured with tracing off none; the hull
-table kernel's counts equal its plain version's; a generic hull step's
+table kernel's counts equal its plain version's, and the generic hull
+path's pair-contact kernel's its plain version's; a generic hull step's
 graph captured with tracing off has as many nodes as one captured with
 the tracing calls taken out, and a replay of one captured with tracing
 on puts every device operation in one stage."""
@@ -288,26 +291,40 @@ def test_list_counters_equal_the_plain_list(monkeypatch):
     through the stepper with tracing on, against a loop of
     step_with_metrics: list_slots and list_live the plain contact list's
     length and active contacts, prefilter_dropped and band_dropped the
-    step's prefilter_overflow and band_overflow; with tracing off the
-    same steps count nothing."""
+    step's prefilter_overflow and band_overflow, list_sat_lanes and
+    list_sat_pass the pair contacts' lanes with cand.mask and those the
+    plain manifolds' SAT did not separate; with tracing off the same
+    steps count nothing."""
+    from physics_tpu_torch.ops import hullhull_batched as hhb
+
     s0, cfg = _rain_xla(n=192, hull_prefilter_cap=128, pallas_window=128)
     want = dict.fromkeys(tracing.COUNTERS, 0)
     real = tc.hull_contact_list
+    real_sm = hhb.shared_hull_manifolds_sm
 
     def spy(*a, **k):
         cl = real(*a, **k)
         want["list_slots"] += cl.contacts.body_a.shape[0]
         want["list_live"] += int(cl.contacts.active.sum())
         return cl
+
+    def spy_sm(state, cand, types=(0, 0), with_separated=False):
+        sm, separated = real_sm(state, cand, types, with_separated=True)
+        want["list_sat_lanes"] += int(cand.mask.sum())
+        want["list_sat_pass"] += int((cand.mask & ~separated).sum())
+        return (sm, separated) if with_separated else sm
     monkeypatch.setattr(tc, "hull_contact_list", spy)
+    monkeypatch.setattr(hhb, "shared_hull_manifolds_sm", spy_sm)
     s = s0
     for _ in range(8):
         s, m = step_with_metrics(s, cfg)
         want["prefilter_dropped"] += int(m["prefilter_overflow"])
         want["band_dropped"] += int(m["band_overflow"])
     monkeypatch.setattr(tc, "hull_contact_list", real)
+    monkeypatch.setattr(hhb, "shared_hull_manifolds_sm", real_sm)
     assert want["prefilter_dropped"] > 0 and want["band_dropped"] > 0
     assert 0 < want["list_live"] < want["list_slots"]
+    assert 0 < want["list_sat_pass"] < want["list_sat_lanes"]
     tracing.enable(True)
     try:
         stepper = DeviceStepper(s0, cfg, capture=eager_capture)
@@ -320,6 +337,45 @@ def test_list_counters_equal_the_plain_list(monkeypatch):
     for _ in range(8):
         stepper.step()
     assert stepper.counters() == dict.fromkeys(tracing.COUNTERS, 0)
+
+
+@pytest.mark.parametrize("types", [1, 3])
+def test_list_sat_counters_count_only_while_tracing(types):
+    """hull_pair_contacts (the plain version on the CPU) on a 64-hull
+    rain settled 6 steps, one hull type or the 3-type library: with
+    tracing on inside tracing.counting it adds the lanes with cand.mask
+    to list_sat_lanes and those its SAT found overlapping, no more, to
+    list_sat_pass; with tracing off, or with no counter vector in place,
+    it adds nothing."""
+    from physics_tpu_torch.ops.hull_list import hull_pair_contacts
+    from physics_tpu_torch.ops.narrowphase import hull_obb_prefilter
+
+    cfg = scenes.rain_xla_config(64)
+    s = (scenes.mesh_rain(64, device="cpu") if types == 1 else
+         scenes.mesh_rain_mixed(64, n_types=3, real_assets=False,
+                                device="cpu"))
+    s = prepare_contacts(s, cfg)
+    for _ in range(6):
+        s, _ = step_with_metrics(s, cfg)
+    _, _, cand, _, _ = tc.banded_inputs(s, cfg, hulls=True)
+    cand, _ = hull_obb_prefilter(s, cand, cfg.hull_prefilter_cap)
+    i = tracing.COUNTERS.index("list_sat_lanes")
+    sink = torch.zeros((len(tracing.COUNTERS),), dtype=torch.int64)
+    with tracing.counting(sink):
+        hull_pair_contacts(s, cand, cfg)
+    assert not sink.any()
+    tracing.enable(True)
+    try:
+        hull_pair_contacts(s, cand, cfg)
+        assert not sink.any()
+        with tracing.counting(sink):
+            hull_pair_contacts(s, cand, cfg)
+    finally:
+        tracing.enable(False)
+    lanes, passed = sink[i].item(), sink[i + 1].item()
+    assert lanes == int(cand.mask.sum()) > 0
+    assert 0 < passed <= lanes
+    assert sink.sum().item() == lanes + passed
 
 
 def test_recapture_drops_the_graphs_and_logs_each_capture():
@@ -423,6 +479,43 @@ def test_hull_kernel_counts_as_the_plain_table():
                        device="cuda")
     with tracing.counting(sink):
         ht.bucket_hull_contact_table(s, cand, cfg, prev=prev, geom=geom)
+    assert sink.tolist() == [0] * len(tracing.COUNTERS)
+
+
+@pytest.mark.cuda
+def test_list_kernel_counts_as_the_plain_list():
+    """The generic hull path's pair contacts on the card (csrc/
+    hull_list.cu) count the SAT lanes and overlaps as the plain version
+    does from the same candidates, on a 1,024-hull rain settled 40 steps,
+    and a call outside tracing counts nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from physics_tpu_torch.ops.hull_list import hull_pair_contacts
+    from physics_tpu_torch.ops.narrowphase import hull_obb_prefilter
+
+    s, cfg = _rain_xla("cuda", n=1024)
+    for _ in range(40):
+        s = step(s, cfg)
+    _, _, cand, _, _ = tc.banded_inputs(s, cfg, hulls=True)
+    cand, _ = hull_obb_prefilter(s, cand, cfg.hull_prefilter_cap)
+    counts = {}
+    for plain in (False, True):
+        sink = torch.zeros((len(tracing.COUNTERS),), dtype=torch.int64,
+                           device="cuda")
+        tracing.enable(True)
+        try:
+            with tracing.counting(sink):
+                hull_pair_contacts(s, cand, cfg, plain=plain)
+        finally:
+            tracing.enable(False)
+        counts[plain] = sink.tolist()
+    i = tracing.COUNTERS.index("list_sat_lanes")
+    assert counts[False] == counts[True]
+    assert counts[False][i] >= counts[False][i + 1] > 0
+    sink = torch.zeros((len(tracing.COUNTERS),), dtype=torch.int64,
+                       device="cuda")
+    with tracing.counting(sink):
+        hull_pair_contacts(s, cand, cfg)
     assert sink.tolist() == [0] * len(tracing.COUNTERS)
 
 
